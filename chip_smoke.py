@@ -16,7 +16,23 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 3. trains ``run_rw_sgd_multi("mhlj", ...)`` on ``barabasi_albert(100_000,
    3)`` with W=2048, avg_every=50, 500 steps, replays every step's exact
    kernel inputs through the kernel and its plain version, and checks the
-   trainer against its CPU run on a small input.
+   trainer against its CPU run on a small input;
+4. on ``barabasi_albert(100_000, 3)`` as a ``CSRGraph`` (max degree 1196)
+   with W=2048, builds the engine of every layout of the reference's
+   ``benchmarks/large_graph_walk.py`` (sparse, dense, bucketed,
+   bucketed_compact, bucketed_compact_f4) and ragged, holds
+   ``walk_transition_sparse`` (on the sparse tiles and on every compacted
+   bucket tile) and ``walk_transition`` against their plain versions on
+   one injected block at W = 1, 257, 2048 and r = 1, 3, 5, runs each
+   engine for 200 steps (launches, walk-steps/s, compaction overflow rate,
+   a 20-step profiler window's idle share), checks that all six layouts give the
+   same ``(next, hops)`` on the same blocks, and times both kernels;
+5. trains ``run_rw_sgd_multi("mhlj", ...)`` as in 3 on that graph given as
+   a ``CSRGraph`` (sparse layout), as a ``BucketedCSRGraph`` (compacted)
+   and with ``engine_kwargs={"layout": "dense"}``: launches per run, the
+   walk-steps that differ from the ragged run of 3, ``avg_mse`` at the
+   least-squares floor, and every step replayed through kernel and plain
+   version.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel measurements, and as its last line
@@ -206,6 +222,467 @@ def bound_for_step(nodes, indptr, degrees, indices, edge_cdf, u, r, p_d,
         nbytes += SECTOR * int(torch.unique(cat * 4 // SECTOR).numel())
     nbytes += w * 4 + u.numel() * 4 + 2 * w * 4
     return nbytes, ops
+
+
+# Engine configurations of the padded and bucketed phase: the reference's
+# benchmarks/large_graph_walk.py CONFIGS (:97-103), plus the ragged layout
+# for the cross-layout check.
+LAYOUT_CONFIGS = {
+    "sparse": dict(layout="sparse"),
+    "dense": dict(layout="dense"),
+    "bucketed": dict(layout="bucketed", compact=False),
+    "bucketed_compact": dict(layout="bucketed", compact=True),
+    "bucketed_compact_f4": dict(layout="bucketed", compact=True,
+                                bucket_factor=4),
+    "ragged": dict(layout="ragged"),
+}
+KERNEL_OF_LAYOUT = {"sparse": "walk_transition_sparse",
+                    "dense": "walk_transition", "bucketed": "walk_transition_sparse",
+                    "ragged": "walk_transition_ragged"}
+# each wrapper's CUDA kernel, as the profiler's event names contain it
+KERNEL_SYMBOL = {"walk_transition_sparse": "walk_transition_sparse_kernel",
+                 "walk_transition": "walk_transition_dense_kernel",
+                 "walk_transition_ragged": "walk_transition_ragged_kernel"}
+
+
+def sectors(addr_bytes: torch.Tensor) -> int:
+    """Distinct 32-byte sectors among byte addresses."""
+    return int(torch.unique(addr_bytes // SECTOR).numel()) if addr_bytes.numel() else 0
+
+
+def bound_sparse(rows, u_mh) -> tuple:
+    """``(bytes, ops)`` the tile inversion needs on these inputs: every row
+    entry once (the total needs them all), one neighbor-id sector per walk,
+    the uniforms in and the picks out; operations: the first pass's adds,
+    and an add and a compare per entry the second pass reaches."""
+    from repro_torch.core.engine import row_cdf
+
+    w, width = rows.shape
+    cdf = row_cdf(rows)
+    idx = (cdf < (u_mh * cdf[:, -1])[:, None]).sum(dim=1).clamp(max=width - 1)
+    nbytes = w * width * 4 + w * SECTOR + w * 4 + w * 4
+    ops = w * width + 2 * int((idx + 1).sum()) + w
+    return nbytes, ops
+
+
+def bound_dense(nodes, row_probs, neighbors, degrees, u, r, p_d) -> tuple:
+    """``(bytes, ops)`` the dense fused step needs on these inputs: an MH
+    walk reads its degree, the first deg(v) entries of its row and one
+    neighbor id; a jumping walk a degree and a neighbor id per hop.
+    Scattered reads count whole 32-byte sectors, deduplicated per table;
+    the node vector and the uniforms are read once and both outputs
+    written once."""
+    from repro_torch.core.engine import U_DIST, U_HOP0, U_JUMP, U_MH, row_cdf
+    from repro_torch.core.levy import trunc_geom_icdf
+
+    max_deg = neighbors.shape[1]
+    jump = u[:, U_JUMP] > 0.5
+    v = nodes.long()
+    vm = v[~jump]
+    deg = degrees[vm].long()
+    start = vm * max_deg
+    # row sectors: [start, start + deg) in float32 words
+    rep = torch.repeat_interleave(torch.arange(vm.numel(), device=v.device), deg)
+    offs = torch.arange(rep.numel(), device=v.device) - torch.repeat_interleave(
+        torch.cumsum(deg, 0) - deg, deg)
+    row_words = start[rep] + offs
+    rows_m = row_probs[vm]
+    cdf = row_cdf(rows_m)
+    idx = (cdf < (u[~jump, U_MH] * cdf[:, -1])[:, None]).sum(dim=1)
+    nbr_words = [start + torch.minimum(idx, deg - 1)]
+    deg_words = [vm]
+    ops = 2 * int(deg.sum()) + vm.numel()
+    uj = u[jump]
+    d = trunc_geom_icdf(uj[:, U_DIST], p_d, r).long()
+    vc = v[jump]
+    ops += 30 * vc.numel()
+    for j in range(r):
+        live = j < d
+        vl = vc[live]
+        dg = degrees[vl].long()
+        hop = torch.minimum((uj[live, U_HOP0 + j] * dg.float()).long(), dg - 1)
+        deg_words.append(vl)
+        nbr_words.append(vl * max_deg + hop)
+        ops += 6 * vl.numel()
+        vc = vc.clone()
+        vc[live] = neighbors[vl, hop].long()
+    nbytes = (sectors(row_words * 4) + sectors(torch.cat(nbr_words) * 4)
+              + sectors(torch.cat(deg_words) * 4)) * SECTOR
+    nbytes += nodes.numel() * 4 + u.numel() * 4 + 2 * nodes.numel() * 4
+    return nbytes, ops
+
+
+def phase_layouts(dev, params) -> dict:
+    """The padded and bucketed layouts on BA(100k,3) at W=2048: each
+    kernel against its plain version on injected blocks, 200-step engine
+    runs with launches, rates, overflow and a profiler window, the layouts
+    against each other, and the two kernels' device times and bounds."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core.graphs import barabasi_albert
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.kernels.walk_transition.ref import (
+        walk_transition_ref,
+        walk_transition_sparse_ref,
+    )
+
+    t0 = time.perf_counter()
+    g = barabasi_albert(100_000, 3, seed=0, layout="csr")
+    t_graph = time.perf_counter() - t0
+    lips = np.exp(np.random.default_rng(11).normal(0.0, 1.0, g.n))
+    t1 = time.perf_counter()
+    engines = {
+        name: teng.WalkEngine.from_graph(g, params, lipschitz=lips,
+                                         device=dev, **kw)
+        for name, kw in LAYOUT_CONFIGS.items()
+    }
+    torch.cuda.synchronize()
+    t_engines = time.perf_counter() - t1
+    hub = int(np.argmax(g.degrees))
+    n_buckets = {k: len(e.bucket_neighbors) for k, e in engines.items()
+                 if e.layout == "bucketed"}
+    log(f"  graph BA(100k,3) csr: nnz={g.num_edges} max_deg={g.max_degree} "
+        f"host build {t_graph:.2f} s; six engines (rows from Lipschitz on "
+        f"the device) {t_engines:.2f} s; buckets {n_buckets}")
+    sp, de = engines["sparse"], engines["dense"]
+    err = {"walk_transition_sparse": 0, "walk_transition": 0}
+    d_diff = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+
+    # (a) every kernel against its plain version on one injected block
+    for w in (1, 257, 2048):
+        for r in (1, 3, 5):
+            nodes = torch.randint(0, g.n, (w,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            nodes[: w // 16 + 1] = hub
+            u = teng.draw_uniforms(w, r, 0.5, gen, dev)
+            u_mh = u[:, teng.U_MH].contiguous()
+            tiles = [(sp.rows_for(nodes), sp.neighbors[nodes], u_mh)]
+            for name in ("bucketed_compact", "bucketed_compact_f4"):
+                e = engines[name]
+                caps = e.bucket_capacities(w)
+                plan = teng.compact_plan(e.node_bucket[nodes], len(caps))
+                ins = e.compacted_bucket_inputs(nodes, u_mh, caps, *plan)
+                tiles += list(zip(ins[2], ins[3], ins[4]))
+            for rows_t, nbrs_t, u_t in tiles:
+                vk = wt.walk_transition_sparse(rows_t, nbrs_t, u_t)
+                vp = walk_transition_sparse_ref(rows_t, nbrs_t, u_t)
+                e_abs = int((vk.long() - vp.long()).abs().max()) if w else 0
+                err["walk_transition_sparse"] = max(
+                    err["walk_transition_sparse"], e_abs)
+                if not torch.equal(vk, vp):
+                    raise AssertionError(
+                        f"walk_transition_sparse disagrees with its plain "
+                        f"version at W={w}, width {rows_t.shape[1]}")
+            args = (nodes, de.row_probs, de.neighbors, de.degrees, u)
+            nk, hk = wt.walk_transition(*args, p_d=params.p_d, r=r)
+            np_, hp = walk_transition_ref(*args, p_d=params.p_d, r=r)
+            c = compare_with_plain(nk, hk, np_, hp, u,
+                                   f"(walk_transition) at W={w} r={r}")
+            err["walk_transition"] = max(err["walk_transition"],
+                                         c["max_abs_err"])
+            d_diff += c["d_differs"]
+    log(f"  kernels vs plain, one block at W in (1, 257, 2048) x r in "
+        f"(1, 3, 5): walk_transition_sparse bitwise on the sparse tiles and "
+        f"every compacted bucket tile (f2, f4); walk_transition bitwise "
+        f"outside {d_diff} d differences; max abs err {err}")
+
+    # (b) 200-step runs of every layout, launches counted per run
+    counters = {"walk_transition_sparse": wt.walk_transition_sparse,
+                "walk_transition": wt.walk_transition,
+                "walk_transition_ragged": wt.walk_transition_ragged}
+    w, steps = 2048, 200
+    v0 = torch.as_tensor(
+        np.random.default_rng(3).integers(0, g.n, w).astype(np.int32),
+        device=dev,
+    )
+    runs = {}
+    for name, e in engines.items():
+        gen.manual_seed(99)
+        e.run(v0, 5, generator=gen)  # warm
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        gen.manual_seed(7)
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        nodes_t, hops_t, aux = e.run(v0, steps, generator=gen, with_aux=True)
+        ev1.record()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        mine = KERNEL_OF_LAYOUT[e.layout]
+        per_step = len(e.bucket_neighbors) if e.layout == "bucketed" else 1
+        expect = {k: (steps * per_step if k == mine else 0) for k in counters}
+        if launches != expect:
+            raise AssertionError(f"{name} run launched {launches}, expected "
+                                 f"{expect}")
+        run_ms = ev0.elapsed_time(ev1)
+        gen.manual_seed(7)
+        prof = profile_window(lambda: e.run(v0, 20, generator=gen),
+                              KERNEL_SYMBOL[mine])
+        overflow = float(aux["compact_overflow"].float().mean())
+        runs[name] = {
+            "launches": launches[mine], "run_ms": run_ms,
+            "ms_per_step": run_ms / steps,
+            "walk_steps_per_s": w * steps / (run_ms / 1e3),
+            "overflow_rate": overflow, "idle_share": prof["idle_share"],
+            "profile_kernel_ms": prof["kernel_ms"],
+            "profile_window_ms": prof["window_ms"],
+            "hops_mean": float(hops_t.double().mean()),
+        }
+        runs[name]["nodes"], runs[name]["hops"] = nodes_t, hops_t
+        log(f"  engine {name}: {launches[mine]} {mine} launches in {steps} "
+            f"steps, {runs[name]['walk_steps_per_s']:.4e} walk-steps/s "
+            f"({run_ms / steps:.4f} ms/step), overflow rate {overflow:.4f}, "
+            f"profiler idle share {prof['idle_share']}, kernel "
+            f"{prof['kernel_ms']} ms/launch (CUPTI)")
+
+    # (c) the layouts against each other on the same injected blocks
+    gen.manual_seed(7)
+    blocks = [teng.draw_uniforms(w, params.r, params.p_j, gen, dev)
+              for _ in range(steps)]
+    base = runs["sparse"]
+    cross_d = 0
+    for t in range(0, steps, 10):
+        cur = base["nodes"][:, t].contiguous()
+        ref_n, ref_h = sp.step(cur, uniforms=blocks[t])
+        for name, e in engines.items():
+            nk, hk = e.step(cur, uniforms=blocks[t])
+            c = compare_with_plain(nk, hk, ref_n, ref_h, blocks[t],
+                                   f"({name} vs sparse) at block {t}")
+            cross_d += c["d_differs"]
+    traj_diff = {
+        name: int((rr["nodes"] != base["nodes"]).sum())
+        for name, rr in runs.items()
+    }
+    log(f"  layouts on the same 20 injected blocks: all six agree bitwise "
+        f"outside {cross_d} d differences; 200-step trajectories differing "
+        f"from sparse (walk-steps): {traj_diff}")
+
+    # device times and bounds of the two kernels at the main path's shapes
+    cur = [base["nodes"][:, t].contiguous() for t in range(steps)]
+    tiles = [(sp.rows_for(cur[t]), sp.neighbors[cur[t]],
+              blocks[t][:, teng.U_MH].contiguous()) for t in range(50)]
+    sp_ms = device_time_ms(lambda i: wt.walk_transition_sparse(*tiles[i]), 50)
+    sp_plain = device_time_ms(
+        lambda i: walk_transition_sparse_ref(*tiles[i]), 5)
+    # the bounds average every fifth (sparse) or tenth (dense) launch's
+    # inputs: their plain CDFs are a loop of ~1200 launches each
+    b, o = zip(*(bound_sparse(rw, um) for rw, _, um in tiles[::5]))
+    sp_bytes, sp_ops = sum(b) / len(b), sum(o) / len(o)
+    del tiles
+    dargs = (de.row_probs, de.neighbors, de.degrees)
+    dcur = [runs["dense"]["nodes"][:, t].contiguous() for t in range(steps)]
+    de_ms = device_time_ms(
+        lambda i: wt.walk_transition(dcur[i], *dargs, blocks[i],
+                                     p_d=params.p_d, r=params.r), steps)
+    de_plain = device_time_ms(
+        lambda i: walk_transition_ref(dcur[i], *dargs, blocks[i],
+                                      p_d=params.p_d, r=params.r), 10)
+    b, o = zip(*(bound_dense(dcur[t], *dargs, blocks[t], params.r,
+                             params.p_d) for t in range(0, steps, 10)))
+    de_bytes, de_ops = sum(b) / len(b), sum(o) / len(o)
+
+    def bound(nbytes, ops):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                       else "operations")
+
+    timing = {
+        "walk_transition_sparse": {
+            "ms": sp_ms[0], "host_ms": sp_ms[1], "idle_ms": sp_ms[2],
+            "plain_ms": sp_plain[0], "bytes": sp_bytes, "ops": sp_ops,
+            "bound": bound(sp_bytes, sp_ops),
+        },
+        "walk_transition": {
+            "ms": de_ms[0], "host_ms": de_ms[1], "idle_ms": de_ms[2],
+            "plain_ms": de_plain[0], "bytes": de_bytes, "ops": de_ops,
+            "bound": bound(de_bytes, de_ops),
+        },
+    }
+    for name, tm in timing.items():
+        log(f"  {name}: {tm['ms']:.5f} ms/launch on the device (host enqueue "
+            f"{tm['host_ms']:.5f} ms), plain {tm['plain_ms']:.5f} ms, bound "
+            f"{tm['bound'][0]:.6f} ms by {tm['bound'][1]} ({tm['bytes']:.0f} "
+            f"B, {tm['ops']:.0f} ops per launch)")
+    for rr in runs.values():
+        del rr["nodes"], rr["hops"]
+    return {"graph_build_s": t_graph, "engines_build_s": t_engines,
+            "buckets": n_buckets, "max_abs_err": err, "d_differs": d_diff,
+            "runs": runs, "cross_layout_d_differs": cross_d,
+            "trajectory_diff_vs_sparse": traj_diff, "timing": timing,
+            "graph": g}
+
+
+def phase_layout_trainers(ttrain, g, data, gamma, params, dev,
+                          ragged_nodes) -> dict:
+    """``run_rw_sgd_multi("mhlj")`` on BA(100k,3) given as a ``CSRGraph``
+    (sparse layout), as a ``BucketedCSRGraph`` (compacted) and as a
+    ``CSRGraph`` with ``engine_kwargs={"layout": "dense"}``: launches per
+    run, times, convergence, walks against the ragged run of the same
+    seed, and every step's exact inputs replayed through kernel and plain
+    version."""
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.kernels.walk_transition.ref import (
+        walk_transition_ref,
+        walk_transition_sparse_ref,
+    )
+
+    steps, w = ragged_nodes.shape[1], ragged_nodes.shape[0]
+    floor = data.mse(data.optimum())
+    t0 = time.perf_counter()
+    bg = g.to_bucketed()
+    t_bucket = time.perf_counter() - t0
+    cases = (("sparse", g, None, wt.walk_transition_sparse),
+             ("bucketed_compact", bg, None, wt.walk_transition_sparse),
+             ("dense", g, {"layout": "dense"}, wt.walk_transition))
+    counters = (wt.walk_transition_sparse, wt.walk_transition,
+                wt.walk_transition_ragged)
+    out = {"bucketing_s": t_bucket}
+    for name, graph, kw, kern in cases:
+        for c in counters:
+            c.launches = 0
+        res, seen = timed_training(
+            ttrain, "mhlj", graph, data, gamma, steps, w, mhlj_params=params,
+            avg_every=50, seed=0, engine_kwargs=kw, device=dev,
+        )
+        launches = [c.launches for c in counters]
+        eng = seen["fleet"].engine
+        per_step = len(eng.bucket_neighbors) if eng.layout == "bucketed" else 1
+        expect = [steps * per_step if c is kern else 0 for c in counters]
+        if launches != expect:
+            raise AssertionError(f"trainer ({name}) launched {launches}, "
+                                 f"expected {expect}")
+        avg = res.avg_mse
+        if not (np.isfinite(res.mse).all() and np.isfinite(avg).all()):
+            raise AssertionError(f"trainer ({name}) produced non-finite MSE")
+        if not (avg[-1] < avg[0] and avg[-1] <= 1.01 * floor):
+            raise AssertionError(f"trainer ({name}) avg_mse {avg[0]} -> "
+                                 f"{avg[-1]} does not reach the floor {floor}")
+        diff = int((res.update_nodes != ragged_nodes).sum())
+        # replay: the engine step must reproduce the run, and the kernel
+        # must equal its plain version on every step's exact inputs (the
+        # plain version runs on 25 steps' inputs at a time)
+        g_rep = torch.Generator(device=dev)
+        g_rep.set_state(seen["gen_state"])
+        nodes = torch.as_tensor(res.update_nodes, device=dev)
+        hops = torch.as_tensor(res.transitions, device=dev)
+        pending, err, d_diff, overflow = [], 0, 0, 0
+
+        def check_plain():
+            nonlocal err, d_diff
+            if not pending:
+                return
+            if kern is wt.walk_transition:
+                cat = [torch.cat(x) for x in zip(*pending)]
+                nk, hk, cur_c, u_c = cat
+                np_, hp = walk_transition_ref(
+                    cur_c, eng.row_probs, eng.neighbors, eng.degrees, u_c,
+                    p_d=eng.p_d, r=eng.r)
+                c = compare_with_plain(nk, hk, np_, hp, u_c,
+                                       f"(trainer {name} replay)")
+                err, d_diff = max(err, c["max_abs_err"]), d_diff + c["d_differs"]
+            else:
+                by_width: dict = {}
+                for item in pending:
+                    for rows_t, nbrs_t, u_t, vk in item:
+                        by_width.setdefault(rows_t.shape[1], []).append(
+                            (rows_t, nbrs_t, u_t, vk))
+                for group in by_width.values():
+                    rows_t, nbrs_t, u_t, vk = (torch.cat(x) for x in zip(*group))
+                    vp = walk_transition_sparse_ref(rows_t, nbrs_t, u_t)
+                    err = max(err, int((vk.long() - vp.long()).abs().max()))
+                    if not torch.equal(vk, vp):
+                        raise AssertionError(f"trainer ({name}) replay: "
+                                             "kernel differs from plain")
+            pending.clear()
+
+        for t in range(steps):
+            u = teng.draw_uniforms(w, eng.r, seen["p_j_sched"][t], g_rep, dev)
+            cur = nodes[:, t].contiguous()
+            nk, hk, aux = eng.step(cur, uniforms=u, with_aux=True)
+            if not torch.equal(hk, hops[:, t]) or (
+                t + 1 < steps and not torch.equal(nk, nodes[:, t + 1])
+            ):
+                raise AssertionError(f"replay of trainer ({name}) step {t} "
+                                     "does not reproduce the run")
+            overflow += int(aux["compact_overflow"])
+            u_mh = u[:, teng.U_MH].contiguous()
+            if kern is wt.walk_transition:
+                pending.append((nk, hk, cur, u))
+            elif eng.layout == "sparse":
+                rows_t, nbrs_t = eng.rows_for(cur), eng.neighbors[cur]
+                pending.append([(rows_t, nbrs_t, u_mh, wt.walk_transition_sparse(
+                    rows_t, nbrs_t, u_mh))])
+            else:
+                if aux["compact_overflow"]:
+                    _, rows_b, tiles_b = eng._bucket_tiles(cur)
+                    us = [u_mh] * len(rows_b)
+                else:
+                    caps = eng.bucket_capacities(w)
+                    plan = teng.compact_plan(eng.node_bucket[cur], len(caps))
+                    ins = eng.compacted_bucket_inputs(cur, u_mh, caps, *plan)
+                    rows_b, tiles_b, us = ins[2], ins[3], ins[4]
+                pending.append([
+                    (rb, tb, ub, wt.walk_transition_sparse(rb, tb, ub))
+                    for rb, tb, ub in zip(rows_b, tiles_b, us)
+                ])
+            if len(pending) == 25:
+                check_plain()
+        check_plain()
+        loop_ms = seen["loop_s"] / steps * 1e3
+        out[name] = {
+            "launches": launches, "train_s": seen["train_s"],
+            "setup_s": seen["setup_s"], "loop_s": seen["loop_s"],
+            "loop_ms_per_step": loop_ms, "avg_mse_first": float(avg[0]),
+            "avg_mse_mid": float(avg[steps // 2]),
+            "avg_mse_last": float(avg[-1]), "floor": float(floor),
+            "walk_steps_differing_from_ragged": diff,
+            "overflow_steps": overflow, "replay_max_abs_err": err,
+            "replay_d_differs": d_diff,
+            "hops_per_update": res.transitions_per_update,
+        }
+        log(f"  trainer mhlj on {name} (W={w}, T={steps}): launches "
+            f"{dict(zip(('sparse', 'dense', 'ragged'), launches))}, avg_mse "
+            f"{avg[0]:.4f} -> {avg[steps // 2]:.4f} -> {avg[-1]:.4f} (floor "
+            f"{floor:.4f}), {seen['train_s']:.2f} s (set-up "
+            f"{seen['setup_s']:.2f} s, loop {loop_ms:.4f} ms/step), "
+            f"{diff} walk-steps differ from the ragged run, overflow steps "
+            f"{overflow}; replay: run reproduced, kernel == plain (max abs "
+            f"err {err}, {d_diff} d differences)")
+    return out
+
+
+def timed_training(ttrain, method, graph, data, gamma, steps, walks, **kw):
+    """``run_rw_sgd_multi`` with its set-up and its training loop timed
+    apart, and the loop's fleet, p_J schedule and generator starting state
+    kept so every step's kernel inputs can be replayed exactly.  The
+    trainer runs unchanged: only ``run_fleet`` is wrapped."""
+    seen: dict = {}
+    run_fleet = ttrain.run_fleet
+
+    def timed_run_fleet(*args, **fkw):
+        torch.cuda.synchronize()
+        seen["enter"] = time.perf_counter()
+        seen["fleet"], seen["p_j_sched"] = args[4], args[7]
+        seen["gen_state"] = fkw["generator"].get_state()
+        out = run_fleet(*args, **fkw)
+        torch.cuda.synchronize()
+        seen["loop_s"] = time.perf_counter() - seen["enter"]
+        return out
+
+    ttrain.run_fleet = timed_run_fleet
+    try:
+        t0 = time.perf_counter()
+        res = ttrain.run_rw_sgd_multi(method, graph, data, gamma, steps,
+                                      walks, **kw)
+        seen["train_s"] = time.perf_counter() - t0
+    finally:
+        ttrain.run_fleet = run_fleet
+    seen["setup_s"] = seen.pop("enter") - t0
+    return res, seen
 
 
 def main() -> int:
@@ -409,34 +886,14 @@ def main() -> int:
     # time the set-up and the training loop apart, and keep the fleet and
     # the generator's starting state so every step's kernel inputs can be
     # replayed exactly; the wrapped function runs unchanged
-    seen: dict = {}
-    run_fleet = ttrain.run_fleet
-
-    def timed_run_fleet(*args, **kw):
-        torch.cuda.synchronize()
-        seen["enter"] = time.perf_counter()
-        seen["fleet"], seen["p_j_sched"] = args[4], args[7]
-        seen["gen_state"] = kw["generator"].get_state()
-        out = run_fleet(*args, **kw)
-        torch.cuda.synchronize()
-        seen["loop_s"] = time.perf_counter() - seen["enter"]
-        return out
-
-    ttrain.run_fleet = timed_run_fleet
-    try:
-        wt.walk_transition_ragged.launches = 0
-        t_train = time.perf_counter()
-        res = run_rw_sgd_multi(
-            "mhlj", g3, data, gamma, steps3, w3, mhlj_params=params,
-            avg_every=50, seed=0, device=dev,
-        )
-        t_end = time.perf_counter()
-        train_launches = wt.walk_transition_ragged.launches
-    finally:
-        ttrain.run_fleet = run_fleet
-    t_setup = seen["enter"] - t_train
-    t_loop = seen["loop_s"]
-    t_train = t_end - t_train
+    wt.walk_transition_ragged.launches = 0
+    res, seen = timed_training(
+        ttrain, "mhlj", g3, data, gamma, steps3, w3, mhlj_params=params,
+        avg_every=50, seed=0, device=dev,
+    )
+    train_launches = wt.walk_transition_ragged.launches
+    t_setup, t_loop, t_train = seen["setup_s"], seen["loop_s"], seen["train_s"]
+    ragged_nodes = res.update_nodes
     if train_launches != steps3:
         raise AssertionError(f"trainer launched the kernel {train_launches} "
                              f"times in {steps3} steps")
@@ -533,6 +990,32 @@ def main() -> int:
         "hops_per_update": res.transitions_per_update,
     }
 
+    # -- phase 4: the padded and bucketed layouts on the card -------------------
+    t0 = time.perf_counter()
+    p4 = phase_layouts(dev, params)
+    g4 = p4.pop("graph")
+    dt = time.perf_counter() - t0
+    log(f"phase 4 layouts: {dt:.2f} s")
+    report["phases"]["layouts"] = {"s": dt, **p4}
+
+    # -- phase 5: the trainer on the padded and bucketed layouts ---------------
+    t0 = time.perf_counter()
+    p5 = phase_layout_trainers(ttrain, g4, data, gamma, params, dev,
+                               ragged_nodes)
+    dt = time.perf_counter() - t0
+    log(f"phase 5 layout trainers: {dt:.2f} s")
+    report["phases"]["layout_trainers"] = {"s": dt, **p5}
+
+    def entry(name, source, replaces, launches, err):
+        tm = p4["timing"][name]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound"][0], "bound_by": tm["bound"][1],
+            "library_ms": None,
+        }
+
     kernels = [{
         "name": "walk_transition_ragged",
         "route": "cuda",
@@ -546,13 +1029,29 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }]
+    }, entry(
+        "walk_transition_sparse",
+        "src/repro_torch/csrc/walk_transition_sparse.cu",
+        "src/repro/kernels/walk_transition/kernel.py:215",
+        p5["sparse"]["launches"][0],
+        max(p4["max_abs_err"]["walk_transition_sparse"],
+            p5["sparse"]["replay_max_abs_err"],
+            p5["bucketed_compact"]["replay_max_abs_err"]),
+    ), entry(
+        "walk_transition",
+        "src/repro_torch/csrc/walk_transition_dense.cu",
+        "src/repro/kernels/walk_transition/kernel.py:139",
+        p5["dense"]["launches"][1],
+        max(p4["max_abs_err"]["walk_transition"],
+            p5["dense"]["replay_max_abs_err"]),
+    )]
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
-    log(f"kernels: walk_transition_ragged launches={train_launches}")
+    log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']}"
+                                for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

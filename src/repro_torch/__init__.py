@@ -6,7 +6,9 @@ explicit ``torch.Generator``), and hand-written CUDA kernels for Hopper in
 place of the reference's Pallas TPU kernels.  It imports neither ``jax``
 nor anything of ``repro``.  Entry points default to ``device="cuda"``.
 
-Ported so far: the ragged MHLJ walk-SGD path — graphs, chain-law rows,
-the ragged engine with its CUDA ``walk_transition_ragged`` kernel, the
-fleet and the regression trainer.
+Ported so far: the MHLJ walk-SGD path on all four engine layouts — graphs
+(dense, CSR, degree-bucketed, ragged), chain-law rows, the engine with its
+CUDA kernels ``walk_transition_ragged``, ``walk_transition_sparse`` (also
+the bucketed tile op) and ``walk_transition`` (dense), the fleet and the
+regression trainer.
 """

@@ -1,4 +1,4 @@
-"""Batched MHLJ walk engine on the ragged layout — Algorithm 1 in PyTorch.
+"""Batched MHLJ walk engine — Algorithm 1 in PyTorch, on four row layouts.
 
 A transition for W parallel walks consumes a uniform block of shape
 ``(W, 3 + r)`` with slot layout::
@@ -7,17 +7,34 @@ A transition for W parallel walks consumes a uniform block of shape
      U_JUMP     U_MH  U_DIST   U_HOP0 ..
 
 Slot ``U_JUMP`` arrives as the {0.0, 1.0} Bernoulli(p_J) flag, resolved
-before the transition (so ``p_j`` may be a per-step schedule).  The layout
-is the ragged one: resident row state is one flat per-edge CDF aligned
-with the CSR ``indices`` (exactly O(E)), the MH move binary-searches each
-walk's own CDF segment, and the Lévy branch takes its d hops straight
-from the CSR arrays.
+before the transition (so ``p_j`` may be a per-step schedule).  The
+layouts (:data:`LAYOUTS`) differ only in how the MH move finds its row:
 
-:meth:`WalkEngine.step` sends every transition through
-``repro_torch.kernels.walk_transition.walk_transition_ragged``: on CUDA
-tensors that wrapper launches the hand-written kernel (or raises), on CPU
-tensors it runs the plain composition of :func:`ragged_mh_invert`,
-:func:`levy_jump_batched` and :func:`combine_mh_jump` below.
+* ``"sparse"`` gathers the W active ``(W, max_deg)`` P_IS rows and
+  neighbor tiles and inverts each row's CDF
+  (``kernels.walk_transition.walk_transition_sparse``); the Lévy hops are
+  W-wide gathers through the padded neighbor table;
+* ``"dense"`` hands the whole ``(n, max_deg)`` table to one fused step
+  (``kernels.walk_transition.walk_transition``);
+* ``"bucketed"`` runs the same tile inversion once per degree bucket of a
+  ``BucketedCSRGraph`` at that bucket's width — by default *compacted*:
+  the walks are sorted by bucket and each bucket's pass runs at a static
+  capacity (:func:`bucket_capacities`), with a fallback to the full
+  dispatch on overflow; the Lévy hops read the CSR arrays;
+* ``"ragged"`` keeps one flat per-edge CDF and binary-searches each
+  walk's own segment in one fused step
+  (``kernels.walk_transition.walk_transition_ragged``).
+
+Every kernel wrapper launches its CUDA kernel for CUDA tensors (or
+raises) and runs its plain PyTorch version for CPU tensors.
+
+**The row-CDF rule.**  Every CDF over a probability row — the per-edge
+CDF, the tile inversion, the dense row, and the self-slot mass of live
+Eq.-7 rows — is a sequential, left-to-right float32 accumulation along the
+row (:func:`row_cdf`), in the CUDA kernels and in their plain versions
+alike.  Pads carry exactly 0 and rows are non-negative, so a row's CDF
+does not depend on its padded width, on the device, or on the layout:
+the four layouts sample the same walk bit for bit from the same rows.
 
 The engine draws its uniforms from an explicit ``torch.Generator``, or
 takes an injected block — the seam the parity tests use to feed both
@@ -28,12 +45,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.graphs import _ragged_row_chunks
+from repro_torch.core.graphs import _ragged_row_chunks, flat_edge_values
 from repro_torch.core.levy import trunc_geom_icdf
 
 __all__ = [
@@ -41,19 +58,31 @@ __all__ = [
     "U_MH",
     "U_DIST",
     "U_HOP0",
+    "LAYOUTS",
     "num_uniforms",
     "search_iters",
+    "row_cdf",
+    "p_is_rows",
     "p_is_rows_block",
+    "mh_cdf_invert",
     "ragged_edge_cdf",
     "ragged_mh_invert",
+    "combine_bucketed",
+    "bucket_capacities",
+    "compact_plan",
+    "scatter_compacted",
+    "mhlj_transition_math",
     "levy_jump_batched",
     "combine_mh_jump",
     "draw_uniforms",
     "WalkEngine",
 ]
 
-# Uniform-block slot layout (shared with the CUDA kernel).
+# Uniform-block slot layout (shared with the CUDA kernels).
 U_JUMP, U_MH, U_DIST, U_HOP0 = 0, 1, 2, 3
+
+# Row layouts of the engine (the reference's ``engine.LAYOUTS``).
+LAYOUTS = ("sparse", "dense", "bucketed", "ragged")
 
 # int32 index math on the device: the flat buffers must stay below 2^31.
 MAX_NNZ = 2**31 - 1
@@ -69,6 +98,44 @@ def search_iters(max_degree: int) -> int:
     return max(1, math.ceil(math.log2(max_degree + 1)))
 
 
+def row_cdf(rows: torch.Tensor) -> torch.Tensor:
+    """The port's row-CDF rule: inclusive prefix sums along each row of a
+    ``(R, width)`` float32 tensor, accumulated left to right one column at
+    a time (``cdf[:, j] = cdf[:, j-1] + rows[:, j]``).
+
+    ``torch.cumsum`` is avoided on purpose: its summation order differs
+    between the CPU and CUDA builds, and this order is the one the CUDA
+    kernels use.  The loop runs over columns, so it costs ``width`` small
+    launches; it is on the path only at construction time, or as the plain
+    version of a kernel.
+    """
+    cols = rows.t().contiguous()  # (width, R): each column contiguous
+    out = torch.empty_like(cols)
+    if cols.shape[0]:
+        out[0] = cols[0]
+        for j in range(1, cols.shape[0]):
+            torch.add(out[j - 1], cols[j], out=out[j])
+    return out.t()
+
+
+def p_is_rows(
+    neighbors: torch.Tensor,  # (n, max_deg) int32
+    degrees: torch.Tensor,  # (n,) int32
+    lipschitz: torch.Tensor,  # (n,) float32
+    nodes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """P_IS rows of Eq. (7) over padded neighbor lists, from local info only:
+    the full ``(n, max_deg)`` table (``nodes=None``) or the W rows of
+    ``nodes``."""
+    if nodes is None:
+        nodes = torch.arange(
+            neighbors.shape[0], dtype=torch.int32, device=neighbors.device
+        )
+    return p_is_rows_block(
+        neighbors[nodes], nodes, degrees[nodes], degrees, lipschitz
+    )
+
+
 def p_is_rows_block(
     nbrs: torch.Tensor,  # (rows, width) padded neighbor block
     self_ids: torch.Tensor,  # (rows,) owning node id per row
@@ -79,7 +146,9 @@ def p_is_rows_block(
     """Eq.-7 rows in float32 on a padded neighbor block (live rows).
 
     P(v,u) = min{1/deg(v), L_u / (deg(u) L_v)} for true neighbors u != v;
-    leftover mass goes to the self slot, pads carry exactly 0.
+    leftover mass goes to the self slot, pads carry exactly 0.  The
+    leftover is ``1 - Σ move`` with the sum taken by :func:`row_cdf`, so a
+    row's bits do not depend on the block's width or on the device.
     """
     deg_vf = deg_v.to(torch.float32)[:, None]
     deg_u = degrees[nbrs].to(torch.float32)
@@ -90,9 +159,28 @@ def p_is_rows_block(
     is_pad = cols[None, :] >= deg_v[:, None]
     is_self = (nbrs == self_ids[:, None]) & ~is_pad
     move = torch.where(is_self | is_pad, 0.0, move)
-    p_stay = 1.0 - move.sum(dim=-1, keepdim=True)
+    p_stay = 1.0 - row_cdf(move)[:, -1:]
     probs = torch.where(is_self, p_stay, move)
     return torch.clamp(probs, min=0.0)
+
+
+def mh_cdf_invert(
+    rows: torch.Tensor,  # (W, width) padded probability rows
+    neigh_rows: torch.Tensor,  # (W, width) matching padded neighbor rows
+    u_mh: torch.Tensor,  # (W,) the U_MH uniform per walk
+) -> torch.Tensor:
+    """The MH-move CDF inversion over padded rows; returns ``v_mh`` (W,).
+
+    ``idx = count(cdf < u · cdf[-1])`` clamped to ``width - 1``, with the
+    CDF from :func:`row_cdf` — the plain version of the tile kernel
+    ``walk_transition_sparse``.
+    """
+    width = rows.shape[1]
+    cdf = row_cdf(rows)
+    thr = u_mh * cdf[:, -1]
+    idx = (cdf < thr[:, None]).sum(dim=1)
+    idx = torch.clamp(idx, max=width - 1)
+    return torch.gather(neigh_rows, 1, idx[:, None])[:, 0]
 
 
 def ragged_edge_cdf(
@@ -107,15 +195,15 @@ def ragged_edge_cdf(
     """The flat per-edge CDF of the ragged layout — (nnz,) float32 on ``device``.
 
     Entry ``indptr[v] + k`` holds the inclusive CDF prefix of row v at slot
-    k.  Rows are materialized on the device in bounded chunks at the max
-    degree — the same chunks and width as the reference builder —
-    cumulatively summed along the row and stripped of their pad columns.  The sum order is PyTorch's, so the bits may differ
-    from the reference's in the last ulp; the walk kernels take whatever
-    buffer they are given.
+    k, under the row-CDF rule (:func:`row_cdf`) — so it equals the padded
+    layouts' CDF of the same row bit for bit, on either device.  Rows are
+    materialized on the device in bounded chunks (the reference builder's
+    chunks), each chunk only as wide as its own longest row, and stripped
+    of their pad columns.
 
     Row source: ``row_probs``, a flat (nnz,) probability buffer (e.g.
-    ``transition.mh_importance_rows_ragged``), or live Eq.-7 rows from a
-    ``lipschitz`` vector.
+    ``transition.mh_importance_rows_ragged``) or an (n, max_deg) padded
+    table, or live Eq.-7 rows from a ``lipschitz`` vector.
     """
     indptr_np = np.asarray(indptr, dtype=np.int64)
     deg_np = np.asarray(degrees, dtype=np.int64)
@@ -124,16 +212,18 @@ def ragged_edge_cdf(
     flat = None
     if row_probs is not None:
         rp = np.asarray(row_probs)
+        if rp.ndim == 2 and rp.shape == (n, width):
+            rp = flat_edge_values(indptr_np, deg_np, rp)
         if rp.shape != (nnz,):
             raise ValueError(
-                f"row_probs must be a flat (nnz,)=({nnz},) buffer, got "
-                f"{rp.shape}"
+                f"row_probs must be a flat (nnz,)=({nnz},) buffer or an "
+                f"(n, max_deg)=({n}, {width}) table, got {rp.shape}"
             )
         flat = torch.as_tensor(rp.astype(np.float32), device=device)
     elif lipschitz is None:
         raise ValueError(
-            "ragged_edge_cdf needs a row source: row_probs (flat buffer) "
-            "or lipschitz"
+            "ragged_edge_cdf needs a row source: row_probs (flat buffer or "
+            "padded table) or lipschitz"
         )
     else:
         lips = torch.as_tensor(
@@ -144,20 +234,21 @@ def ragged_edge_cdf(
             np.asarray(indices).astype(np.int32), device=device
         )
     out = torch.empty(nnz, dtype=torch.float32, device=device)
-    cols = torch.arange(width, device=device)
     for ids in _ragged_row_chunks(n, width):
         a, b = int(indptr_np[ids[0]]), int(indptr_np[ids[-1] + 1])
+        cw = int(deg_np[ids].max())  # this chunk's own width
         deg_c = torch.as_tensor(deg_np[ids], device=device)
+        cols = torch.arange(cw, device=device)
         mask = cols[None, :] < deg_c[:, None]
         if flat is not None:
-            rows = torch.zeros((ids.size, width), device=device)
+            rows = torch.zeros((ids.size, cw), device=device)
             rows[mask] = flat[a:b]
         else:
             ids_t = torch.as_tensor(ids.astype(np.int32), device=device)
-            nbrs = ids_t[:, None].expand(ids.size, width).clone()
+            nbrs = ids_t[:, None].expand(ids.size, cw).clone()
             nbrs[mask] = idx_t[a:b]
             rows = p_is_rows_block(nbrs, ids_t, deg_t[ids_t], deg_t, lips)
-        out[a:b] = torch.cumsum(rows, dim=1)[mask]
+        out[a:b] = row_cdf(rows)[mask]
     return out
 
 
@@ -201,13 +292,18 @@ def levy_jump_batched(
     p_d: float,
     r: int,
     *,
-    csr: tuple,  # (indptr, indices), both int32
+    neighbors: Optional[torch.Tensor] = None,  # (n, max_deg) int32
+    csr: Optional[tuple] = None,  # (indptr, indices), both int32
 ) -> tuple:
     """The Lévy branch for W walks: d ~ TruncGeom(p_d, r), then d uniform
-    hops, hop k of a walk at ``v`` going to
-    ``indices[indptr[v] + min(floor(u * deg(v)), deg(v) - 1)]``.
-    Returns ``(v_jump, d)``."""
-    indptr, indices = csr
+    hops, hop k of a walk at ``v`` going to its neighbor number
+    ``min(floor(u * deg(v)), deg(v) - 1)``.  The neighbor comes from the
+    padded table (``neighbors[v, k]``) or from the CSR arrays
+    (``indices[indptr[v] + k]``); both hold the same id for every
+    ``k < deg(v)``.  Exactly one of the two is given.  Returns
+    ``(v_jump, d)``."""
+    if (neighbors is None) == (csr is None):
+        raise ValueError("pass exactly one of neighbors= and csr=")
     d = trunc_geom_icdf(uniforms[:, U_DIST], p_d, r)
     v_cur = nodes
     for i in range(r):
@@ -216,7 +312,11 @@ def levy_jump_batched(
             (uniforms[:, U_HOP0 + i] * deg.to(torch.float32)).to(torch.int32),
             deg - 1,
         )
-        v_new = indices[indptr[v_cur] + hop_idx]
+        if csr is None:
+            v_new = neighbors[v_cur, hop_idx]
+        else:
+            indptr, indices = csr
+            v_new = indices[indptr[v_cur] + hop_idx]
         v_cur = torch.where(i < d, v_new, v_cur)
     return v_cur, d
 
@@ -233,6 +333,95 @@ def combine_mh_jump(
     v_next = torch.where(do_jump, v_jump, v_mh)
     hops = torch.where(do_jump, d, torch.ones_like(d))
     return v_next, hops
+
+
+def combine_bucketed(bucket_ids: torch.Tensor, results_by_bucket) -> torch.Tensor:
+    """The bucket-merge rule: walk w keeps the result of bucket
+    ``bucket_ids[w]``."""
+    merged = None
+    for b, vm in enumerate(results_by_bucket):
+        merged = vm if merged is None else torch.where(bucket_ids == b, vm, merged)
+    return merged
+
+
+def bucket_capacities(
+    num_walks: int,
+    shares: Tuple[float, ...],
+    capacity_factor: float,
+    *,
+    min_cap: int = 32,
+    lane: int = 8,
+) -> Tuple[int, ...]:
+    """Static per-bucket walk capacities for the compacted dispatch:
+    bucket b gets ``min(W, round_up(max(min_cap, ceil(capacity_factor · W
+    · share_b)), lane))`` lanes, ``share_b`` being the bucket's expected
+    walk share (the engine uses max(node share, degree share))."""
+    caps = []
+    for share in shares:
+        c = math.ceil(capacity_factor * num_walks * share)
+        c = max(c, min_cap)
+        c = -(-c // lane) * lane
+        caps.append(min(c, num_walks))
+    return tuple(caps)
+
+
+def compact_plan(bucket_ids: torch.Tensor, num_buckets: int) -> tuple:
+    """Sort the W walks by bucket id — the compaction pass.
+
+    Returns ``(order, starts, counts)``, all int32: ``order`` is the stable
+    argsort of ``bucket_ids`` (the walks of bucket b occupy positions
+    ``starts[b] : starts[b] + counts[b]`` of it, in walk order), and
+    ``counts[b]`` the number of walks in bucket b.
+    """
+    counts = torch.bincount(bucket_ids.long(), minlength=num_buckets).to(
+        torch.int32
+    )
+    order = torch.argsort(bucket_ids, stable=True).to(torch.int32)
+    starts = torch.cat(
+        [torch.zeros(1, dtype=torch.int32, device=counts.device),
+         torch.cumsum(counts, 0, dtype=torch.int32)[:-1]]
+    )
+    return order, starts, counts
+
+
+def scatter_compacted(
+    num_walks: int,
+    walk_idx_by_bucket,
+    valid_by_bucket,
+    results_by_bucket,
+) -> torch.Tensor:
+    """The compacted merge rule: scatter per-bucket results back to walk
+    order.  Lane j of bucket b holds the result for walk
+    ``walk_idx_by_bucket[b][j]``; invalid lanes (capacity slop) are sent to
+    an extra slot ``num_walks`` that is dropped.  Valid lanes partition
+    the walks, so the scatters never collide."""
+    res0 = results_by_bucket[0]
+    out = torch.zeros(num_walks + 1, dtype=res0.dtype, device=res0.device)
+    for widx, valid, res in zip(
+        walk_idx_by_bucket, valid_by_bucket, results_by_bucket
+    ):
+        idx = torch.where(valid, widx, num_walks).long()
+        out[idx] = res
+    return out[:num_walks]
+
+
+def mhlj_transition_math(
+    nodes: torch.Tensor,  # (W,) int32
+    rows: torch.Tensor,  # (W, max_deg) P_IS row per walk (padded)
+    neighbors: torch.Tensor,  # (n, max_deg) int32, pads = self id
+    degrees: torch.Tensor,  # (n,) int32
+    uniforms: torch.Tensor,  # (W, 3 + r); slot U_JUMP is a {0,1} flag
+    p_d: float,
+    r: int,
+) -> tuple:
+    """One Algorithm-1 transition for W walks on the padded layout: the MH
+    move by :func:`mh_cdf_invert`, the Lévy branch through the padded
+    table, the combine.  Returns ``(next_nodes, hops)``, both (W,) int32."""
+    v_mh = mh_cdf_invert(rows, neighbors[nodes], uniforms[:, U_MH])
+    v_jump, d = levy_jump_batched(
+        nodes, uniforms, degrees, p_d, r, neighbors=neighbors
+    )
+    return combine_mh_jump(v_mh, v_jump, d, uniforms)
 
 
 def draw_uniforms(
@@ -253,24 +442,53 @@ def draw_uniforms(
     return u
 
 
+
+
+def _i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class WalkEngine:
-    """Batched MHLJ sampler for W parallel walks on the ragged layout.
+    """Batched MHLJ sampler for W parallel walks on one of :data:`LAYOUTS`.
 
-    All tensors live on ``device``; indices are int32.  Build with
+    All tensors live on one device; indices are int32.  Build with
     :meth:`from_graph` (or ``repro_torch.interop.from_reference_state``),
     then call :meth:`step` per transition or :meth:`run` for whole
-    trajectories.
+    trajectories.  Which fields are set depends on ``layout``: the padded
+    layouts hold ``neighbors`` (and ``row_probs``), the bucketed layout the
+    per-bucket tables and the CSR arrays, the ragged layout the CSR arrays
+    and ``edge_cdf``.  Without precomputed rows (``row_probs`` /
+    ``bucket_rows`` both None) the padded and bucketed layouts build live
+    Eq.-7 rows from the ``lipschitz=`` argument of :meth:`step`.
     """
 
-    indptr: torch.Tensor  # (n+1,) int32 CSR row pointers
-    indices: torch.Tensor  # (nnz,) int32 CSR neighbor ids
     degrees: torch.Tensor  # (n,) int32
-    edge_cdf: torch.Tensor  # (nnz,) float32 flat per-edge CDF
-    max_degree: int  # bound of the binary search
+    layout: str = "sparse"
     p_j: float = 0.1  # default jump probability (overridable per call)
     p_d: float = 0.5
     r: int = 3
+    # -- padded layouts (sparse, dense) --------------------------------------
+    neighbors: Optional[torch.Tensor] = None  # (n, max_deg) int32, pads = id
+    row_probs: Optional[torch.Tensor] = None  # (n, max_deg) float32 P_IS
+    # -- bucketed layout ------------------------------------------------------
+    compact: bool = True  # sort walks by bucket, run tiles at capacity
+    capacity_factor: float = 1.25  # headroom of the bucket_capacities rule
+    bucket_share: Optional[Tuple[float, ...]] = None  # expected walk share
+    node_bucket: Optional[torch.Tensor] = None  # (n,) int32 bucket per node
+    node_slot: Optional[torch.Tensor] = None  # (n,) int32 row within bucket
+    bucket_neighbors: Optional[Tuple[torch.Tensor, ...]] = None  # (n_b, w_b)
+    bucket_rows: Optional[Tuple[torch.Tensor, ...]] = None  # (n_b, w_b) P_IS
+    # -- CSR arrays (bucketed and ragged) -------------------------------------
+    indptr: Optional[torch.Tensor] = None  # (n+1,) int32
+    indices: Optional[torch.Tensor] = None  # (nnz,) int32
+    # -- ragged layout --------------------------------------------------------
+    edge_cdf: Optional[torch.Tensor] = None  # (nnz,) float32 flat CDF
+    max_degree: Optional[int] = None  # bound of the binary search
 
     @classmethod
     def from_graph(
@@ -280,57 +498,346 @@ class WalkEngine:
         *,
         row_probs=None,
         lipschitz=None,
+        layout: Optional[str] = None,
+        bucket_factor: Optional[int] = None,
+        compact: bool = True,
+        capacity_factor: float = 1.25,
         device: Union[str, torch.device] = "cuda",
     ) -> "WalkEngine":
         """Engine from a ``repro_torch.core.graphs`` graph + ``MHLJParams``.
 
-        The flat per-edge CDF is built once here from ``row_probs`` (a flat
-        (nnz,) buffer) or from a static ``lipschitz`` vector (live Eq.-7
-        rows); one of them is required.
+        The layout follows the graph class unless ``layout`` is given: a
+        ``BucketedCSRGraph`` selects ``"bucketed"``, a ``RaggedCSRGraph``
+        ``"ragged"``, a ``Graph`` or ``CSRGraph`` ``"sparse"``; any graph is
+        converted when a layout is asked for (``bucket_factor`` picks the
+        bucketed width ladder).  Rows: ``row_probs`` — an (n, max_deg)
+        table (column-truncated per bucket on the bucketed layout), a
+        per-bucket tuple (bucketed), or a flat (nnz,) buffer (ragged) — or
+        precomputed on the device from a static ``lipschitz`` vector; with
+        neither, the padded and bucketed layouts take live rows from
+        :meth:`step`'s ``lipschitz=`` (the ragged layout needs one of the
+        two here).  ``compact``/``capacity_factor`` tune the bucketed
+        layout's per-step compaction.
         """
         params.validate()
-        core = graph.to_ragged()
-        if row_probs is None and lipschitz is None:
-            raise ValueError(
-                "the ragged layout precomputes its flat per-edge CDF at "
-                "construction; pass row_probs or lipschitz to from_graph"
-            )
         device = torch.device(device)
-        edge_cdf = ragged_edge_cdf(
-            core.indptr, core.indices, core.degrees,
-            row_probs=row_probs, lipschitz=lipschitz, device=device,
+        is_bucketed = hasattr(graph, "buckets")
+        is_bare_csr = hasattr(graph, "indptr") and not (
+            is_bucketed or hasattr(graph, "neighbors")
         )
-        max_degree = int(np.asarray(core.degrees).max())
-
-        def dev(x):
-            return torch.as_tensor(
-                np.asarray(x).astype(np.int32), device=device
+        if layout is None:
+            layout = (
+                "bucketed" if is_bucketed
+                else "ragged" if is_bare_csr
+                else "sparse"
             )
-
-        return cls(
-            indptr=dev(core.indptr),
-            indices=dev(core.indices),
-            degrees=dev(core.degrees),
-            edge_cdf=edge_cdf,
-            max_degree=max_degree,
-            p_j=params.p_j,
-            p_d=params.p_d,
-            r=params.r,
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
+        common = dict(
+            layout=layout, p_j=params.p_j, p_d=params.p_d, r=params.r,
+            compact=compact, capacity_factor=capacity_factor,
         )
+        if layout == "ragged":
+            core = graph.to_ragged()
+            if row_probs is None and lipschitz is None:
+                raise ValueError(
+                    "the ragged layout precomputes its flat per-edge CDF at "
+                    "construction; pass row_probs or lipschitz to from_graph"
+                )
+            edge_cdf = ragged_edge_cdf(
+                core.indptr, core.indices, core.degrees,
+                row_probs=row_probs, lipschitz=lipschitz, device=device,
+            )
+            return cls(
+                degrees=_i32(core.degrees, device),
+                indptr=_i32(core.indptr, device),
+                indices=_i32(core.indices, device),
+                edge_cdf=edge_cdf,
+                max_degree=int(np.asarray(core.degrees).max()),
+                **common,
+            )
+        if layout == "bucketed":
+            # bucket_factor=None keeps an already-bucketed graph's ladder
+            if is_bucketed and bucket_factor is None:
+                bg = graph
+            else:
+                base = graph if hasattr(graph, "to_bucketed") else graph.to_csr()
+                bg = base.to_bucketed(bucket_factor=bucket_factor or 2)
+            degrees = _i32(bg.degrees, device)
+            bucket_neighbors = tuple(_i32(b.neighbors, device) for b in bg.buckets)
+            if row_probs is not None:
+                if isinstance(row_probs, (tuple, list)):
+                    bucket_rows = tuple(_f32(x, device) for x in row_probs)
+                else:  # (n, max_deg) table: exact per-bucket truncation
+                    table = np.asarray(row_probs, dtype=np.float32)
+                    if table.ndim != 2:
+                        raise ValueError(
+                            "bucketed row_probs must be a per-bucket tuple "
+                            f"or an (n, max_deg) table, got {table.shape}"
+                        )
+                    bucket_rows = tuple(
+                        _f32(table[b.node_ids][:, : b.width], device)
+                        for b in bg.buckets
+                    )
+            elif lipschitz is not None:
+                lips = _f32(lipschitz, device)
+                bucket_rows = tuple(
+                    p_is_rows_block(
+                        nb, _i32(b.node_ids, device),
+                        degrees[_i32(b.node_ids, device)], degrees, lips,
+                    )
+                    for b, nb in zip(bg.buckets, bucket_neighbors)
+                )
+            else:
+                bucket_rows = None
+            # expected walk share per bucket: max of node share (MH-IS
+            # occupancy) and degree share (Lévy-jump / proposal occupancy)
+            total_deg = int(bg.degrees.sum())
+            bucket_share = tuple(
+                max(
+                    int(b.node_ids.size) / bg.n,
+                    int(bg.degrees[b.node_ids].sum()) / total_deg,
+                )
+                for b in bg.buckets
+            )
+            return cls(
+                degrees=degrees,
+                bucket_share=bucket_share,
+                node_bucket=_i32(bg.node_bucket, device),
+                node_slot=_i32(bg.node_slot, device),
+                bucket_neighbors=bucket_neighbors,
+                bucket_rows=bucket_rows,
+                indptr=_i32(bg.indptr, device),
+                indices=_i32(bg.indices, device),
+                **common,
+            )
+        if is_bucketed or is_bare_csr:
+            graph = graph.to_csr()  # the padded layouts need the full table
+        neighbors = _i32(graph.neighbors, device)
+        degrees = _i32(graph.degrees, device)
+        if isinstance(row_probs, (tuple, list)):
+            raise ValueError(
+                "per-bucket row tuples need the bucketed layout; the "
+                f"{layout} layout takes an (n, max_deg) table"
+            )
+        if row_probs is not None:
+            table = np.asarray(row_probs, dtype=np.float32)
+            if table.shape != tuple(neighbors.shape):
+                raise ValueError(
+                    f"row_probs must be an (n, max_deg)={tuple(neighbors.shape)}"
+                    f" table on the {layout} layout, got {table.shape}"
+                )
+            rows = _f32(table, device)
+        elif lipschitz is not None:
+            rows = p_is_rows(neighbors, degrees, _f32(lipschitz, device))
+        else:
+            rows = None
+        return cls(degrees=degrees, neighbors=neighbors, row_probs=rows, **common)
 
     def __post_init__(self):
-        if self.indices.shape[0] > MAX_NNZ:
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {self.layout!r}; one of {LAYOUTS}")
+        need = {
+            "sparse": ("neighbors",),
+            "dense": ("neighbors",),
+            "bucketed": ("node_bucket", "node_slot", "bucket_neighbors",
+                         "indptr", "indices"),
+            "ragged": ("indptr", "indices", "edge_cdf", "max_degree"),
+        }[self.layout]
+        missing = [f for f in need if getattr(self, f) is None]
+        if missing:
+            raise ValueError(f"layout {self.layout!r} needs {missing}")
+        if self.indices is not None and self.indices.shape[0] > MAX_NNZ:
             raise ValueError(
                 f"nnz={self.indices.shape[0]} exceeds the int32 index range"
             )
 
     @property
     def device(self) -> torch.device:
-        return self.edge_cdf.device
+        return self.degrees.device
 
     @property
     def n(self) -> int:
         return int(self.degrees.shape[0])
+
+    # -- P_IS row plumbing --------------------------------------------------
+
+    def rows_table(self, lipschitz: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full (n, max_deg) P_IS table (precomputed or live Eq.-7); only
+        the dense layout consumes it."""
+        if self.layout in ("bucketed", "ragged"):
+            raise ValueError(
+                f"the {self.layout} layout has no full-width row table"
+            )
+        if self.row_probs is not None:
+            return self.row_probs
+        if lipschitz is None:
+            raise ValueError(
+                "engine has no precomputed row_probs; pass lipschitz= for "
+                "live Eq. (7) rows"
+            )
+        return p_is_rows(self.neighbors, self.degrees, lipschitz)
+
+    def rows_for(
+        self, nodes: torch.Tensor, lipschitz: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """P_IS rows for the W active walk positions only."""
+        if self.layout in ("bucketed", "ragged"):
+            raise ValueError(
+                f"the {self.layout} layout has no full-width rows"
+            )
+        if self.row_probs is not None:
+            return self.row_probs[nodes]
+        if lipschitz is None:
+            raise ValueError(
+                "engine has no precomputed row_probs; pass lipschitz= for "
+                "live Eq. (7) rows"
+            )
+        return p_is_rows(self.neighbors, self.degrees, lipschitz, nodes=nodes)
+
+    def _check_bucket_rows(self, lipschitz) -> None:
+        if self.bucket_rows is None and lipschitz is None:
+            raise ValueError(
+                "engine has no precomputed bucket rows; pass lipschitz= for "
+                "live Eq. (7) rows"
+            )
+
+    def _bucket_tiles(
+        self, nodes: torch.Tensor, lipschitz: Optional[torch.Tensor] = None
+    ) -> tuple:
+        """Per-bucket (P_IS rows, neighbor tiles) for all W walks: a walk
+        outside bucket b reads the bucket's row 0, a dummy the merge drops.
+        Returns ``(bucket_id, rows_by_bucket, tiles_by_bucket)``."""
+        self._check_bucket_rows(lipschitz)
+        bid = self.node_bucket[nodes]
+        slot = self.node_slot[nodes]
+        deg_v = self.degrees[nodes]
+        rows_by, tiles_by = [], []
+        for b, nbrs_b in enumerate(self.bucket_neighbors):
+            local = torch.where(bid == b, slot, 0)
+            tiles = nbrs_b[local]  # (W, width_b)
+            if self.bucket_rows is not None:
+                rows = self.bucket_rows[b][local]
+            else:
+                rows = p_is_rows_block(
+                    tiles, nodes, deg_v, self.degrees, lipschitz
+                )
+            rows_by.append(rows)
+            tiles_by.append(tiles)
+        return bid, tuple(rows_by), tuple(tiles_by)
+
+    def _bucketed_mh_full(
+        self,
+        nodes: torch.Tensor,
+        u_mh: torch.Tensor,
+        lipschitz: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Uncompacted bucketed MH move: every bucket pass runs all W walks
+        (the ``compact=False`` path and the overflow fallback)."""
+        from repro_torch.kernels.walk_transition.kernel import (
+            walk_transition_bucketed,
+        )
+
+        bid, rows_by, tiles_by = self._bucket_tiles(nodes, lipschitz)
+        return walk_transition_bucketed(bid, rows_by, tiles_by, u_mh)
+
+    def compacted_bucket_inputs(
+        self,
+        nodes: torch.Tensor,
+        u_mh: torch.Tensor,
+        caps: Tuple[int, ...],
+        order: torch.Tensor,
+        starts: torch.Tensor,
+        counts: torch.Tensor,
+        lipschitz: Optional[torch.Tensor] = None,
+    ) -> tuple:
+        """The compacted gather convention: per-bucket ``[cap_b, …]`` inputs
+        from a :func:`compact_plan`.
+
+        Lane j of bucket b is sorted position ``starts[b] + j`` (the order
+        vector is padded with ``max(caps)`` zeros, so the gather never runs
+        off its end); lanes at or beyond ``counts[b]`` are invalid and read
+        the bucket's row 0.  Returns ``(walk_idx, valid, rows, tiles,
+        u_mh)``, each a tuple with one entry per bucket.
+        """
+        order_p = torch.cat(
+            [order, torch.zeros(max(caps), dtype=order.dtype,
+                                device=order.device)]
+        )
+        widx_by, valid_by, rows_by, tiles_by, u_by = [], [], [], [], []
+        for b, cap in enumerate(caps):
+            lanes = torch.arange(cap, dtype=torch.int32, device=order.device)
+            widx = order_p[starts[b] + lanes]
+            valid = lanes < counts[b]
+            nodes_b = nodes[widx]
+            slot = torch.where(valid, self.node_slot[nodes_b], 0)
+            tiles = self.bucket_neighbors[b][slot]
+            if self.bucket_rows is not None:
+                rows = self.bucket_rows[b][slot]
+            else:
+                rows = p_is_rows_block(
+                    tiles, nodes_b, self.degrees[nodes_b], self.degrees,
+                    lipschitz,
+                )
+            widx_by.append(widx)
+            valid_by.append(valid)
+            rows_by.append(rows)
+            tiles_by.append(tiles)
+            u_by.append(u_mh[widx])
+        return (
+            tuple(widx_by), tuple(valid_by), tuple(rows_by),
+            tuple(tiles_by), tuple(u_by),
+        )
+
+    def bucket_capacities(self, num_walks: int) -> Tuple[int, ...]:
+        """This engine's per-bucket capacities at W = ``num_walks``."""
+        shares = self.bucket_share
+        if shares is None:  # built without from_graph: node share only
+            shares = tuple(
+                int(nb.shape[0]) / self.n for nb in self.bucket_neighbors
+            )
+        return bucket_capacities(num_walks, shares, self.capacity_factor)
+
+    def _bucketed_mh_compacted(
+        self,
+        nodes: torch.Tensor,
+        u_mh: torch.Tensor,
+        lipschitz: Optional[torch.Tensor] = None,
+    ) -> tuple:
+        """Compacted bucketed MH move: each bucket pays only its own walks.
+
+        One :func:`compact_plan` stable sort groups the walks by bucket;
+        bucket b's pass runs on a ``[cap_b, width_b]`` tile and
+        :func:`scatter_compacted` puts the results back in walk order.  If
+        a bucket holds more walks than its capacity, the step takes
+        :meth:`_bucketed_mh_full` instead — decided on the host, so the
+        overflow flag is read from the device once per step.  Returns
+        ``(v_mh, overflow)``.
+        """
+        from repro_torch.kernels.walk_transition.kernel import (
+            walk_transition_bucketed_compacted,
+        )
+
+        self._check_bucket_rows(lipschitz)
+        num_walks = nodes.shape[0]
+        caps = self.bucket_capacities(num_walks)
+        bid = self.node_bucket[nodes]
+        order, starts, counts = compact_plan(bid, len(caps))
+        caps_t = torch.as_tensor(caps, dtype=counts.dtype).to(counts.device)
+        overflow = bool((counts > caps_t).any())  # the per-step host sync
+        if overflow:
+            return self._bucketed_mh_full(nodes, u_mh, lipschitz), True
+        widx_by, valid_by, rows_by, tiles_by, u_by = (
+            self.compacted_bucket_inputs(
+                nodes, u_mh, caps, order, starts, counts, lipschitz
+            )
+        )
+        v_mh = walk_transition_bucketed_compacted(
+            rows_by, tiles_by, u_by, widx_by, valid_by, num_walks
+        )
+        return v_mh, False
+
+    # -- the transition -----------------------------------------------------
 
     def _check_block(self, uniforms: torch.Tensor, shape: tuple) -> torch.Tensor:
         if tuple(uniforms.shape) != shape:
@@ -347,16 +854,24 @@ class WalkEngine:
         uniforms: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         p_j=None,
+        lipschitz: Optional[torch.Tensor] = None,
+        with_aux: bool = False,
     ) -> tuple:
         """One batched MHLJ transition of the (W,) int32 ``nodes``.
 
         Either ``uniforms`` — an injected ``(W, 3 + r)`` block whose slot 0
         already holds the jump flag — or ``generator``, from which the
         block is drawn with the flag ``u < p_j`` (``p_j`` defaults to the
-        engine's).  Returns ``(next_nodes, hops)``, both (W,) int32.
+        engine's).  ``lipschitz`` gives live Eq.-7 rows to an engine
+        without precomputed rows.  Returns ``(next_nodes, hops)``, both
+        (W,) int32; with ``with_aux`` also ``{"compact_overflow": bool}``,
+        True when this step's compacted bucketed dispatch overflowed a
+        capacity and took the full dispatch.
         """
         from repro_torch.kernels.walk_transition.kernel import (
+            walk_transition,
             walk_transition_ragged,
+            walk_transition_sparse,
         )
 
         nodes = torch.as_tensor(nodes, dtype=torch.int32, device=self.device)
@@ -372,10 +887,43 @@ class WalkEngine:
             )
         else:
             raise ValueError("pass uniforms= (injected block) or generator=")
-        return walk_transition_ragged(
-            nodes, self.indptr, self.degrees, self.indices, self.edge_cdf,
-            u, p_d=self.p_d, r=self.r, max_degree=self.max_degree,
-        )
+        if lipschitz is not None:
+            lipschitz = torch.as_tensor(
+                lipschitz, dtype=torch.float32, device=self.device
+            )
+        overflow = False
+        if self.layout == "ragged":
+            nxt, hops = walk_transition_ragged(
+                nodes, self.indptr, self.degrees, self.indices, self.edge_cdf,
+                u, p_d=self.p_d, r=self.r, max_degree=self.max_degree,
+            )
+        elif self.layout == "dense":
+            nxt, hops = walk_transition(
+                nodes, self.rows_table(lipschitz), self.neighbors,
+                self.degrees, u, p_d=self.p_d, r=self.r,
+            )
+        else:
+            u_mh = u[:, U_MH].contiguous()
+            if self.layout == "bucketed":
+                if self.compact and len(self.bucket_neighbors) > 1:
+                    v_mh, overflow = self._bucketed_mh_compacted(
+                        nodes, u_mh, lipschitz
+                    )
+                else:
+                    v_mh = self._bucketed_mh_full(nodes, u_mh, lipschitz)
+                jump = dict(csr=(self.indptr, self.indices))
+            else:  # sparse: the W active rows and neighbor tiles only
+                v_mh = walk_transition_sparse(
+                    self.rows_for(nodes, lipschitz), self.neighbors[nodes], u_mh
+                )
+                jump = dict(neighbors=self.neighbors)
+            v_jump, d = levy_jump_batched(
+                nodes, u, self.degrees, self.p_d, self.r, **jump
+            )
+            nxt, hops = combine_mh_jump(v_mh, v_jump, d, u)
+        if with_aux:
+            return nxt, hops, {"compact_overflow": overflow}
+        return nxt, hops
 
     def run(
         self,
@@ -385,6 +933,8 @@ class WalkEngine:
         uniforms: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         p_j=None,
+        lipschitz: Optional[torch.Tensor] = None,
+        with_aux: bool = False,
     ) -> tuple:
         """Whole trajectories for W walks (Algorithm 1's update sequence).
 
@@ -392,7 +942,8 @@ class WalkEngine:
         otherwise each step draws from ``generator`` with ``p_j`` a scalar
         or a (T,) schedule.  Returns ``(update_nodes, hops)``, both
         (W, T) int32: element t is the node holding the model when update
-        t runs (the first at v0) and the hops taken after it.
+        t runs (the first at v0) and the hops taken after it; with
+        ``with_aux`` also ``{"compact_overflow": (T,) bool tensor}``.
         """
         v = torch.as_tensor(v0s, dtype=torch.int32, device=self.device)
         w = v.shape[0]
@@ -407,11 +958,23 @@ class WalkEngine:
         nodes_out = torch.empty((num_steps, w), dtype=torch.int32,
                                 device=self.device)
         hops_out = torch.empty_like(nodes_out)
+        overflow = torch.zeros(num_steps, dtype=torch.bool)
         for t in range(num_steps):
             nodes_out[t] = v
             if uniforms is not None:
-                v, hops = self.step(v, uniforms=uniforms[t])
+                v, hops, aux = self.step(
+                    v, uniforms=uniforms[t], lipschitz=lipschitz,
+                    with_aux=True,
+                )
             else:
-                v, hops = self.step(v, generator=generator, p_j=p_sched[t])
+                v, hops, aux = self.step(
+                    v, generator=generator, p_j=p_sched[t],
+                    lipschitz=lipschitz, with_aux=True,
+                )
             hops_out[t] = hops
-        return nodes_out.T.contiguous(), hops_out.T.contiguous()
+            overflow[t] = aux["compact_overflow"]
+        update_nodes = nodes_out.T.contiguous()
+        hops = hops_out.T.contiguous()
+        if with_aux:
+            return update_nodes, hops, {"compact_overflow": overflow}
+        return update_nodes, hops

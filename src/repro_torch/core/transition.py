@@ -1,19 +1,23 @@
-"""Chain-law rows of the ragged layout (numpy, host side).
+"""Chain-law rows for the walk engine's four layouts (numpy, host side).
 
-A copy of the parts of ``repro.core.transition`` that the ragged walk-SGD
-path needs, bit for bit:
+A copy of the parts of ``repro.core.transition`` that the engine's layouts
+need, bit for bit:
 
 1. ``simple_rw``      P(v,u) = 1/deg(v)
-2. ``mh_uniform``     MH targeting uniform pi
-3. ``mh_importance``  P_IS of Eq. (7): MH targeting pi_IS ∝ L_v
+2. ``mh``             general Metropolis–Hastings, Eq. (6)
+3. ``mh_uniform``     MH targeting uniform pi
+4. ``mh_importance``  P_IS of Eq. (7): MH targeting pi_IS ∝ L_v
 
-Each law is a flat ``(nnz,)`` float32 probability buffer aligned with the
-graph's CSR ``indices``.  Rows are built in bounded chunks through the
-padded block builders at the full ``max_deg`` width and then stripped of
-their exactly-zero pads, so every entry equals the padded-builder entry.
-The MHLJ law itself is never materialized: the engine samples it in two
-phases (MH move or Lévy jump).  Dense matrices, padded/bucketed row
-tables and the heterogeneity and private laws are not ported yet.
+Each law comes as a dense row-stochastic ``(n, n)`` matrix (a
+:class:`~repro_torch.core.graphs.Graph` only; :func:`row_probs_padded`
+gathers it onto the padded neighbor lists), as padded ``(n, max_deg)``
+rows built from local information, as a tuple of per-bucket
+``(n_b, width_b)`` rows, or as a flat ``(nnz,)`` buffer aligned with the
+CSR ``indices``.  The local builders share one block function per law,
+and pads carry exactly 0, so a bucket row is the column truncation of the
+padded row and a flat entry is the padded entry.  The MHLJ law itself is
+never materialized: the engine samples it in two phases (MH move or Lévy
+jump).  The heterogeneity and private laws are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.graphs import (
+    Graph,
     _pad_neighbor_lists,
     _ragged_row_chunks,
     flat_edge_values,
@@ -30,6 +35,19 @@ from repro_torch.core.graphs import (
 
 __all__ = [
     "MHLJParams",
+    "simple_rw",
+    "mh",
+    "mh_uniform",
+    "mh_importance",
+    "is_row_stochastic",
+    "supported_on_graph",
+    "row_probs_padded",
+    "simple_rw_rows",
+    "mh_uniform_rows",
+    "mh_importance_rows",
+    "simple_rw_rows_bucketed",
+    "mh_uniform_rows_bucketed",
+    "mh_importance_rows_bucketed",
     "simple_rw_rows_ragged",
     "mh_uniform_rows_ragged",
     "mh_importance_rows_ragged",
@@ -51,6 +69,109 @@ class MHLJParams:
             raise ValueError(f"p_d must be in (0,1), got {self.p_d}")
         if self.r < 1:
             raise ValueError(f"r must be >= 1, got {self.r}")
+
+
+def simple_rw(graph: Graph) -> np.ndarray:
+    """Uniform neighbor choice: P(v,u) = 1/deg(v) on edges (incl. self-loop)."""
+    a = graph.adj
+    return a / a.sum(axis=1, keepdims=True)
+
+
+def mh(graph: Graph, pi: np.ndarray, q: Optional[np.ndarray] = None) -> np.ndarray:
+    """General Metropolis–Hastings transition, paper Eq. (6).
+
+    P(i,j) = Q(i,j) min{1, pi_j Q(j,i) / (pi_i Q(i,j))} for i != j on edges,
+    diagonal = leftover mass.  Q defaults to the simple random walk; a
+    custom ``q`` must be row-stochastic and supported on the graph, else
+    this raises.
+    """
+    pi = np.asarray(pi, dtype=np.float64)
+    if pi.shape != (graph.n,):
+        raise ValueError(f"pi must have shape ({graph.n},), got {pi.shape}")
+    if np.any(pi <= 0):
+        raise ValueError("pi must be strictly positive")
+    pi = pi / pi.sum()
+    if q is None:
+        q = simple_rw(graph)
+    else:
+        q = np.asarray(q, dtype=np.float64)
+        if q.shape != (graph.n, graph.n):
+            raise ValueError(
+                f"proposal q must have shape ({graph.n}, {graph.n}), "
+                f"got {q.shape}"
+            )
+        if not is_row_stochastic(q, atol=1e-8):
+            bad = np.abs(q.sum(axis=1) - 1.0).argmax()
+            raise ValueError(
+                "proposal q is not row-stochastic (row "
+                f"{bad} sums to {q.sum(axis=1)[bad]:.6g} or carries "
+                "negative mass); refusing to renormalize silently"
+            )
+        if not supported_on_graph(q, graph, atol=1e-12):
+            raise ValueError(
+                "proposal q places mass on non-edges; the MH chain of an "
+                "off-graph proposal is not implementable by a walk on this "
+                "graph"
+            )
+
+    a = graph.adj
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = (pi[None, :] * q.T) / (pi[:, None] * q)
+    ratio = np.where(q > 0, ratio, 0.0)
+    p = q * np.minimum(1.0, ratio)
+    p *= a
+    np.fill_diagonal(p, 0.0)
+    np.fill_diagonal(p, 1.0 - p.sum(axis=1))
+    diag = np.diag(p).copy()
+    if np.any(diag < -1e-12):
+        raise AssertionError("MH construction produced negative self-loop mass")
+    np.fill_diagonal(p, np.maximum(diag, 0.0))
+    p /= p.sum(axis=1, keepdims=True)
+    return p
+
+
+def mh_uniform(graph: Graph) -> np.ndarray:
+    """MH targeting the uniform distribution (paper design 2)."""
+    return mh(graph, np.full(graph.n, 1.0 / graph.n))
+
+
+def mh_importance(graph: Graph, lipschitz: np.ndarray) -> np.ndarray:
+    """P_IS of paper Eq. (7): MH targeting pi_IS(v) ∝ L_v."""
+    lipschitz = np.asarray(lipschitz, dtype=np.float64)
+    if lipschitz.shape != (graph.n,):
+        raise ValueError(
+            f"lipschitz must have shape ({graph.n},), got {lipschitz.shape}"
+        )
+    if np.any(lipschitz <= 0):
+        raise ValueError("Lipschitz constants must be strictly positive")
+    return mh(graph, lipschitz / lipschitz.sum())
+
+
+def is_row_stochastic(p: np.ndarray, atol: float = 1e-9) -> bool:
+    return bool(
+        np.all(p >= -atol) and np.allclose(p.sum(axis=1), 1.0, atol=atol)
+    )
+
+
+def supported_on_graph(p: np.ndarray, graph: Graph, atol: float = 1e-12) -> bool:
+    """True iff P(i,j) > 0 only where adj(i,j) = 1 (1-hop kernels)."""
+    off_support = p * (1.0 - np.minimum(graph.adj, 1.0))
+    return bool(np.abs(off_support).max() <= atol)
+
+
+def row_probs_padded(p: np.ndarray, graph: Graph) -> np.ndarray:
+    """Gather each row of a 1-hop-supported P onto the padded neighbor
+    lists: (n, max_deg) float32 aligned with ``graph.neighbors``, pads 0."""
+    if not supported_on_graph(p, graph):
+        raise ValueError("row_probs_padded requires a 1-hop-supported kernel")
+    n, max_deg = graph.neighbors.shape
+    out = np.zeros((n, max_deg), dtype=np.float32)
+    for v in range(n):
+        deg = int(graph.degrees[v])
+        nbrs = graph.neighbors[v, :deg]
+        out[v, :deg] = p[v, nbrs]
+    s = out.sum(axis=1, keepdims=True)
+    return (out / s).astype(np.float32)
 
 
 def _check_lipschitz(graph, lipschitz) -> np.ndarray:
@@ -101,6 +222,60 @@ def _simple_rw_block(nbrs: np.ndarray, deg_v: np.ndarray) -> np.ndarray:
     is_pad = np.arange(width)[None, :] >= deg_v[:, None]
     out = np.where(is_pad, 0.0, 1.0 / deg_v[:, None].astype(np.float64))
     return out.astype(np.float32)
+
+
+def _graph_locals(graph):
+    nbrs = np.asarray(graph.neighbors)
+    deg = np.asarray(graph.degrees, dtype=np.int64)
+    return nbrs, np.arange(graph.n, dtype=np.int64), deg
+
+
+def simple_rw_rows(graph) -> np.ndarray:
+    """Padded rows of the simple RW: 1/deg(v) on every true neighbor slot."""
+    nbrs, _, deg = _graph_locals(graph)
+    return _simple_rw_block(nbrs, deg)
+
+
+def mh_uniform_rows(graph) -> np.ndarray:
+    """Padded MH rows targeting uniform pi: P(v,u) = min{1/deg_v, 1/deg_u}."""
+    nbrs, ids, deg = _graph_locals(graph)
+    return _mh_rows_block(nbrs, ids, deg, deg, np.ones(graph.n))
+
+
+def mh_importance_rows(graph, lipschitz: np.ndarray) -> np.ndarray:
+    """Padded P_IS rows of Eq. (7) from local info only."""
+    lipschitz = _check_lipschitz(graph, lipschitz)
+    nbrs, ids, deg = _graph_locals(graph)
+    return _mh_rows_block(nbrs, ids, deg, deg, lipschitz)
+
+
+def simple_rw_rows_bucketed(graph) -> tuple:
+    """Per-bucket simple-RW rows for a :class:`BucketedCSRGraph`."""
+    deg = np.asarray(graph.degrees, dtype=np.int64)
+    return tuple(
+        _simple_rw_block(b.neighbors, deg[b.node_ids]) for b in graph.buckets
+    )
+
+
+def _mh_rows_bucketed(graph, target_weight: np.ndarray) -> tuple:
+    deg = np.asarray(graph.degrees, dtype=np.int64)
+    return tuple(
+        _mh_rows_block(
+            b.neighbors, b.node_ids.astype(np.int64),
+            deg[b.node_ids], deg, target_weight,
+        )
+        for b in graph.buckets
+    )
+
+
+def mh_uniform_rows_bucketed(graph) -> tuple:
+    """Per-bucket MH-uniform rows for a :class:`BucketedCSRGraph`."""
+    return _mh_rows_bucketed(graph, np.ones(graph.n))
+
+
+def mh_importance_rows_bucketed(graph, lipschitz: np.ndarray) -> tuple:
+    """Per-bucket P_IS rows of Eq. (7) for a :class:`BucketedCSRGraph`."""
+    return _mh_rows_bucketed(graph, _check_lipschitz(graph, lipschitz))
 
 
 def _rows_ragged(graph, block_fn, chunk_rows: Optional[int] = None) -> np.ndarray:

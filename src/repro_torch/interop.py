@@ -3,17 +3,18 @@
 The port reads the reference's state as plain numpy arrays — it imports
 nothing of the JAX package — and rebuilds its own engine (and fleet) on
 the requested device.  Parity tests use this to hand the reference's
-exact per-edge CDF to the port, so a last-ulp difference between the two
-CDF builders cannot hide or fake a sampler fault.
+exact row state (padded rows, per-bucket rows, or the per-edge CDF) to
+the port, so a last-ulp difference between two row builders cannot hide
+or fake a sampler fault.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import WalkEngine
+from repro_torch.core.engine import LAYOUTS, WalkEngine
 from repro_torch.walk_sgd.fleet import WalkFleet
 
 __all__ = ["from_reference_state"]
@@ -21,15 +22,25 @@ __all__ = ["from_reference_state"]
 
 def from_reference_state(
     *,
-    indptr,
-    indices,
     degrees,
-    edge_cdf,
-    max_degree: int,
-    cdf_width: int,
     p_d: float,
     r: int,
+    layout: str = "ragged",
     p_j: float = 0.0,
+    indptr=None,
+    indices=None,
+    edge_cdf=None,
+    max_degree: Optional[int] = None,
+    cdf_width: Optional[int] = None,
+    neighbors=None,
+    row_probs=None,
+    node_bucket=None,
+    node_slot=None,
+    bucket_neighbors: Optional[Sequence] = None,
+    bucket_rows: Optional[Sequence] = None,
+    bucket_share: Optional[Sequence[float]] = None,
+    compact: bool = True,
+    capacity_factor: float = 1.25,
     nodes=None,
     models=None,
     avg_every: int = 0,
@@ -37,34 +48,71 @@ def from_reference_state(
 ) -> tuple:
     """Port engine, fleet and models from the reference's numpy state.
 
-    ``indptr``/``indices``/``degrees``/``edge_cdf``/``max_degree``/
-    ``cdf_width``/``p_d``/``r`` are a reference ragged ``WalkEngine``'s
-    fields (the port builds no CDF here, so ``cdf_width`` is only checked
-    against ``max_degree``); ``nodes`` the fleet's (W,) positions and ``models`` its
-    (W, dim) per-walker models.  Returns ``(engine, fleet, models)`` —
-    ``fleet`` is None without ``nodes``, ``models`` None without models.
+    The keyword arguments are a reference ``WalkEngine``'s fields of the
+    same names, for its ``layout``:
+
+    * ``"ragged"``: ``indptr``/``indices``/``edge_cdf``/``max_degree`` and
+      ``cdf_width`` (the port builds no CDF here, so ``cdf_width`` is only
+      checked against ``max_degree``);
+    * ``"sparse"``/``"dense"``: ``neighbors`` and ``row_probs`` (None for
+      live rows);
+    * ``"bucketed"``: ``indptr``/``indices``, ``node_bucket``/``node_slot``,
+      ``bucket_neighbors``, ``bucket_rows`` (None for live rows),
+      ``bucket_share``, ``compact`` and ``capacity_factor``.
+
+    ``nodes`` are the fleet's (W,) positions and ``models`` its (W, dim)
+    per-walker models.  Returns ``(engine, fleet, models)`` — ``fleet`` is
+    None without ``nodes``, ``models`` None without models.
     """
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
     device = torch.device(device)
-    indices = np.asarray(indices)
-    edge_cdf = np.array(edge_cdf, dtype=np.float32)  # own, writable copy
-    if edge_cdf.shape != indices.shape:
-        raise ValueError("edge_cdf and indices must both be (nnz,)")
-    if cdf_width < max_degree:
-        raise ValueError("cdf_width must cover max_degree")
 
     def i32(x):
-        return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
+        return None if x is None else torch.as_tensor(
+            np.asarray(x).astype(np.int32), device=device
+        )
 
-    engine = WalkEngine(
-        indptr=i32(indptr),
-        indices=i32(indices),
-        degrees=i32(degrees),
-        edge_cdf=torch.as_tensor(edge_cdf, device=device),
-        max_degree=int(max_degree),
-        p_j=float(p_j),
-        p_d=float(p_d),
-        r=int(r),
-    )
+    def f32(x):  # an own, writable copy
+        return None if x is None else torch.as_tensor(
+            np.array(x, dtype=np.float32), device=device
+        )
+
+    fields = dict(degrees=i32(degrees), layout=layout, p_j=float(p_j),
+                  p_d=float(p_d), r=int(r))
+    if layout == "ragged":
+        if edge_cdf is None or indices is None or max_degree is None:
+            raise ValueError(
+                "the ragged layout needs indices, edge_cdf and max_degree"
+            )
+        if np.shape(edge_cdf) != np.shape(indices):
+            raise ValueError("edge_cdf and indices must both be (nnz,)")
+        if cdf_width is not None and cdf_width < max_degree:
+            raise ValueError("cdf_width must cover max_degree")
+        fields.update(
+            indptr=i32(indptr), indices=i32(indices), edge_cdf=f32(edge_cdf),
+            max_degree=int(max_degree),
+        )
+    elif layout == "bucketed":
+        if bucket_neighbors is None:
+            raise ValueError("the bucketed layout needs bucket_neighbors")
+        fields.update(
+            indptr=i32(indptr), indices=i32(indices),
+            node_bucket=i32(node_bucket), node_slot=i32(node_slot),
+            bucket_neighbors=tuple(i32(b) for b in bucket_neighbors),
+            bucket_rows=None if bucket_rows is None
+            else tuple(f32(b) for b in bucket_rows),
+            bucket_share=None if bucket_share is None
+            else tuple(float(s) for s in bucket_share),
+            compact=bool(compact), capacity_factor=float(capacity_factor),
+        )
+    else:
+        if neighbors is None:
+            raise ValueError(f"the {layout} layout needs neighbors")
+        if row_probs is not None and np.shape(row_probs) != np.shape(neighbors):
+            raise ValueError("row_probs and neighbors must both be (n, max_deg)")
+        fields.update(neighbors=i32(neighbors), row_probs=f32(row_probs))
+    engine = WalkEngine(**fields)
     fleet = None
     if nodes is not None:
         nodes = np.asarray(nodes, np.int32)

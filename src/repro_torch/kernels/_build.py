@@ -23,7 +23,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # library name -> source file under csrc/
-SOURCES = {"walk_transition_ragged": "walk_transition_ragged.cu"}
+SOURCES = {
+    "walk_transition_ragged": "walk_transition_ragged.cu",
+    "walk_transition_sparse": "walk_transition_sparse.cu",
+    "walk_transition_dense": "walk_transition_dense.cu",
+}
 
 # No fast math, and no fused multiply-add contraction: the kernels' float32
 # products must round exactly as their plain PyTorch versions' do.

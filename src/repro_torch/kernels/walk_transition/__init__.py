@@ -1,4 +1,27 @@
-from repro_torch.kernels.walk_transition.kernel import walk_transition_ragged
-from repro_torch.kernels.walk_transition.ref import walk_transition_ragged_ref
+from repro_torch.kernels.walk_transition.kernel import (
+    walk_transition,
+    walk_transition_bucketed,
+    walk_transition_bucketed_compacted,
+    walk_transition_ragged,
+    walk_transition_sparse,
+)
+from repro_torch.kernels.walk_transition.ref import (
+    walk_transition_bucketed_compacted_ref,
+    walk_transition_bucketed_ref,
+    walk_transition_ragged_ref,
+    walk_transition_ref,
+    walk_transition_sparse_ref,
+)
 
-__all__ = ["walk_transition_ragged", "walk_transition_ragged_ref"]
+__all__ = [
+    "walk_transition",
+    "walk_transition_sparse",
+    "walk_transition_bucketed",
+    "walk_transition_bucketed_compacted",
+    "walk_transition_ragged",
+    "walk_transition_ref",
+    "walk_transition_sparse_ref",
+    "walk_transition_bucketed_ref",
+    "walk_transition_bucketed_compacted_ref",
+    "walk_transition_ragged_ref",
+]

@@ -1,13 +1,22 @@
-"""Wrapper of the hand-written CUDA kernel ``walk_transition_ragged``.
+"""Wrappers of the hand-written CUDA walk-transition kernels.
 
-Source: ``repro_torch/csrc/walk_transition_ragged.cu`` (built by
-``repro_torch.kernels._build``, loaded with ctypes).  It replaces the TPU
-kernel ``repro/kernels/walk_transition/kernel.py::walk_transition_ragged``.
+Three kernels, each in ``repro_torch/csrc/`` (built by
+``repro_torch.kernels._build``, loaded with ctypes), each replacing a TPU
+kernel of ``repro/kernels/walk_transition/kernel.py``:
 
-For CUDA tensors the wrapper launches the kernel on the current stream or
-raises; for CPU tensors it runs the plain version
-(:func:`~repro_torch.kernels.walk_transition.ref.walk_transition_ragged_ref`).
-``walk_transition_ragged.launches`` counts kernel launches.
+* :func:`walk_transition_ragged` (``walk_transition_ragged.cu``) — the
+  fused MHLJ step on the flat CSR (ragged layout);
+* :func:`walk_transition_sparse` (``walk_transition_sparse.cu``) — the MH
+  CDF inversion over gathered ``(W, width)`` tiles (sparse layout, and the
+  tile op of the bucketed dispatch :func:`walk_transition_bucketed` /
+  :func:`walk_transition_bucketed_compacted`, which are host code);
+* :func:`walk_transition` (``walk_transition_dense.cu``) — the fused MHLJ
+  step over the resident ``(n, max_deg)`` tables (dense layout).
+
+For CUDA tensors a wrapper launches its kernel on the current stream or
+raises; for CPU tensors it runs the plain version from
+:mod:`repro_torch.kernels.walk_transition.ref`.  Each wrapper's
+``launches`` attribute counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -16,28 +25,68 @@ import functools
 
 import torch
 
-from repro_torch.core.engine import MAX_NNZ, num_uniforms, search_iters
+from repro_torch.core.engine import (
+    MAX_NNZ,
+    combine_bucketed,
+    num_uniforms,
+    scatter_compacted,
+    search_iters,
+)
 from repro_torch.core.levy import icdf_constants
 from repro_torch.kernels import _build
-from repro_torch.kernels.walk_transition.ref import walk_transition_ragged_ref
+from repro_torch.kernels.walk_transition.ref import (
+    walk_transition_ragged_ref,
+    walk_transition_ref,
+    walk_transition_sparse_ref,
+)
 
-__all__ = ["walk_transition_ragged"]
-
-_ARGTYPES = [ctypes.c_void_p] * 9 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+__all__ = [
+    "walk_transition",
+    "walk_transition_sparse",
+    "walk_transition_bucketed",
+    "walk_transition_bucketed_compacted",
+    "walk_transition_ragged",
 ]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # nodes, indptr, degrees, indices, edge_cdf, uniforms, den, next, hops,
+    # W, r, z, search_iters, stream
+    "walk_transition_ragged": [_P] * 9 + [_I, _I, _F, _I, _P],
+    # rows, neigh_rows, u_mh, v_mh, W, width, stream
+    "walk_transition_sparse": [_P] * 4 + [_I, _I, _P],
+    # nodes, row_probs, neighbors, degrees, uniforms, den, next, hops,
+    # W, max_deg, r, z, stream
+    "walk_transition_dense": [_P] * 8 + [_I, _I, _I, _F, _P],
+}
 
 # float32 log(1 - p_d), computed once per (device, 1 - p_d) on the device
 _DEN: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    lib = _build.load("walk_transition_ragged")
-    fn = lib.walk_transition_ragged_launch
-    fn.argtypes = _ARGTYPES
+def _launcher(name: str):
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, *args) -> None:
+    err = _launcher(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _device(*tensors) -> torch.device:
+    """The one device of ``tensors``: CPU or CUDA, else raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def _check(name, t, dtype, ndim):
@@ -47,6 +96,30 @@ def _check(name, t, dtype, ndim):
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _levy_constants(device, p_d: float, r: int) -> tuple:
+    """``(z, den)``: the float32 ``1 - (1-p_d)^r`` and a (1,) device tensor
+    holding PyTorch's float32 ``log(1 - p_d)`` (the plain version's op)."""
+    z32, q32 = icdf_constants(p_d, r)
+    key = (device, q32)
+    den = _DEN.get(key)
+    if den is None:
+        den = torch.log(torch.full((1,), q32, dtype=torch.float32, device=device))
+        _DEN[key] = den
+    return z32, den
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_uniforms(uniforms, w: int, r: int) -> None:
+    if tuple(uniforms.shape) != (w, num_uniforms(r)):
+        raise ValueError(
+            f"uniforms must be ({w}, {num_uniforms(r)}), got "
+            f"{tuple(uniforms.shape)}"
+        )
 
 
 def walk_transition_ragged(
@@ -64,18 +137,12 @@ def walk_transition_ragged(
     """The fused MHLJ step on the flat CSR; returns ``(next_nodes, hops)``,
     both (W,) int32.  ``max_degree`` sets the binary search's probe count
     (``engine.search_iters``)."""
-    tensors = (nodes, indptr, degrees, indices, edge_cdf, uniforms)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"all inputs must be on one device, got {devices}")
-    device = devices.pop()
+    device = _device(nodes, indptr, degrees, indices, edge_cdf, uniforms)
     if device.type == "cpu":
         return walk_transition_ragged_ref(
             nodes, indptr, degrees, indices, edge_cdf, uniforms,
             p_d=p_d, r=r, max_degree=max_degree,
         )
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     for name, t, dtype, ndim in (
         ("nodes", nodes, torch.int32, 1),
         ("indptr", indptr, torch.int32, 1),
@@ -90,34 +157,155 @@ def walk_transition_ragged(
         raise ValueError(f"nnz={nnz} exceeds the int32 index range")
     if indptr.shape[0] != n + 1 or edge_cdf.shape[0] != nnz:
         raise ValueError("indptr/degrees/indices/edge_cdf sizes disagree")
-    if tuple(uniforms.shape) != (w, num_uniforms(r)):
-        raise ValueError(
-            f"uniforms must be ({w}, {num_uniforms(r)}), got "
-            f"{tuple(uniforms.shape)}"
-        )
-    z32, q32 = icdf_constants(p_d, r)
-    key = (device, q32)
-    den = _DEN.get(key)
-    if den is None:
-        den = torch.log(torch.full((1,), q32, dtype=torch.float32, device=device))
-        _DEN[key] = den
+    _check_uniforms(uniforms, w, r)
+    z32, den = _levy_constants(device, p_d, r)
     next_nodes = torch.empty(w, dtype=torch.int32, device=device)
     hops = torch.empty(w, dtype=torch.int32, device=device)
     if w == 0:
         return next_nodes, hops
-    err = _launcher()(
+    _launch(
+        "walk_transition_ragged",
         nodes.data_ptr(), indptr.data_ptr(), degrees.data_ptr(),
         indices.data_ptr(), edge_cdf.data_ptr(), uniforms.data_ptr(),
         den.data_ptr(), next_nodes.data_ptr(), hops.data_ptr(),
-        w, r, z32, search_iters(max_degree),
-        torch.cuda.current_stream(device).cuda_stream,
+        w, r, z32, search_iters(max_degree), _stream(device),
     )
-    if err != 0:
-        raise RuntimeError(
-            f"walk_transition_ragged launch failed with CUDA error {err}"
-        )
     walk_transition_ragged.launches += 1
     return next_nodes, hops
 
 
 walk_transition_ragged.launches = 0
+
+
+def walk_transition_sparse(
+    rows: torch.Tensor,  # (W, width) float32 — the W walks' P_IS rows
+    neigh_rows: torch.Tensor,  # (W, width) int32 — their padded neighbor rows
+    u_mh: torch.Tensor,  # (W,) float32 — the U_MH uniform per walk
+) -> torch.Tensor:
+    """The MH move for W walks from gathered tiles: per walk the index of
+    ``u_mh · total`` in the row's CDF (row-CDF rule), clamped to
+    ``width - 1``, and the neighbor there.  Rows must be non-negative.
+    Returns ``v_mh`` (W,) int32."""
+    device = _device(rows, neigh_rows, u_mh)
+    if device.type == "cpu":
+        return walk_transition_sparse_ref(rows, neigh_rows, u_mh)
+    _check("rows", rows, torch.float32, 2)
+    _check("neigh_rows", neigh_rows, torch.int32, 2)
+    _check("u_mh", u_mh, torch.float32, 1)
+    w, width = rows.shape
+    if tuple(neigh_rows.shape) != (w, width) or u_mh.shape[0] != w:
+        raise ValueError(
+            f"rows {tuple(rows.shape)}, neigh_rows "
+            f"{tuple(neigh_rows.shape)} and u_mh {tuple(u_mh.shape)} disagree"
+        )
+    if width < 1:
+        raise ValueError("rows must have at least one column")
+    v_mh = torch.empty(w, dtype=torch.int32, device=device)
+    if w == 0:
+        return v_mh
+    _launch(
+        "walk_transition_sparse",
+        rows.data_ptr(), neigh_rows.data_ptr(), u_mh.data_ptr(),
+        v_mh.data_ptr(), w, width, _stream(device),
+    )
+    walk_transition_sparse.launches += 1
+    return v_mh
+
+
+walk_transition_sparse.launches = 0
+
+
+def walk_transition_bucketed(
+    bucket_ids: torch.Tensor,  # (W,) int32 — degree bucket of each walk
+    rows_by_bucket,  # tuple of (W, width_b) float32 P_IS tiles
+    tiles_by_bucket,  # tuple of (W, width_b) int32 neighbor tiles
+    u_mh: torch.Tensor,  # (W,) float32
+) -> torch.Tensor:
+    """The bucketed MH move: one :func:`walk_transition_sparse` pass per
+    bucket at its width over all W walks; walk w keeps the result of
+    bucket ``bucket_ids[w]`` (``engine.combine_bucketed``).  Returns
+    ``v_mh`` (W,)."""
+    return combine_bucketed(
+        bucket_ids,
+        [
+            walk_transition_sparse(rows, tiles, u_mh)
+            for rows, tiles in zip(rows_by_bucket, tiles_by_bucket)
+        ],
+    )
+
+
+def walk_transition_bucketed_compacted(
+    rows_by_bucket,  # tuple of (cap_b, width_b) float32 compacted P_IS tiles
+    tiles_by_bucket,  # tuple of (cap_b, width_b) int32 compacted tiles
+    u_by_bucket,  # tuple of (cap_b,) float32 — U_MH uniform per lane
+    walk_idx_by_bucket,  # tuple of (cap_b,) int32 — original walk index
+    valid_by_bucket,  # tuple of (cap_b,) bool — lane holds a real walk
+    num_walks: int,
+) -> torch.Tensor:
+    """The compacted bucketed MH move: one :func:`walk_transition_sparse`
+    pass per bucket over its ``cap_b`` lanes only, scattered back to walk
+    order (``engine.scatter_compacted``, slop lanes dropped).  Returns
+    ``v_mh`` (num_walks,)."""
+    return scatter_compacted(
+        num_walks,
+        walk_idx_by_bucket,
+        valid_by_bucket,
+        [
+            walk_transition_sparse(rows, tiles, u_b)
+            for rows, tiles, u_b in zip(
+                rows_by_bucket, tiles_by_bucket, u_by_bucket
+            )
+        ],
+    )
+
+
+def walk_transition(
+    nodes: torch.Tensor,  # (W,) int32
+    row_probs: torch.Tensor,  # (n, max_deg) float32, pads exactly 0
+    neighbors: torch.Tensor,  # (n, max_deg) int32, pads = row id
+    degrees: torch.Tensor,  # (n,) int32
+    uniforms: torch.Tensor,  # (W, 3 + r) float32, slot 0 = jump flag
+    *,
+    p_d: float,
+    r: int,
+) -> tuple:
+    """The fused MHLJ step on the resident padded tables (dense layout):
+    the MH inversion of row v's CDF, r Lévy hops through the neighbor
+    table, the combine.  Rows must be non-negative with exactly-zero pads
+    (the padded-row convention).  Returns ``(next_nodes, hops)``, both
+    (W,) int32."""
+    device = _device(nodes, row_probs, neighbors, degrees, uniforms)
+    if device.type == "cpu":
+        return walk_transition_ref(
+            nodes, row_probs, neighbors, degrees, uniforms, p_d=p_d, r=r
+        )
+    for name, t, dtype, ndim in (
+        ("nodes", nodes, torch.int32, 1),
+        ("row_probs", row_probs, torch.float32, 2),
+        ("neighbors", neighbors, torch.int32, 2),
+        ("degrees", degrees, torch.int32, 1),
+        ("uniforms", uniforms, torch.float32, 2),
+    ):
+        _check(name, t, dtype, ndim)
+    w = nodes.shape[0]
+    n, max_deg = neighbors.shape
+    if tuple(row_probs.shape) != (n, max_deg) or degrees.shape[0] != n:
+        raise ValueError("row_probs/neighbors/degrees shapes disagree")
+    _check_uniforms(uniforms, w, r)
+    z32, den = _levy_constants(device, p_d, r)
+    next_nodes = torch.empty(w, dtype=torch.int32, device=device)
+    hops = torch.empty(w, dtype=torch.int32, device=device)
+    if w == 0:
+        return next_nodes, hops
+    _launch(
+        "walk_transition_dense",
+        nodes.data_ptr(), row_probs.data_ptr(), neighbors.data_ptr(),
+        degrees.data_ptr(), uniforms.data_ptr(), den.data_ptr(),
+        next_nodes.data_ptr(), hops.data_ptr(), w, max_deg, r, z32,
+        _stream(device),
+    )
+    walk_transition.launches += 1
+    return next_nodes, hops
+
+
+walk_transition.launches = 0

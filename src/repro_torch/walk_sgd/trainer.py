@@ -9,9 +9,12 @@ by the chosen method's chain law:
   method='mhlj'        Algorithm 1 (MH-IS + Lévy jumps), weighted gradient
   method='simple'      simple random walk, plain gradient (degree-biased)
 
-Non-jump methods are the engine at p_J = 0.  The graph runs on the ragged
-layout (any port graph class is converted with ``to_ragged()``): the
-method's flat per-edge rows become the engine's CDF once per run, and
+Non-jump methods are the engine at p_J = 0.  The graph class picks the
+rows and the engine layout, as in the reference: a dense ``Graph`` gets
+the dense law gathered onto its padded rows and a ``CSRGraph`` the padded
+local rows (both the ``sparse`` layout), a ``BucketedCSRGraph`` per-bucket
+rows (``bucketed``), a ``RaggedCSRGraph`` flat per-edge rows
+(``ragged``); ``engine_kwargs`` may ask for another layout.
 :func:`repro_torch.walk_sgd.fleet.run_fleet` is the one training loop —
 :func:`run_rw_sgd` is its W=1 case.  ``method='heterogeneity'`` and
 ``method='private'`` belong to a later slice of the port.
@@ -82,11 +85,14 @@ def _setup_method(
     p_j_schedule: Optional[np.ndarray],
     num_steps: int,
 ):
-    """Method dispatch: flat rows, weights, p_J schedule and (p_d, r).
+    """Method dispatch: rows, weights, p_J schedule and (p_d, r).
 
-    Returns ``(row_probs, weights, p_j_sched, p_d, r, use_weights)`` with
-    ``row_probs`` the (nnz,) float32 rows of the ragged graph, ``weights``
-    (n,) float32 and ``p_j_sched`` (num_steps,) float32, as numpy.
+    Returns ``(row_probs, weights, p_j_sched, p_d, r, use_weights)``, as
+    numpy: ``row_probs`` by graph class — the dense law gathered onto the
+    padded rows (``Graph``), padded local rows (``CSRGraph``), a tuple of
+    per-bucket rows (``BucketedCSRGraph``) or flat (nnz,) rows
+    (``RaggedCSRGraph``) — ``weights`` (n,) float32 and ``p_j_sched``
+    (num_steps,) float32.
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}")
@@ -96,15 +102,40 @@ def _setup_method(
             "a later slice of the port (ROADMAP Queue 1 item 1)"
         )
     lips = data.lipschitz
-    core = graph.to_ragged()
+    dense = getattr(graph, "adj", None) is not None
+    bucketed = hasattr(graph, "buckets")
+    ragged = not (dense or bucketed) and not hasattr(graph, "neighbors")
+
+    def pick(dense_p, padded_rows, bucket_rows, ragged_rows):
+        if dense:
+            return trans_mod.row_probs_padded(dense_p(), graph)
+        if bucketed:
+            return bucket_rows()
+        return ragged_rows() if ragged else padded_rows()
+
     use_jumps = method == "mhlj"
     use_weights = method in ("importance", "mhlj")
     if method == "uniform":
-        rows = trans_mod.mh_uniform_rows_ragged(core)
+        rows = pick(
+            lambda: trans_mod.mh_uniform(graph),
+            lambda: trans_mod.mh_uniform_rows(graph),
+            lambda: trans_mod.mh_uniform_rows_bucketed(graph),
+            lambda: trans_mod.mh_uniform_rows_ragged(graph),
+        )
     elif method == "simple":
-        rows = trans_mod.simple_rw_rows_ragged(core)
+        rows = pick(
+            lambda: trans_mod.simple_rw(graph),
+            lambda: trans_mod.simple_rw_rows(graph),
+            lambda: trans_mod.simple_rw_rows_bucketed(graph),
+            lambda: trans_mod.simple_rw_rows_ragged(graph),
+        )
     else:  # importance / mhlj share the P_IS rows; jumps sampled live
-        rows = trans_mod.mh_importance_rows_ragged(core, lips)
+        rows = pick(
+            lambda: trans_mod.mh_importance(graph, lips),
+            lambda: trans_mod.mh_importance_rows(graph, lips),
+            lambda: trans_mod.mh_importance_rows_bucketed(graph, lips),
+            lambda: trans_mod.mh_importance_rows_ragged(graph, lips),
+        )
     target = np.asarray(lips, dtype=np.float64)
     weights = (target.mean() / target).astype(np.float32)
     if use_jumps:
@@ -123,17 +154,29 @@ def _setup_method(
     return rows, weights, p_j_sched, p_d, r, use_weights
 
 
+def _build_engine(graph, p_d, r, row_probs, engine_kwargs, device):
+    """Engine for a training run; ``engine_kwargs`` forwards ``layout``,
+    ``compact``, ``capacity_factor`` and ``bucket_factor`` to
+    :meth:`WalkEngine.from_graph`."""
+    return WalkEngine.from_graph(
+        graph, MHLJParams(p_j=0.0, p_d=p_d, r=r), row_probs=row_probs,
+        device=device, **dict(engine_kwargs or {}),
+    )
+
+
 def _train(
     method, graph, data, gamma, num_steps, num_walks, *, mhlj_params,
-    p_j_schedule, loss, x0, v0s, avg_every, seed, engine, uniforms, device,
+    p_j_schedule, loss, x0, v0s, avg_every, seed, engine, engine_kwargs,
+    uniforms, device,
 ):
     rows, weights, p_j_sched, p_d, r, use_weights = _setup_method(
         method, graph, data, mhlj_params, p_j_schedule, num_steps
     )
     if engine is None:
-        engine = WalkEngine.from_graph(
-            graph, MHLJParams(p_j=0.0, p_d=p_d, r=r), row_probs=rows,
-            device=device,
+        engine = _build_engine(graph, p_d, r, rows, engine_kwargs, device)
+    elif engine_kwargs is not None:
+        raise ValueError(
+            "pass either a pre-built engine or engine_kwargs, not both"
         )
     elif (engine.p_d, engine.r) != (p_d, r):
         raise ValueError(
@@ -185,6 +228,7 @@ def run_rw_sgd(
     v0: int = 0,
     seed: int = 0,
     engine: Optional[WalkEngine] = None,
+    engine_kwargs: Optional[dict] = None,
     uniforms: Optional[torch.Tensor] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> RWSGDResult:
@@ -194,12 +238,15 @@ def run_rw_sgd(
     ``(T, 1, 3 + r)`` block (slot 0 = jump flag); otherwise the walk draws
     from a ``torch.Generator`` seeded with ``seed``.  ``engine`` injects a
     pre-built engine (e.g. from ``repro_torch.interop``) whose ``(p_d, r)``
-    must match the method's.
+    must match the method's; ``engine_kwargs`` instead forwards ``layout``,
+    ``compact``, ``capacity_factor`` or ``bucket_factor`` to
+    :meth:`WalkEngine.from_graph`.
     """
     xs, mses, _, nodes, hops, _ = _train(
         method, graph, data, gamma, num_steps, 1, mhlj_params=mhlj_params,
         p_j_schedule=p_j_schedule, loss=loss, x0=x0, v0s=[v0], avg_every=0,
-        seed=seed, engine=engine, uniforms=uniforms, device=device,
+        seed=seed, engine=engine, engine_kwargs=engine_kwargs,
+        uniforms=uniforms, device=device,
     )
     return RWSGDResult(
         mse=mses[0].cpu().numpy(),
@@ -226,6 +273,7 @@ def run_rw_sgd_multi(
     avg_every: int = 0,
     seed: int = 0,
     engine: Optional[WalkEngine] = None,
+    engine_kwargs: Optional[dict] = None,
     uniforms: Optional[torch.Tensor] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> MultiRWSGDResult:
@@ -234,13 +282,14 @@ def run_rw_sgd_multi(
     Start nodes come from ``sample_initial_nodes(n, W, seed=seed)`` unless
     ``v0s`` is given; ``avg_every > 0`` averages the models across walks
     every that many updates.  ``uniforms`` injects a ``(T, W, 3 + r)``
-    block, ``engine`` a pre-built engine, as in :func:`run_rw_sgd`.
+    block, ``engine`` a pre-built engine and ``engine_kwargs`` engine
+    options, as in :func:`run_rw_sgd`.
     """
     xs, mses, avg_mses, nodes, hops, _ = _train(
         method, graph, data, gamma, num_steps, num_walks,
         mhlj_params=mhlj_params, p_j_schedule=p_j_schedule, loss=loss, x0=x0,
         v0s=v0s, avg_every=avg_every, seed=seed, engine=engine,
-        uniforms=uniforms, device=device,
+        engine_kwargs=engine_kwargs, uniforms=uniforms, device=device,
     )
     return MultiRWSGDResult(
         mse=mses.cpu().numpy(),

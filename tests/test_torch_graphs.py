@@ -115,8 +115,8 @@ def test_graph_validation_rejects_bad_input():
         tg.from_edges(4, [0, 1], [1, 2])  # node 3 disconnected
     with pytest.raises(ValueError):
         tg.from_edges(4, [0], [7])
-    with pytest.raises(ValueError, match="not ported"):
-        tg.ring(10, layout="bucketed")
+    with pytest.raises(ValueError, match="layout must be one of"):
+        tg.ring(10, layout="blocked")
 
 
 LAWS = [
