@@ -33,6 +33,25 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    walk-steps that differ from the ragged run of 3, ``avg_mse`` at the
    least-squares floor, and every step replayed through kernel and plain
    version.
+6.-8. the LLM slice, per model, each built once at full width in bf16
+   with random weights from seed 0 (minitron-8b, then mamba2-370m, freed
+   in between): 6. its kernel against its plain version at the path's
+   shapes — ``flash_attention`` on minitron's layer-0 q/k/v (B=1, S=4096,
+   N=32, K=8, h=128, causal), at S=4000 and on a small float32 shape;
+   ``ssd_scan`` on mamba2's layer-0 inputs (B=4, L=4096, H=32, P=64,
+   N=128, chunk 256) and at L=4000 through the padding — with device
+   times, bounds, the plain version's time and SDPA's; 7. prefill
+   (``apply``, minitron B=1x4096, mamba2 B=4x4096) with
+   ``use_kernels=True``: launches (one kernel per layer), tokens/s, peak
+   memory, the relative Frobenius error against the einsum path on the
+   same weights, and ``ops.rmsnorm`` (``rmsnorm_fused``) on the result;
+   8. ``ServeEngine(batch_size=4, cache_len=256)`` answering the
+   standalone demo's 8 requests (all must complete), and the reduced
+   model's greedy tokens on the card against its CPU run; then 7 again
+   with the weights upcast to float32: kernel path against einsum path
+   (<= 2e-4), and each bf16 run against the float32 einsum run; then
+   ``rmsnorm_fused`` against its plain version and ``F.rms_norm`` at
+   (4096, 4096) and (16384, 1024) in bf16 and float32.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel measurements, and as its last line
@@ -54,15 +73,24 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and the
-# float32 rate outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the
+# float32 rate outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 SECTOR = 32
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
+    """``(bound ms, "bytes" or "operations")``: the larger of the bytes over
+    HBM bandwidth and the operations over the peak rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def device_time_ms(fn, iters: int) -> tuple:
@@ -483,22 +511,16 @@ def phase_layouts(dev, params) -> dict:
                              params.p_d) for t in range(0, steps, 10)))
     de_bytes, de_ops = sum(b) / len(b), sum(o) / len(o)
 
-    def bound(nbytes, ops):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
-        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                       else "operations")
-
     timing = {
         "walk_transition_sparse": {
             "ms": sp_ms[0], "host_ms": sp_ms[1], "idle_ms": sp_ms[2],
             "plain_ms": sp_plain[0], "bytes": sp_bytes, "ops": sp_ops,
-            "bound": bound(sp_bytes, sp_ops),
+            "bound": bound(sp_bytes, sp_ops, FP32_OPS_PER_S),
         },
         "walk_transition": {
             "ms": de_ms[0], "host_ms": de_ms[1], "idle_ms": de_ms[2],
             "plain_ms": de_plain[0], "bytes": de_bytes, "ops": de_ops,
-            "bound": bound(de_bytes, de_ops),
+            "bound": bound(de_bytes, de_ops, FP32_OPS_PER_S),
         },
     }
     for name, tm in timing.items():
@@ -683,6 +705,427 @@ def timed_training(ttrain, method, graph, data, gamma, steps, walks, **kw):
         ttrain.run_fleet = run_fleet
     seen["setup_s"] = seen.pop("enter") - t0
     return res, seen
+
+
+# -- the LLM slice: phases 6-8 ---------------------------------------------------
+
+# tests/test_kernels.py's tolerances (atol = rtol), float32 / bfloat16
+LLM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+           "ssd_scan": {torch.float32: 2e-4, torch.bfloat16: 6e-2},
+           "rmsnorm_fused": {torch.float32: 1e-5, torch.bfloat16: 3e-2}}
+# prefill at full width, final hidden states: the kernel path against the
+# einsum path in float32 on the same weights (tests/test_perf_paths.py's
+# 2e-4), and in bf16 the kernel path's distance to the float32 einsum run
+# against the einsum path's.  The bf16 paths are not held to each other:
+# the random-init bf16 stack carries float32-sized differences up to the
+# bf16 noise floor (measured in phase 7 on mamba2-370m).
+PREFILL_F32_REL_ERR = 2e-4
+PREFILL_BF16_RATIO = 1.25
+
+
+def hold(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
+         where: str) -> float:
+    """Max abs error of ``got`` against ``want`` (in float32); raise if any
+    element is beyond the kernel's tolerance for inputs of ``dtype``."""
+    tol = LLM_TOL[name][dtype]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    bad = int(((g - w).abs() > tol + tol * w.abs()).sum())
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError(f"{name} disagrees with its plain version {where}: "
+                             f"{bad} elements beyond {tol}, max abs err {err}")
+    log(f"  {name} vs plain {where}: max abs err {err:.3e} (tol {tol})")
+    return err
+
+
+def flash_bound(b, s, t, n, kh, h, elt, causal, window) -> tuple:
+    """``(bytes, ops)`` of one attention call: q, k, v read once and the
+    output written once; 4h flops (q.k and p.v) per live (row, col) pair."""
+    rows = torch.arange(s, dtype=torch.float64)
+    if causal:
+        lo = (rows - window + 1).clamp(min=0) if window > 0 else torch.zeros(s, dtype=torch.float64)
+        live = float(((rows.clamp(max=t - 1) + 1) - lo).clamp(min=0).sum())
+    else:
+        live = float(s) * t
+    nbytes = (2 * b * s * n * h + 2 * b * t * kh * h) * elt
+    return nbytes, 4.0 * h * live * b * n
+
+
+def ssd_bound(b, h, l, p, n, q, elt) -> tuple:
+    """``(bytes, ops)`` of one SSD scan: x, B, C (as passed, group-expanded)
+    and the float32 da, dt read once, y (float32) written once; per chunk
+    the lower-triangular C.B^T and att @ x, the state term and the state
+    update."""
+    nbytes = b * h * l * ((p + 2 * n) * elt + 2 * 4 + p * 4)
+    pairs = q * (q + 1) / 2
+    per_chunk = pairs * 2 * (n + p) + 2 * (2 * q * n * p)
+    return nbytes, per_chunk * (l // q) * b * h
+
+
+def phase_flash(model, cfg, dev, gen) -> dict:
+    """``flash_attention`` against its plain version on minitron-8b's layer 0
+    q/k/v (B=1, S=4096, bf16, causal), at S=4000 (the tail mask) and on a
+    small float32 shape; device times, bound and SDPA."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models.layers import attention as attn_mod
+    from repro_torch.models.layers.norms import rmsnorm
+
+    s = 4096
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=dev)
+    lp = model.layers[0]
+    with torch.no_grad():
+        x = rmsnorm(lp["ln1"], model.embedding["table"][tokens], cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(
+            lp["attn"], x, model.dims, torch.arange(s, device=dev).expand(1, s))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = [hold("flash_attention", fa_ops.mha(q, k, v, causal=True),
+                 mha_ref(q, k, v, causal=True), bf16,
+                 "at B=1 S=4096 N=32 K=8 h=128 bf16")]
+    q4, k4, v4 = (t[:, :4000].contiguous() for t in (q, k, v))
+    errs.append(hold("flash_attention", fa_ops.mha(q4, k4, v4, causal=True),
+                     mha_ref(q4, k4, v4, causal=True), bf16,
+                     "at S=4000 (tail mask)"))
+    qf, kf, vf = (torch.randn((1, 1000, nh, 128), generator=gen, device=dev)
+                  for nh in (8, 2, 2))
+    errs.append(hold("flash_attention", fa_ops.mha(qf, kf, vf, causal=True),
+                     mha_ref(qf, kf, vf, causal=True), f32,
+                     "at B=1 S=1000 N=8 K=2 float32"))
+    ms = device_time_ms(lambda i: fa_ops.mha(q, k, v, causal=True), 5)
+    plain = device_time_ms(lambda i: mha_ref(q, k, v, causal=True), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = device_time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    nbytes, ops = flash_bound(1, s, s, cfg.num_heads, cfg.num_kv_heads, 128, 2,
+                              True, 0)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f"  flash_attention: {ms[0]:.4f} ms/launch on the device, plain "
+        f"{plain[0]:.4f} ms, SDPA {lib[0]:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+        f"({nbytes:.4e} B, {ops:.4e} flop)")
+    return {"max_abs_err": max(errs), "ms": ms[0], "plain_ms": plain[0],
+            "library_ms": lib[0], "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "ops": ops}
+
+
+def phase_ssd(model, cfg, dev, gen) -> dict:
+    """``ssd_scan`` against its plain version on mamba2-370m's layer 0
+    (B=4, L=4096, H=32, P=64, N=128, chunk 256, bf16), and at L=4000
+    through ``ops.ssd``'s padding; device times and bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+    from repro_torch.models.layers import mamba2 as mamba_mod
+    from repro_torch.models.layers.norms import rmsnorm
+
+    b, l = 4, 4096
+    tokens = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device=dev)
+    lp, dims = model.layers[0], model.mdims
+    with torch.no_grad():
+        x = rmsnorm(lp["ln"], model.embedding["table"][tokens], cfg.norm_eps)
+        _, conv_in, dt_raw = mamba_mod._split_proj(lp["mixer"], x, dims)
+        conv = F.silu(mamba_mod._causal_conv(conv_in, lp["mixer"]["conv_w"],
+                                             lp["mixer"]["conv_b"]))
+        xs, bs, cs = mamba_mod._split_conv_out(conv, dims)
+        dt = F.softplus(dt_raw.float() + lp["mixer"]["dt_bias"])
+        a = -torch.exp(lp["mixer"]["a_log"])
+    args = ssd_ops._head_major(xs, dt, a, bs, cs)
+    chunk = dims.chunk
+    plain_y = ssd_scan_ref(*args, chunk=chunk)
+    errs = [hold("ssd_scan", ssd_ops.ssd_scan(*args, chunk=chunk), plain_y,
+                 torch.bfloat16, "at B=4 L=4096 H=32 P=64 N=128 chunk 256 bf16")]
+    y4, _ = ssd_ops.ssd(xs[:, :4000], dt[:, :4000], a, bs[:, :4000], cs[:, :4000],
+                        chunk=chunk)
+    # y is causal in L: rows < 4000 of the L=4096 plain run are the answer
+    errs.append(hold("ssd_scan", y4, plain_y[:, :, :4000].transpose(1, 2),
+                     torch.bfloat16, "at L=4000 through ops.ssd (padded to 4096)"))
+    ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 5)
+    plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
+    h, p, n = dims.num_heads, dims.head_dim, dims.d_state
+    nbytes, ops = ssd_bound(b, h, l, p, n, chunk, 2)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f"  ssd_scan: {ms[0]:.4f} ms/launch on the device, plain {plain[0]:.4f} "
+        f"ms, bound {b_ms:.5f} ms by {b_by} ({nbytes:.4e} B, {ops:.4e} flop)")
+    return {"max_abs_err": max(errs), "ms": ms[0], "plain_ms": plain[0],
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "ops": ops}
+
+
+def phase_rmsnorm(dev, gen) -> dict:
+    """``rmsnorm_fused`` against its plain version at (4096, 4096) and
+    (16384, 1024) in bf16 and float32; device times of each, bound and
+    ``F.rms_norm``; the JSON line carries minitron's (4096, 4096) bf16."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    out, errs = {}, []
+    for rows, d in ((4096, 4096), (16384, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+            scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            errs.append(hold("rmsnorm_fused", rms_ops.rmsnorm(x, scale),
+                             rmsnorm_ref(x, scale), dtype,
+                             f"at ({rows}, {d}) {dtype}"))
+            ms = device_time_ms(lambda i: rms_ops.rmsnorm(x, scale), 20)
+            plain = device_time_ms(lambda i: rmsnorm_ref(x, scale), 10)
+            w = scale.to(dtype)
+            lib = device_time_ms(lambda i: torch.nn.functional.rms_norm(
+                x, (d,), weight=w, eps=1e-6), 20)
+            nbytes = 2 * rows * d * x.element_size() + d * 4
+            b_ms, b_by = bound(nbytes, 4.0 * rows * d, FP32_OPS_PER_S)
+            key = f"{rows}x{d}_{str(dtype).split('.')[-1]}"
+            out[key] = {"ms": ms[0], "plain_ms": plain[0], "library_ms": lib[0],
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            log(f"  rmsnorm_fused {key}: {ms[0]:.5f} ms/launch on the device, "
+                f"plain {plain[0]:.5f} ms, F.rms_norm {lib[0]:.5f} ms, bound "
+                f"{b_ms:.5f} ms by {b_by}")
+    return {"max_abs_err": max(errs), "shapes": out, **out["4096x4096_bfloat16"]}
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative Frobenius error of ``a`` against ``b``, in float32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def both_paths(model, cfg, tokens) -> dict:
+    """``apply`` with ``use_kernels=True`` (launches counted from 0; one
+    kernel per layer and nothing else, or raise) and with the einsum path
+    on the same weights, each timed with its peak memory."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    counters = {"flash_attention": fa_ops.mha, "ssd_scan": ssd_ops.ssd_scan,
+                "rmsnorm_fused": rms_ops.rmsnorm_fused}
+    expect = {"flash_attention": cfg.num_layers if cfg.family == "dense" else 0,
+              "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
+              "rmsnorm_fused": 0}
+    out = {}
+    for path, use_kernels in (("kernel", True), ("einsum", False)):
+        model.cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        h = model.apply({"tokens": tokens})
+        torch.cuda.synchronize()
+        out[path] = {"h": h, "s": time.perf_counter() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": {k: c.launches for k, c in counters.items()}}
+        if not torch.isfinite(h).all() or tuple(h.shape) != (
+                *tokens.shape, cfg.d_model):
+            raise AssertionError(f"{cfg.name} {path} path: shape "
+                                 f"{tuple(h.shape)} or non-finite values")
+    model.cfg = cfg
+    if out["kernel"]["launches"] != expect:
+        raise AssertionError(f"{cfg.name} prefill launched "
+                             f"{out['kernel']['launches']}, expected {expect}")
+    return out
+
+
+def prefill(model, cfg, batch, seq, dev, gen) -> dict:
+    """Prefill (``apply``) at full width in bf16 on both paths (after a
+    warm call), ``ops.rmsnorm`` on the kernel path's output (launches
+    counted from 0), and — for the SSM — the einsum path again with its SSD
+    output perturbed by float32 noise of relative size 1e-6 (how far the
+    bf16 stack carries noise at float32's scale)."""
+    import dataclasses
+
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.layers import mamba2 as mamba_mod
+    from repro_torch.models.layers.norms import rmsnorm
+
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev)
+    model.cfg = dataclasses.replace(cfg, use_kernels=True)
+    model.apply({"tokens": tokens})  # warm: cuBLAS and the kernels' libraries
+    runs = both_paths(model, cfg, tokens)
+    h_k, h_e = runs["kernel"]["h"], runs["einsum"]["h"]
+    rel = rel_err(h_k, h_e)
+    floor = None
+    if cfg.family == "ssm":
+        chunked, noise = mamba_mod.ssd_chunked, torch.Generator(device=dev)
+        noise.manual_seed(1)
+
+        def perturbed(*args, **kw):
+            y, h = chunked(*args, **kw)
+            return y * (1 + 1e-6 * torch.randn(y.shape, generator=noise,
+                                               device=y.device)), h
+
+        mamba_mod.ssd_chunked = perturbed
+        try:
+            floor = rel_err(model.apply({"tokens": tokens}), h_e)
+        finally:
+            mamba_mod.ssd_chunked = chunked
+    rms_ops.rmsnorm_fused.launches = 0
+    normed = rms_ops.rmsnorm(h_k, model.ln_f["scale"], cfg.norm_eps)
+    rms_launches = rms_ops.rmsnorm_fused.launches
+    rms_err = hold("rmsnorm_fused", normed, rmsnorm(model.ln_f, h_k, cfg.norm_eps),
+                   h_k.dtype, f"through ops.rmsnorm on {cfg.name}'s prefill output")
+    tok = batch * seq
+    k, e = runs["kernel"], runs["einsum"]
+    log(f"  prefill {cfg.name} B={batch} S={seq} bf16: kernel path {k['s']:.4f} s "
+        f"({tok / k['s']:.1f} tokens/s, peak {k['peak_bytes'] / 2**30:.3f} GiB), "
+        f"einsum path {e['s']:.4f} s ({tok / e['s']:.1f} tokens/s, peak "
+        f"{e['peak_bytes'] / 2**30:.3f} GiB), relative Frobenius error kernel vs "
+        f"einsum {rel:.4e}, einsum vs einsum with 1e-6 noise in the SSD output "
+        f"{floor}, launches {k['launches']}, ops.rmsnorm launches {rms_launches}")
+    return {"batch": batch, "seq": seq, "tokens": tokens, "h_kernel": h_k,
+            "h_einsum": h_e, "kernel_s": k["s"], "einsum_s": e["s"],
+            "tokens_per_s": tok / k["s"], "einsum_tokens_per_s": tok / e["s"],
+            "peak_bytes": k["peak_bytes"], "einsum_peak_bytes": e["peak_bytes"],
+            "rel_kernel_vs_einsum_bf16": rel, "rel_noise_floor_bf16": floor,
+            "launches": k["launches"], "rmsnorm_launches": rms_launches,
+            "rmsnorm_max_abs_err": rms_err}
+
+
+def prefill_accuracy(model, cfg, pre: dict) -> dict:
+    """The same weights upcast to float32 (in place; the model is not used
+    in bf16 again): the kernel path against the einsum path (relative
+    Frobenius error <= 2e-4), and both bf16 runs against the float32
+    einsum run (the kernel path no farther from it than the einsum path,
+    within 25%)."""
+    model.float()
+    runs = both_paths(model, cfg, pre.pop("tokens"))
+    h_k32, h_e32 = runs["kernel"]["h"], runs["einsum"]["h"]
+    rel32 = rel_err(h_k32, h_e32)
+    k16 = rel_err(pre.pop("h_kernel"), h_e32)
+    e16 = rel_err(pre.pop("h_einsum"), h_e32)
+    log(f"  prefill {cfg.name} float32 (same weights): kernel vs einsum "
+        f"{rel32:.4e} (bound {PREFILL_F32_REL_ERR}); against the float32 einsum "
+        f"run, bf16 kernel path {k16:.4e}, bf16 einsum path {e16:.4e} (bound: "
+        f"kernel <= {PREFILL_BF16_RATIO} x einsum); launches "
+        f"{runs['kernel']['launches']}")
+    if not rel32 <= PREFILL_F32_REL_ERR:
+        raise AssertionError(f"{cfg.name} float32 prefill: kernel vs einsum "
+                             f"{rel32} > {PREFILL_F32_REL_ERR}")
+    if not k16 <= PREFILL_BF16_RATIO * e16:
+        raise AssertionError(f"{cfg.name} bf16 prefill: the kernel path is "
+                             f"{k16} from the float32 run, the einsum path {e16}")
+    return {"rel_kernel_vs_einsum_f32": rel32, "rel_bf16_kernel_vs_f32": k16,
+            "rel_bf16_einsum_vs_f32": e16, "f32_kernel_s": runs["kernel"]["s"],
+            "f32_einsum_s": runs["einsum"]["s"]}
+
+
+def serve(model, cfg, dev) -> dict:
+    """``ServeEngine(batch_size=4, cache_len=256)`` at full width answering
+    the standalone demo's 8 requests (prompts of 4-23 tokens from
+    ``default_rng(0)``, 16 new tokens each)."""
+    from repro_torch.launch.serve import ServeEngine, standalone_requests
+
+    eng = ServeEngine(cfg, 4, 256, model=model)
+    for req in standalone_requests(8, cfg.vocab_size, 16, seed=0):
+        eng.submit(req)
+    t0 = time.perf_counter()
+    stats = eng.run()
+    wall = time.perf_counter() - t0
+    if stats["completed"] != 8:
+        raise AssertionError(f"{cfg.name} served {stats['completed']} of 8")
+    for r in eng.completed:
+        if len(r.generated) != 16 or not all(0 <= t < cfg.vocab_size
+                                             for t in r.generated):
+            raise AssertionError(f"{cfg.name} request {r.rid}: bad tokens")
+    log(f"  serve {cfg.name} bf16: 8/8 completed in {stats['engine_steps']} engine "
+        f"steps, {stats['generated_tokens']} tokens, {stats['tokens_per_sec']:.2f} "
+        f"generated tokens/s ({wall / stats['engine_steps'] * 1e3:.2f} ms/step), "
+        f"p50 {stats['p50_ticks']} p99 {stats['p99_ticks']} ticks")
+    return {**stats, "wall_s": wall}
+
+
+def serve_card_vs_cpu(arch, dev) -> dict:
+    """Reduced ``arch`` in float32 on the same weights on the CPU and on the
+    card: the same greedy tokens, or a near-tie in the CPU's logits where
+    they first differ."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import ServeEngine, standalone_requests
+    from repro_torch.models.factory import build_model
+
+    cfg = reduced(get_arch(arch))
+    cpu_model = build_model(cfg, torch.float32, device="cpu")
+    card_model = build_model(cfg, torch.float32, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    logits, runs = {}, {}
+    for name, m in (("cpu", cpu_model), ("card", card_model)):
+        rec, decode = [], m.decode_step
+
+        def recording(tokens, cache, pos, decode=decode, rec=rec):
+            out, cache = decode(tokens, cache, pos)
+            rec.append(out.cpu())
+            return out, cache
+
+        m.decode_step = recording
+        eng = ServeEngine(cfg, 4, 256, model=m)
+        for req in standalone_requests(8, cfg.vocab_size, 16, seed=0):
+            eng.submit(req)
+        eng.run()
+        logits[name] = rec
+        runs[name] = {r.rid: r.generated for r in eng.completed}
+    max_diff, first_split = 0.0, None
+    for step, (lc, lg) in enumerate(zip(logits["cpu"], logits["card"])):
+        max_diff = max(max_diff, float((lc - lg).abs().max()))
+        rows = torch.nonzero(lc.argmax(-1) != lg.argmax(-1)).flatten()
+        if rows.numel():
+            for row in rows.tolist():
+                top2 = torch.topk(lc[row], 2).values
+                gap = float(top2[0] - top2[1])
+                if gap >= 2 * (2e-4 + 2e-4 * abs(float(top2[0]))):
+                    raise AssertionError(f"reduced {arch}: card token differs "
+                                         f"at step {step} with a CPU gap {gap}")
+            first_split = step
+            break
+    if first_split is None and runs["cpu"] != runs["card"]:
+        raise AssertionError(f"reduced {arch}: card and CPU tokens differ")
+    log(f"  serve reduced {arch} float32: card == CPU greedy tokens "
+        f"({'all 8 requests' if first_split is None else f'until a near-tie at step {first_split}'}), "
+        f"max logit difference {max_diff:.3e}")
+    return {"tokens_equal": first_split is None, "max_logit_diff": max_diff}
+
+
+def phase_llm(dev) -> dict:
+    """Phases 6-8 per model: minitron-8b (flash), then mamba2-370m (ssd),
+    each built once at full width in bf16 from seed 0 and freed after;
+    then the rmsnorm kernel's shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.factory import build_model
+
+    out = {}
+    gen = torch.Generator(device=dev)
+    for arch, kernel_phase, batch in (("minitron-8b", phase_flash, 1),
+                                      ("mamba2-370m", phase_ssd, 4)):
+        cfg = get_arch(arch)
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        model = build_model(cfg, torch.bfloat16, device=dev, generator=gen)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {arch}: {n_params} parameters, {n_params * 2 / 1e9:.2f} GB in "
+            f"bf16, built on the device in {t_build:.2f} s")
+        t0 = time.perf_counter()
+        k = kernel_phase(model, cfg, dev, gen)
+        log(f"phase 6 ({arch} kernel): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        p = prefill(model, cfg, batch, 4096, dev, gen)
+        log(f"phase 7 ({arch} prefill): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        s = serve(model, cfg, dev)
+        s["card_vs_cpu"] = serve_card_vs_cpu(arch, dev)
+        log(f"phase 8 ({arch} serving): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        p.update(prefill_accuracy(model, cfg, p))
+        log(f"phase 7 ({arch} prefill in float32): {time.perf_counter() - t0:.2f} s")
+        out[arch] = {"params": n_params, "build_s": t_build, "kernel": k,
+                     "prefill": p, "serve": s}
+        del model
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["rmsnorm"] = phase_rmsnorm(dev, gen)
+    log(f"phase 6 (rmsnorm): {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -1006,6 +1449,13 @@ def main() -> int:
     log(f"phase 5 layout trainers: {dt:.2f} s")
     report["phases"]["layout_trainers"] = {"s": dt, **p5}
 
+    # -- phases 6-8: the LLM slice at full width ------------------------------
+    t0 = time.perf_counter()
+    p6 = phase_llm(dev)
+    dt = time.perf_counter() - t0
+    log(f"phases 6-8 LLM: {dt:.2f} s")
+    report["phases"]["llm"] = {"s": dt, **p6}
+
     def entry(name, source, replaces, launches, err):
         tm = p4["timing"][name]
         return {
@@ -1045,6 +1495,37 @@ def main() -> int:
         max(p4["max_abs_err"]["walk_transition"],
             p5["dense"]["replay_max_abs_err"]),
     )]
+
+    def llm_entry(name, source, replaces, launches, tm, err):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+        }
+
+    mini, mamba = p6["minitron-8b"], p6["mamba2-370m"]
+    kernels += [llm_entry(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:93",
+        mini["prefill"]["launches"]["flash_attention"], mini["kernel"],
+        mini["kernel"]["max_abs_err"],
+    ), llm_entry(
+        "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd/kernel.py:74",
+        mamba["prefill"]["launches"]["ssd_scan"], mamba["kernel"],
+        mamba["kernel"]["max_abs_err"],
+    ), llm_entry(
+        "rmsnorm_fused", "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm/kernel.py:25",
+        mini["prefill"]["rmsnorm_launches"] + mamba["prefill"]["rmsnorm_launches"],
+        p6["rmsnorm"],
+        max(p6["rmsnorm"]["max_abs_err"], mini["prefill"]["rmsnorm_max_abs_err"],
+            mamba["prefill"]["rmsnorm_max_abs_err"]),
+    )]
+    if kernels[-1]["launches"] != 2:
+        raise AssertionError("ops.rmsnorm did not launch its kernel once per model")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

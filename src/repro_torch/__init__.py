@@ -10,5 +10,7 @@ Ported so far: the MHLJ walk-SGD path on all four engine layouts — graphs
 (dense, CSR, degree-bucketed, ragged), chain-law rows, the engine with its
 CUDA kernels ``walk_transition_ragged``, ``walk_transition_sparse`` (also
 the bucketed tile op) and ``walk_transition`` (dense), the fleet and the
-regression trainer.
+regression trainer — and LLM inference for the dense (and prefix-LM) and
+SSM families: configs, models, ``launch.serve.ServeEngine``, with CUDA
+kernels ``flash_attention``, ``ssd_scan`` and ``rmsnorm_fused``.
 """

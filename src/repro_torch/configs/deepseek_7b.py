@@ -1,0 +1,18 @@
+"""DeepSeek-7B [arXiv:2401.02954] — llama architecture.
+
+30L, d_model 4096, 32 heads (kv=32), d_ff 11008, vocab 102400.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-7b",
+    family="dense",
+    source="arXiv:2401.02954",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=102400,
+)

@@ -1,0 +1,18 @@
+"""Minitron-8B [arXiv:2407.14679] — pruned Nemotron-4.
+
+32L, d_model 4096, 32 heads (GQA kv=8), d_ff 16384, vocab 256000.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-8b",
+    family="dense",
+    source="arXiv:2407.14679",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=256000,
+)

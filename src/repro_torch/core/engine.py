@@ -866,7 +866,8 @@ class WalkEngine:
         without precomputed rows.  Returns ``(next_nodes, hops)``, both
         (W,) int32; with ``with_aux`` also ``{"compact_overflow": bool}``,
         True when this step's compacted bucketed dispatch overflowed a
-        capacity and took the full dispatch.
+        capacity and took the full dispatch.  A 0-d ``nodes`` (with a
+        ``(3 + r,)`` or ``(1, 3 + r)`` block) returns 0-d outputs.
         """
         from repro_torch.kernels.walk_transition.kernel import (
             walk_transition,
@@ -875,10 +876,15 @@ class WalkEngine:
         )
 
         nodes = torch.as_tensor(nodes, dtype=torch.int32, device=self.device)
+        squeeze = nodes.ndim == 0
+        if squeeze:
+            nodes = nodes[None]
         if nodes.ndim != 1:
-            raise ValueError(f"nodes must be (W,), got {tuple(nodes.shape)}")
+            raise ValueError(f"nodes must be (W,) or 0-d, got {tuple(nodes.shape)}")
         shape = (nodes.shape[0], num_uniforms(self.r))
         if uniforms is not None:
+            if squeeze and uniforms.ndim == 1:
+                uniforms = uniforms[None]
             u = self._check_block(uniforms, shape)
         elif generator is not None:
             u = draw_uniforms(
@@ -921,6 +927,8 @@ class WalkEngine:
                 nodes, u, self.degrees, self.p_d, self.r, **jump
             )
             nxt, hops = combine_mh_jump(v_mh, v_jump, d, u)
+        if squeeze:
+            nxt, hops = nxt[0], hops[0]
         if with_aux:
             return nxt, hops, {"compact_overflow": overflow}
         return nxt, hops
@@ -943,9 +951,15 @@ class WalkEngine:
         or a (T,) schedule.  Returns ``(update_nodes, hops)``, both
         (W, T) int32: element t is the node holding the model when update
         t runs (the first at v0) and the hops taken after it; with
-        ``with_aux`` also ``{"compact_overflow": (T,) bool tensor}``.
+        ``with_aux`` also ``{"compact_overflow": (T,) bool tensor}``.  A
+        0-d ``v0s`` (with a ``(T, 3 + r)`` block) drops the walk axis.
         """
         v = torch.as_tensor(v0s, dtype=torch.int32, device=self.device)
+        squeeze = v.ndim == 0
+        if squeeze:
+            v = v[None]
+            if uniforms is not None and uniforms.ndim == 2:
+                uniforms = uniforms[:, None]
         w = v.shape[0]
         if uniforms is not None:
             uniforms = self._check_block(
@@ -975,6 +989,8 @@ class WalkEngine:
             overflow[t] = aux["compact_overflow"]
         update_nodes = nodes_out.T.contiguous()
         hops = hops_out.T.contiguous()
+        if squeeze:
+            update_nodes, hops = update_nodes[0], hops[0]
         if with_aux:
             return update_nodes, hops, {"compact_overflow": overflow}
         return update_nodes, hops

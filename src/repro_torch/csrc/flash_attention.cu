@@ -1,0 +1,255 @@
+// Blockwise online-softmax attention (flash attention), for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
+// `flash_attention` (body `_kernel`): for each query row, softmax(q k^T *
+// h^-1/2) v over its key block sequence, with the running max m, sum l and
+// accumulator kept in float32, the causal and sliding-window masks, the
+// tail mask col < T, a skip of key blocks the causal/window geometry makes
+// dead, and GQA by reading kv head n*K/N for query head n.  Its plain
+// version is repro_torch/kernels/flash_attention/ref.py `attention_ref`.
+//
+// Layout: the model's own, q/out (B, S, N, h) and k/v (B, T, K, h), read
+// through their row strides (N*h and K*h), so the wrapper copies nothing.
+//
+// Design: one CTA of 256 threads per (q block of 64 rows, query head,
+// batch).  The q tile and each 64-row k and v tile are staged in shared
+// memory as float32 (q and k rows padded by one word against bank
+// conflicts), 115 KB at h=128, set through
+// cudaFuncAttributeMaxDynamicSharedMemorySize.  Each thread owns a 4x4
+// micro-tile of the 64x64 score tile (rows ty+16a, columns tx+16b) and
+// the matching rows of the 64 x h accumulator (columns tx+16b); row max
+// and row sum reduce over the 16 lanes that share a row with shuffles.
+// The probabilities go through shared memory for the P @ V product.
+// Rows past S are computed on zeros and never written.
+//
+// What bounds it: operations.  At S=4096, h=128 the causal work is ~137
+// GFLOP against ~84 MB of q/k/v/out, far right of the card's ridge point.
+// This kernel uses CUDA cores in float32, not the tensor cores (wgmma), so
+// it stands far above the bf16 tensor-core bound; that redesign is later
+// work.
+//
+// Numerics: float32 scores, exp and sums; built with --fmad=false and
+// without fast math.  Masked scores are -1e30, as in the TPU kernel, so
+// a row whose first live block is wholly masked for it collects weight
+// that the next live block's rescale (alpha = exp(-1e30 - m) = 0) wipes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int THREADS = 256;
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <int HD>
+constexpr int smem_floats() {
+  // q (BQ x HD+1), k (BK x HD+1), v (BK x HD), p (BQ x BK+1)
+  return BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1);
+}
+
+// Stage rows [row0, row0 + 64) of one head into shared memory as float32,
+// zeros past `rows`.  `stride` is the element distance between rows.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long stride, int row0,
+                                          int rows) {
+  for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
+    const int r = e / HD, c = e % HD;
+    const int gr = row0 + r;
+    dst[r * LD + c] =
+        gr < rows ? to_float(src[static_cast<long long>(gr) * stride + c])
+                  : 0.0f;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS) flash_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, int S, int T_len, int N, int K, int causal,
+    int window, float scale) {
+  constexpr int LDQ = HD + 1, LDK = HD + 1, LDV = HD, LDP = BK + 1;
+  constexpr int CB = HD / 16;  // accumulator columns per thread
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + BQ * LDQ;
+  float* vs = ks + BK * LDK;
+  float* ps = vs + BK * LDV;
+
+  const int qb = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
+  const int kvh = n * K / N;
+  const int i0 = qb * BQ;
+  const long long q_stride = static_cast<long long>(N) * HD;
+  const long long kv_stride = static_cast<long long>(K) * HD;
+  const T* qh = q + (static_cast<long long>(b) * S * N + n) * HD;
+  const T* kh = k + (static_cast<long long>(b) * T_len * K + kvh) * HD;
+  const T* vh = v + (static_cast<long long>(b) * T_len * K + kvh) * HD;
+  T* oh = out + (static_cast<long long>(b) * S * N + n) * HD;
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile<T, HD, LDQ>(qs, qh, q_stride, i0, S);
+
+  float m[4], l[4], acc[4][CB];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = NEG_INF;
+    l[a] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[a][c] = 0.0f;
+  }
+
+  const int num_kb = (T_len + BK - 1) / BK;
+  for (int j = 0; j < num_kb; ++j) {
+    const int j0 = j * BK;
+    // dead-block skip: above the diagonal, or wholly outside the window
+    if (causal) {
+      if (j0 > i0 + BQ - 1) break;
+      if (window > 0 && j0 + BK - 1 < i0 - window + 1) continue;
+    }
+    __syncthreads();  // the previous block's k, v and p are consumed
+    load_tile<T, HD, LDK>(ks, kh, kv_stride, j0, T_len);
+    load_tile<T, HD, LDV>(vs, vh, kv_stride, j0, T_len);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
+    for (int d = 0; d < HD; ++d) {
+      float qa[4], kc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * LDQ + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kc[c] = ks[(tx + 16 * c) * LDK + d];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[a][c] = __fadd_rn(s[a][c], __fmul_rn(qa[a], kc[c]));
+    }
+
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = i0 + ty + 16 * a;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = j0 + tx + 16 * c;
+        bool keep = col < T_len;
+        if (causal) {
+          keep = keep && col <= row;
+          if (window > 0) keep = keep && col > row - window;
+        }
+        s[a][c] = keep ? __fmul_rn(s[a][c], scale) : NEG_INF;
+        mx = fmaxf(mx, s[a][c]);
+      }
+      // the 16 lanes of a row are lanes [0,16) or [16,32) of one warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[a], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(__fsub_rn(s[a][c], m_new));
+        ps[(ty + 16 * a) * LDP + tx + 16 * c] = p;
+        sum = __fadd_rn(sum, p);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+      const float alpha = expf(__fsub_rn(m[a], m_new));
+      l[a] = __fadd_rn(__fmul_rn(alpha, l[a]), sum);
+      m[a] = m_new;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) acc[a][c] = __fmul_rn(acc[a][c], alpha);
+    }
+    __syncthreads();  // p complete
+
+    for (int kk = 0; kk < BK; ++kk) {
+      float pa[4], vc[CB];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pa[a] = ps[(ty + 16 * a) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < CB; ++c) vc[c] = vs[kk * LDV + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          acc[a][c] = __fadd_rn(acc[a][c], __fmul_rn(pa[a], vc[c]));
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = i0 + ty + 16 * a;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[a], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+      oh[static_cast<long long>(row) * q_stride + tx + 16 * c] =
+          from_float<T>(__fdiv_rn(acc[a][c], denom));
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int T_len, int N, int K, int causal, int window,
+           cudaStream_t stream) {
+  constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
+  auto kernel = flash_attention_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BQ - 1) / BQ, N, B);
+  // h^-1/2 rounded once to float32, as the plain version's scalar is
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, N, K, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int B, int S,
+                                      int T_len, int N, int K, int h,
+                                      int causal, int window, int is_bf16,
+                                      void* stream) {
+  if (B <= 0 || S <= 0 || N <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (h == 64)
+      return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, T_len, N, K,
+                                       causal, window, s);
+    if (h == 128)
+      return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, T_len, N, K,
+                                        causal, window, s);
+  } else {
+    if (h == 64)
+      return launch<float, 64>(q, k, v, out, B, S, T_len, N, K, causal,
+                               window, s);
+    if (h == 128)
+      return launch<float, 128>(q, k, v, out, B, S, T_len, N, K, causal,
+                                window, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,305 @@
+// Mamba-2 chunked SSD scan, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/ssd/kernel.py `ssd_scan` (body
+// `_kernel`).  Per (b, h) and per chunk of Q rows, with cum = cumsum(da):
+//   att[i,j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j      for j <= i
+//   y_i      = sum_j att[i,j] x_j + exp(cum_i) * (C_i @ state)
+//   state    = exp(cum_Q) * state + sum_j B_j^T exp(cum_Q - cum_j) dt_j x_j
+// with the (N, P) float32 state carried from chunk to chunk.  Its plain
+// version is repro_torch/kernels/ssd/ref.py `ssd_scan_ref`.
+//
+// Design: the TPU kernel leans on its grid running in order to carry the
+// state in VMEM.  Here one persistent CTA of 256 threads per (b, h) walks
+// its chunks in order and keeps the state in shared memory (32 KB at
+// N=128, P=64).  Q x Q and Q x N do not fit at once (Q=256, N=128 would
+// need 128 KB for each of B and C in float32), so a chunk is tiled in
+// 64-row blocks: for each row block of C, the state term, then the
+// lower-triangular column blocks of B and x (score tile through shared
+// memory), then the y rows; after all row blocks, the state update over
+// the column blocks.  Each thread owns a 4x4 micro-tile of every 64x64
+// product (rows ty+16a, columns tx+16b), and a 4x4-per-16-rows tile of
+// the state.  Shared memory is ~132 KB at N=128, P=64, Q=256, set through
+// cudaFuncAttributeMaxDynamicSharedMemorySize.  At the prefill shape
+// (B=4, H=32) that is 128 CTAs on 132 SMs.
+//
+// What bounds it: operations, on CUDA cores in float32 (about 21 MFLOP
+// per chunk per head against 0.2 MB of inputs); no tensor cores yet.
+//
+// Numerics: float32 throughout, x/B/C read as float32 or bfloat16, y
+// written as float32; the within-chunk cumsum is a per-lane sequential sum
+// plus a warp scan (not PyTorch's order).  Built with --fmad=false and
+// without fast math.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TILE = 64;     // rows of a block of the chunk
+constexpr int MAX_N = 128;   // state rows a thread tile covers (8 x 16)
+constexpr int LDX = TILE;    // x tile and state row stride (P <= 64)
+constexpr int LDM = TILE + 1;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__host__ __device__ inline int smem_floats(int q, int n) {
+  const int ldn = n + 1;
+  return n * LDX            // state
+         + 2 * TILE * ldn   // C and B tiles
+         + TILE * LDX       // x tile
+         + TILE * LDM       // score tile
+         + 3 * q;           // cum, dt, state-update weights
+}
+
+// rows [row0, row0 + 64) of a (rows, width) block, as float32 with a row
+// stride of ld, zeros past `rows` and past `width` (up to `cols`).
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+                                          int width, int cols, int row0,
+                                          int rows) {
+  for (int e = threadIdx.x; e < TILE * cols; e += THREADS) {
+    const int r = e / cols, c = e % cols;
+    const int gr = row0 + r;
+    dst[r * ld + c] =
+        (gr < rows && c < width)
+            ? to_float(src[static_cast<long long>(gr) * width + c])
+            : 0.0f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
+    const T* __restrict__ x, const float* __restrict__ da,
+    const float* __restrict__ dt, const T* __restrict__ bmat,
+    const T* __restrict__ cmat, float* __restrict__ y, int L, int P, int N,
+    int Q) {
+  extern __shared__ float smem[];
+  const int ldn = N + 1;
+  float* st = smem;              // (N, LDX) state, columns >= P stay 0
+  float* ct = st + N * LDX;      // (64, N+1) C rows
+  float* bt = ct + TILE * ldn;   // (64, N+1) B rows
+  float* xt = bt + TILE * ldn;   // (64, LDX) x rows
+  float* sm = xt + TILE * LDX;   // (64, 65) score tile
+  float* cum = sm + TILE * LDM;  // (Q,)
+  float* dtv = cum + Q;          // (Q,)
+  float* wv = dtv + Q;           // (Q,)
+
+  const long long bh = blockIdx.x;
+  const T* xh = x + bh * L * P;
+  const T* bh_b = bmat + bh * L * N;
+  const T* bh_c = cmat + bh * L * N;
+  const float* dah = da + bh * L;
+  const float* dth = dt + bh * L;
+  float* yh = y + bh * L * P;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid % 16, ty = tid / 16;
+  const int n_tiles = N / 16;  // state rows per thread: ty + 16a, a < n_tiles
+
+  for (int e = tid; e < N * LDX; e += THREADS) st[e] = 0.0f;
+
+  for (int l0 = 0; l0 < L; l0 += Q) {
+    __syncthreads();  // the previous chunk's state update is done
+    for (int i = tid; i < Q; i += THREADS) {
+      cum[i] = dah[l0 + i];
+      dtv[i] = dth[l0 + i];
+    }
+    __syncthreads();
+    if (warp == 0) {  // cum = inclusive cumsum of da over the chunk
+      const int per = (Q + 31) / 32;
+      const int s0 = lane * per;
+      float run = 0.0f;
+      for (int k = 0; k < per; ++k) {
+        const int i = s0 + k;
+        if (i < Q) {
+          run = __fadd_rn(run, cum[i]);
+          cum[i] = run;
+        }
+      }
+      float incl = run;
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl = __fadd_rn(incl, t);
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0f;
+      for (int k = 0; k < per; ++k) {
+        const int i = s0 + k;
+        if (i < Q) cum[i] = __fadd_rn(cum[i], excl);
+      }
+    }
+    __syncthreads();
+
+    for (int i0 = 0; i0 < Q; i0 += TILE) {
+      load_tile<T>(ct, ldn, bh_c, N, N, l0 + i0, l0 + Q);
+      __syncthreads();
+      float acc[4][4];
+      // the carried state's term: exp(cum_i) * (C_i @ state)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+      for (int n = 0; n < N; ++n) {
+        float ca[4], sb[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) ca[a] = ct[(ty + 16 * a) * ldn + n];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) sb[b] = st[n * LDX + tx + 16 * b];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[a][b] = __fadd_rn(acc[a][b], __fmul_rn(ca[a], sb[b]));
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = i0 + ty + 16 * a;
+        const float e = i < Q ? expf(cum[i]) : 0.0f;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = __fmul_rn(e, acc[a][b]);
+      }
+      // the lower-triangular blocks: y_i += sum_j att[i,j] x_j
+      for (int j0 = 0; j0 <= i0; j0 += TILE) {
+        __syncthreads();  // the previous block's b, x and scores are consumed
+        load_tile<T>(bt, ldn, bh_b, N, N, l0 + j0, l0 + Q);
+        load_tile<T>(xt, LDX, xh, P, LDX, l0 + j0, l0 + Q);
+        __syncthreads();
+        float s[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) s[a][b] = 0.0f;
+        for (int n = 0; n < N; ++n) {
+          float ca[4], bb[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) ca[a] = ct[(ty + 16 * a) * ldn + n];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) bb[b] = bt[(tx + 16 * b) * ldn + n];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              s[a][b] = __fadd_rn(s[a][b], __fmul_rn(ca[a], bb[b]));
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = i0 + ty + 16 * a;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int j = j0 + tx + 16 * b;
+            float v = 0.0f;
+            if (j <= i && i < Q)
+              v = __fmul_rn(
+                  __fmul_rn(s[a][b], expf(__fsub_rn(cum[i], cum[j]))),
+                  dtv[j]);
+            sm[(ty + 16 * a) * LDM + tx + 16 * b] = v;
+          }
+        }
+        __syncthreads();
+        for (int kk = 0; kk < TILE; ++kk) {
+          float pa[4], xb[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) pa[a] = sm[(ty + 16 * a) * LDM + kk];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) xb[b] = xt[kk * LDX + tx + 16 * b];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[a][b] = __fadd_rn(acc[a][b], __fmul_rn(pa[a], xb[b]));
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = i0 + ty + 16 * a;
+        if (i >= Q) continue;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int p = tx + 16 * b;
+          if (p < P) yh[static_cast<long long>(l0 + i) * P + p] = acc[a][b];
+        }
+      }
+      __syncthreads();  // c tile consumed before the next row block
+    }
+
+    // state = exp(cum_Q) * state + sum_j B_j^T (exp(cum_Q - cum_j) dt_j) x_j
+    const float last = cum[Q - 1];
+    for (int i = tid; i < Q; i += THREADS)
+      wv[i] = __fmul_rn(expf(__fsub_rn(last, cum[i])), dtv[i]);
+    const float decay = expf(last);
+    float sacc[MAX_N / 16][4];
+#pragma unroll
+    for (int a = 0; a < MAX_N / 16; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sacc[a][b] = 0.0f;
+    for (int j0 = 0; j0 < Q; j0 += TILE) {
+      __syncthreads();
+      load_tile<T>(bt, ldn, bh_b, N, N, l0 + j0, l0 + Q);
+      load_tile<T>(xt, LDX, xh, P, LDX, l0 + j0, l0 + Q);
+      __syncthreads();
+      const int rows = min(TILE, Q - j0);
+      for (int jj = 0; jj < rows; ++jj) {
+        const float w = wv[j0 + jj];
+        float xb[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) xb[b] = xt[jj * LDX + tx + 16 * b];
+#pragma unroll
+        for (int a = 0; a < MAX_N / 16; ++a) {
+          if (a < n_tiles) {
+            const float bw = __fmul_rn(bt[jj * ldn + ty + 16 * a], w);
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              sacc[a][b] = __fadd_rn(sacc[a][b], __fmul_rn(bw, xb[b]));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < MAX_N / 16; ++a) {
+      if (a < n_tiles) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          float* s = st + (ty + 16 * a) * LDX + tx + 16 * b;
+          *s = __fadd_rn(__fmul_rn(decay, *s), sacc[a][b]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* da, const void* dt, const void* bmat,
+           const void* cmat, void* y, int bh, int L, int P, int N, int Q,
+           cudaStream_t stream) {
+  const int bytes = smem_floats(Q, N) * static_cast<int>(sizeof(float));
+  auto kernel = ssd_scan_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<bh, THREADS, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(da),
+      static_cast<const float*>(dt), static_cast<const T*>(bmat),
+      static_cast<const T*>(cmat), static_cast<float*>(y), L, P, N, Q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ssd_scan_launch(const void* x, const void* da, const void* dt,
+                               const void* bmat, const void* cmat, void* y,
+                               int bh, int L, int P, int N, int chunk,
+                               int is_bf16, void* stream) {
+  if (bh <= 0 || L <= 0) return 0;
+  if (P <= 0 || P > LDX || N <= 0 || N > MAX_N || N % 16 != 0 ||
+      chunk <= 0 || L % chunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(x, da, dt, bmat, cmat, y, bh, L, P, N, chunk,
+                                 s);
+  return launch<float>(x, da, dt, bmat, cmat, y, bh, L, P, N, chunk, s);
+}

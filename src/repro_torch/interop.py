@@ -1,11 +1,16 @@
-"""Carry the JAX package's walk state into the port.
+"""Carry the JAX package's state into the port.
 
 The port reads the reference's state as plain numpy arrays — it imports
-nothing of the JAX package — and rebuilds its own engine (and fleet) on
-the requested device.  Parity tests use this to hand the reference's
-exact row state (padded rows, per-bucket rows, or the per-edge CDF) to
-the port, so a last-ulp difference between two row builders cannot hide
-or fake a sampler fault.
+nothing of the JAX package — and rebuilds its own objects on the
+requested device:
+
+* :func:`from_reference_state` — a walk engine (and fleet) from a
+  reference engine's fields.  Parity tests hand the reference's exact row
+  state (padded rows, per-bucket rows, or the per-edge CDF) to the port,
+  so a last-ulp difference between two row builders cannot hide or fake a
+  sampler fault;
+* :func:`model_from_reference_params` — a language model from the JAX
+  package's params pytree, so both packages run on the same weights.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 from repro_torch.core.engine import LAYOUTS, WalkEngine
 from repro_torch.walk_sgd.fleet import WalkFleet
 
-__all__ = ["from_reference_state"]
+__all__ = ["from_reference_state", "model_from_reference_params"]
 
 
 def from_reference_state(
@@ -122,3 +127,72 @@ def from_reference_state(
     if models is not None:
         models = torch.as_tensor(np.asarray(models, np.float32), device=device)
     return engine, fleet, models
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """``{"a.b.c": leaf}`` of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; numpy's bfloat16 (from
+    ml_dtypes, which JAX arrays convert to) is carried bit for bit."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def model_from_reference_params(cfg, params, *, device: Union[str, torch.device] = "cuda"):
+    """The port's model for ``cfg`` holding the JAX package's ``params``.
+
+    ``params`` is the reference model's params pytree (nested dicts of
+    numpy arrays, or arrays numpy can read).  Its ``layers`` leaves carry
+    the leading ``(num_layers,)`` axis of the reference's stacked init;
+    leaf ``layers.attn.wq`` becomes ``layers.{i}.attn.wq`` of the port.
+    The model dtype is the embedding table's; every leaf keeps its dtype
+    (the norm scales, ``a_log``, ``d_skip`` and ``dt_bias`` are float32).
+    Raises ``ValueError`` on a missing, extra, mis-shaped or mis-typed leaf.
+    """
+    from repro_torch.models.factory import build_model
+
+    flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+    if "embedding.table" not in flat:
+        raise ValueError("params has no embedding.table leaf")
+    dtype = _to_torch(flat["embedding.table"][:1]).dtype
+    device = torch.device(device)
+    model = build_model(cfg, dtype, device=device)
+    expected = model.state_dict()
+    carried = {}
+    for key, arr in flat.items():
+        if key.startswith("layers."):
+            if arr.ndim == 0 or arr.shape[0] != cfg.num_layers:
+                raise ValueError(
+                    f"leaf {key} of shape {arr.shape} lacks the leading "
+                    f"({cfg.num_layers},) layer axis"
+                )
+            for i in range(cfg.num_layers):
+                carried[f"layers.{i}.{key[len('layers.'):]}"] = arr[i]
+        else:
+            carried[key] = arr
+    missing = sorted(set(expected) - set(carried))
+    extra = sorted(set(carried) - set(expected))
+    if missing or extra:
+        raise ValueError(f"params do not match {cfg.name}: missing {missing}, "
+                         f"extra {extra}")
+    with torch.no_grad():
+        for key, arr in carried.items():
+            t = _to_torch(arr)
+            dst = expected[key]
+            if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
+                raise ValueError(
+                    f"leaf {key}: {tuple(t.shape)} {t.dtype}, the port holds "
+                    f"{tuple(dst.shape)} {dst.dtype}"
+                )
+            dst.copy_(t)
+    return model

@@ -27,6 +27,9 @@ SOURCES = {
     "walk_transition_ragged": "walk_transition_ragged.cu",
     "walk_transition_sparse": "walk_transition_sparse.cu",
     "walk_transition_dense": "walk_transition_dense.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
+    "rmsnorm": "rmsnorm.cu",
 }
 
 # No fast math, and no fused multiply-add contraction: the kernels' float32

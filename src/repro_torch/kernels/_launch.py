@@ -1,0 +1,64 @@
+"""What every kernel wrapper of the port shares: device and input checks,
+the current stream, and the ctypes call of a library's launch function.
+
+Each CUDA source exposes one C function ``<name>_launch`` that returns
+``cudaGetLastError()`` after its launch; :func:`launch` raises on any
+non-zero code, so a refused launch never passes silently.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["P", "I", "F", "launch", "device_of", "check", "stream"]
+
+# ctypes argument types: a pointer or the stream, an int, a float
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _function(name: str, argtypes: tuple):
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, argtypes, *args) -> None:
+    """Call ``<name>_launch(*args)`` from library ``name``; raise on a CUDA
+    error code."""
+    err = _function(name, tuple(argtypes))(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def device_of(*tensors) -> torch.device:
+    """The one device of ``tensors``: CPU or CUDA, else raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
+    """Raise unless ``t`` has one of ``dtypes``, ``ndim`` dimensions and a
+    contiguous layout."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the int ctypes passes."""
+    return torch.cuda.current_stream(device).cuda_stream

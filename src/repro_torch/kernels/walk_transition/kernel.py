@@ -20,9 +20,6 @@ raises; for CPU tensors it runs the plain version from
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from repro_torch.core.engine import (
@@ -33,7 +30,10 @@ from repro_torch.core.engine import (
     search_iters,
 )
 from repro_torch.core.levy import icdf_constants
-from repro_torch.kernels import _build
+from repro_torch.kernels._launch import F, I, P, launch
+from repro_torch.kernels._launch import check as _check
+from repro_torch.kernels._launch import device_of as _device
+from repro_torch.kernels._launch import stream as _stream
 from repro_torch.kernels.walk_transition.ref import (
     walk_transition_ragged_ref,
     walk_transition_ref,
@@ -48,54 +48,23 @@ __all__ = [
     "walk_transition_ragged",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # nodes, indptr, degrees, indices, edge_cdf, uniforms, den, next, hops,
     # W, r, z, search_iters, stream
-    "walk_transition_ragged": [_P] * 9 + [_I, _I, _F, _I, _P],
+    "walk_transition_ragged": [P] * 9 + [I, I, F, I, P],
     # rows, neigh_rows, u_mh, v_mh, W, width, stream
-    "walk_transition_sparse": [_P] * 4 + [_I, _I, _P],
+    "walk_transition_sparse": [P] * 4 + [I, I, P],
     # nodes, row_probs, neighbors, degrees, uniforms, den, next, hops,
     # W, max_deg, r, z, stream
-    "walk_transition_dense": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "walk_transition_dense": [P] * 8 + [I, I, I, F, P],
 }
 
 # float32 log(1 - p_d), computed once per (device, 1 - p_d) on the device
 _DEN: dict = {}
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher(name: str):
-    fn = getattr(_build.load(name), f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, *args) -> None:
-    err = _launcher(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
-def _device(*tensors) -> torch.device:
-    """The one device of ``tensors``: CPU or CUDA, else raise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"all inputs must be on one device, got {devices}")
-    device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
-
-
-def _check(name, t, dtype, ndim):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.ndim != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    launch(name, _ARGTYPES[name], *args)
 
 
 def _levy_constants(device, p_d: float, r: int) -> tuple:

@@ -1,0 +1,237 @@
+"""Mamba-2 (SSD, state-space duality) mixer layer [arXiv:2405.21060].
+
+Selective state space with scalar-per-head decay:
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t^T        (state: (H, N, P))
+    y_t = C_t h_t + D * x_t
+
+The full sequence uses the chunked SSD formulation (quadratic within
+chunks of length Q, linear state passing across chunks): in PyTorch here
+(:func:`ssd_chunked`), or with ``use_kernel`` through the hand-written
+CUDA kernel ``ssd_scan`` (``repro_torch.kernels.ssd.ops.ssd``).  Decode is
+the O(1) single-step recurrence.  :func:`ssd_reference` (the exact
+sequential scan) is the oracle of the tests.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.models.model_utils import normal
+
+__all__ = [
+    "MambaDims",
+    "mamba_init",
+    "mamba_apply",
+    "mamba_decode",
+    "init_mamba_cache",
+    "ssd_chunked",
+    "ssd_reference",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaDims:
+    d_model: int
+    d_state: int  # N
+    num_heads: int  # H
+    head_dim: int  # P  (d_inner = H * P)
+    num_groups: int = 1  # G (B/C shared per group)
+    conv_kernel: int = 4
+    chunk: int = 256
+
+    @property
+    def d_inner(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.num_groups * self.d_state
+
+
+def mamba_init(dims: MambaDims, dtype, device, generator) -> dict:
+    """The JAX package's init law; ``a_log``, ``d_skip`` and ``dt_bias``
+    stay float32 whatever the model dtype."""
+    d = dims.d_model
+    proj_out = dims.d_inner + dims.conv_channels + dims.num_heads  # z, conv-in, dt
+    u = torch.rand((dims.num_heads,), generator=generator, dtype=torch.float32,
+                   device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": normal((d, proj_out), d**-0.5, dtype, device, generator),
+        "conv_w": normal((dims.conv_kernel, dims.conv_channels), 0.1, dtype,
+                         device, generator),
+        "conv_b": torch.zeros((dims.conv_channels,), dtype=dtype, device=device),
+        "a_log": torch.log(torch.arange(1, dims.num_heads + 1, **f32)),
+        "d_skip": torch.ones((dims.num_heads,), **f32),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),  # inverse softplus
+        "norm_scale": torch.ones((dims.d_inner,), dtype=dtype, device=device),
+        "out_proj": normal((dims.d_inner, d), dims.d_inner**-0.5, dtype, device,
+                           generator),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d. x: (B, L, C); w: (K, C)."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i : i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+    return out + b[None, None, :]
+
+
+def _split_proj(params, x, dims: MambaDims):
+    proj = x @ params["in_proj"]
+    return torch.split(proj, [dims.d_inner, dims.conv_channels, dims.num_heads],
+                       dim=-1)
+
+
+def _split_conv_out(conv_out, dims: MambaDims):
+    g_n = dims.num_groups * dims.d_state
+    xs, bs, cs = torch.split(conv_out, [dims.d_inner, g_n, g_n], dim=-1)
+    b, l = conv_out.shape[:2]
+    xs = xs.reshape(b, l, dims.num_heads, dims.head_dim)
+    bs = bs.reshape(b, l, dims.num_groups, dims.d_state)
+    cs = cs.reshape(b, l, dims.num_groups, dims.d_state)
+    return xs, bs, cs
+
+
+def ssd_chunked(
+    xs: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H)  post-softplus, float32
+    a: torch.Tensor,  # (H,) negative decay rates, float32
+    bs: torch.Tensor,  # (B, L, G, N)
+    cs: torch.Tensor,  # (B, L, G, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, H, N, P) initial state
+) -> tuple:
+    """Chunked SSD; returns (y (B,L,H,P), final_state (B,H,N,P)), float32."""
+    b, l, h, p = xs.shape
+    g, n = bs.shape[2], bs.shape[3]
+    pad = (-l) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bs = F.pad(bs, (0, 0, 0, 0, 0, pad))
+        cs = F.pad(cs, (0, 0, 0, 0, 0, pad))
+    lp = l + pad
+    nc, q = lp // chunk, chunk
+    rep = h // g
+
+    xs = xs.reshape(b, nc, q, h, p).float()
+    dt = dt.reshape(b, nc, q, h)
+    bs = bs.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
+    cs = cs.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
+
+    da = dt * a[None, None, None, :]  # (B,NC,Q,H) log-decay increments (<= 0)
+    cum = torch.cumsum(da, dim=2)  # inclusive within chunk
+
+    # intra-chunk: att[i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i
+    scores = torch.einsum("bcihn,bcjhn->bchij", cs, bs)
+    cum_t = cum.permute(0, 1, 3, 2)  # (B,NC,H,Q)
+    decay = torch.exp(cum_t[..., :, None] - cum_t[..., None, :])
+    mask = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+    att = torch.where(mask, scores * decay, 0.0)
+    att = att * dt.permute(0, 1, 3, 2)[:, :, :, None, :]  # times dt_j
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", att, xs)
+
+    # chunk summary states: S_k = sum_j exp(cum_Q - cum_j) dt_j B_j x_j^T
+    tail = torch.exp(cum[:, :, -1:, :] - cum) * dt  # (B,NC,Q,H)
+    s_k = torch.einsum("bcjh,bcjhn,bcjhp->bchnp", tail, bs, xs)
+
+    # inter-chunk recurrence, sequential over chunks
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,NC,H)
+    h_state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=xs.device)
+               if h0 is None else h0.float())
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(h_state)  # the state entering chunk c
+        h_state = chunk_decay[:, c, :, None, None] * h_state + s_k[:, c]
+    h_enter = torch.stack(h_enter, dim=1)  # (B,NC,H,N,P)
+
+    # inter-chunk contribution: y_i += C_i exp(cum_i) H_enter
+    y_inter = torch.einsum("bcihn,bcih,bchnp->bcihp", cs, torch.exp(cum), h_enter)
+    y = (y_intra + y_inter).reshape(b, lp, h, p)[:, :l]
+    return y, h_state
+
+
+def ssd_reference(xs, dt, a, bs, cs, h0=None) -> tuple:
+    """Exact sequential recurrence (oracle).  Same signature minus chunk."""
+    b, l, h, p = xs.shape
+    rep = h // bs.shape[2]
+    n = bs.shape[3]
+    bs = bs.repeat_interleave(rep, dim=2).float()
+    cs = cs.repeat_interleave(rep, dim=2).float()
+    xs = xs.float()
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=xs.device)
+             if h0 is None else h0.float())
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dt[:, t] * a[None])  # (B,H)
+        contrib = dt[:, t, :, None, None] * bs[:, t, :, :, None] * xs[:, t, :, None, :]
+        state = decay[..., None, None] * state + contrib
+        ys.append(torch.einsum("bhn,bhnp->bhp", cs[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def mamba_apply(params, x: torch.Tensor, dims: MambaDims,
+                use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence mamba2 block: (B, L, D) -> (B, L, D)."""
+    z, conv_in, dt_raw = _split_proj(params, x, dims)
+    conv_out = F.silu(_causal_conv(conv_in, params["conv_w"], params["conv_b"]))
+    xs, bs, cs = _split_conv_out(conv_out, dims)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    if use_kernel:
+        from repro_torch.kernels.ssd.ops import ssd
+
+        y, _ = ssd(xs, dt, a, bs, cs, chunk=dims.chunk)
+    else:
+        y, _ = ssd_chunked(xs, dt, a, bs, cs, dims.chunk)
+    y = y + params["d_skip"][None, None, :, None] * xs.float()
+    y = y.reshape(x.shape[0], x.shape[1], dims.d_inner).to(x.dtype)
+    y = rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z))
+    return y @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# Decode path: O(1) recurrent step with a (conv, ssm) cache
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_cache(batch: int, dims: MambaDims, dtype, device=None) -> dict:
+    return {
+        "conv": torch.zeros((batch, dims.conv_kernel - 1, dims.conv_channels),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, dims.num_heads, dims.d_state, dims.head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(params, x: torch.Tensor, cache: dict, dims: MambaDims) -> tuple:
+    """One-token step. x: (B, 1, D) -> (B, 1, D) and the new cache."""
+    z, conv_in, dt_raw = _split_proj(params, x, dims)  # (B,1,*)
+    window = torch.cat([cache["conv"], conv_in.to(cache["conv"].dtype)], dim=1)
+    conv_out = (window * params["conv_w"][None]).sum(dim=1, keepdim=True)
+    conv_out = F.silu(conv_out + params["conv_b"])
+    xs, bs, cs = _split_conv_out(conv_out, dims)  # (B,1,H,P), (B,1,G,N)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])[:, 0]  # (B,H)
+    a = -torch.exp(params["a_log"])
+    rep = dims.num_heads // dims.num_groups
+    b_t = bs[:, 0].repeat_interleave(rep, dim=1).float()  # (B,H,N)
+    c_t = cs[:, 0].repeat_interleave(rep, dim=1).float()
+    x_t = xs[:, 0].float()  # (B,H,P)
+
+    decay = torch.exp(dt * a[None])  # (B,H)
+    h_new = (decay[..., None, None] * cache["ssm"]
+             + dt[..., None, None] * b_t[..., None] * x_t[..., None, :])
+    y = torch.einsum("bhn,bhnp->bhp", c_t, h_new)
+    y = y + params["d_skip"][None, :, None] * x_t
+    y = y.reshape(x.shape[0], 1, dims.d_inner).to(x.dtype)
+    y = rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z))
+    out = y @ params["out_proj"]
+    return out, {"conv": window[:, 1:], "ssm": h_new}

@@ -292,6 +292,44 @@ def test_engine_step_validates_inputs():
     assert hops_t[:, -10:].max() == 1  # the schedule reaches p_J ~ 0
 
 
+@pytest.mark.parametrize("layout", ["ragged", "sparse", "dense"])
+def test_scalar_node_step_and_run_match_reference(layout):
+    """A 0-d node gives 0-d outputs, as the reference's ``step`` and ``run``
+    squeeze a scalar node (``repro/core/engine.py`` ``step``, ``run``);
+    the values equal the reference's under its own uniforms."""
+    g = jg.ring(40, layout="ragged" if layout == "ragged" else "csr")
+    g_port = tg.ring(40, layout="ragged" if layout == "ragged" else "csr")
+    lips = np.linspace(1.0, 5.0, g.n)
+    params = jtr.MHLJParams(0.5, 0.5, 3)
+    ref_eng = jeng.WalkEngine.from_graph(g, params, lipschitz=lips,
+                                         backend="scan", layout=layout)
+    eng = teng.WalkEngine.from_graph(
+        g_port, ttr.MHLJParams(0.5, 0.5, 3), lipschitz=lips, layout=layout,
+        device="cpu",
+    )
+    key = jax.random.PRNGKey(8)
+    nxt_ref, hops_ref = ref_eng.step(key, jnp.int32(7))
+    assert np.shape(nxt_ref) == np.shape(hops_ref) == ()
+    # step(key) draws (1, 3 + r) from key itself: run's per-step block
+    # without the split
+    u = np.array(jax.random.uniform(key, (1, jeng.num_uniforms(3)), jnp.float32))
+    u[:, 0] = (u[:, 0] < 0.5).astype(np.float32)
+    for block in (u, u[0]):  # (1, 3 + r) or (3 + r,)
+        nxt, hops = eng.step(torch.tensor(7, dtype=torch.int32),
+                             uniforms=torch.from_numpy(block))
+        assert nxt.shape == hops.shape == ()
+        assert int(nxt) == int(nxt_ref) and int(hops) == int(hops_ref)
+    nodes_ref, hops_t_ref = ref_eng.run(key, jnp.int32(3), 30)
+    assert np.shape(nodes_ref) == (30,)
+    blocks = _ref_blocks(key, 30, 1, 3, 0.5)
+    assert not _d_mismatch(blocks, 0.5, 3).any()
+    nodes, hops_t = eng.run(torch.tensor(3), 30,
+                            uniforms=torch.from_numpy(blocks[:, 0]))
+    assert nodes.shape == hops_t.shape == (30,)
+    np.testing.assert_array_equal(nodes.numpy(), np.asarray(nodes_ref))
+    np.testing.assert_array_equal(hops_t.numpy(), np.asarray(hops_t_ref))
+
+
 def _chi_square_stat(counts, probs, min_expected=10.0):
     total = counts.sum()
     expected = probs * total
@@ -385,6 +423,14 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch\n"
         "for info in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(info.name)\n"
+        "expected = {'repro_torch.configs', 'repro_torch.configs.minitron_8b',\n"
+        "            'repro_torch.models.factory', 'repro_torch.models.transformer',\n"
+        "            'repro_torch.models.mamba_model', 'repro_torch.models.layers.attention',\n"
+        "            'repro_torch.models.layers.mamba2', 'repro_torch.models.layers.embedding',\n"
+        "            'repro_torch.kernels.flash_attention.ops', 'repro_torch.kernels.ssd.ops',\n"
+        "            'repro_torch.kernels.rmsnorm.ops', 'repro_torch.launch.serve',\n"
+        "            'repro_torch.interop'}\n"
+        "assert expected <= set(sys.modules), expected - set(sys.modules)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

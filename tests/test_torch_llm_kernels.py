@@ -1,0 +1,154 @@
+"""Port parity: the plain versions of the three LLM kernels against the
+JAX package's ops, which run their Pallas kernels in interpret mode on the
+CPU (``repro/kernels/*/ops.py``), as ``tests/test_kernels.py`` runs them.
+
+Each case makes its inputs with numpy from a seed and hands the same
+values to both packages (bfloat16 cases round the same float32 draws in
+both).  Tolerances are those of ``tests/test_kernels.py``: flash attention
+2e-5 (float32) / 2e-2 (bfloat16), SSD 2e-4 / 6e-2, RMSNorm 1e-5 / 3e-2,
+each as both atol and rtol.  The CUDA kernels themselves are held against
+these plain versions on the card (``tests/test_torch_cuda.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import mha as jmha
+from repro.kernels.rmsnorm.ops import rmsnorm as jrmsnorm
+from repro.kernels.ssd.kernel import ssd_scan as jssd_scan
+from repro.kernels.ssd.ops import ssd as jssd
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {
+    "flash": {"float32": 2e-5, "bfloat16": 2e-2},
+    "ssd": {"float32": 2e-4, "bfloat16": 6e-2},
+    "rmsnorm": {"float32": 1e-5, "bfloat16": 3e-2},
+}
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _both(a: np.ndarray, dtype: str):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _close(port: torch.Tensor, ref, tol: float) -> None:
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------- flash attn
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,s,nq,nkv,h,causal,window",
+    [
+        (1, 128, 4, 4, 64, True, 0),      # MHA
+        (2, 256, 8, 2, 64, True, 0),      # GQA 4:1
+        (1, 256, 4, 1, 128, True, 0),     # MQA
+        (2, 128, 4, 4, 64, False, 0),     # bidirectional
+        (1, 384, 4, 2, 64, True, 128),    # sliding window 128
+        (1, 160, 4, 4, 64, True, 0),      # S not a block multiple
+    ],
+)
+def test_flash_plain_matches_jax_kernel(b, s, nq, nkv, h, causal, window, dtype):
+    rng = np.random.default_rng(s + nq + h)
+    q, k, v = (rng.standard_normal((b, s, n, h)).astype(np.float32)
+               for n in (nq, nkv, nkv))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    ref = jmha(jq, jk, jv, causal=causal, window=window)
+    out = fa_ops.mha(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(out, ref, TOL["flash"][dtype])
+
+
+def test_flash_wrapper_rejects_other_devices():
+    q = torch.zeros((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa_ops.mha(q, q, q)
+
+
+# ------------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 17, 256), (3, 384)])
+def test_rmsnorm_plain_matches_jax_kernel(shape, dtype):
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    scale = rng.standard_normal(shape[-1]).astype(np.float32)
+    jx, tx = _both(x, dtype)
+    ref = jrmsnorm(jx, jnp.asarray(scale))
+    out = rms_ops.rmsnorm(tx, torch.from_numpy(scale))
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    _close(out, ref, TOL["rmsnorm"][dtype])
+
+
+# ----------------------------------------------------------------------- ssd
+def _ssd_inputs(b, l, heads, groups, p, n, seed):
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((b, l, heads, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, heads)))).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(heads) * 0.3)).astype(np.float32)
+    bs = rng.standard_normal((b, l, groups, n)).astype(np.float32)
+    cs = rng.standard_normal((b, l, groups, n)).astype(np.float32)
+    return xs, dt, a, bs, cs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,l,heads,groups,p,n,chunk",
+    [
+        (2, 96, 4, 2, 64, 32, 32),    # grouped B/C, L not a chunk multiple
+        (1, 128, 4, 1, 32, 16, 32),
+    ],
+)
+def test_ssd_plain_matches_jax_kernel(b, l, heads, groups, p, n, chunk, dtype):
+    xs, dt, a, bs, cs = _ssd_inputs(b, l, heads, groups, p, n, l + heads)
+    (jx, tx), (jb, tb), (jc, tc) = (_both(t, dtype) for t in (xs, bs, cs))
+    ref, _ = jssd(jx, jnp.asarray(dt), jnp.asarray(a), jb, jc, chunk=chunk)
+    out, _ = ssd_ops.ssd(tx, torch.from_numpy(dt), torch.from_numpy(a), tb, tc,
+                         chunk=chunk)
+    assert out.dtype == torch.float32 and out.shape == tx.shape
+    _close(out, ref, TOL["ssd"][dtype])
+
+
+def test_ssd_scan_plain_matches_jax_kernel_and_recurrence():
+    """Head-major, at the kernel's own interface: the port's per-chunk plain
+    version against the JAX kernel and against the exact recurrence."""
+    rng = np.random.default_rng(5)
+    b, h, l, p, n, chunk = 1, 3, 64, 32, 16, 16
+    xs = rng.standard_normal((b, h, l, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, h, l)))).astype(np.float32)
+    da = (dt * -np.exp(rng.standard_normal(h) * 0.3)[None, :, None]).astype(np.float32)
+    bs, cs = (rng.standard_normal((b, h, l, n)).astype(np.float32) for _ in range(2))
+    ref = jssd_scan(*(jnp.asarray(t) for t in (xs, da, dt, bs, cs)),
+                    chunk=chunk, interpret=True)
+    args = [torch.from_numpy(t) for t in (xs, da, dt, bs, cs)]
+    out = ssd_scan_ref(*args, chunk=chunk)
+    _close(out, ref, TOL["ssd"]["float32"])
+    _close(ssd_ref(*args), ref, TOL["ssd"]["float32"])
+    assert ssd_ops.ssd_scan(*args, chunk=chunk).equal(out)  # CPU -> plain
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan_ref(*args, chunk=24)
+
+
+def test_ssd_padding_rows_leave_the_state_alone():
+    """Zero dt/da rows appended past L change neither y before them nor the
+    carried state (so the wrapper's padding is exact)."""
+    xs, dt, a, bs, cs = _ssd_inputs(1, 40, 2, 1, 16, 16, 3)
+    t = [torch.from_numpy(v) for v in (xs, dt, a, bs, cs)]
+    y_pad, _ = ssd_ops.ssd(*t, chunk=16)  # L=40 -> 48
+    y_exact = ssd_ops.ssd_oracle(*t)
+    _close(y_pad, y_exact.numpy(), TOL["ssd"]["float32"])
