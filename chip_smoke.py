@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, started together), then:
+``nvcc`` per source, started together; ptxas' registers, spills and
+warnings are printed, and ``cuobjdump -sass`` must find HGMMA in the bf16
+flash-attention library), then:
 
 1. holds ``walk_transition_ragged`` against its plain PyTorch version on
    the card, on ``barabasi_albert(1_000_000, 3)`` (ragged, ~7 M directed
@@ -36,22 +38,27 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 6.-8. the LLM slice, per model, each built once at full width in bf16
    with random weights from seed 0 (minitron-8b, then mamba2-370m, freed
    in between): 6. its kernel against its plain version at the path's
-   shapes — ``flash_attention`` on minitron's layer-0 q/k/v (B=1, S=4096,
-   N=32, K=8, h=128, causal), at S=4000 and on a small float32 shape;
-   ``ssd_scan`` on mamba2's layer-0 inputs (B=4, L=4096, H=32, P=64,
-   N=128, chunk 256) and at L=4000 through the padding — with device
+   shapes — ``flash_attention``'s bf16 route (``wgmma_bf16``) on
+   minitron's layer-0 q/k/v (B=1, S=4096, N=32, K=8, h=128, causal), at
+   S=4000 and at h=64, its float32 route (``cuda_core_f32``) on a small
+   shape, and both routes timed at minitron's shape (TFLOP/s, share of the
+   bound); ``ssd_scan`` on mamba2's layer-0 inputs (B=4, L=4096, H=32,
+   P=64, N=128, chunk 256) and at L=4000 through the padding — with device
    times, bounds, the plain version's time and SDPA's; 7. prefill
    (``apply``, minitron B=1x4096, mamba2 B=4x4096) with
-   ``use_kernels=True``: launches (one kernel per layer), tokens/s, peak
-   memory, the relative Frobenius error against the einsum path on the
-   same weights, and ``ops.rmsnorm`` (``rmsnorm_fused``) on the result;
+   ``use_kernels=True``: launches (one kernel per layer; minitron's 32 on
+   the bf16 route), tokens/s, peak memory, the relative Frobenius error
+   against the einsum path on the same weights, and ``ops.rmsnorm``
+   (``rmsnorm_fused``) on the result;
    8. ``ServeEngine(batch_size=4, cache_len=256)`` answering the
    standalone demo's 8 requests (all must complete), and the reduced
    model's greedy tokens on the card against its CPU run; then 7 again
-   with the weights upcast to float32: kernel path against einsum path
-   (<= 2e-4), and each bf16 run against the float32 einsum run; then
-   ``rmsnorm_fused`` against its plain version and ``F.rms_norm`` at
-   (4096, 4096) and (16384, 1024) in bf16 and float32.
+   with the weights upcast to float32 (minitron's 32 launches on the
+   float32 route): kernel path against einsum path (<= 2e-4), and each
+   bf16 run against the float32 einsum run; then ``rmsnorm_fused``
+   against its plain version and ``F.rms_norm`` at (4096, 4096) and
+   (16384, 1024) in bf16 and float32, with the kernel that ran and the
+   share of the bound.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel measurements, and as its last line
@@ -723,6 +730,20 @@ PREFILL_F32_REL_ERR = 2e-4
 PREFILL_BF16_RATIO = 1.25
 
 
+def sass_count(library: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` ``cuobjdump -sass`` finds in the
+    built ``library``."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build._target(library))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def hold(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
          where: str) -> float:
     """Max abs error of ``got`` against ``want`` (in float32); raise if any
@@ -763,9 +784,13 @@ def ssd_bound(b, h, l, p, n, q, elt) -> tuple:
 
 
 def phase_flash(model, cfg, dev, gen) -> dict:
-    """``flash_attention`` against its plain version on minitron-8b's layer 0
-    q/k/v (B=1, S=4096, bf16, causal), at S=4000 (the tail mask) and on a
-    small float32 shape; device times, bound and SDPA."""
+    """``flash_attention`` against its plain version: the bf16 route
+    (``wgmma_bf16``) on minitron-8b's layer 0 q/k/v (B=1, S=4096, N=32,
+    K=8, h=128, causal), at S=4000 (the tail mask) and at h=64; the float32
+    route (``cuda_core_f32``) on a small shape.  Device times of both
+    routes at minitron's shape (float32: the same q/k/v upcast), achieved
+    TFLOP/s and share of the bound, the plain version's time and SDPA's
+    (a yardstick only: the port never calls it)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.models.layers import attention as attn_mod
@@ -780,32 +805,53 @@ def phase_flash(model, cfg, dev, gen) -> dict:
             lp["attn"], x, model.dims, torch.arange(s, device=dev).expand(1, s))
     q, k, v = (t.contiguous() for t in (q, k, v))
     bf16, f32 = torch.bfloat16, torch.float32
-    errs = [hold("flash_attention", fa_ops.mha(q, k, v, causal=True),
-                 mha_ref(q, k, v, causal=True), bf16,
-                 "at B=1 S=4096 N=32 K=8 h=128 bf16")]
+    before = dict(fa_ops.mha.launches_by_route)
+    errs = {"wgmma_bf16": [hold("flash_attention", fa_ops.mha(q, k, v, causal=True),
+                                mha_ref(q, k, v, causal=True), bf16,
+                                "at B=1 S=4096 N=32 K=8 h=128 bf16")]}
     q4, k4, v4 = (t[:, :4000].contiguous() for t in (q, k, v))
-    errs.append(hold("flash_attention", fa_ops.mha(q4, k4, v4, causal=True),
-                     mha_ref(q4, k4, v4, causal=True), bf16,
-                     "at S=4000 (tail mask)"))
+    errs["wgmma_bf16"].append(hold(
+        "flash_attention", fa_ops.mha(q4, k4, v4, causal=True),
+        mha_ref(q4, k4, v4, causal=True), bf16, "at S=4000 (tail mask) bf16"))
+    q6, k6, v6 = (torch.randn((1, 2048, nh, 64), generator=gen, device=dev).to(bf16)
+                  for nh in (16, 4, 4))
+    errs["wgmma_bf16"].append(hold(
+        "flash_attention", fa_ops.mha(q6, k6, v6, causal=True),
+        mha_ref(q6, k6, v6, causal=True), bf16, "at B=1 S=2048 N=16 K=4 h=64 bf16"))
     qf, kf, vf = (torch.randn((1, 1000, nh, 128), generator=gen, device=dev)
                   for nh in (8, 2, 2))
-    errs.append(hold("flash_attention", fa_ops.mha(qf, kf, vf, causal=True),
-                     mha_ref(qf, kf, vf, causal=True), f32,
-                     "at B=1 S=1000 N=8 K=2 float32"))
-    ms = device_time_ms(lambda i: fa_ops.mha(q, k, v, causal=True), 5)
-    plain = device_time_ms(lambda i: mha_ref(q, k, v, causal=True), 3)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = device_time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    errs["cuda_core_f32"] = [hold("flash_attention", fa_ops.mha(qf, kf, vf, causal=True),
+                                  mha_ref(qf, kf, vf, causal=True), f32,
+                                  "at B=1 S=1000 N=8 K=2 float32")]
+    went = {r: fa_ops.mha.launches_by_route[r] - before[r] for r in before}
+    if went != {"wgmma_bf16": 3, "cuda_core_f32": 1}:
+        raise AssertionError(f"flash_attention took the routes {went}")
     nbytes, ops = flash_bound(1, s, s, cfg.num_heads, cfg.num_kv_heads, 128, 2,
                               True, 0)
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
-    log(f"  flash_attention: {ms[0]:.4f} ms/launch on the device, plain "
-        f"{plain[0]:.4f} ms, SDPA {lib[0]:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-        f"({nbytes:.4e} B, {ops:.4e} flop)")
-    return {"max_abs_err": max(errs), "ms": ms[0], "plain_ms": plain[0],
-            "library_ms": lib[0], "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "ops": ops}
+    routes = {}
+    for route, dtype, peak in (("wgmma_bf16", bf16, BF16_OPS_PER_S),
+                               ("cuda_core_f32", f32, FP32_OPS_PER_S)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        ms = device_time_ms(lambda i: fa_ops.mha(qd, kd, vd, causal=True),
+                            20 if dtype == bf16 else 3)
+        plain = device_time_ms(lambda i: mha_ref(qd, kd, vd, causal=True), 3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+        lib = device_time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        b_ms, b_by = bound(nbytes * dtype.itemsize / 2, ops, peak)
+        routes[route] = {"ms": ms[0], "plain_ms": plain[0], "library_ms": lib[0],
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "tflops": ops / ms[0] / 1e9,
+                         "bound_share": b_ms / ms[0],
+                         "max_abs_err": max(errs[route])}
+        log(f"  flash_attention {route}: {ms[0]:.4f} ms/launch on the device "
+            f"({ops / ms[0] / 1e9:.1f} TFLOP/s, {b_ms / ms[0]:.1%} of its bound "
+            f"{b_ms:.5f} ms by {b_by}), plain {plain[0]:.4f} ms, SDPA "
+            f"{lib[0]:.4f} ms ({ms[0] / lib[0]:.2f}x SDPA) "
+            f"({nbytes * dtype.itemsize / 2:.4e} B, {ops:.4e} flop)")
+    main = routes["wgmma_bf16"]
+    return {**main, "max_abs_err": max(max(e) for e in errs.values()),
+            "bytes": nbytes, "ops": ops, "routes": routes}
 
 
 def phase_ssd(model, cfg, dev, gen) -> dict:
@@ -854,8 +900,9 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
 
 def phase_rmsnorm(dev, gen) -> dict:
     """``rmsnorm_fused`` against its plain version at (4096, 4096) and
-    (16384, 1024) in bf16 and float32; device times of each, bound and
-    ``F.rms_norm``; the JSON line carries minitron's (4096, 4096) bf16."""
+    (16384, 1024) in bf16 and float32; device times of each, the kernel
+    that ran, share of the bound and ``F.rms_norm``; the JSON line carries
+    minitron's (4096, 4096) bf16."""
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -864,9 +911,12 @@ def phase_rmsnorm(dev, gen) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
             scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            before = dict(rms_ops.rmsnorm_fused.launches_by_kernel)
             errs.append(hold("rmsnorm_fused", rms_ops.rmsnorm(x, scale),
                              rmsnorm_ref(x, scale), dtype,
                              f"at ({rows}, {d}) {dtype}"))
+            kernel = [k for k, n in rms_ops.rmsnorm_fused.launches_by_kernel.items()
+                      if n != before[k]]
             ms = device_time_ms(lambda i: rms_ops.rmsnorm(x, scale), 20)
             plain = device_time_ms(lambda i: rmsnorm_ref(x, scale), 10)
             w = scale.to(dtype)
@@ -876,10 +926,12 @@ def phase_rmsnorm(dev, gen) -> dict:
             b_ms, b_by = bound(nbytes, 4.0 * rows * d, FP32_OPS_PER_S)
             key = f"{rows}x{d}_{str(dtype).split('.')[-1]}"
             out[key] = {"ms": ms[0], "plain_ms": plain[0], "library_ms": lib[0],
-                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
-            log(f"  rmsnorm_fused {key}: {ms[0]:.5f} ms/launch on the device, "
-                f"plain {plain[0]:.5f} ms, F.rms_norm {lib[0]:.5f} ms, bound "
-                f"{b_ms:.5f} ms by {b_by}")
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                        "kernel": kernel, "bound_share": b_ms / ms[0]}
+            log(f"  rmsnorm_fused {key} ({'/'.join(kernel)} kernel): {ms[0]:.5f} "
+                f"ms/launch on the device ({b_ms / ms[0]:.1%} of its bound "
+                f"{b_ms:.5f} ms by {b_by}), plain {plain[0]:.5f} ms, F.rms_norm "
+                f"{lib[0]:.5f} ms (kernel / F.rms_norm {ms[0] / lib[0]:.3f})")
     return {"max_abs_err": max(errs), "shapes": out, **out["4096x4096_bfloat16"]}
 
 
@@ -903,6 +955,10 @@ def both_paths(model, cfg, tokens) -> dict:
     expect = {"flash_attention": cfg.num_layers if cfg.family == "dense" else 0,
               "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
               "rmsnorm_fused": 0}
+    # the flash route the model's dtype takes, once per layer
+    route = fa_ops.route_of(model.embedding["table"].dtype)
+    expect_routes = {r: expect["flash_attention"] if r == route else 0
+                     for r in fa_ops.mha.launches_by_route}
     out = {}
     for path, use_kernels in (("kernel", True), ("einsum", False)):
         model.cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
@@ -910,20 +966,24 @@ def both_paths(model, cfg, tokens) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        fa_ops.mha.launches_by_route = dict.fromkeys(expect_routes, 0)
         t0 = time.perf_counter()
         h = model.apply({"tokens": tokens})
         torch.cuda.synchronize()
         out[path] = {"h": h, "s": time.perf_counter() - t0,
                      "peak_bytes": torch.cuda.max_memory_allocated(),
-                     "launches": {k: c.launches for k, c in counters.items()}}
+                     "launches": {k: c.launches for k, c in counters.items()},
+                     "routes": dict(fa_ops.mha.launches_by_route)}
         if not torch.isfinite(h).all() or tuple(h.shape) != (
                 *tokens.shape, cfg.d_model):
             raise AssertionError(f"{cfg.name} {path} path: shape "
                                  f"{tuple(h.shape)} or non-finite values")
     model.cfg = cfg
-    if out["kernel"]["launches"] != expect:
+    if out["kernel"]["launches"] != expect or out["kernel"]["routes"] != expect_routes:
         raise AssertionError(f"{cfg.name} prefill launched "
-                             f"{out['kernel']['launches']}, expected {expect}")
+                             f"{out['kernel']['launches']}, flash routes "
+                             f"{out['kernel']['routes']}, expected {expect}, "
+                             f"{expect_routes}")
     return out
 
 
@@ -973,13 +1033,15 @@ def prefill(model, cfg, batch, seq, dev, gen) -> dict:
         f"einsum path {e['s']:.4f} s ({tok / e['s']:.1f} tokens/s, peak "
         f"{e['peak_bytes'] / 2**30:.3f} GiB), relative Frobenius error kernel vs "
         f"einsum {rel:.4e}, einsum vs einsum with 1e-6 noise in the SSD output "
-        f"{floor}, launches {k['launches']}, ops.rmsnorm launches {rms_launches}")
+        f"{floor}, launches {k['launches']}, flash routes {k['routes']}, "
+        f"ops.rmsnorm launches {rms_launches}")
     return {"batch": batch, "seq": seq, "tokens": tokens, "h_kernel": h_k,
             "h_einsum": h_e, "kernel_s": k["s"], "einsum_s": e["s"],
             "tokens_per_s": tok / k["s"], "einsum_tokens_per_s": tok / e["s"],
             "peak_bytes": k["peak_bytes"], "einsum_peak_bytes": e["peak_bytes"],
             "rel_kernel_vs_einsum_bf16": rel, "rel_noise_floor_bf16": floor,
-            "launches": k["launches"], "rmsnorm_launches": rms_launches,
+            "launches": k["launches"], "routes": k["routes"],
+            "rmsnorm_launches": rms_launches,
             "rmsnorm_max_abs_err": rms_err}
 
 
@@ -999,7 +1061,7 @@ def prefill_accuracy(model, cfg, pre: dict) -> dict:
         f"{rel32:.4e} (bound {PREFILL_F32_REL_ERR}); against the float32 einsum "
         f"run, bf16 kernel path {k16:.4e}, bf16 einsum path {e16:.4e} (bound: "
         f"kernel <= {PREFILL_BF16_RATIO} x einsum); launches "
-        f"{runs['kernel']['launches']}")
+        f"{runs['kernel']['launches']}, flash routes {runs['kernel']['routes']}")
     if not rel32 <= PREFILL_F32_REL_ERR:
         raise AssertionError(f"{cfg.name} float32 prefill: kernel vs einsum "
                              f"{rel32} > {PREFILL_F32_REL_ERR}")
@@ -1007,7 +1069,8 @@ def prefill_accuracy(model, cfg, pre: dict) -> dict:
         raise AssertionError(f"{cfg.name} bf16 prefill: the kernel path is "
                              f"{k16} from the float32 run, the einsum path {e16}")
     return {"rel_kernel_vs_einsum_f32": rel32, "rel_bf16_kernel_vs_f32": k16,
-            "rel_bf16_einsum_vs_f32": e16, "f32_kernel_s": runs["kernel"]["s"],
+            "rel_bf16_einsum_vs_f32": e16, "f32_routes": runs["kernel"]["routes"],
+            "f32_kernel_s": runs["kernel"]["s"],
             "f32_einsum_s": runs["einsum"]["s"]}
 
 
@@ -1168,11 +1231,17 @@ def main() -> int:
     dt = time.perf_counter() - t0
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "arning",
+                                       "setmaxnreg", "wgmma")):
                 log(f"  nvcc {name}: {line.strip()}")
+    hgmma = sass_count("flash_attention_wgmma", "HGMMA")
+    log(f"  cuobjdump -sass flash_attention_wgmma: {hgmma} HGMMA instructions")
+    if hgmma == 0:
+        raise AssertionError("the bf16 flash_attention library has no HGMMA")
     log(f"phase build: {len(_build.SOURCES)} kernel source(s), "
         f"{len(build_logs)} compiled, {dt:.2f} s")
     report["phases"]["build_s"] = dt
+    report["phases"]["hgmma"] = hgmma
 
     # -- phase 1: kernel vs plain version on the card -----------------------------
     t0 = time.perf_counter()
@@ -1506,12 +1575,22 @@ def main() -> int:
         }
 
     mini, mamba = p6["minitron-8b"], p6["mamba2-370m"]
-    kernels += [llm_entry(
-        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+    flash = llm_entry(
+        "flash_attention", "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention/kernel.py:93",
-        mini["prefill"]["launches"]["flash_attention"], mini["kernel"],
+        mini["prefill"]["routes"]["wgmma_bf16"], mini["kernel"],
         mini["kernel"]["max_abs_err"],
-    ), llm_entry(
+    )
+    # float32 inputs take the CUDA-core kernel (the float32 prefill gate)
+    flash["routes"] = {
+        "wgmma_bf16": {"source": flash["source"],
+                       "launches": mini["prefill"]["routes"]["wgmma_bf16"],
+                       **mini["kernel"]["routes"]["wgmma_bf16"]},
+        "cuda_core_f32": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                          "launches": mini["prefill"]["f32_routes"]["cuda_core_f32"],
+                          **mini["kernel"]["routes"]["cuda_core_f32"]},
+    }
+    kernels += [flash, llm_entry(
         "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd/kernel.py:74",
         mamba["prefill"]["launches"]["ssd_scan"], mamba["kernel"],

@@ -28,6 +28,7 @@ SOURCES = {
     "walk_transition_sparse": "walk_transition_sparse.cu",
     "walk_transition_dense": "walk_transition_dense.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_wgmma": "flash_attention_wgmma.cu",
     "ssd_scan": "ssd_scan.cu",
     "rmsnorm": "rmsnorm.cu",
 }

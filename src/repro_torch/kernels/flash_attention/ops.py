@@ -1,4 +1,4 @@
-"""Attention through the hand-written CUDA kernel ``csrc/flash_attention.cu``.
+"""Attention through the port's hand-written CUDA kernels, one per dtype.
 
 :func:`mha` replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention`` behind the
@@ -6,13 +6,22 @@ JAX package's ``ops.mha``: blockwise online-softmax attention in the
 model layout — q ``(B, S, N, h)``, k and v ``(B, T, K, h)`` — with GQA
 (query head n reads kv head ``n*K//N``), the causal and sliding-window
 masks (``window`` only with ``causal``), float32 running max, sum and
-accumulator, and the output in q's dtype.  The kernel reads the model
-layout through its strides, so nothing is transposed or padded.
+accumulator, and the output in q's dtype.  The kernels read the model
+layout directly, so nothing is transposed or padded.
 
-For CUDA tensors it launches the kernel or raises (float32 or bfloat16,
-head_dim 64 or 128, contiguous inputs); for CPU tensors it runs
+Two routes, chosen by dtype (:func:`route_of`):
+
+- ``wgmma_bf16``: bfloat16 through ``csrc/flash_attention_wgmma.cu``, on
+  the tensor cores (``wgmma`` fed by TMA); its inputs must be 16-byte
+  aligned.  The probabilities are rounded to bf16 before P·V.
+- ``cuda_core_f32``: float32 through ``csrc/flash_attention.cu``, float32
+  products on the CUDA cores (the float32 tolerance, 2e-5, is beyond
+  TF32's 10-bit mantissa).
+
+For CUDA tensors :func:`mha` launches the route's kernel or raises (head_dim
+64 or 128, contiguous inputs); for CPU tensors it runs
 :func:`~repro_torch.kernels.flash_attention.ref.mha_ref`.  ``mha.launches``
-counts kernel launches.
+counts kernel launches, ``mha.launches_by_route`` the same per route.
 """
 from __future__ import annotations
 
@@ -21,12 +30,23 @@ import torch
 from repro_torch.kernels._launch import I, P, check, device_of, launch, stream
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
-__all__ = ["mha", "HEAD_DIMS"]
+__all__ = ["mha", "route_of", "HEAD_DIMS", "ROUTES"]
 
-# q, k, v, out, B, S, T, N, K, h, causal, window, is_bf16, stream
-_ARGTYPES = (P, P, P, P, I, I, I, I, I, I, I, I, I, P)
-DTYPES = (torch.float32, torch.bfloat16)
+# dtype -> route; route -> (library, C argument types after the pointers)
+ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
+# q, k, v, out, B, S, T, N, K, h, causal, window, [is_bf16,] stream
+_LAUNCH = {
+    "wgmma_bf16": ("flash_attention_wgmma", (P, P, P, P) + (I,) * 8 + (P,)),
+    "cuda_core_f32": ("flash_attention", (P, P, P, P) + (I,) * 9 + (P,)),
+}
 HEAD_DIMS = (64, 128)
+
+
+def route_of(dtype: torch.dtype) -> str:
+    """The kernel route for inputs of ``dtype``; raise on any other."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash attention takes {tuple(ROUTES)}, got {dtype}")
+    return ROUTES[dtype]
 
 
 def mha(
@@ -42,9 +62,10 @@ def mha(
     if device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check(name, t, DTYPES, 4)
+        check(name, t, tuple(ROUTES), 4)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    route = route_of(q.dtype)
     b, s, n, h = q.shape
     t, kh = k.shape[1], k.shape[2]
     if tuple(k.shape) != (b, t, kh, h) or tuple(v.shape) != (b, t, kh, h):
@@ -57,14 +78,22 @@ def mha(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    launch(
-        "flash_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, s, t, n, kh, h, int(causal),
-        int(window) if causal else 0, int(q.dtype == torch.bfloat16),
-        stream(device),
-    )
+    window = int(window) if causal else 0
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, n, kh, h, int(causal), window]
+    if route == "wgmma_bf16":
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 f"bf16 kernel (TMA)")
+    else:
+        args.append(0)  # is_bf16
+    library, argtypes = _LAUNCH[route]
+    launch(library, argtypes, *args, stream(device))
     mha.launches += 1
+    mha.launches_by_route[route] += 1
     return out
 
 
 mha.launches = 0
+mha.launches_by_route = dict.fromkeys(_LAUNCH, 0)

@@ -1,13 +1,15 @@
-"""RMSNorm through the hand-written CUDA kernel ``csrc/rmsnorm.cu``.
+"""RMSNorm through the hand-written CUDA kernels of ``csrc/rmsnorm.cu``.
 
 :func:`rmsnorm_fused` replaces the TPU kernel
 ``repro/kernels/rmsnorm/kernel.py::rmsnorm_fused``: rows ``(R, D)`` in
 float32 or bfloat16, a float32 ``(D,)`` scale.  For CUDA tensors it
-launches the kernel or raises; for CPU tensors it runs
+launches one of the source's three kernels, chosen by :func:`kernel_for`
+from the shape, or raises; for CPU tensors it runs
 :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`.  Its ``launches``
-attribute counts kernel launches.  :func:`rmsnorm` takes the model layout
-``(..., D)``.  As in the JAX package, the models normalise through
-``models/layers/norms.py``; this kernel is its own entry point.
+attribute counts kernel launches, ``launches_by_kernel`` the same per
+kernel.  :func:`rmsnorm` takes the model layout ``(..., D)``.  As in the
+JAX package, the models normalise through ``models/layers/norms.py``; this
+kernel is its own entry point.
 """
 from __future__ import annotations
 
@@ -16,11 +18,26 @@ import torch
 from repro_torch.kernels._launch import F, I, P, check, device_of, launch, stream
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
-__all__ = ["rmsnorm", "rmsnorm_fused"]
+__all__ = ["rmsnorm", "rmsnorm_fused", "kernel_for", "KERNELS"]
 
-# x, scale, out, rows, d, eps, is_bf16, stream
-_ARGTYPES = (P, P, P, I, I, F, I, P)
+# x, scale, out, rows, d, eps, is_bf16, kernel, stream
+_ARGTYPES = (P, P, P, I, I, F, I, I, P)
 DTYPES = (torch.float32, torch.bfloat16)
+# kernel name -> the C side's code
+KERNELS = {"scalar": 0, "warp": 1, "cta": 2}
+WARP_MAX_D = 2048      # one warp per row up to here
+MAX_VECTORS = 2048     # 16-byte vectors a 256-thread CTA holds in registers
+
+
+def kernel_for(d: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/rmsnorm.cu`` takes rows of ``d`` elements of
+    ``dtype``: ``"warp"`` (one warp per row, D <= 2048) or ``"cta"`` (one
+    CTA per row) when D is a multiple of the 16-byte vector width and the
+    pointers are 16-byte ``aligned``, else ``"scalar"``."""
+    vec = 16 // dtype.itemsize
+    if d % vec or not aligned or d // vec > MAX_VECTORS:
+        return "scalar"
+    return "warp" if d <= WARP_MAX_D else "cta"
 
 
 def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -36,15 +53,20 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) ->
     out = torch.empty_like(x)
     if rows == 0 or d == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out))
+    kernel = kernel_for(d, x.dtype, aligned)
     launch(
         "rmsnorm", _ARGTYPES, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        rows, d, float(eps), int(x.dtype == torch.bfloat16), stream(device),
+        rows, d, float(eps), int(x.dtype == torch.bfloat16), KERNELS[kernel],
+        stream(device),
     )
     rmsnorm_fused.launches += 1
+    rmsnorm_fused.launches_by_kernel[kernel] += 1
     return out
 
 
 rmsnorm_fused.launches = 0
+rmsnorm_fused.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

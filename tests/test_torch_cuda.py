@@ -241,6 +241,67 @@ def test_flash_kernel_raises_on_what_it_does_not_take(dev):
         fa_ops.mha(q.half(), q.half(), q.half())
 
 
+# q/k/v shapes the two routes meet beyond the cases above: qwen2.5-32b's
+# grouping (N/K = 5), one query row, minitron-8b's full layer in bf16, a
+# window at h=128, and T != S, not a multiple of the 128-row key block,
+# without the causal mask.
+@pytest.mark.parametrize(
+    "dtype,b,s,t,nq,nkv,h,causal,window",
+    [
+        (torch.bfloat16, 1, 300, 300, 40, 8, 128, True, 0),
+        (torch.float32, 1, 300, 300, 40, 8, 128, True, 0),
+        (torch.bfloat16, 2, 1, 1, 8, 2, 128, True, 0),
+        (torch.bfloat16, 2, 1, 1, 8, 2, 64, True, 0),
+        (torch.float32, 2, 1, 1, 8, 2, 64, True, 0),
+        (torch.bfloat16, 1, 4096, 4096, 32, 8, 128, True, 0),
+        (torch.bfloat16, 1, 700, 700, 8, 2, 128, True, 128),
+        (torch.float32, 1, 700, 700, 8, 2, 128, True, 128),
+        (torch.bfloat16, 2, 200, 333, 4, 2, 128, False, 0),
+        (torch.bfloat16, 1, 130, 77, 4, 4, 64, False, 0),
+        (torch.float32, 2, 200, 333, 4, 2, 64, False, 0),
+    ],
+)
+def test_flash_routes_vs_plain(dev, dtype, b, s, t, nq, nkv, h, causal, window):
+    gen = torch.Generator(device=dev).manual_seed(s + t + nq + h)
+    q = _randn((b, s, nq, h), dtype, gen, dev)
+    k, v = (_randn((b, t, nkv, h), dtype, gen, dev) for _ in range(2))
+    route = fa_ops.route_of(dtype)
+    before = fa_ops.mha.launches_by_route[route]
+    out = fa_ops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.mha.launches_by_route[route] == before + 1
+    tol = LLM_TOL["flash"][dtype]
+    torch.testing.assert_close(out.float(), mha_ref(q, k, v, causal=causal,
+                                                    window=window).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_routes_by_dtype(dev):
+    """bf16 launches the wgmma kernel, float32 the CUDA-core kernel."""
+    q = torch.randn((1, 64, 4, 64), device=dev)
+    for dtype, route in ((torch.bfloat16, "wgmma_bf16"),
+                         (torch.float32, "cuda_core_f32")):
+        x = q.to(dtype)
+        before = dict(fa_ops.mha.launches_by_route)
+        fa_ops.mha(x, x, x)
+        after = fa_ops.mha.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
+
+
+def test_flash_bf16_raises_on_unaligned_base(dev):
+    """TMA needs 16-byte aligned bases: a q 2 bytes off raises."""
+    shape = (1, 64, 4, 64)
+    buf = torch.zeros(1 + int(np.prod(shape)), dtype=torch.bfloat16, device=dev)
+    q = buf[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    before = fa_ops.mha.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.mha(q, k, k)
+    assert fa_ops.mha.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,l,p,n,chunk", [(1, 4, 128, 32, 16, 32),
                                              (2, 3, 96, 64, 32, 32),
@@ -275,16 +336,24 @@ def test_ssd_kernel_vs_plain(dev, b, h, l, p, n, chunk, dtype):
         ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=l + 1)
 
 
+# (64, 1024) and (13, 1024): the warp kernel, 13 rows not a multiple of
+# its 2 rows per CTA; (300, 4096) and (9, 4096): the CTA kernel; (5, 1001):
+# D not a multiple of the vector width, the scalar kernel
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 128), (2, 17, 256), (300, 4096)])
+@pytest.mark.parametrize("shape", [(4, 128), (2, 17, 256), (300, 4096),
+                                   (64, 1024), (13, 1024), (9, 4096),
+                                   (5, 1001)])
 def test_rmsnorm_kernel_vs_plain(dev, shape, dtype):
     gen = torch.Generator(device=dev).manual_seed(shape[-1])
     x = _randn(shape, dtype, gen, dev)
     scale = torch.randn(shape[-1], generator=gen, device=dev)
+    kernel = rms_ops.kernel_for(shape[-1], dtype)
     before = rms_ops.rmsnorm_fused.launches
+    by_kernel = rms_ops.rmsnorm_fused.launches_by_kernel[kernel]
     out = rms_ops.rmsnorm(x, scale)
     torch.cuda.synchronize()
     assert rms_ops.rmsnorm_fused.launches == before + 1
+    assert rms_ops.rmsnorm_fused.launches_by_kernel[kernel] == by_kernel + 1
     tol = LLM_TOL["rmsnorm"][dtype]
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, scale).float(),
                                atol=tol, rtol=tol)

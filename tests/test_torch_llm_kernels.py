@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention as jflash
 from repro.kernels.flash_attention.ops import mha as jmha
 from repro.kernels.rmsnorm.ops import rmsnorm as jrmsnorm
 from repro.kernels.ssd.kernel import ssd_scan as jssd_scan
@@ -52,18 +53,18 @@ def _close(port: torch.Tensor, ref, tol: float) -> None:
 
 
 # ---------------------------------------------------------------- flash attn
+FLASH_CASES = [
+    (1, 128, 4, 4, 64, True, 0),      # MHA
+    (2, 256, 8, 2, 64, True, 0),      # GQA 4:1
+    (1, 256, 4, 1, 128, True, 0),     # MQA
+    (2, 128, 4, 4, 64, False, 0),     # bidirectional
+    (1, 384, 4, 2, 64, True, 128),    # sliding window 128
+    (1, 160, 4, 4, 64, True, 0),      # S not a block multiple
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "b,s,nq,nkv,h,causal,window",
-    [
-        (1, 128, 4, 4, 64, True, 0),      # MHA
-        (2, 256, 8, 2, 64, True, 0),      # GQA 4:1
-        (1, 256, 4, 1, 128, True, 0),     # MQA
-        (2, 128, 4, 4, 64, False, 0),     # bidirectional
-        (1, 384, 4, 2, 64, True, 128),    # sliding window 128
-        (1, 160, 4, 4, 64, True, 0),      # S not a block multiple
-    ],
-)
+@pytest.mark.parametrize("b,s,nq,nkv,h,causal,window", FLASH_CASES)
 def test_flash_plain_matches_jax_kernel(b, s, nq, nkv, h, causal, window, dtype):
     rng = np.random.default_rng(s + nq + h)
     q, k, v = (rng.standard_normal((b, s, n, h)).astype(np.float32)
@@ -73,6 +74,72 @@ def test_flash_plain_matches_jax_kernel(b, s, nq, nkv, h, causal, window, dtype)
     out = fa_ops.mha(tq, tk, tv, causal=causal, window=window)
     assert out.dtype == tq.dtype and out.shape == tq.shape
     _close(out, ref, TOL["flash"][dtype])
+
+
+def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128):
+    """A plain blockwise model of ``csrc/flash_attention_wgmma.cu``'s
+    arithmetic, (B, N, S, h) bf16 in and out: float32 scores of the bf16
+    inputs; per 128-row q block, the kernel's live 128-row k blocks with an
+    online softmax in base 2 (m on the unscaled scores, p = 2^((s - m) *
+    h^-1/2 * log2 e)); l summed from the float32 p; p rounded to bf16
+    before p @ v, summed in float32; acc / max(l, 1e-30) in bf16."""
+    b, n, s, h = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    c = torch.tensor(h**-0.5 * 1.4426950408889634, dtype=torch.float32)
+    out = torch.empty((b, n, s, h), dtype=torch.float32)
+    for head in range(n):
+        qh = q[:, head].float()
+        kk, vv = k[:, head * kh // n].float(), v[:, head * kh // n].float()
+        for i0 in range(0, s, bq):
+            rows = torch.arange(i0, min(i0 + bq, s))[:, None]
+            m = torch.full((b, len(rows), 1), -1e30)
+            l = torch.zeros((b, len(rows), 1))
+            acc = torch.zeros((b, len(rows), h))
+            for j0 in range(0, t, bk):
+                if causal and j0 > i0 + bq - 1:
+                    break
+                if causal and window > 0 and j0 + bk - 1 < i0 - window + 1:
+                    continue
+                cols = torch.arange(j0, min(j0 + bk, t))[None, :]
+                sc = qh[:, rows[:, 0]] @ kk[:, cols[0]].transpose(1, 2)
+                keep = (cols < t).expand(len(rows), -1)
+                if causal:
+                    keep = keep & (cols <= rows)
+                    if window > 0:
+                        keep = keep & (cols > rows - window)
+                sc = torch.where(keep, sc, torch.tensor(-1e30))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                alpha = torch.exp2((m - m_new) * c)
+                p = torch.exp2((sc - m_new) * c)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                acc = alpha * acc + p.to(torch.bfloat16).float() @ vv[:, cols[0]]
+                m = m_new
+            out[:, head, rows[:, 0]] = acc / torch.clamp(l, min=1e-30)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,nq,nkv,h,causal,window", FLASH_CASES)
+def test_wgmma_bf16_numerics_match_jax_kernel(b, s, nq, nkv, h, causal, window):
+    """Before the card: the bf16 kernel's rounding (bf16 P, base-2 exp, l
+    from the float32 P) stays within the bf16 tolerance of the JAX kernel
+    (interpret mode), on the plain-parity cases above."""
+    rng = np.random.default_rng(s + nq + h)
+    q, k, v = (rng.standard_normal((b, n, s, h)).astype(np.float32)
+               for n in (nq, nkv, nkv))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "bfloat16") for a in (q, k, v))
+    ref = jflash(jq, jk, jv, causal=causal, window=window, interpret=True)
+    out = _wgmma_bf16_numerics(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    _close(out, ref, TOL["flash"]["bfloat16"])
+
+
+def test_flash_routes_by_dtype_table():
+    assert fa_ops.route_of(torch.bfloat16) == "wgmma_bf16"
+    assert fa_ops.route_of(torch.float32) == "cuda_core_f32"
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            fa_ops.route_of(dtype)
+    assert set(fa_ops.mha.launches_by_route) == {"wgmma_bf16", "cuda_core_f32"}
 
 
 def test_flash_wrapper_rejects_other_devices():
@@ -93,6 +160,26 @@ def test_rmsnorm_plain_matches_jax_kernel(shape, dtype):
     out = rms_ops.rmsnorm(tx, torch.from_numpy(scale))
     assert out.dtype == tx.dtype and out.shape == tx.shape
     _close(out, ref, TOL["rmsnorm"][dtype])
+
+
+@pytest.mark.parametrize(
+    "d,dtype,aligned,kernel",
+    [
+        (1024, torch.bfloat16, True, "warp"),
+        (2048, torch.float32, True, "warp"),
+        (1020, torch.float32, True, "warp"),     # 255 float32 vectors
+        (1020, torch.bfloat16, True, "scalar"),  # not a multiple of 8
+        (1001, torch.float32, True, "scalar"),
+        (2056, torch.float32, True, "cta"),
+        (4096, torch.bfloat16, True, "cta"),
+        (16384, torch.bfloat16, True, "cta"),    # 2048 vectors, the most held
+        (16392, torch.bfloat16, True, "scalar"),
+        (8196, torch.float32, True, "scalar"),
+        (1024, torch.bfloat16, False, "scalar"),  # a base not 16-byte aligned
+    ],
+)
+def test_rmsnorm_kernel_by_shape(d, dtype, aligned, kernel):
+    assert rms_ops.kernel_for(d, dtype, aligned) == kernel
 
 
 # ----------------------------------------------------------------------- ssd
