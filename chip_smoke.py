@@ -5,7 +5,7 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, started together; ptxas' registers, spills and
 warnings are printed, and ``cuobjdump -sass`` must find HGMMA in the bf16
-flash-attention library), then:
+flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
 
 1. holds ``walk_transition_ragged`` against its plain PyTorch version on
    the card, on ``barabasi_albert(1_000_000, 3)`` (ragged, ~7 M directed
@@ -42,19 +42,26 @@ flash-attention library), then:
    minitron's layer-0 q/k/v (B=1, S=4096, N=32, K=8, h=128, causal), at
    S=4000 and at h=64, its float32 route (``cuda_core_f32``) on a small
    shape, and both routes timed at minitron's shape (TFLOP/s, share of the
-   bound); ``ssd_scan`` on mamba2's layer-0 inputs (B=4, L=4096, H=32,
-   P=64, N=128, chunk 256) and at L=4000 through the padding — with device
-   times, bounds, the plain version's time and SDPA's; 7. prefill
+   bound); ``ssd_scan``'s bf16 route (``mma_bf16``) on mamba2's layer-0
+   inputs (B=4, L=4096, H=32, P=64, N=128, chunk 256) and at L=4000
+   through the padding, its float32 route (``cuda_core_f32``) on the same
+   inputs upcast, each route's error against the float64 result, both
+   routes timed (share of the bound, the bytes the bf16 design moves, its
+   three launches apart under the profiler) and ``ops._head_major``'s
+   copies apart — with device times, bounds, the
+   plain version's time and SDPA's; 7. prefill
    (``apply``, minitron B=1x4096, mamba2 B=4x4096) with
    ``use_kernels=True``: launches (one kernel per layer; minitron's 32 on
-   the bf16 route), tokens/s, peak memory, the relative Frobenius error
+   the bf16 flash route, mamba2's 48 on the ``mma_bf16`` SSD route),
+   tokens/s, peak memory, the relative Frobenius error
    against the einsum path on the same weights, and ``ops.rmsnorm``
    (``rmsnorm_fused``) on the result;
    8. ``ServeEngine(batch_size=4, cache_len=256)`` answering the
    standalone demo's 8 requests (all must complete), and the reduced
    model's greedy tokens on the card against its CPU run; then 7 again
-   with the weights upcast to float32 (minitron's 32 launches on the
-   float32 route): kernel path against einsum path (<= 2e-4), and each
+   with the weights upcast to float32 (minitron's 32 and mamba2's 48
+   launches on the float32 routes): kernel path against einsum path
+   (<= 2e-4), and each
    bf16 run against the float32 einsum run; then ``rmsnorm_fused``
    against its plain version and ``F.rms_norm`` at (4096, 4096) and
    (16384, 1024) in bf16 and float32, with the kernel that ran and the
@@ -149,15 +156,18 @@ def profile_window(fn, kernel_name: str) -> dict:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     by_name: dict = {}
+    count_by_name: dict = {}
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
+        count_by_name[e.name] = count_by_name.get(e.name, 0) + 1
     # the kernel's event name is its demangled signature
     mine = [e.time_range.end - e.time_range.start for e in dev_events
             if kernel_name in e.name]
     if not spans:
         return {"window_ms": None, "busy_ms": None, "idle_share": None,
-                "kernel_ms": None, "kernel_launches": 0, "device_ms_by_name": {}}
+                "kernel_ms": None, "kernel_launches": 0, "device_ms_by_name": {},
+                "device_launches_by_name": {}}
     busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
         if a > cur_b:
@@ -170,7 +180,8 @@ def profile_window(fn, kernel_name: str) -> dict:
     return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / window,
             "kernel_ms": sum(mine) / len(mine) / 1e3 if mine else None,
-            "kernel_launches": len(mine), "device_ms_by_name": by_name}
+            "kernel_launches": len(mine), "device_ms_by_name": by_name,
+            "device_launches_by_name": count_by_name}
 
 
 def compare_with_plain(nxt_k, hops_k, nxt_p, hops_p, u, where: str) -> dict:
@@ -854,10 +865,29 @@ def phase_flash(model, cfg, dev, gen) -> dict:
             "bytes": nbytes, "ops": ops, "routes": routes}
 
 
+def ssd_mma_bytes(b, h, l, p, n, q) -> float:
+    """Bytes the three passes of ``csrc/ssd_scan_mma.cu`` move, each tensor
+    once per pass that touches it: pass 1 reads B, x, da and dt and writes
+    every chunk's (N, P) float32 state and decay; pass 2 reads and writes
+    the states; pass 3 reads C, B, x, da, dt and the states and writes y."""
+    rows, chunks = b * h * l, b * h * (l // q)
+    states = chunks * n * p * 4
+    pass1 = rows * ((n + p) * 2 + 8) + states + chunks * 4
+    pass2 = 2 * states + chunks * 4
+    pass3 = rows * ((2 * n + p) * 2 + 8 + p * 4) + states
+    return pass1 + pass2 + pass3
+
+
 def phase_ssd(model, cfg, dev, gen) -> dict:
-    """``ssd_scan`` against its plain version on mamba2-370m's layer 0
-    (B=4, L=4096, H=32, P=64, N=128, chunk 256, bf16), and at L=4000
-    through ``ops.ssd``'s padding; device times and bound."""
+    """``ssd_scan`` on mamba2-370m's layer 0 (B=4, L=4096, H=32, P=64,
+    N=128, chunk 256): the bf16 route (``mma_bf16``) against its plain
+    version there and at L=4000 through ``ops.ssd``'s padding, and the
+    float32 route (``cuda_core_f32``) on the same inputs upcast; both
+    routes, at both lengths, held to the float64 result too (no more than
+    twice the plain version's error), each error logged beside the plain
+    version's and max |y|.  Device times of both routes with the share of the bound,
+    the bytes the bf16 route's design moves, and ``ops._head_major``'s
+    copies timed apart."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -877,25 +907,91 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
         dt = F.softplus(dt_raw.float() + lp["mixer"]["dt_bias"])
         a = -torch.exp(lp["mixer"]["a_log"])
     args = ssd_ops._head_major(xs, dt, a, bs, cs)
+    args32 = tuple(t.float() for t in args)
     chunk = dims.chunk
+    h, p, n = dims.num_heads, dims.head_dim, dims.d_state
+    bf16, f32 = torch.bfloat16, torch.float32
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
     plain_y = ssd_scan_ref(*args, chunk=chunk)
-    errs = [hold("ssd_scan", ssd_ops.ssd_scan(*args, chunk=chunk), plain_y,
-                 torch.bfloat16, "at B=4 L=4096 H=32 P=64 N=128 chunk 256 bf16")]
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    errs = {"mma_bf16": [hold("ssd_scan", y, plain_y, bf16,
+                              "at B=4 L=4096 H=32 P=64 N=128 chunk 256 bf16")]}
     y4, _ = ssd_ops.ssd(xs[:, :4000], dt[:, :4000], a, bs[:, :4000], cs[:, :4000],
                         chunk=chunk)
     # y is causal in L: rows < 4000 of the L=4096 plain run are the answer
-    errs.append(hold("ssd_scan", y4, plain_y[:, :, :4000].transpose(1, 2),
-                     torch.bfloat16, "at L=4000 through ops.ssd (padded to 4096)"))
-    ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 5)
+    errs["mma_bf16"].append(hold("ssd_scan", y4, plain_y[:, :, :4000].transpose(1, 2),
+                                 bf16, "at L=4000 through ops.ssd (padded to 4096)"))
+    y32 = ssd_ops.ssd_scan(*args32, chunk=chunk)
+    went = {r: ssd_ops.ssd_scan.launches_by_route[r] - before[r] for r in before}
+    if went != {"mma_bf16": 2, "cuda_core_f32": 1}:
+        raise AssertionError(f"ssd_scan took the routes {went}")
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+    top = float(exact.abs().max())
+    err64 = {name: float((t.double() - exact).abs().max())
+             for name, t in (("mma_bf16", y), ("cuda_core_f32", y32),
+                             ("plain", plain_y))}
+    # rows < 4000 of the L=4000 run through ops.ssd, and the plain version's
+    # error on the same rows
+    rows = exact[:, :, :4000].transpose(1, 2)
+    err64["mma_bf16_l4000"] = float((y4.double() - rows).abs().max())
+    err64["plain_l4000"] = float((plain_y[:, :, :4000].transpose(1, 2).double()
+                                  - rows).abs().max())
+    del exact, rows
+    # the outputs here are small (max |y| is logged): the bf16 tolerance alone
+    # would pass a kernel that writes zeros, so both routes are held to the
+    # float64 result, no worse than twice the plain version's error (the
+    # card test's rule for float32 at N=128, chunk 256)
+    for route, ref_key in (("mma_bf16", "plain"), ("mma_bf16_l4000", "plain_l4000"),
+                           ("cuda_core_f32", "plain")):
+        if not err64[route] <= 2 * err64[ref_key]:
+            raise AssertionError(f"ssd_scan {route} against float64: {err64}")
+    errs["cuda_core_f32"] = [float((y32 - plain_y).abs().max())]
+    log(f"  ssd_scan max abs err against the float64 result (max |y| "
+        f"{top:.3e}): mma_bf16 {err64['mma_bf16']:.3e} (L=4000 through ops.ssd "
+        f"{err64['mma_bf16_l4000']:.3e}), cuda_core_f32 (inputs upcast) "
+        f"{err64['cuda_core_f32']:.3e}, plain version {err64['plain']:.3e} "
+        f"(rows < 4000: {err64['plain_l4000']:.3e})")
     plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
-    h, p, n = dims.num_heads, dims.head_dim, dims.d_state
+    head_major = device_time_ms(lambda i: ssd_ops._head_major(xs, dt, a, bs, cs), 10)
+    log(f"  ops._head_major (layout change, group repeat of B and C): "
+        f"{head_major[0]:.4f} ms on the device")
     nbytes, ops = ssd_bound(b, h, l, p, n, chunk, 2)
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
-    log(f"  ssd_scan: {ms[0]:.4f} ms/launch on the device, plain {plain[0]:.4f} "
-        f"ms, bound {b_ms:.5f} ms by {b_by} ({nbytes:.4e} B, {ops:.4e} flop)")
-    return {"max_abs_err": max(errs), "ms": ms[0], "plain_ms": plain[0],
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "ops": ops}
+    design = ssd_mma_bytes(b, h, l, p, n, chunk)
+    routes = {}
+    for route, t, peak, iters in (("mma_bf16", args, BF16_OPS_PER_S, 20),
+                                  ("cuda_core_f32", args32, FP32_OPS_PER_S, 3)):
+        ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*t, chunk=chunk), iters)
+        rb = ssd_bound(b, h, l, p, n, chunk, t[0].element_size())[0]
+        b_ms, b_by = bound(rb, ops, peak)
+        routes[route] = {"ms": ms[0], "plain_ms": plain[0], "library_ms": None,
+                         "bound_ms": b_ms, "bound_by": b_by, "bytes": rb,
+                         "bound_share": b_ms / ms[0], "max_abs_err": max(errs[route]),
+                         "max_abs_err_vs_f64": err64[route]}
+        log(f"  ssd_scan {route}: {ms[0]:.4f} ms/launch on the device "
+            f"({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by {b_by}; "
+            f"{rb:.4e} B, {ops:.4e} flop), plain {plain[0]:.4f} ms")
+    main = routes["mma_bf16"]
+    log(f"  ssd_scan mma_bf16 design moves {design:.4e} B "
+        f"({design / HBM_BYTES_PER_S * 1e3:.5f} ms at the HBM rate, "
+        f"{design / HBM_BYTES_PER_S * 1e3 / main['ms']:.1%} of the measured time)")
+    # the bf16 route's three launches apart, by CUPTI over 20 calls; each
+    # kernel's time over the launches the trace recorded (a short trace
+    # can miss the first)
+    prof = profile_window(lambda: [ssd_ops.ssd_scan(*args, chunk=chunk)
+                                   for _ in range(20)], "ssd_chunk_out_kernel")
+    passes = {}
+    for name in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                 "ssd_chunk_out_kernel"):
+        keys = [k for k in prof["device_ms_by_name"] if name in k]
+        passes[name] = (sum(prof["device_ms_by_name"][k] for k in keys)
+                        / max(1, sum(prof["device_launches_by_name"][k] for k in keys)))
+    log(f"  ssd_scan mma_bf16 passes (CUPTI, ms/launch): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+        + f"; idle share {prof['idle_share']}")
+    return {**main, "max_abs_err": max(errs["mma_bf16"]), "bytes": nbytes,
+            "ops": ops, "design_bytes": design, "head_major_ms": head_major[0],
+            "passes_ms": passes, "max_abs_err_vs_f64": err64, "max_abs_y": top,
+            "routes": routes}
 
 
 def phase_rmsnorm(dev, gen) -> dict:
@@ -955,10 +1051,17 @@ def both_paths(model, cfg, tokens) -> dict:
     expect = {"flash_attention": cfg.num_layers if cfg.family == "dense" else 0,
               "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
               "rmsnorm_fused": 0}
-    # the flash route the model's dtype takes, once per layer
-    route = fa_ops.route_of(model.embedding["table"].dtype)
+    # the flash and SSD routes the model's dtype (and SSD shape) take, once
+    # per layer
+    dtype = model.embedding["table"].dtype
+    route = fa_ops.route_of(dtype)
     expect_routes = {r: expect["flash_attention"] if r == route else 0
                      for r in fa_ops.mha.launches_by_route}
+    expect_ssd = dict.fromkeys(ssd_ops.ROUTES, 0)
+    if cfg.family == "ssm":
+        d = model.mdims
+        expect_ssd[ssd_ops.route_of(dtype, d.head_dim, d.d_state, d.chunk)] = (
+            cfg.num_layers)
     out = {}
     for path, use_kernels in (("kernel", True), ("einsum", False)):
         model.cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
@@ -967,23 +1070,27 @@ def both_paths(model, cfg, tokens) -> dict:
         for c in counters.values():
             c.launches = 0
         fa_ops.mha.launches_by_route = dict.fromkeys(expect_routes, 0)
+        ssd_ops.ssd_scan.launches_by_route = dict.fromkeys(expect_ssd, 0)
         t0 = time.perf_counter()
         h = model.apply({"tokens": tokens})
         torch.cuda.synchronize()
         out[path] = {"h": h, "s": time.perf_counter() - t0,
                      "peak_bytes": torch.cuda.max_memory_allocated(),
                      "launches": {k: c.launches for k, c in counters.items()},
-                     "routes": dict(fa_ops.mha.launches_by_route)}
+                     "routes": dict(fa_ops.mha.launches_by_route),
+                     "ssd_routes": dict(ssd_ops.ssd_scan.launches_by_route)}
         if not torch.isfinite(h).all() or tuple(h.shape) != (
                 *tokens.shape, cfg.d_model):
             raise AssertionError(f"{cfg.name} {path} path: shape "
                                  f"{tuple(h.shape)} or non-finite values")
     model.cfg = cfg
-    if out["kernel"]["launches"] != expect or out["kernel"]["routes"] != expect_routes:
-        raise AssertionError(f"{cfg.name} prefill launched "
-                             f"{out['kernel']['launches']}, flash routes "
-                             f"{out['kernel']['routes']}, expected {expect}, "
-                             f"{expect_routes}")
+    k = out["kernel"]
+    if (k["launches"] != expect or k["routes"] != expect_routes
+            or k["ssd_routes"] != expect_ssd):
+        raise AssertionError(f"{cfg.name} prefill launched {k['launches']}, "
+                             f"flash routes {k['routes']}, SSD routes "
+                             f"{k['ssd_routes']}, expected {expect}, "
+                             f"{expect_routes}, {expect_ssd}")
     return out
 
 
@@ -1034,14 +1141,14 @@ def prefill(model, cfg, batch, seq, dev, gen) -> dict:
         f"{e['peak_bytes'] / 2**30:.3f} GiB), relative Frobenius error kernel vs "
         f"einsum {rel:.4e}, einsum vs einsum with 1e-6 noise in the SSD output "
         f"{floor}, launches {k['launches']}, flash routes {k['routes']}, "
-        f"ops.rmsnorm launches {rms_launches}")
+        f"SSD routes {k['ssd_routes']}, ops.rmsnorm launches {rms_launches}")
     return {"batch": batch, "seq": seq, "tokens": tokens, "h_kernel": h_k,
             "h_einsum": h_e, "kernel_s": k["s"], "einsum_s": e["s"],
             "tokens_per_s": tok / k["s"], "einsum_tokens_per_s": tok / e["s"],
             "peak_bytes": k["peak_bytes"], "einsum_peak_bytes": e["peak_bytes"],
             "rel_kernel_vs_einsum_bf16": rel, "rel_noise_floor_bf16": floor,
             "launches": k["launches"], "routes": k["routes"],
-            "rmsnorm_launches": rms_launches,
+            "ssd_routes": k["ssd_routes"], "rmsnorm_launches": rms_launches,
             "rmsnorm_max_abs_err": rms_err}
 
 
@@ -1061,7 +1168,8 @@ def prefill_accuracy(model, cfg, pre: dict) -> dict:
         f"{rel32:.4e} (bound {PREFILL_F32_REL_ERR}); against the float32 einsum "
         f"run, bf16 kernel path {k16:.4e}, bf16 einsum path {e16:.4e} (bound: "
         f"kernel <= {PREFILL_BF16_RATIO} x einsum); launches "
-        f"{runs['kernel']['launches']}, flash routes {runs['kernel']['routes']}")
+        f"{runs['kernel']['launches']}, flash routes {runs['kernel']['routes']}, "
+        f"SSD routes {runs['kernel']['ssd_routes']}")
     if not rel32 <= PREFILL_F32_REL_ERR:
         raise AssertionError(f"{cfg.name} float32 prefill: kernel vs einsum "
                              f"{rel32} > {PREFILL_F32_REL_ERR}")
@@ -1070,6 +1178,7 @@ def prefill_accuracy(model, cfg, pre: dict) -> dict:
                              f"{k16} from the float32 run, the einsum path {e16}")
     return {"rel_kernel_vs_einsum_f32": rel32, "rel_bf16_kernel_vs_f32": k16,
             "rel_bf16_einsum_vs_f32": e16, "f32_routes": runs["kernel"]["routes"],
+            "f32_ssd_routes": runs["kernel"]["ssd_routes"],
             "f32_kernel_s": runs["kernel"]["s"],
             "f32_einsum_s": runs["einsum"]["s"]}
 
@@ -1181,6 +1290,12 @@ def phase_llm(dev) -> dict:
         t0 = time.perf_counter()
         p.update(prefill_accuracy(model, cfg, p))
         log(f"phase 7 ({arch} prefill in float32): {time.perf_counter() - t0:.2f} s")
+        if cfg.family == "ssm":  # bf16 on the tensor cores, float32 on CUDA cores
+            want = ({"mma_bf16": cfg.num_layers, "cuda_core_f32": 0},
+                    {"mma_bf16": 0, "cuda_core_f32": cfg.num_layers})
+            if (p["ssd_routes"], p["f32_ssd_routes"]) != want:
+                raise AssertionError(f"{arch} SSD routes {p['ssd_routes']} "
+                                     f"(bf16), {p['f32_ssd_routes']} (float32)")
         out[arch] = {"params": n_params, "build_s": t_build, "kernel": k,
                      "prefill": p, "serve": s}
         del model
@@ -1238,10 +1353,16 @@ def main() -> int:
     log(f"  cuobjdump -sass flash_attention_wgmma: {hgmma} HGMMA instructions")
     if hgmma == 0:
         raise AssertionError("the bf16 flash_attention library has no HGMMA")
+    # HMMA (mma.sync) or HGMMA (wgmma): the bf16 SSD scan on the tensor cores
+    ssd_mma = sass_count("ssd_scan_mma", "HMMA") + sass_count("ssd_scan_mma", "HGMMA")
+    log(f"  cuobjdump -sass ssd_scan_mma: {ssd_mma} HMMA/HGMMA instructions")
+    if ssd_mma == 0:
+        raise AssertionError("the bf16 ssd_scan library has no HMMA or HGMMA")
     log(f"phase build: {len(_build.SOURCES)} kernel source(s), "
         f"{len(build_logs)} compiled, {dt:.2f} s")
     report["phases"]["build_s"] = dt
     report["phases"]["hgmma"] = hgmma
+    report["phases"]["ssd_hmma"] = ssd_mma
 
     # -- phase 1: kernel vs plain version on the card -----------------------------
     t0 = time.perf_counter()
@@ -1590,12 +1711,22 @@ def main() -> int:
                           "launches": mini["prefill"]["f32_routes"]["cuda_core_f32"],
                           **mini["kernel"]["routes"]["cuda_core_f32"]},
     }
-    kernels += [flash, llm_entry(
-        "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+    ssd = llm_entry(
+        "ssd_scan", "src/repro_torch/csrc/ssd_scan_mma.cu",
         "src/repro/kernels/ssd/kernel.py:74",
-        mamba["prefill"]["launches"]["ssd_scan"], mamba["kernel"],
+        mamba["prefill"]["ssd_routes"]["mma_bf16"], mamba["kernel"],
         mamba["kernel"]["max_abs_err"],
-    ), llm_entry(
+    )
+    # float32 inputs take the CUDA-core kernel (the float32 prefill gate)
+    ssd["routes"] = {
+        "mma_bf16": {"source": ssd["source"],
+                     "launches": mamba["prefill"]["ssd_routes"]["mma_bf16"],
+                     **mamba["kernel"]["routes"]["mma_bf16"]},
+        "cuda_core_f32": {"source": "src/repro_torch/csrc/ssd_scan.cu",
+                          "launches": mamba["prefill"]["f32_ssd_routes"]["cuda_core_f32"],
+                          **mamba["kernel"]["routes"]["cuda_core_f32"]},
+    }
+    kernels += [flash, ssd, llm_entry(
         "rmsnorm_fused", "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm/kernel.py:25",
         mini["prefill"]["rmsnorm_launches"] + mamba["prefill"]["rmsnorm_launches"],

@@ -37,13 +37,17 @@ def trunc_geom_pmf(p_d: float, r: int) -> np.ndarray:
 
 
 def trunc_geom_mean(p_d: float, r: int) -> float:
-    """E[D] for D ~ TruncGeom(p_d, r), written as 1 + E[D - 1].
+    """E[D] for D ~ TruncGeom(p_d, r): ``sum_d d * pmf(d)``, floored at 1.
 
-    The ``1 +`` form keeps E[D] >= 1 exact in floating point (at r=1 the
-    pmf's single entry need not round to exactly 1.0).
+    For r >= 2 the sum is the reference's, bit for bit.  At r=1 the support
+    is {1} and E[D] is exactly 1.0: the pmf's single entry may round off
+    1.0 either way (the reference then returns 0.9999999999999999 or
+    1.0000000000000004).
     """
     pmf = trunc_geom_pmf(p_d, r)
-    return 1.0 + float(np.dot(np.arange(r), pmf))
+    if r == 1:
+        return 1.0
+    return max(1.0, float(np.dot(np.arange(1, r + 1), pmf)))
 
 
 def icdf_constants(p_d: float, r: int) -> tuple[float, float]:
@@ -74,11 +78,11 @@ def trunc_geom_icdf(u: torch.Tensor, p_d: float, r: int) -> torch.Tensor:
 def expected_transitions_per_update(p_j: float, p_d: float, r: int) -> float:
     """Remark 1: exact expected node visits per SGD update.
 
-    (1-p_J)*1 + p_J*E[D], written as 1 + p_J*(E[D]-1) so the value is
-    never below 1 in floating point.  The paper's bound is
+    (1-p_J)*1 + p_J*E[D], as the reference computes it, floored at 1 so
+    the value is never below 1 in floating point.  The paper's bound is
     :func:`remark1_bound`.
     """
-    return 1.0 + p_j * (trunc_geom_mean(p_d, r) - 1.0)
+    return max(1.0, (1.0 - p_j) * 1.0 + p_j * trunc_geom_mean(p_d, r))
 
 
 def remark1_bound(p_j: float, p_d: float, r: int) -> float:

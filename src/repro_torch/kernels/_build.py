@@ -30,6 +30,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_wgmma": "flash_attention_wgmma.cu",
     "ssd_scan": "ssd_scan.cu",
+    "ssd_scan_mma": "ssd_scan_mma.cu",
     "rmsnorm": "rmsnorm.cu",
 }
 

@@ -2,7 +2,8 @@
 
 :func:`rmsnorm_fused` replaces the TPU kernel
 ``repro/kernels/rmsnorm/kernel.py::rmsnorm_fused``: rows ``(R, D)`` in
-float32 or bfloat16, a float32 ``(D,)`` scale.  For CUDA tensors it
+float32 or bfloat16, a ``(D,)`` scale of any floating dtype, cast to
+float32 before the launch (as the reference casts it).  For CUDA tensors it
 launches one of the source's three kernels, chosen by :func:`kernel_for`
 from the shape, or raises; for CPU tensors it runs
 :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`.  Its ``launches``
@@ -46,6 +47,8 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) ->
     if device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     check("x", x, DTYPES, 2)
+    if scale.is_floating_point():  # as the reference and the CPU leg do
+        scale = scale.to(torch.float32)
     check("scale", scale, torch.float32, 1)
     rows, d = x.shape
     if scale.shape[0] != d:

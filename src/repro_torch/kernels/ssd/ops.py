@@ -1,13 +1,28 @@
-"""The Mamba-2 SSD scan through the hand-written CUDA kernel ``csrc/ssd_scan.cu``.
+"""The Mamba-2 SSD scan through the port's hand-written CUDA kernels.
 
 :func:`ssd_scan` replaces the TPU kernel
 ``repro/kernels/ssd/kernel.py::ssd_scan``: the chunked SSD in the
-head-major layout, with the (N, P) float32 state carried across chunks
-(one persistent CTA per (b, h) walks its chunks in order).  x, B and C
-may be float32 or bfloat16, da and dt are float32, y is float32, and
-``L % chunk == 0``.  For CUDA tensors it launches the kernel or raises;
+head-major layout, with the (N, P) float32 state carried across chunks.
+x, B and C may be float32 or bfloat16, da and dt are float32, y is
+float32, and ``L % chunk == 0``.
+
+Two routes, chosen by :func:`route_of` before any launch:
+
+- ``mma_bf16``: bfloat16 at head_dim 64, d_state 64 or 128 and chunk 64,
+  128 or 256, through ``csrc/ssd_scan_mma.cu``: chunk-parallel on the
+  tensor cores (``mma.sync``), in three launches (chunk states, the state
+  pass over a ``(B, H, L/chunk, N, P)`` float32 scratch that the wrapper
+  allocates, the output); x, B and C 16-byte aligned.
+- ``cuda_core_f32``: every other input, through ``csrc/ssd_scan.cu``
+  (float32 products on the CUDA cores, one persistent CTA per (b, h)
+  walking its chunks in order; head_dim <= 64, d_state <= 128 and a
+  multiple of 16).
+
+For CUDA tensors :func:`ssd_scan` launches the route's kernels or raises;
 for CPU tensors it runs :func:`~repro_torch.kernels.ssd.ref.ssd_scan_ref`.
-``ssd_scan.launches`` counts kernel launches.
+``ssd_scan.launches`` counts calls that launched (one per call, whatever
+the route launches inside), ``ssd_scan.launches_by_route`` the same per
+route.
 
 :func:`ssd` is the model-layout wrapper (the JAX package's ``ops.ssd``):
 the layout change, the group repeat, ``da = dt * a``, and the padding to
@@ -22,13 +37,35 @@ import torch.nn.functional as F
 from repro_torch.kernels._launch import I, P, check, device_of, launch, stream
 from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
 
-__all__ = ["ssd", "ssd_scan", "ssd_oracle", "MAX_STATE", "MAX_HEAD_DIM"]
+__all__ = ["ssd", "ssd_scan", "ssd_oracle", "route_of", "ROUTES",
+           "MAX_STATE", "MAX_HEAD_DIM"]
 
-# x, da, dt, B, C, y, batch*heads, L, P, N, chunk, is_bf16, stream
-_ARGTYPES = (P, P, P, P, P, P, I, I, I, I, I, I, P)
 DTYPES = (torch.float32, torch.bfloat16)
-# the kernel's register tiles: at most 64 head channels and 128 states
+# route -> (library, C argument types)
+_LAUNCH = {
+    # x, da, dt, B, C, y, states, decay, batch*heads, L, P, N, chunk, stream
+    "mma_bf16": ("ssd_scan_mma", (P,) * 8 + (I,) * 5 + (P,)),
+    # x, da, dt, B, C, y, batch*heads, L, P, N, chunk, is_bf16, stream
+    "cuda_core_f32": ("ssd_scan", (P,) * 6 + (I,) * 6 + (P,)),
+}
+ROUTES = tuple(_LAUNCH)
+# the shapes csrc/ssd_scan_mma.cu takes
+MMA_HEAD_DIM, MMA_STATES, MMA_CHUNKS = 64, (64, 128), (64, 128, 256)
+# csrc/ssd_scan.cu's register tiles: at most 64 head channels, 128 states
 MAX_HEAD_DIM, MAX_STATE = 64, 128
+
+
+def route_of(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel route for inputs of ``dtype`` at head_dim ``p``, d_state
+    ``n`` and ``chunk``: ``"mma_bf16"`` for the bfloat16 shapes
+    ``csrc/ssd_scan_mma.cu`` takes, else ``"cuda_core_f32"``; raise on a
+    dtype neither takes."""
+    if dtype not in DTYPES:
+        raise TypeError(f"the SSD scan takes {DTYPES}, got {dtype}")
+    if (dtype == torch.bfloat16 and p == MMA_HEAD_DIM and n in MMA_STATES
+            and chunk in MMA_CHUNKS):
+        return "mma_bf16"
+    return "cuda_core_f32"
 
 
 def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
@@ -49,23 +86,38 @@ def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
         raise ValueError("bs/cs must be (B, H, L, N)")
     if chunk <= 0 or l % chunk:
         raise ValueError(f"L={l} must be a multiple of chunk={chunk}")
-    if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE and n % 16 == 0):
-        raise ValueError(f"head_dim {p} / d_state {n}: the kernel takes head_dim "
-                         f"<= {MAX_HEAD_DIM} and d_state <= {MAX_STATE}, a "
-                         "multiple of 16")
+    route = route_of(xs.dtype, p, n, chunk)
+    if route == "cuda_core_f32" and not (
+            0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE and n % 16 == 0):
+        raise ValueError(f"head_dim {p} / d_state {n}: the kernel takes "
+                         f"head_dim <= {MAX_HEAD_DIM} and d_state <= "
+                         f"{MAX_STATE}, a multiple of 16")
     y = torch.empty((b, h, l, p), dtype=torch.float32, device=device)
     if y.numel() == 0:
         return y
-    launch(
-        "ssd_scan", _ARGTYPES, xs.data_ptr(), da.data_ptr(), dt.data_ptr(),
-        bs.data_ptr(), cs.data_ptr(), y.data_ptr(), b * h, l, p, n, chunk,
-        int(xs.dtype == torch.bfloat16), stream(device),
-    )
+    ptrs = [t.data_ptr() for t in (xs, da, dt, bs, cs, y)]
+    if route == "mma_bf16":
+        for name, t in (("xs", xs), ("bs", bs), ("cs", cs)):
+            if t.data_ptr() % 16:  # cp.async copies 16-byte pieces
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 "bf16 kernel (cp.async)")
+        nc = l // chunk
+        states = torch.empty((b, h, nc, n, p), dtype=torch.float32,
+                             device=device)
+        decay = torch.empty((b, h, nc), dtype=torch.float32, device=device)
+        args = ptrs + [states.data_ptr(), decay.data_ptr(),
+                       b * h, l, p, n, chunk]
+    else:
+        args = ptrs + [b * h, l, p, n, chunk, int(xs.dtype == torch.bfloat16)]
+    library, argtypes = _LAUNCH[route]
+    launch(library, argtypes, *args, stream(device))
     ssd_scan.launches += 1
+    ssd_scan.launches_by_route[route] += 1
     return y
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _head_major(xs, dt, a, bs, cs):

@@ -302,10 +302,18 @@ def test_flash_bf16_raises_on_unaligned_base(dev):
     assert fa_ops.mha.launches == before
 
 
+# bf16 shapes of the cases below that the mma kernel takes: every
+# (d_state, chunk) it compiles for, at P=64 (the rest, and every float32
+# case, go to the CUDA-core kernel)
+SSD_MMA_SHAPES = {(64, n, chunk) for n in (64, 128) for chunk in (64, 128, 256)}
+
+
+# (4, 32, 1024, 64, 128, 256): mamba2-370m's layer at L=1024
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,l,p,n,chunk", [(1, 4, 128, 32, 16, 32),
                                              (2, 3, 96, 64, 32, 32),
-                                             (1, 2, 512, 64, 128, 256)])
+                                             (1, 2, 512, 64, 128, 256),
+                                             (4, 32, 1024, 64, 128, 256)])
 def test_ssd_kernel_vs_plain(dev, b, h, l, p, n, chunk, dtype):
     gen = torch.Generator(device=dev).manual_seed(l + n)
     xs = _randn((b, h, l, p), dtype, gen, dev)
@@ -314,10 +322,17 @@ def test_ssd_kernel_vs_plain(dev, b, h, l, p, n, chunk, dtype):
     a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
     da = dt * a[None, :, None]
     bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
+    route = ("mma_bf16" if dtype == torch.bfloat16 and (p, n, chunk) in
+             SSD_MMA_SHAPES else "cuda_core_f32")
+    assert ssd_ops.route_of(dtype, p, n, chunk) == route
     before = ssd_ops.ssd_scan.launches
+    by_route = dict(ssd_ops.ssd_scan.launches_by_route)
     y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_ops.ssd_scan.launches == before + 1
+    after = ssd_ops.ssd_scan.launches_by_route
+    assert {r: after[r] - by_route[r] for r in after} == {
+        r: int(r == route) for r in after}
     plain = ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)
     if dtype == torch.float32 and n * chunk > 64 * 64:
         # at the main path's N=128, chunk 256 each output sums ~3e4 float32
@@ -334,6 +349,98 @@ def test_ssd_kernel_vs_plain(dev, b, h, l, p, n, chunk, dtype):
         torch.testing.assert_close(y, plain, atol=tol, rtol=tol)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=l + 1)
+
+
+def _ssd_head_major(b, h, l, p, n, seed, cancel=False, slow=False):
+    """Head-major x, da, dt, B, C as float32 numpy arrays from numpy's
+    ``seed``.  With ``slow`` the decay rate is cut 100-fold, so the state
+    carried into a chunk still weighs on outputs several chunks on; with
+    ``cancel`` (slow too) rows come in pairs with equal B and dt and
+    opposite x, so each output is a small difference of large terms."""
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((b, h, l, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, h, l)))).astype(np.float32)
+    bs, cs = (rng.standard_normal((b, h, l, n)).astype(np.float32)
+              for _ in range(2))
+    rate = -np.exp(rng.standard_normal(h) * 0.3)
+    if cancel:
+        xs[:, :, 1::2] = -xs[:, :, ::2]
+        bs[:, :, 1::2] = bs[:, :, ::2]
+        dt[:, :, 1::2] = dt[:, :, ::2]
+    if cancel or slow:
+        rate = rate * 1e-2
+    da = (dt * rate[None, :, None]).astype(np.float32)
+    return xs, da, dt, bs, cs
+
+
+def _ssd_inputs(b, h, l, p, n, seed, dev, cancel=False, slow=False):
+    """``_ssd_head_major`` on ``dev``: x, B, C in bf16, da and dt float32."""
+    return tuple(torch.from_numpy(t).to(dev).to(
+        torch.bfloat16 if t.ndim == 4 else torch.float32)
+        for t in _ssd_head_major(b, h, l, p, n, seed, cancel, slow))
+
+
+# every (d_state, chunk) the mma route takes, under the model's decay
+# (a chunk's decay e^-50 or less), a slow one (the carried state and each
+# chunk's decay reach across several chunks) and a slow one whose outputs
+# cancel.  Besides the bf16 tolerance, the float64 result bounds the error
+# at 1e-4 of the largest output: seven times the worst of the CPU numerics
+# model of the kernel on these inputs (1.4e-5, N=128, chunk 256,
+# cancelling), where dropping the carried state or taking a neighbouring
+# chunk's decay misses by percents of it.  One bf16 rounding of att, B w or
+# the entering state, without the hi/lo split, misses the float64 result by
+# 0.7 to 1.2 under the slow decays.
+@pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_ssd_mma_route_vs_plain(dev, n, chunk, decay):
+    args = _ssd_inputs(2, 3, 512, 64, n, n + chunk, dev,
+                       cancel=decay == "cancel", slow=decay == "slow")
+    assert ssd_ops.route_of(torch.bfloat16, 64, n, chunk) == "mma_bf16"
+    before = ssd_ops.ssd_scan.launches_by_route["mma_bf16"]
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches_by_route["mma_bf16"] == before + 1
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+    tol = LLM_TOL["ssd"][torch.bfloat16]
+    torch.testing.assert_close(y.double(), exact, atol=tol, rtol=tol)
+    torch.testing.assert_close(y, ssd_scan_ref(*args, chunk=chunk), atol=tol,
+                               rtol=tol)
+    err, top = (y.double() - exact).abs().max().item(), exact.abs().max().item()
+    assert err <= 1e-4 * top, (err, top)
+
+
+def test_ssd_mma_route_through_ops_ssd_padding(dev):
+    """The model layout at L=4000 (padded to 4096 inside ``ops.ssd``) on the
+    mma route, against the plain version of the unpadded rows."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, l, h, g, p, n = 1, 4000, 4, 1, 64, 128
+    xs = _randn((b, l, h, p), torch.bfloat16, gen, dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen,
+                                                  device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    bs, cs = (_randn((b, l, g, n), torch.bfloat16, gen, dev) for _ in range(2))
+    before = ssd_ops.ssd_scan.launches_by_route["mma_bf16"]
+    y, _ = ssd_ops.ssd(xs, dt, a, bs, cs, chunk=256)
+    assert ssd_ops.ssd_scan.launches_by_route["mma_bf16"] == before + 1
+    args = ssd_ops._head_major(xs, dt, a, bs, cs)
+    args = [torch.nn.functional.pad(t, (0, 0, 0, 96) if t.ndim == 4 else (0, 96))
+            for t in args]
+    want = ssd_scan_ref(*args, chunk=256)[:, :, :l].transpose(1, 2)
+    tol = LLM_TOL["ssd"][torch.bfloat16]
+    torch.testing.assert_close(y, want, atol=tol, rtol=tol)
+
+
+def test_ssd_mma_raises_on_unaligned_base(dev):
+    """cp.async copies 16-byte pieces: an x 2 bytes off raises, unlaunched."""
+    xs, da, dt, bs, cs = _ssd_inputs(1, 1, 64, 64, 64, 0, dev)
+    buf = torch.zeros(1 + xs.numel(), dtype=torch.bfloat16, device=dev)
+    x_off = buf[1:].view(xs.shape)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16 == 2
+    before = ssd_ops.ssd_scan.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_ops.ssd_scan(x_off, da, dt, bs, cs, chunk=64)
+    assert ssd_ops.ssd_scan.launches == before
 
 
 # (64, 1024) and (13, 1024): the warp kernel, 13 rows not a multiple of
@@ -355,6 +462,22 @@ def test_rmsnorm_kernel_vs_plain(dev, shape, dtype):
     assert rms_ops.rmsnorm_fused.launches == before + 1
     assert rms_ops.rmsnorm_fused.launches_by_kernel[kernel] == by_kernel + 1
     tol = LLM_TOL["rmsnorm"][dtype]
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, scale).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("d", [1024, 4096])
+def test_rmsnorm_kernel_takes_a_bf16_scale(dev, d):
+    """A bf16 scale is cast to float32 before the launch, as the reference
+    and the CPU leg cast it."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = _randn((64, d), torch.bfloat16, gen, dev)
+    scale = torch.randn(d, generator=gen, device=dev).to(torch.bfloat16)
+    before = rms_ops.rmsnorm_fused.launches
+    out = rms_ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rms_ops.rmsnorm_fused.launches == before + 1
+    tol = LLM_TOL["rmsnorm"][torch.bfloat16]
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, scale).float(),
                                atol=tol, rtol=tol)
 

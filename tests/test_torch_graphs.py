@@ -236,19 +236,33 @@ def test_levy_constants(p_d, r):
     np.testing.assert_array_equal(
         jlevy.trunc_geom_pmf(p_d, r), tlevy.trunc_geom_pmf(p_d, r)
     )
-    # the port writes E[D] as 1 + E[D-1]; same value within float rounding
-    assert tlevy.trunc_geom_mean(p_d, r) == pytest.approx(
-        jlevy.trunc_geom_mean(p_d, r), rel=1e-12
-    )
+    _assert_levy_means_equal(p_d, r, (0.0, 0.1, 0.7, 1.0))
     for p_j in (0.0, 0.1, 0.7, 1.0):
-        assert tlevy.expected_transitions_per_update(
-            p_j, p_d, r
-        ) == pytest.approx(
-            jlevy.expected_transitions_per_update(p_j, p_d, r), rel=1e-12
-        )
         assert tlevy.remark1_bound(p_j, p_d, r) == jlevy.remark1_bound(
             p_j, p_d, r
         )
+
+
+def _assert_levy_means_equal(p_d, r, p_js):
+    """E[D] and the Remark-1 count equal the reference's bit for bit for
+    r >= 2; at r=1 both are exactly 1.0 (the reference's E[D] may round to
+    0.9999999999999999 there, a reference fault the port does not copy)."""
+    mean = tlevy.trunc_geom_mean(p_d, r)
+    assert mean == (1.0 if r == 1 else jlevy.trunc_geom_mean(p_d, r))
+    for p_j in p_js:
+        got = tlevy.expected_transitions_per_update(p_j, p_d, r)
+        want = (1.0 if r == 1
+                else jlevy.expected_transitions_per_update(p_j, p_d, r))
+        assert got == want, (p_j, p_d, r, got, want)
+        assert got >= 1.0
+
+
+@pytest.mark.parametrize("r", range(1, 21))
+def test_levy_means_bitwise_on_grid(r):
+    """p_d in {0.01, ..., 0.99} x r in 1..20 x p_J in {0, ..., 1}."""
+    for p_d in np.round(np.arange(1, 100) * 0.01, 2):
+        _assert_levy_means_equal(float(p_d), r,
+                                 (0.0, 0.05, 0.1, 0.3, 0.5, 0.7, 1.0))
 
 
 def test_remark1_bound_holds_including_r1():

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
+from tests.test_torch_cuda import _ssd_head_major
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -239,3 +240,136 @@ def test_ssd_padding_rows_leave_the_state_alone():
     y_pad, _ = ssd_ops.ssd(*t, chunk=16)  # L=40 -> 48
     y_exact = ssd_ops.ssd_oracle(*t)
     _close(y_pad, y_exact.numpy(), TOL["ssd"]["float32"])
+
+
+def _split_bf16(v: torch.Tensor):
+    """float32 v -> (hi, lo) in bf16: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True):
+    """A plain model of ``csrc/ssd_scan_mma.cu``'s arithmetic, head-major
+    bf16 x/B/C and float32 da/dt in, y (B, H, L, P) float32 out.  Pass 1:
+    per chunk, w_j = exp(cum_Q - cum_j) dt_j, B (.) w in float32, split into
+    bf16 hi + lo, S_c = (B w)^T x summed in float32; pass 2: the entering
+    states in float32, in order; pass 3: y = exp(cum_i) (C @ enter) with
+    enter split likewise, then att = select(j <= i, (C B^T) exp(cum_i -
+    cum_j), 0) dt_j in float32, split, y += att @ x.  ``split=False`` rounds
+    each float32 operand once to bf16 instead."""
+    def products(v, rhs):  # v (float32) @ rhs (bf16-exact), as the kernel
+        if not split:
+            return v.to(torch.bfloat16).float() @ rhs
+        hi, lo = _split_bf16(v)
+        return hi.float() @ rhs + lo.float() @ rhs
+
+    b, h, l, p = xs.shape
+    n = bs.shape[-1]
+    x, bb, cc = (t.float().reshape(b, h, l // chunk, chunk, -1)
+                 for t in (xs, bs, cs))
+    dtc = dt.reshape(b, h, l // chunk, chunk)
+    cum = torch.cumsum(da.reshape(b, h, l // chunk, chunk), dim=-1)
+    # pass 1: the chunk states and decays
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = products((bb * w[..., None]).transpose(-1, -2), x)
+    decay = torch.exp(cum[..., -1])
+    # pass 2: the states entering each chunk
+    enter = torch.zeros_like(states)
+    state = torch.zeros((b, h, n, p))
+    for c in range(l // chunk):
+        enter[:, :, c] = state
+        state = decay[:, :, c, None, None] * state + states[:, :, c]
+    # pass 3: y
+    if split:
+        ehi, elo = _split_bf16(enter)
+        y = cc @ ehi.float() + cc @ elo.float()
+    else:
+        y = cc @ enter.to(torch.bfloat16).float()
+    y = torch.exp(cum)[..., None] * y
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    scores = cc @ bb.transpose(-1, -2)
+    decay_ij = torch.exp(cum[..., :, None] - cum[..., None, :])
+    att = torch.where(causal, scores * decay_ij, 0.0) * dtc[..., None, :]
+    y = y + products(att, x)
+    return y.reshape(b, h, l, p)
+
+
+@pytest.mark.parametrize(
+    "b,h,l,p,n,chunk,cancel",
+    [
+        (1, 2, 256, 64, 128, 64, False),
+        (1, 3, 128, 64, 64, 128, False),
+        (1, 2, 512, 64, 128, 256, False),
+        (1, 2, 512, 64, 128, 256, True),   # outputs that cancel
+    ],
+)
+def test_ssd_mma_bf16_numerics_match_jax_kernel(b, h, l, p, n, chunk, cancel):
+    """Before the card: the bf16 route's rounding (B w, att and the entering
+    state each split into bf16 hi + lo) stays within the bf16 tolerance of
+    the JAX kernel (interpret mode) and of the exact recurrence."""
+    xs, da, dt, bs, cs = _ssd_head_major(b, h, l, p, n, l + n + chunk, cancel)
+    (jx, tx), (jb, tb), (jc, tc) = (_both(t, "bfloat16") for t in (xs, bs, cs))
+    tda, tdt = torch.from_numpy(da), torch.from_numpy(dt)
+    ref = np.asarray(jssd_scan(jx, jnp.asarray(da), jnp.asarray(dt), jb, jc,
+                               chunk=chunk, interpret=True), np.float32)
+    out = _ssd_mma_bf16_numerics(tx, tda, tdt, tb, tc, chunk=chunk)
+    exact = ssd_scan_ref(*(t.double() for t in (tx, tda, tdt, tb, tc)),
+                         chunk=chunk)
+    err64 = float((out.double() - exact).abs().max())
+    tol = TOL["ssd"]["bfloat16"]
+    for name, want in (("the JAX kernel", ref),
+                       ("ssd_ref", ssd_ref(tx, tda, tdt, tb, tc).numpy())):
+        np.testing.assert_allclose(
+            out.numpy(), want, atol=tol, rtol=tol,
+            err_msg=f"against {name}; max abs err against the float64 "
+                    f"ssd_scan_ref {err64:.3e}")
+    if cancel:  # one bf16 rounding per float32 operand is not enough here
+        once = _ssd_mma_bf16_numerics(tx, tda, tdt, tb, tc, chunk=chunk,
+                                      split=False)
+        bad = (once.double() - exact).abs() > tol + tol * exact.abs()
+        assert bad.any(), f"split {err64:.3e}"
+
+
+def test_ssd_routes_table():
+    bf16, f32 = torch.bfloat16, torch.float32
+    for n in (64, 128):
+        for chunk in (64, 128, 256):
+            assert ssd_ops.route_of(bf16, 64, n, chunk) == "mma_bf16"
+            assert ssd_ops.route_of(f32, 64, n, chunk) == "cuda_core_f32"
+    # bf16 shapes the mma kernel does not take go to the CUDA-core kernel
+    for p, n, chunk in ((32, 16, 32), (64, 32, 32), (64, 128, 32),
+                        (32, 128, 256), (64, 96, 256), (64, 128, 512)):
+        assert ssd_ops.route_of(bf16, p, n, chunk) == "cuda_core_f32"
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            ssd_ops.route_of(dtype, 64, 128, 256)
+    assert ssd_ops.ROUTES == ("mma_bf16", "cuda_core_f32")
+    assert set(ssd_ops.ssd_scan.launches_by_route) == set(ssd_ops.ROUTES)
+
+
+def test_ssd_scan_cpu_launches_nothing():
+    """On CPU tensors the wrapper runs the plain version and counts no
+    launch on any route."""
+    xs, da, dt, bs, cs = (torch.from_numpy(t) for t in
+                          _ssd_head_major(1, 2, 128, 64, 64, 0, False))
+    before = (ssd_ops.ssd_scan.launches, dict(ssd_ops.ssd_scan.launches_by_route))
+    y = ssd_ops.ssd_scan(xs.bfloat16(), da, dt, bs.bfloat16(), cs.bfloat16(),
+                         chunk=64)
+    assert y.dtype == torch.float32 and y.shape == xs.shape
+    assert (ssd_ops.ssd_scan.launches,
+            dict(ssd_ops.ssd_scan.launches_by_route)) == before
+
+
+def test_rmsnorm_cpu_takes_a_bf16_scale():
+    """The CPU leg casts a bf16 scale to float32, as the reference does (the
+    CUDA leg casts it before the launch)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 256)).astype(np.float32)
+    scale = rng.standard_normal(256).astype(np.float32)
+    jx, tx = _both(x, "bfloat16")
+    tscale = torch.from_numpy(scale).to(torch.bfloat16)
+    ref = jrmsnorm(jx, jnp.asarray(tscale.float().numpy()).astype(jnp.bfloat16))
+    out = rms_ops.rmsnorm(tx, tscale)
+    assert out.dtype == torch.bfloat16
+    _close(out, ref, TOL["rmsnorm"]["bfloat16"])
+    torch.testing.assert_close(out, rms_ops.rmsnorm(tx, tscale.float()))
