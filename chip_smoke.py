@@ -28,7 +28,13 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    one injected block at W = 1, 257, 2048 and r = 1, 3, 5, runs each
    engine for 200 steps (launches, walk-steps/s, compaction overflow rate,
    a 20-step profiler window's idle share), checks that all six layouts give the
-   same ``(next, hops)`` on the same blocks, and times both kernels;
+   same ``(next, hops)`` on the same blocks, and times both kernels (the
+   sparse one also at every bucket width, on the bucketed engine's (W,
+   width) tiles and the compacted engine's (cap, width) tiles) beside
+   their bytes bounds and their longest dependent chains (the most
+   nonzero entries a row adds; the dense kernel's hop loads), and logs a
+   digest of the sparse engine's 200-step walks, which another commit's
+   run can be checked against;
 5. trains ``run_rw_sgd_multi("mhlj", ...)`` as in 3 on that graph given as
    a ``CSRGraph`` (sparse layout), as a ``BucketedCSRGraph`` (compacted)
    and with ``engine_kwargs={"layout": "dense"}``: launches per run, the
@@ -75,6 +81,7 @@ result.  Full numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -297,27 +304,34 @@ def sectors(addr_bytes: torch.Tensor) -> int:
 
 
 def bound_sparse(rows, u_mh) -> tuple:
-    """``(bytes, ops)`` the tile inversion needs on these inputs: every row
-    entry once (the total needs them all), one neighbor-id sector per walk,
-    the uniforms in and the picks out; operations: the first pass's adds,
-    and an add and a compare per entry the second pass reaches."""
+    """``(bytes, ops, chain)`` the tile inversion needs on these inputs:
+    every row entry once (the total needs them all), one neighbor-id sector
+    per walk, the uniforms in and the picks out; operations: an add per
+    nonzero entry for the total, and an add and a compare per nonzero entry
+    up to the pick; ``chain``: the most nonzero entries in one row, the
+    longest dependent add chain of the launch."""
     from repro_torch.core.engine import row_cdf
 
     w, width = rows.shape
     cdf = row_cdf(rows)
     idx = (cdf < (u_mh * cdf[:, -1])[:, None]).sum(dim=1).clamp(max=width - 1)
+    nz = rows != 0
+    cols = torch.arange(width, device=rows.device)
+    upto = int((nz & (cols[None, :] <= idx[:, None])).sum())
     nbytes = w * width * 4 + w * SECTOR + w * 4 + w * 4
-    ops = w * width + 2 * int((idx + 1).sum()) + w
-    return nbytes, ops
+    ops = int(nz.sum()) + 2 * upto + w
+    return nbytes, ops, int(nz.sum(dim=1).max()) if w else 0
 
 
 def bound_dense(nodes, row_probs, neighbors, degrees, u, r, p_d) -> tuple:
-    """``(bytes, ops)`` the dense fused step needs on these inputs: an MH
-    walk reads its degree, the first deg(v) entries of its row and one
-    neighbor id; a jumping walk a degree and a neighbor id per hop.
-    Scattered reads count whole 32-byte sectors, deduplicated per table;
-    the node vector and the uniforms are read once and both outputs
-    written once."""
+    """``(bytes, ops, chain, hop_chain)`` the dense fused step needs on
+    these inputs: an MH walk reads its degree, the first deg(v) entries of
+    its row and one neighbor id; a jumping walk a degree and a neighbor id
+    per hop.  Scattered reads count whole 32-byte sectors, deduplicated per
+    table; the node vector and the uniforms are read once and both outputs
+    written once.  ``chain``: the most nonzero entries among the entries an
+    MH walk reads (its dependent adds); ``hop_chain``: the most dependent
+    loads of a jumping walk (2 per hop)."""
     from repro_torch.core.engine import U_DIST, U_HOP0, U_JUMP, U_MH, row_cdf
     from repro_torch.core.levy import trunc_geom_icdf
 
@@ -335,11 +349,16 @@ def bound_dense(nodes, row_probs, neighbors, degrees, u, r, p_d) -> tuple:
     rows_m = row_probs[vm]
     cdf = row_cdf(rows_m)
     idx = (cdf < (u[~jump, U_MH] * cdf[:, -1])[:, None]).sum(dim=1)
+    cols = torch.arange(max_deg, device=v.device)
+    nz = (rows_m != 0) & (cols[None, :] < deg[:, None])
+    chain = int(nz.sum(dim=1).max()) if vm.numel() else 0
     nbr_words = [start + torch.minimum(idx, deg - 1)]
     deg_words = [vm]
-    ops = 2 * int(deg.sum()) + vm.numel()
+    ops = int(nz.sum()) + 2 * int((nz & (cols[None, :] <= idx[:, None])).sum())
+    ops += vm.numel()
     uj = u[jump]
     d = trunc_geom_icdf(uj[:, U_DIST], p_d, r).long()
+    hop_chain = 2 * int(d.max()) if d.numel() else 0
     vc = v[jump]
     ops += 30 * vc.numel()
     for j in range(r):
@@ -355,14 +374,15 @@ def bound_dense(nodes, row_probs, neighbors, degrees, u, r, p_d) -> tuple:
     nbytes = (sectors(row_words * 4) + sectors(torch.cat(nbr_words) * 4)
               + sectors(torch.cat(deg_words) * 4)) * SECTOR
     nbytes += nodes.numel() * 4 + u.numel() * 4 + 2 * nodes.numel() * 4
-    return nbytes, ops
+    return nbytes, ops, chain, hop_chain
 
 
 def phase_layouts(dev, params) -> dict:
     """The padded and bucketed layouts on BA(100k,3) at W=2048: each
     kernel against its plain version on injected blocks, 200-step engine
     runs with launches, rates, overflow and a profiler window, the layouts
-    against each other, and the two kernels' device times and bounds."""
+    against each other, and the two kernels' device times, bounds and
+    longest chains (the sparse one at every bucket width too)."""
     from repro_torch.core import engine as teng
     from repro_torch.core.graphs import barabasi_albert
     from repro_torch.kernels.walk_transition import kernel as wt
@@ -501,11 +521,16 @@ def phase_layouts(dev, params) -> dict:
         name: int((rr["nodes"] != base["nodes"]).sum())
         for name, rr in runs.items()
     }
+    walks_digest = hashlib.sha256(
+        base["nodes"].cpu().numpy().tobytes()
+        + base["hops"].cpu().numpy().tobytes()).hexdigest()[:16]
     log(f"  layouts on the same 20 injected blocks: all six agree bitwise "
         f"outside {cross_d} d differences; 200-step trajectories differing "
-        f"from sparse (walk-steps): {traj_diff}")
+        f"from sparse (walk-steps): {traj_diff}; sparse walks' digest "
+        f"{walks_digest}")
 
-    # device times and bounds of the two kernels at the main path's shapes
+    # device times, bounds and chains of the two kernels at the main path's
+    # shapes
     cur = [base["nodes"][:, t].contiguous() for t in range(steps)]
     tiles = [(sp.rows_for(cur[t]), sp.neighbors[cur[t]],
               blocks[t][:, teng.U_MH].contiguous()) for t in range(50)]
@@ -513,45 +538,86 @@ def phase_layouts(dev, params) -> dict:
     sp_plain = device_time_ms(
         lambda i: walk_transition_sparse_ref(*tiles[i]), 5)
     # the bounds average every fifth (sparse) or tenth (dense) launch's
-    # inputs: their plain CDFs are a loop of ~1200 launches each
-    b, o = zip(*(bound_sparse(rw, um) for rw, _, um in tiles[::5]))
-    sp_bytes, sp_ops = sum(b) / len(b), sum(o) / len(o)
+    # inputs: their plain CDFs are a loop of ~1200 launches each; a chain
+    # is the longest of those launches'
+    b, o, c = zip(*(bound_sparse(rw, um) for rw, _, um in tiles[::5]))
+    sp_bytes, sp_ops, sp_chain = sum(b) / len(b), sum(o) / len(o), max(c)
     del tiles
     dargs = (de.row_probs, de.neighbors, de.degrees)
     dcur = [runs["dense"]["nodes"][:, t].contiguous() for t in range(steps)]
+    kw = dict(p_d=params.p_d, r=params.r)
     de_ms = device_time_ms(
-        lambda i: wt.walk_transition(dcur[i], *dargs, blocks[i],
-                                     p_d=params.p_d, r=params.r), steps)
+        lambda i: wt.walk_transition(dcur[i], *dargs, blocks[i], **kw), steps)
     de_plain = device_time_ms(
-        lambda i: walk_transition_ref(dcur[i], *dargs, blocks[i],
-                                      p_d=params.p_d, r=params.r), 10)
-    b, o = zip(*(bound_dense(dcur[t], *dargs, blocks[t], params.r,
-                             params.p_d) for t in range(0, steps, 10)))
+        lambda i: walk_transition_ref(dcur[i], *dargs, blocks[i], **kw), 10)
+    b, o, c, h = zip(*(bound_dense(dcur[t], *dargs, blocks[t], params.r,
+                                   params.p_d) for t in range(0, steps, 10)))
     de_bytes, de_ops = sum(b) / len(b), sum(o) / len(o)
+    de_chain, de_hops = max(c), max(h)
+
+    # the sparse kernel at each bucket width: the bucketed engine's (W,
+    # width_b) tiles, 9 launches a step, and the compacted engine's (cap_b,
+    # width_b) tiles, the bucketed trainer's 4500 launches
+    eb, ec = engines["bucketed"], engines["bucketed_compact"]
+    caps = ec.bucket_capacities(w)
+    per_width = {"full": [], "compact": []}
+    for t in range(20):
+        u_mh = blocks[t][:, teng.U_MH].contiguous()
+        _, rows_b, tiles_b = eb._bucket_tiles(cur[t])
+        per_width["full"].append(list(zip(rows_b, tiles_b, [u_mh] * len(rows_b))))
+        plan = teng.compact_plan(ec.node_bucket[cur[t]], len(caps))
+        ins = ec.compacted_bucket_inputs(cur[t], u_mh, caps, *plan)
+        per_width["compact"].append(list(zip(ins[2], ins[3], ins[4])))
+    by_width = {}
+    for kind, steps_in in per_width.items():
+        for bi in range(len(steps_in[0])):
+            args = [step_in[bi] for step_in in steps_in]
+            rows_t = args[0][0]
+            call = lambda i, a=args: wt.walk_transition_sparse(*a[i])  # noqa: E731
+            bb, oo, cc = zip(*(bound_sparse(rw, um) for rw, _, um in args[::5]))
+            entry = {
+                "walks": rows_t.shape[0], "width": rows_t.shape[1],
+                "ms": device_time_ms(call, len(args))[0],
+                "bound": bound(sum(bb) / len(bb), sum(oo) / len(oo),
+                               FP32_OPS_PER_S),
+                "chain": max(cc),
+            }
+            by_width[f"{kind} {rows_t.shape[1]}"] = entry
+            log(f"  walk_transition_sparse {kind} bucket tiles ({entry['walks']}"
+                f", {entry['width']}): {entry['ms']:.5f} ms/launch, bound "
+                f"{entry['bound'][0]:.6f} ms by {entry['bound'][1]}, longest "
+                f"chain {entry['chain']} adds")
+    del per_width
 
     timing = {
         "walk_transition_sparse": {
             "ms": sp_ms[0], "host_ms": sp_ms[1], "idle_ms": sp_ms[2],
             "plain_ms": sp_plain[0], "bytes": sp_bytes, "ops": sp_ops,
             "bound": bound(sp_bytes, sp_ops, FP32_OPS_PER_S),
+            "chain": sp_chain, "by_bucket_width": by_width,
         },
         "walk_transition": {
             "ms": de_ms[0], "host_ms": de_ms[1], "idle_ms": de_ms[2],
             "plain_ms": de_plain[0], "bytes": de_bytes, "ops": de_ops,
             "bound": bound(de_bytes, de_ops, FP32_OPS_PER_S),
+            "chain": de_chain, "hop_chain": de_hops,
         },
     }
     for name, tm in timing.items():
         log(f"  {name}: {tm['ms']:.5f} ms/launch on the device (host enqueue "
             f"{tm['host_ms']:.5f} ms), plain {tm['plain_ms']:.5f} ms, bound "
             f"{tm['bound'][0]:.6f} ms by {tm['bound'][1]} ({tm['bytes']:.0f} "
-            f"B, {tm['ops']:.0f} ops per launch)")
+            f"B, {tm['ops']:.0f} ops per launch); longest chain "
+            f"{tm['chain']} adds"
+            + (f", {tm['hop_chain']} dependent hop loads"
+               if "hop_chain" in tm else ""))
     for rr in runs.values():
         del rr["nodes"], rr["hops"]
     return {"graph_build_s": t_graph, "engines_build_s": t_engines,
             "buckets": n_buckets, "max_abs_err": err, "d_differs": d_diff,
             "runs": runs, "cross_layout_d_differs": cross_d,
-            "trajectory_diff_vs_sparse": traj_diff, "timing": timing,
+            "trajectory_diff_vs_sparse": traj_diff,
+            "walks_digest": walks_digest, "timing": timing,
             "graph": g}
 
 
@@ -1349,6 +1415,10 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error", "arning",
                                        "setmaxnreg", "wgmma")):
                 log(f"  nvcc {name}: {line.strip()}")
+            if (name in ("walk_transition_sparse", "walk_transition_dense")
+                    and "spill" in line and not line.strip().endswith(
+                        "0 bytes spill stores, 0 bytes spill loads")):
+                raise AssertionError(f"{name} spills: {line.strip()}")
     hgmma = sass_count("flash_attention_wgmma", "HGMMA")
     log(f"  cuobjdump -sass flash_attention_wgmma: {hgmma} HGMMA instructions")
     if hgmma == 0:

@@ -26,9 +26,18 @@
 // per chunk per head against 0.2 MB of inputs); no tensor cores yet.
 //
 // Numerics: float32 throughout, x/B/C read as float32 or bfloat16, y
-// written as float32; the within-chunk cumsum is a per-lane sequential sum
-// plus a warp scan (not PyTorch's order).  Built with --fmad=false and
-// without fast math.
+// written as float32, except the within-chunk cumsum: a per-lane
+// sequential sum plus a warp scan in float64, rounded once to float32.
+// In float32 that scan set the route's error at chunk >= 128 (up to 2.1x
+// the plain version's distance to the float64 result at d_state 64, chunk
+// 128, on an H100), since exp(cum_i - cum_j) turns cum's absolute rounding
+// error into a relative error of the output.  Rounding cum once moves that
+// error but does not remove it: under mamba2's decay (cum ~ -800 within a
+// chunk, half an ulp 3e-5) either cumsum can land ahead at the largest
+// error, by input (tests/test_torch_llm_kernels.py), and at mamba2's layer
+// 0 on an H100 this route went from 1.0x to 1.39x the plain version's
+// error, within the 2x rule.  Built with --fmad=false and without fast
+// math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,26 +119,29 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
     }
     __syncthreads();
     if (warp == 0) {  // cum = inclusive cumsum of da over the chunk
+      // accumulated in float64 and rounded once: a float32 running sum is
+      // off by up to ulp(|cum|) (~1e-5 at cum ~ -100), which exp(cum_i -
+      // cum_j) turns into a relative error of the whole att row
       const int per = (Q + 31) / 32;
       const int s0 = lane * per;
-      float run = 0.0f;
+      double run = 0.0;
+      for (int k = 0; k < per; ++k) {
+        const int i = s0 + k;
+        if (i < Q) run += static_cast<double>(cum[i]);
+      }
+      double incl = run;
+      for (int off = 1; off < 32; off <<= 1) {
+        const double t = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0;
       for (int k = 0; k < per; ++k) {
         const int i = s0 + k;
         if (i < Q) {
-          run = __fadd_rn(run, cum[i]);
-          cum[i] = run;
+          excl += static_cast<double>(cum[i]);
+          cum[i] = static_cast<float>(excl);
         }
-      }
-      float incl = run;
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl = __fadd_rn(incl, t);
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.0f;
-      for (int k = 0; k < per; ++k) {
-        const int i = s0 + k;
-        if (i < Q) cum[i] = __fadd_rn(cum[i], excl);
       }
     }
     __syncthreads();

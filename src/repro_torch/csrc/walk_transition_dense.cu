@@ -9,35 +9,45 @@
 // `mhlj_transition_math` on `row_probs[nodes]`, and the two agree bit for
 // bit.
 //
-// The MH move follows the row-CDF rule (a sequential, left-to-right
-// float32 accumulation along the row) and reads only the row's first
-// deg(v) entries: the pads past them are exact zeros, which leave every
-// prefix sum unchanged and are never counted (u * total <= total), and
-// they repeat v in the neighbor table — so stopping at deg(v) gives the
-// full-width plain version's answer.  Pass 2 stops at the first
-// cdf >= u * total (rows are non-negative, the CDF non-decreasing).
+// Design: a warp per walk, 8 walks a block, so W=2048 walks fill the
+// card.  A walk whose flag is 0 reads only the first deg(v) entries of its
+// row: the pads past them are exact zeros, which change no prefix and are
+// never counted (u * total <= total), and they repeat v in the neighbor
+// table, so stopping at deg(v) gives the full-width plain version's
+// answer.  The warp reads those entries coalesced and inverts them with
+// walk_row_cdf.cuh, which keeps the row-CDF rule bit for bit by two exact
+// facts: adding 0.0f to a non-negative sum changes no bit (so the chain
+// runs over the nonzero entries only), and the rounded CDF never
+// decreases (so the pick is the first running sum that reaches u * total,
+// found by a ballot over block checkpoints and one block added again).
+// A walk whose flag is set takes the Lévy branch on the warp's lane 0,
+// exactly as before: log1pf, __fdiv_rn, ceilf, the clamp, then d hops.
 //
-// What bounds it: a short dependent chain of scattered loads per walk
-// (node -> degree -> about deg(v) row entries -> neighbor id, or node ->
-// degree -> neighbor id per hop).  One thread per walk (256 a block, the
-// tail masked); each walk loads only the branch its jump flag selects;
-// every table read goes through the read-only path (__ldg).
+// What bounds it: the dependent chain, not bytes (a few hundred KB a
+// launch).  Per MH walk: node -> degree -> row -> one add per nonzero
+// entry (a hub's ~1200) -> neighbor id; per jumping walk, 2 dependent
+// loads per hop (degree, neighbor id), up to 2r.  The slowest walk sets
+// the kernel's time.
 //
-// Numerics: built with --fmad=false and without fast math, as the ragged
-// kernel.  Row offsets v * max_deg are 64-bit: n * max_deg exceeds 2^31 on
-// million-node hub graphs.
+// Numerics: built with --fmad=false and without fast math (no flush to
+// zero), as the ragged kernel.  Row offsets v * max_deg are 64-bit:
+// n * max_deg exceeds 2^31 on million-node hub graphs.
 
 #include <cuda_runtime.h>
 
+#include "walk_row_cdf.cuh"
+
 namespace {
+
+using walk_row_cdf::SEG;
 
 constexpr int U_JUMP = 0;
 constexpr int U_MH = 1;
 constexpr int U_DIST = 2;
 constexpr int U_HOP0 = 3;
-constexpr int BLOCK = 256;
+constexpr int WARPS = 8;  // walks (warps) per block
 
-__global__ void __launch_bounds__(BLOCK) walk_transition_dense_kernel(
+__global__ void __launch_bounds__(32 * WARPS) walk_transition_dense_kernel(
     const int* __restrict__ nodes,       // (W,) current node per walk
     const float* __restrict__ row_probs, // (n, max_deg) P_IS rows, pads 0
     const int* __restrict__ neighbors,   // (n, max_deg) ids, pads = row id
@@ -47,28 +57,27 @@ __global__ void __launch_bounds__(BLOCK) walk_transition_dense_kernel(
     int* __restrict__ next_nodes,        // (W,) out
     int* __restrict__ hops,              // (W,) out
     int num_walks, int max_deg, int r, float z) {
-  const int w = blockIdx.x * BLOCK + threadIdx.x;
-  if (w >= num_walks) return;
+  __shared__ __align__(16) float s_val[WARPS * SEG];
+  __shared__ int s_col[WARPS * SEG];
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int slot = static_cast<int>(threadIdx.x >> 5);
+  const int w = blockIdx.x * WARPS + slot;
+  if (w >= num_walks) return;  // the whole warp leaves together
   const float* u = uniforms + static_cast<long long>(w) * (U_HOP0 + r);
   const int v = __ldg(nodes + w);
 
   if (!(__ldg(u + U_JUMP) > 0.5f)) {
     const long long base = static_cast<long long>(v) * max_deg;
-    const float* row = row_probs + base;
-    const int deg = __ldg(degrees + v);
-    float total = 0.0f;
-    for (int j = 0; j < deg; ++j) total = __fadd_rn(total, __ldg(row + j));
-    const float thr = __fmul_rn(__ldg(u + U_MH), total);
-    float acc = 0.0f;
-    int idx = 0;
-    for (; idx < deg; ++idx) {
-      acc = __fadd_rn(acc, __ldg(row + idx));
-      if (!(acc < thr)) break;
+    const int idx = walk_row_cdf::row_cdf_count(
+        lane, row_probs + base, __ldg(degrees + v), u + U_MH,
+        s_val + slot * SEG, s_col + slot * SEG);
+    if (lane == 0) {
+      next_nodes[w] = __ldg(neighbors + base + min(idx, max_deg - 1));
+      hops[w] = 1;
     }
-    next_nodes[w] = __ldg(neighbors + base + min(idx, max_deg - 1));
-    hops[w] = 1;
     return;
   }
+  if (lane != 0) return;
 
   // Levy jump: d = clamp(ceil(log1p(-u * z) / log(1 - p_d)), 1, r).
   const float x = __fmul_rn(-__ldg(u + U_DIST), z);
@@ -97,8 +106,8 @@ extern "C" int walk_transition_dense_launch(
     void* next_nodes, void* hops, int num_walks, int max_deg, int r, float z,
     void* stream) {
   if (num_walks <= 0) return 0;
-  const int grid = (num_walks + BLOCK - 1) / BLOCK;
-  walk_transition_dense_kernel<<<grid, BLOCK, 0,
+  const int grid = (num_walks + WARPS - 1) / WARPS;
+  walk_transition_dense_kernel<<<grid, 32 * WARPS, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(nodes), static_cast<const float*>(row_probs),
       static_cast<const int*>(neighbors), static_cast<const int*>(degrees),

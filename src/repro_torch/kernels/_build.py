@@ -2,10 +2,11 @@
 
 Each ``.cu`` file under ``repro_torch/csrc/`` exposes a plain C interface
 and compiles on its own into a shared library under ``build/`` at the
-repository root (listed in ``.gitignore``).  A library's file name carries
-a digest of its source and flags, so an edited source is rebuilt and never
-shadowed by a stale build.  :func:`build` starts one ``nvcc`` per missing
-library, all at once, and waits for them together.
+repository root (listed in ``.gitignore``); ``.cuh`` headers there are
+shared between sources.  A library's file name carries a digest of its
+source, the headers and the flags, so an edited source or header is
+rebuilt and never shadowed by a stale build.  :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for them together.
 """
 from __future__ import annotations
 
@@ -62,7 +63,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -79,10 +79,6 @@ def _levy_constants(device, p_d: float, r: int) -> tuple:
     return z32, den
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _check_uniforms(uniforms, w: int, r: int) -> None:
     if tuple(uniforms.shape) != (w, num_uniforms(r)):
         raise ValueError(
