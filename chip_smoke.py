@@ -9,15 +9,25 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
 
 1. holds ``walk_transition_ragged`` against its plain PyTorch version on
    the card, on ``barabasi_albert(1_000_000, 3)`` (ragged, ~7 M directed
-   edges) with W=8192 walks and MHLJParams(0.1, 0.5, 3), then at W=257
-   with r=1 and r=5, and measures over 10^6 draws how often the kernel's
-   Lévy distance d differs from PyTorch's on the card and on the CPU;
+   edges) with W=8192 walks and MHLJParams(0.1, 0.5, 3), at p_J = 0.1, 0
+   and 1 (W/16+1 walks on the hub) and with every walk on the hub, then
+   at W=257 with r=1 and r=5, and measures over 10^6 draws how often the
+   kernel's Lévy distance d differs from PyTorch's on the card and on the
+   CPU;
 2. runs ``WalkEngine.run`` for 200 steps on that graph (launch count,
    walk-steps/s, and the kernel's own time replayed on the run's inputs),
-   then a 50-step run under ``torch.profiler`` for the device's idle share;
+   then a 50-step run under ``torch.profiler`` for the device's idle
+   share; then what the kernel's time is made of: the launch floor (a
+   one-element ``add_``), the latency of one dependent load (the slope of
+   132 all-jumping walks' time over r = 1 … 16 hops), the chain bound (the
+   longest chain of dependent loads the step forces, times that latency)
+   beside the bytes bound, the kernel at p_J = 0, 0.1 and 1 on the run's
+   nodes, and at every lane-group width (``kernel.RAGGED_GROUPS``), each
+   by events and by CUPTI;
 3. trains ``run_rw_sgd_multi("mhlj", ...)`` on ``barabasi_albert(100_000,
    3)`` with W=2048, avg_every=50, 500 steps, replays every step's exact
-   kernel inputs through the kernel and its plain version, and checks the
+   kernel inputs through the kernel and its plain version, times the
+   kernel on them as in 2 (the hop slope on this graph), and checks the
    trainer against its CPU run on a small input;
 4. on ``barabasi_albert(100_000, 3)`` as a ``CSRGraph`` (max degree 1196)
    with W=2048, builds the engine of every layout of the reference's
@@ -104,6 +114,15 @@ SECTOR = 32
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def digest(*arrays) -> str:
+    """A short digest of walks, which another commit's run can be checked
+    against."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
@@ -214,10 +233,11 @@ def bound_for_step(nodes, indptr, degrees, indices, edge_cdf, u, r, p_d,
                    max_degree):
     """``(bytes, ops)`` the fused step needs on these inputs.
 
-    Mirrors the kernel's loads: a walk whose flag is 0 reads its row
-    pointer, degree, row total, the binary-search probes it executes and
-    one neighbor id; a jumping walk reads degree, row pointer and neighbor
-    id for each of its d hops.  Scattered loads count one 32-byte sector
+    A walk whose flag is 0 reads its row pointer, degree, row total, the
+    probes of the plain version's binary search and one neighbor id (the
+    kernel's search reads more entries of the segment, a few sectors
+    apart); a jumping walk reads degree, row pointer and neighbor id for
+    each of its d hops.  Scattered loads count one 32-byte sector
     each, deduplicated per array; the node vector and the uniform block
     are read once and the two outputs written once.  Operations are a
     count of the scalar arithmetic per probe, per hop and per walk.
@@ -275,6 +295,144 @@ def bound_for_step(nodes, indptr, degrees, indices, edge_cdf, u, r, p_d,
         nbytes += SECTOR * int(torch.unique(cat * 4 // SECTOR).numel())
     nbytes += w * 4 + u.numel() * 4 + 2 * w * 4
     return nbytes, ops
+
+
+HOP_SLOPE_R = (1, 2, 4, 8, 16)
+
+
+def events_and_cupti(fn, iters: int, symbol: str) -> dict:
+    """Device ms per call of ``fn(i)``, i < iters, by CUDA events
+    (:func:`device_time_ms`) and by CUPTI (:func:`profile_window` over the
+    same calls, the mean of the events named ``symbol``)."""
+    ms, host_ms, _ = device_time_ms(fn, iters)
+    prof = profile_window(lambda: [fn(i) for i in range(iters)], symbol)
+    return {"events_ms": ms, "cupti_ms": prof["kernel_ms"],
+            "cupti_launches": prof["kernel_launches"], "host_ms": host_ms}
+
+
+def fmt_ms(t: dict) -> str:
+    cupti = "not measured" if t["cupti_ms"] is None else f"{t['cupti_ms']:.5f}"
+    return f"{t['events_ms']:.5f} ms by events, {cupti} by CUPTI"
+
+
+def chain_loads(u, p_d: float, r: int) -> int:
+    """The longest dependent chain of loads the fused step forces on the
+    block ``u``, whatever the design: an MH walk 4 (node; row pointer and
+    degree; its CDF segment, read at once; the neighbor id), a jump of d
+    hops 1 + 2d (node; then per hop degree and row pointer, then the
+    neighbor id)."""
+    from repro_torch.core.engine import U_DIST, U_JUMP
+    from repro_torch.core.levy import trunc_geom_icdf
+
+    jump = u[:, U_JUMP] > 0.5
+    longest = 4 if bool((~jump).any()) else 0
+    if bool(jump.any()):
+        d = trunc_geom_icdf(u[jump, U_DIST], p_d, r)
+        longest = max(longest, 1 + 2 * int(d.max()))
+    return longest
+
+
+def ragged_call(wt, nodes, kargs, u, p_d, r, max_degree):
+    return wt.walk_transition_ragged(nodes, *kargs, u, p_d=p_d, r=r,
+                                     max_degree=max_degree)
+
+
+def hop_slope(wt, teng, kargs, n, p_d, max_degree, gen, dev, iters=200) -> dict:
+    """The latency of one dependent scattered load on this graph: W=132
+    walks from random nodes (a fresh draw per launch), every walk jumping
+    with d forced to r (``u_dist`` the largest float32 below 1), timed at
+    each r of :data:`HOP_SLOPE_R`.  A hop is two dependent loads (degree
+    and row pointer, then the neighbor id), so the least-squares slope of
+    ms against r, halved, is one load's latency."""
+    w = 132
+    below_one = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    per_r = {}
+    for r in HOP_SLOPE_R:
+        nodes = [torch.randint(0, n, (w,), generator=gen, device=dev,
+                               dtype=torch.int32) for _ in range(iters)]
+        blocks = []
+        for _ in range(iters):
+            u = torch.rand((w, teng.num_uniforms(r)), generator=gen, device=dev)
+            u[:, teng.U_JUMP] = 1.0
+            u[:, teng.U_DIST] = below_one
+            blocks.append(u)
+        _, hops = ragged_call(wt, nodes[0], kargs, blocks[0], p_d, r, max_degree)
+        if not bool((hops == r).all()):
+            raise AssertionError(f"hop slope: d is not forced to r={r}")
+        per_r[r] = events_and_cupti(
+            lambda i: ragged_call(wt, nodes[i], kargs, blocks[i], p_d, r,
+                                  max_degree),
+            iters, KERNEL_SYMBOL["walk_transition_ragged"])
+    rs = np.array(HOP_SLOPE_R, dtype=np.float64)
+    out = {"w": w, "per_r": {str(r): t for r, t in per_r.items()}}
+    for how in ("events_ms", "cupti_ms"):
+        ys = [per_r[r][how] for r in HOP_SLOPE_R]
+        if None in ys:
+            out[f"load_latency_{how}"] = None
+            continue
+        slope = float(np.polyfit(rs, np.array(ys), 1)[0])
+        out[f"hop_slope_{how}"] = slope
+        out[f"load_latency_{how}"] = slope / 2
+    return out
+
+
+def launch_floor(dev, iters: int = 200) -> dict:
+    """One trivial launch, a one-element ``add_``, timed as the walk
+    kernels are: by events behind a spin kernel and by CUPTI."""
+    x = torch.zeros(1, device=dev)
+    return events_and_cupti(lambda i: x.add_(1.0), iters, "elementwise")
+
+
+def ragged_study(wt, teng, kargs, nodes, p_d, r, max_degree, gen, dev,
+                 latency_ms, where: str) -> dict:
+    """The ragged kernel on one node vector per launch (``nodes``, the
+    main path's own): its time by events and by CUPTI at p_J = 0, 0.1 and
+    1 (fresh blocks), the chain bound of each block set (:func:`chain_loads`
+    times ``latency_ms``), and, at p_J = 0.1, the time of every lane-group
+    width ``wt.RAGGED_GROUPS`` names, each held bitwise to the width the
+    wrapper launches (skipped where the module has no such widths)."""
+    iters = len(nodes)
+    out: dict = {"iters": iters, "w": int(nodes[0].numel()), "p_j": {}}
+    blocks_at = {}
+    for p_j in (0.0, 0.1, 1.0):
+        blocks = [teng.draw_uniforms(nodes[0].numel(), r, p_j, gen, dev)
+                  for _ in range(iters)]
+        blocks_at[p_j] = blocks
+        t = events_and_cupti(
+            lambda i: ragged_call(wt, nodes[i], kargs, blocks[i], p_d, r,
+                                  max_degree),
+            iters, KERNEL_SYMBOL["walk_transition_ragged"])
+        chains = [chain_loads(u, p_d, r) for u in blocks]
+        t["chain_loads_max"] = max(chains)
+        t["chain_bound_ms"] = (None if latency_ms is None else
+                               float(np.mean(chains)) * latency_ms)
+        out["p_j"][str(p_j)] = t
+        log(f"  ragged {where}, p_J={p_j}: {fmt_ms(t)}; longest chain "
+            f"{t['chain_loads_max']} loads, chain bound "
+            f"{t['chain_bound_ms']} ms")
+    groups = getattr(wt, "RAGGED_GROUPS", None)
+    if groups:
+        main_group, blocks = wt.RAGGED_GROUP, blocks_at[0.1]
+        want = ragged_call(wt, nodes[0], kargs, blocks[0], p_d, r, max_degree)
+        out["groups"] = {}
+        try:
+            for g in groups:
+                wt.RAGGED_GROUP = g
+                got = ragged_call(wt, nodes[0], kargs, blocks[0], p_d, r,
+                                  max_degree)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"lane groups of {g} disagree with "
+                                         f"{main_group} {where}")
+                t = events_and_cupti(
+                    lambda i: ragged_call(wt, nodes[i], kargs, blocks[i], p_d,
+                                          r, max_degree),
+                    iters, KERNEL_SYMBOL["walk_transition_ragged"])
+                out["groups"][str(g)] = t
+                log(f"  ragged {where}, p_J=0.1, {g} lanes a walk: {fmt_ms(t)}")
+        finally:
+            wt.RAGGED_GROUP = main_group
+    return out
 
 
 # Engine configurations of the padded and bucketed phase: the reference's
@@ -521,9 +679,8 @@ def phase_layouts(dev, params) -> dict:
         name: int((rr["nodes"] != base["nodes"]).sum())
         for name, rr in runs.items()
     }
-    walks_digest = hashlib.sha256(
-        base["nodes"].cpu().numpy().tobytes()
-        + base["hops"].cpu().numpy().tobytes()).hexdigest()[:16]
+    walks_digest = digest(base["nodes"].cpu().numpy(),
+                          base["hops"].cpu().numpy())
     log(f"  layouts on the same 20 injected blocks: all six agree bitwise "
         f"outside {cross_d} d differences; 200-step trajectories differing "
         f"from sparse (walk-steps): {traj_diff}; sparse walks' digest "
@@ -1415,7 +1572,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error", "arning",
                                        "setmaxnreg", "wgmma")):
                 log(f"  nvcc {name}: {line.strip()}")
-            if (name in ("walk_transition_sparse", "walk_transition_dense")
+            if (name.startswith("walk_transition")
                     and "spill" in line and not line.strip().endswith(
                         "0 bytes spill stores, 0 bytes spill loads")):
                 raise AssertionError(f"{name} spills: {line.strip()}")
@@ -1449,21 +1606,28 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     phase1 = []
-    for w, r in ((8192, 3), (257, 1), (257, 5)):
+    # (W, r, p_J, walks on the hub): W/16+1 hub walks, or every walk there
+    for w, r, p_j, hub in ((8192, 3, params.p_j, 8192 // 16 + 1),
+                           (257, 1, 0.5, 257 // 16 + 1),
+                           (257, 5, 0.5, 257 // 16 + 1),
+                           (8192, 3, 0.0, 8192 // 16 + 1),
+                           (8192, 3, 1.0, 8192 // 16 + 1),
+                           (8192, 3, params.p_j, 8192)):
         nodes = torch.randint(0, g.n, (w,), generator=gen, device=dev,
                               dtype=torch.int32)
-        nodes[: w // 16 + 1] = int(np.argmax(g.degrees))  # hub walks
-        u = teng.draw_uniforms(w, r, params.p_j if r == 3 else 0.5, gen, dev)
+        nodes[:hub] = int(np.argmax(g.degrees))
+        u = teng.draw_uniforms(w, r, p_j, gen, dev)
         args = (nodes, eng.indptr, eng.degrees, eng.indices, eng.edge_cdf, u)
         kw = dict(p_d=params.p_d, r=r, max_degree=eng.max_degree)
         nxt_k, hops_k = wt.walk_transition_ragged(*args, **kw)
         nxt_p, hops_p = walk_transition_ragged_ref(*args, **kw)
         c = compare_with_plain(nxt_k, hops_k, nxt_p, hops_p, u,
-                               f"at W={w} r={r}")
-        phase1.append({"w": w, "r": r, **c})
-        log(f"  kernel vs plain W={w} r={r}: bitwise on "
-            f"{w - c['d_differs']}/{w} walks, d differs on {c['d_differs']} "
-            f"of {c['jumps']} jumps, max abs err {c['max_abs_err']}")
+                               f"at W={w} r={r} p_J={p_j} hub walks {hub}")
+        phase1.append({"w": w, "r": r, "p_j": p_j, "hub_walks": hub, **c})
+        log(f"  kernel vs plain W={w} r={r} p_J={p_j} hub walks {hub}: "
+            f"bitwise on {w - c['d_differs']}/{w} walks, d differs on "
+            f"{c['d_differs']} of {c['jumps']} jumps, max abs err "
+            f"{c['max_abs_err']}")
     # d agreement sweep: every walk jumps, so hops == d
     sweep = {}
     m = 1_000_000
@@ -1536,7 +1700,7 @@ def main() -> int:
     )
     gen.manual_seed(7)
     prof = profile_window(lambda: eng.run(v0, 50, generator=gen),
-                          "walk_transition_ragged_kernel")
+                          KERNEL_SYMBOL["walk_transition_ragged"])
     nbytes = nops = 0
     for t in range(steps):
         b, o = bound_for_step(cur[t], eng.indptr, eng.degrees, eng.indices,
@@ -1548,10 +1712,30 @@ def main() -> int:
     ops_ms = nops / steps / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     hops_mean = float(hops.double().mean())
+    engine_digest = digest(update_nodes.cpu().numpy(), hops.cpu().numpy())
+    # what the kernel's time is made of: the floor of a launch, the latency
+    # of a dependent load, the chain bound, the p_J split, the group widths
+    floor_t = launch_floor(dev)
+    log(f"  launch floor, one-element add_: {fmt_ms(floor_t)}")
+    slope = hop_slope(wt, teng, kargs, g.n, params.p_d, eng.max_degree, gen,
+                      dev)
+    latency_ms = slope["load_latency_cupti_ms"] or slope["load_latency_events_ms"]
+    log("  hop slope BA(1M,3), W=132, d = r: " + "; ".join(
+        f"r={r} {fmt_ms(t)}" for r, t in slope["per_r"].items())
+        + f"; one dependent load {slope['load_latency_events_ms']} ms by "
+        f"events, {slope['load_latency_cupti_ms']} ms by CUPTI")
+    chains = [chain_loads(u, params.p_d, params.r) for u in blocks]
+    chain_ms = float(np.mean(chains)) * latency_ms
+    log(f"  chain bound of the run's blocks: {float(np.mean(chains)):.3f} "
+        f"loads a launch (longest {max(chains)}) x {latency_ms:.3e} ms = "
+        f"{chain_ms:.6f} ms; bytes bound {bound_ms:.6f} ms")
+    study = ragged_study(wt, teng, kargs, cur, params.p_d, params.r,
+                         eng.max_degree, gen, dev, latency_ms,
+                         "W=8192 BA(1M,3)")
     dt = time.perf_counter() - t0
     log(f"  engine run W={w} T={steps}: {launches} launches, "
         f"{rate:.4e} walk-steps/s ({run_ms / steps:.4f} ms/step), "
-        f"hops/update {hops_mean:.4f}")
+        f"hops/update {hops_mean:.4f}, walks' digest {engine_digest}")
     log(f"  kernel {kernel_ms:.5f} ms/launch on the device (host enqueue "
         f"{kernel_host_ms:.5f} ms/call, device idle between launches "
         f"{kernel_idle:.4f} ms in all), plain {plain_ms:.5f} ms (host "
@@ -1573,7 +1757,10 @@ def main() -> int:
         "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
         "plain_idle_ms": plain_idle, "bound_ms": bound_ms, "bytes_per_step":
         nbytes / steps, "ops_per_step": nops / steps, "hops_mean": hops_mean,
-        "profile_50_steps": prof,
+        "profile_50_steps": prof, "walks_digest": engine_digest,
+        "launch_floor": floor_t, "hop_slope": slope,
+        "chain_loads_max": max(chains), "chain_bound_ms": chain_ms,
+        "study": study,
     }
     del blocks, cur, eng, g
 
@@ -1613,7 +1800,8 @@ def main() -> int:
         f"{avg[-1]:.4f} (least-squares floor {floor:.4f}), "
         f"hops/update {res.transitions_per_update:.4f}, {t_train:.2f} s "
         f"(set-up: P_IS rows on the host and CDF on the device "
-        f"{t_setup:.2f} s; loop {t_loop / steps3 * 1e3:.4f} ms/step)")
+        f"{t_setup:.2f} s; loop {t_loop / steps3 * 1e3:.4f} ms/step), "
+        f"walks' digest {digest(res.update_nodes, res.transitions)}")
     # replay every step of the run with its exact inputs (the trainer's
     # engine, the node vector, the block regenerated from the generator's
     # starting state): the kernel must reproduce the run, and its plain
@@ -1627,9 +1815,12 @@ def main() -> int:
     kw3 = dict(p_d=e3.p_d, r=e3.r, max_degree=e3.max_degree)
     replay = {"steps": steps3, "walks": 0, "jumps": 0, "d_differs": 0,
               "max_abs_err": 0}
+    blocks3, cur3 = [], []
     for t in range(steps3):
         u = teng.draw_uniforms(w3, e3.r, seen["p_j_sched"][t], g_rep, dev)
         cur = nodes3[:, t].contiguous()
+        blocks3.append(u)
+        cur3.append(cur)
         nxt_k, hops_k = wt.walk_transition_ragged(cur, *kargs3, u, **kw3)
         if not torch.equal(hops_k, hops3[:, t]) or (
             t + 1 < steps3 and not torch.equal(nxt_k, nodes3[:, t + 1])
@@ -1648,6 +1839,31 @@ def main() -> int:
         f"{replay['d_differs']} d differences in {replay['jumps']} jumps, "
         f"max abs err {replay['max_abs_err']}")
     del seen
+    # the kernel on the trainer's own inputs, as in phase 2
+    train_t = events_and_cupti(
+        lambda i: wt.walk_transition_ragged(cur3[i], *kargs3, blocks3[i], **kw3),
+        steps3, KERNEL_SYMBOL["walk_transition_ragged"])
+    train_plain_ms, _, _ = device_time_ms(
+        lambda i: walk_transition_ragged_ref(cur3[i], *kargs3, blocks3[i], **kw3),
+        50)
+    nbytes3 = sum(bound_for_step(cur3[t], *kargs3, blocks3[t], e3.r, e3.p_d,
+                                 e3.max_degree)[0] for t in range(steps3))
+    train_bound_ms = nbytes3 / steps3 / HBM_BYTES_PER_S * 1e3
+    slope3 = hop_slope(wt, teng, kargs3, g3.n, e3.p_d, e3.max_degree, g_rep,
+                       dev)
+    latency3 = slope3["load_latency_cupti_ms"] or slope3["load_latency_events_ms"]
+    chains3 = [chain_loads(u, e3.p_d, e3.r) for u in blocks3]
+    chain3_ms = float(np.mean(chains3)) * latency3
+    log(f"  kernel on the trainer's inputs (W={w3}, BA(100k,3), {steps3} "
+        f"launches): {fmt_ms(train_t)}; plain {train_plain_ms:.5f} ms; bytes "
+        f"bound {train_bound_ms:.6f} ms; hop slope: one dependent load "
+        f"{slope3['load_latency_events_ms']} ms by events, "
+        f"{slope3['load_latency_cupti_ms']} ms by CUPTI; chain bound "
+        f"{float(np.mean(chains3)):.3f} loads (longest {max(chains3)}) = "
+        f"{chain3_ms:.6f} ms")
+    study3 = ragged_study(wt, teng, kargs3, cur3, e3.p_d, e3.r, e3.max_degree,
+                          g_rep, dev, latency3, f"W={w3} BA(100k,3)")
+    del blocks3, cur3
     # small input: the trainer on the card against its CPU run, same CDF
     # and same injected blocks
     gs = ring(64, layout="ragged")
@@ -1691,6 +1907,11 @@ def main() -> int:
         "avg_mse_first": float(avg[0]), "avg_mse_mid": float(avg[steps3 // 2]),
         "avg_mse_last": float(avg[-1]), "floor": float(floor),
         "hops_per_update": res.transitions_per_update,
+        "walks_digest": digest(res.update_nodes, res.transitions),
+        "kernel": train_t, "plain_ms": train_plain_ms,
+        "bound_ms": train_bound_ms, "hop_slope": slope3,
+        "chain_loads_max": max(chains3), "chain_bound_ms": chain3_ms,
+        "study": study3,
     }
 
     # -- phase 4: the padded and bucketed layouts on the card -------------------

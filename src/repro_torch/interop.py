@@ -94,6 +94,15 @@ def from_reference_state(
             raise ValueError("edge_cdf and indices must both be (nnz,)")
         if cdf_width is not None and cdf_width < max_degree:
             raise ValueError("cdf_width must cover max_degree")
+        cdf = np.asarray(edge_cdf, np.float32)
+        inner = np.ones(max(cdf.size - 1, 0), bool)  # pairs inside a row
+        ends = np.asarray(indptr)[1:-1]
+        inner[ends[(ends > 0) & (ends < cdf.size)] - 1] = False
+        if np.any(np.diff(cdf)[inner] < 0):
+            raise ValueError(
+                "edge_cdf decreases inside a row; the ragged kernel's search "
+                "needs every row's CDF non-decreasing"
+            )
         fields.update(
             indptr=i32(indptr), indices=i32(indices), edge_cdf=f32(edge_cdf),
             max_degree=int(max_degree),

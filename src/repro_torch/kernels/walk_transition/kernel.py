@@ -27,7 +27,6 @@ from repro_torch.core.engine import (
     combine_bucketed,
     num_uniforms,
     scatter_compacted,
-    search_iters,
 )
 from repro_torch.core.levy import icdf_constants
 from repro_torch.kernels._launch import F, I, P, launch
@@ -50,7 +49,7 @@ __all__ = [
 
 _ARGTYPES = {
     # nodes, indptr, degrees, indices, edge_cdf, uniforms, den, next, hops,
-    # W, r, z, search_iters, stream
+    # W, r, z, group, stream
     "walk_transition_ragged": [P] * 9 + [I, I, F, I, P],
     # rows, neigh_rows, u_mh, v_mh, W, width, stream
     "walk_transition_sparse": [P] * 4 + [I, I, P],
@@ -58,6 +57,11 @@ _ARGTYPES = {
     # W, max_deg, r, z, stream
     "walk_transition_dense": [P] * 8 + [I, I, I, F, P],
 }
+
+# Lanes a walk of the ragged kernel, and the widths it is built for;
+# chip_smoke.py times every one of them at the main path's shapes.
+RAGGED_GROUP = 32
+RAGGED_GROUPS = (4, 8, 16, 32)
 
 # float32 log(1 - p_d), computed once per (device, 1 - p_d) on the device
 _DEN: dict = {}
@@ -100,8 +104,10 @@ def walk_transition_ragged(
     max_degree: int,
 ) -> tuple:
     """The fused MHLJ step on the flat CSR; returns ``(next_nodes, hops)``,
-    both (W,) int32.  ``max_degree`` sets the binary search's probe count
-    (``engine.search_iters``)."""
+    both (W,) int32.  ``max_degree`` sets the plain version's probe count
+    (``engine.search_iters``); the kernel, a group of
+    :data:`RAGGED_GROUP` lanes a walk, searches each segment in rounds of
+    that many probes and needs no bound."""
     device = _device(nodes, indptr, degrees, indices, edge_cdf, uniforms)
     if device.type == "cpu":
         return walk_transition_ragged_ref(
@@ -133,7 +139,7 @@ def walk_transition_ragged(
         nodes.data_ptr(), indptr.data_ptr(), degrees.data_ptr(),
         indices.data_ptr(), edge_cdf.data_ptr(), uniforms.data_ptr(),
         den.data_ptr(), next_nodes.data_ptr(), hops.data_ptr(),
-        w, r, z32, search_iters(max_degree), _stream(device),
+        w, r, z32, RAGGED_GROUP, _stream(device),
     )
     walk_transition_ragged.launches += 1
     return next_nodes, hops

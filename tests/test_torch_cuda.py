@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core import engine as teng
-from repro_torch.core.graphs import barabasi_albert
+from repro_torch.core.graphs import barabasi_albert, from_edges
 from repro_torch.core.transition import (
     MHLJParams,
     mh_importance_rows,
@@ -59,21 +59,81 @@ def engine(dev):
     )
 
 
-@pytest.mark.parametrize("w,r", [(1, 3), (257, 1), (4096, 5)])
-def test_kernel_bitwise_vs_plain(engine, dev, w, r):
-    gen = torch.Generator(device=dev).manual_seed(w + r)
-    nodes = torch.randint(0, engine.n, (w,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    u = teng.draw_uniforms(w, r, 0.4, gen, dev)
+def _hold_ragged(engine, nodes, u, r, monkeypatch):
+    """The ragged kernel at every lane-group width against its plain
+    version: bitwise outside a differing d, one launch a call."""
     args = (nodes, engine.indptr, engine.degrees, engine.indices,
             engine.edge_cdf, u)
     kw = dict(p_d=0.5, r=r, max_degree=engine.max_degree)
-    before = wt.walk_transition_ragged.launches
-    nxt, hops = wt.walk_transition_ragged(*args, **kw)
-    assert wt.walk_transition_ragged.launches == before + 1
     nxt_p, hops_p = walk_transition_ragged_ref(*args, **kw)
-    ok = ~((u[:, 0] > 0.5) & (hops != hops_p))  # d rounded differently
-    assert torch.equal(nxt[ok], nxt_p[ok]) and torch.equal(hops[ok], hops_p[ok])
+    for group in wt.RAGGED_GROUPS:
+        monkeypatch.setattr(wt, "RAGGED_GROUP", group)
+        before = wt.walk_transition_ragged.launches
+        nxt, hops = wt.walk_transition_ragged(*args, **kw)
+        torch.cuda.synchronize()
+        assert wt.walk_transition_ragged.launches == before + 1
+        ok = ~((u[:, 0] > 0.5) & (hops != hops_p))  # d rounded differently
+        assert torch.equal(nxt[ok], nxt_p[ok]), group
+        assert torch.equal(hops[ok], hops_p[ok]), group
+
+
+# r per W: past the kernel's 16 hop uniforms held in registers at W=33
+R_OF_W = {1: 3, 31: 16, 32: 3, 33: 20, 257: 1, 4096: 5}
+
+
+@pytest.mark.parametrize("p_j", [0.0, 0.4, 1.0])
+@pytest.mark.parametrize("w", sorted(R_OF_W))
+def test_kernel_bitwise_vs_plain(engine, dev, w, p_j, monkeypatch):
+    r = R_OF_W[w]
+    gen = torch.Generator(device=dev).manual_seed(w + r)
+    nodes = torch.randint(0, engine.n, (w,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    u = teng.draw_uniforms(w, r, p_j, gen, dev)
+    _hold_ragged(engine, nodes, u, r, monkeypatch)
+
+
+@pytest.mark.parametrize("p_j", [0.0, 0.4, 1.0])
+def test_kernel_with_every_walk_on_the_hub(engine, dev, p_j, monkeypatch):
+    """4096 walks on BA(20k,3)'s hub: every MH walk searches the widest
+    segment in several rounds."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    hub = int(torch.argmax(engine.degrees))
+    nodes = torch.full((4096,), hub, dtype=torch.int32, device=dev)
+    u = teng.draw_uniforms(4096, 3, p_j, gen, dev)
+    _hold_ragged(engine, nodes, u, 3, monkeypatch)
+
+
+def _group_width_graph():
+    """A path of centers, each with leaves, built by ``from_edges`` (which
+    adds a self-loop to every node) so the centers' degrees are G-1, G,
+    G+1, 2G and 2G+1 for every lane-group width G."""
+    degs = sorted({d for g in wt.RAGGED_GROUPS
+                   for d in (g - 1, g, g + 1, 2 * g, 2 * g + 1)})
+    k = len(degs)
+    src, dst = list(range(k - 1)), list(range(1, k))
+    leaf = k
+    for i, d in enumerate(degs):
+        for _ in range(d - 1 - (i > 0) - (i < k - 1)):
+            src.append(i)
+            dst.append(leaf)
+            leaf += 1
+    g = from_edges(leaf, np.array(src), np.array(dst), layout="ragged")
+    assert list(g.degrees[:k]) == degs
+    return g, k
+
+
+@pytest.mark.parametrize("p_j", [0.0, 0.4, 1.0])
+def test_kernel_on_rows_of_group_width(dev, p_j, monkeypatch):
+    """Rows of degree G and G+1 (one round, and past it) for every G."""
+    g, k = _group_width_graph()
+    lips = np.exp(np.random.default_rng(2).normal(size=g.n))
+    eng = teng.WalkEngine.from_graph(g, MHLJParams(p_j, 0.5, 3),
+                                     lipschitz=lips, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nodes = torch.randint(0, k, (4096,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    u = teng.draw_uniforms(4096, 3, p_j, gen, dev)
+    _hold_ragged(eng, nodes, u, 3, monkeypatch)
 
 
 def test_engine_step_launches_kernel_or_raises(engine, dev):
