@@ -81,7 +81,25 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    bf16 run against the float32 einsum run; then ``rmsnorm_fused``
    against its plain version and ``F.rms_norm`` at (4096, 4096) and
    (16384, 1024) in bf16 and float32, with the kernel that ran and the
-   share of the bound.
+   share of the bound;
+9. the paper's reproduction, ``repro_torch.paper``, on the card at the
+   paper's graph sizes (Fig. 3 ring(1000), T = 40,000; Fig. 4 ER(1000,
+   0.1), T = 20,000; Fig. 5's five 1000-node graphs; Fig. 6 ring(64), six
+   replicas; Theorem 1 at n = 128): first the first 2,000 steps of Fig. 3's
+   mhlj run, timed (ms/step at W=1) and profiled (idle share); then the
+   figures run side by side, one worker process a unit (a figure, or Fig.
+   5 on one graph), since each is a host-bound loop that leaves the card
+   idle; Fig. 5's T and then Fig. 6's are cut, never below 20,000, only
+   where the timed ms/step says the phase would pass ~5 minutes (each cut
+   is printed); each figure's wall time, ms/step and
+   ``walk_transition_sparse`` launches (one per training step, checked);
+   Fig. 3's and Fig. 5's BA(1000,3) mhlj runs take uniform blocks drawn on
+   the card, and their first 2,000 steps are replayed on the CPU plain path
+   (update nodes and hops equal, bit for bit); every MSE trace must be
+   finite, and the claims the reference's tests assert are hard gates
+   (Fig. 3's entrapment, early ratio and Remark-1 overhead; Theorem 1's
+   tau ratios and Remark 1; Fig. 6's shrinking gaps, final slope and
+   ``gap_shrink``), the others are printed with the claim they bear on.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel measurements, and as its last line
@@ -1529,6 +1547,333 @@ def phase_llm(dev) -> dict:
     return out
 
 
+# -- phase 9: the paper on the card ----------------------------------------------
+
+PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
+PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
+PAPER_SPAWN_S = 20.0  # the worker processes' start, to the card
+# a step's slow-down with the workers side by side: none was measured on
+# an H100 machine's 8-core host (1.44 ms/step side by side, 1.39-1.65
+# alone), so 10% of headroom
+PAPER_CONTENTION = 1.1
+PAPER_MIN_T = 20_000  # the reference's quick T, the floor of any cut
+PAPER_REPLAY = 2_000  # steps of each card-drawn run replayed on the CPU
+# the runs whose uniform blocks are drawn on the card and replayed
+PAPER_REPLAYED = (("ring", "mhlj"), ("barabasi_albert", "mhlj"))
+PAPER_CLAIMS = {
+    "fig4_erdos_renyi": {
+        "homo_auc_gap": "C1: homogeneous data, uniform ~= IS (near 0)",
+        "hetero_is_advantage": "C2: heterogeneous data, IS faster (> 0)",
+    },
+    "fig5_sparse_graphs": "C4: entrapment (*_is_occ) and the MHLJ fix "
+                          "(*_mhlj_occ below it) on each sparse graph",
+    "fig6_annealing": {
+        "annealed_vs_const": "C5: annealing p_J -> 0 removes the gap (< 1)",
+    },
+}
+
+
+def paper_units(fig5_tags, t5: int, t6: int) -> list:
+    """Phase 9's units of work, each run by one worker process: ``(figure,
+    Fig. 5 graph or None, training steps, training calls)``.  Fig. 5 runs
+    one unit per graph; the other figures one unit each."""
+    return ([("fig3_ring", None, 3 * 40_000, 3),
+             ("fig4_erdos_renyi", None, 4 * 20_000, 4),
+             ("fig6_annealing", None, 2 * t6, 2),
+             ("theorem1_remark1", None, 20_000, 1)]
+            + [("fig5_sparse_graphs", tag, 3 * t5, 3) for tag in fig5_tags])
+
+
+def makespan(costs, workers: int) -> float:
+    """The longest worker's load when the costs go, longest first, each to
+    the least loaded worker (the pool's order)."""
+    loads = [0.0] * workers
+    for c in sorted(costs, reverse=True):
+        loads[loads.index(min(loads))] += c
+    return max(loads)
+
+
+def paper_plan(fig5_tags, ms_step: float, setup_s: float, spent_s: float,
+               workers: int) -> dict:
+    """Each figure's T: the paper's, cut only where phase 9's time aim
+    forces it — Fig. 5's T first, then Fig. 6's, neither below
+    ``PAPER_MIN_T``, and no further than a cut shortens the phase (Fig.
+    3's unit is never cut) — with the units spread over ``workers``
+    processes.  A unit costs its steps at ``ms_step`` times
+    ``PAPER_CONTENTION`` (a W=6 fleet step costs one engine step) and
+    ``setup_s`` a call."""
+
+    def estimate(t5, t6):
+        costs = [steps * ms_step * PAPER_CONTENTION / 1e3 + calls * setup_s
+                 for _, _, steps, calls in paper_units(fig5_tags, t5, t6)]
+        return (spent_s + PAPER_SPAWN_S + PAPER_HOST_S
+                + makespan(costs, workers))
+
+    aim = max(PAPER_BUDGET_S, estimate(PAPER_MIN_T, PAPER_MIN_T))
+    candidates = ([(t5, 40_000) for t5 in range(40_000, PAPER_MIN_T - 1, -1_000)]
+                  + [(PAPER_MIN_T, t6)
+                     for t6 in range(39_000, PAPER_MIN_T - 1, -1_000)])
+    for t5, t6 in candidates:
+        est_s = estimate(t5, t6)
+        if est_s <= aim:
+            break
+    return {"fig5_T": t5, "fig6_T": t6, "estimate_s": est_s,
+            "workers": workers}
+
+
+def paper_unit(name: str, tag, num_steps, device: str) -> dict:
+    """One unit of phase 9, in a worker process of its own: a figure's
+    ``run`` (Fig. 5: ``run_graph`` on one graph) on the card, its training
+    calls recorded (time, steps, finite MSE) and its sparse-kernel launches
+    counted; the runs of ``PAPER_REPLAYED`` take blocks drawn on the card
+    and return their first ``PAPER_REPLAY`` steps for the CPU replay."""
+    import importlib
+
+    from repro_torch.kernels.walk_transition import kernel as wt
+
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    mod = importlib.import_module(f"repro_torch.paper.{name}")
+    gen = torch.Generator(device=dev)
+    calls: list = []
+    replays: dict = {}
+
+    def blocks(*, tag, method, seed, num_steps, num_walks, r, p_j):
+        if (tag, method) not in PAPER_REPLAYED:
+            return None  # the call draws from its own generator
+        gen.manual_seed(seed)
+        u = torch.rand((num_steps, num_walks, 3 + r), generator=gen,
+                       device=dev)
+        flag = u[..., 0] < torch.as_tensor(p_j, device=dev)[:, None]
+        u[..., 0] = flag.to(torch.float32)
+        replays[tag, method] = {"u": u[:PAPER_REPLAY].cpu().numpy()}
+        return u
+
+    def recording(blocks_, tag_, method, graph, data, gamma, steps, **kw):
+        t0 = time.perf_counter()
+        res = train(blocks_, tag_, method, graph, data, gamma, steps, **kw)
+        calls.append({"tag": tag_, "method": method, "steps": steps,
+                      "walks": kw.get("num_walks") or 1,
+                      "s": time.perf_counter() - t0})
+        if not np.isfinite(res.mse).all():
+            raise AssertionError(f"{name} {tag_}/{method}: the MSE trace is "
+                                 "not finite")
+        if (tag_, method) in replays:
+            replays[tag_, method].update(
+                nodes=res.update_nodes[:PAPER_REPLAY],
+                hops=res.transitions[:PAPER_REPLAY],
+                mse=res.mse[:PAPER_REPLAY + 1],
+                args=(graph, data, gamma,
+                      {k: v for k, v in kw.items() if k != "device"}))
+        return res
+
+    train = mod.train
+    mod.train = recording  # a pool's process runs several units
+    wt.walk_transition_sparse.launches = 0
+    t0 = time.perf_counter()
+    try:
+        if tag is None:
+            kwargs = {} if num_steps is None else {"num_steps": num_steps}
+            out = mod.run(device=dev, blocks=blocks, **kwargs)
+        else:
+            out = mod.run_graph(tag, mod._graphs("full")[tag], num_steps,
+                                device=dev, blocks=blocks)
+    finally:
+        mod.train = train
+    wall = time.perf_counter() - t0
+    return {"name": name, "tag": tag, "out": out, "calls": calls,
+            "wall_s": wall, "launches": wt.walk_transition_sparse.launches,
+            "replays": replays}
+
+
+def phase_paper(dev, smi: str) -> dict:
+    """Phase 9: the paper's reproduction (``repro_torch.paper``) on the
+    card at the paper's graph sizes, every training step through
+    ``walk_transition_sparse``.  The units run side by side in worker
+    processes: each is a host-bound loop that leaves the card idle most
+    of the time."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.core.graphs import ring
+    from repro_torch.core.levy import remark1_bound
+    from repro_torch.core.transition import MHLJParams
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.paper import fig5_sparse_graphs
+    from repro_torch.walk_sgd import run_rw_sgd
+
+    t_phase = time.perf_counter()
+    log(f"phase 9 (the paper on the card): {smi}")
+
+    # Fig. 3's mhlj setting alone in this process: the loop's ms/step at
+    # W=1 over its first PAPER_REPLAY steps, and a profiler window
+    n3 = 1000
+    data3 = make_heterogeneous_regression(
+        n3, dim=10, sigma_high_sq=100.0, p_high=0.002, seed=0,
+        force_min_high=2, x_star_scale=10.0,
+    )
+    kw3 = dict(mhlj_params=MHLJParams(0.1, 0.5, 3), seed=1,
+               v0=int(np.argmax(data3.lipschitz)))
+    gamma3 = 0.5 / data3.lipschitz.mean()
+    gen = torch.Generator(device=dev).manual_seed(1)  # as Fig. 3's block
+    u3 = torch.rand((40_000, 1, 6), generator=gen, device=dev)[:PAPER_REPLAY]
+    u3[..., 0] = (u3[..., 0] < np.float32(0.1)).to(torch.float32)
+    run_rw_sgd("mhlj", ring(n3), data3, gamma3, 50, uniforms=u3[:50],
+               device=dev, **kw3)  # warm-up
+    t0 = time.perf_counter()
+    run_rw_sgd("mhlj", ring(n3), data3, gamma3, 50, uniforms=u3[:50],
+               device=dev, **kw3)
+    t_short = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = run_rw_sgd("mhlj", ring(n3), data3, gamma3, PAPER_REPLAY,
+                       uniforms=u3, device=dev, **kw3)
+    t_timed = time.perf_counter() - t0
+    # the loop's time a step, and the call's set-up (graph, dense law, rows)
+    ms_step = (t_timed - t_short) / (PAPER_REPLAY - 50) * 1e3
+    setup_s = max(0.0, t_short - 50 * ms_step / 1e3)
+    log(f"  Fig. 3 mhlj, ring(1000), first {PAPER_REPLAY} steps on the card: "
+        f"{t_timed:.3f} s, {ms_step:.4f} ms/step in the loop (W=1) after "
+        f"{setup_s:.3f} s of set-up")
+    prof = profile_window(
+        lambda: run_rw_sgd("mhlj", ring(n3), data3, gamma3, 500,
+                           uniforms=u3[:500], device=dev, **kw3),
+        KERNEL_SYMBOL["walk_transition_sparse"])
+    log(f"  profiler, 500 of those steps: idle share {prof['idle_share']}, "
+        f"walk_transition_sparse {prof['kernel_ms']} ms/launch "
+        f"x {prof['kernel_launches']}")
+
+    fig5_tags = list(fig5_sparse_graphs._graphs("full"))
+    # one process a unit, up to the host's cores (this one mostly waits)
+    workers = max(1, min(len(fig5_tags) + 4, os.cpu_count() or 1))
+    plan = paper_plan(fig5_tags, ms_step, setup_s,
+                      time.perf_counter() - t_phase, workers)
+    cuts = [f"{fig}: T 40000 -> {plan[key]}"
+            for fig, key in (("fig5_sparse_graphs", "fig5_T"),
+                             ("fig6_annealing", "fig6_T"))
+            if plan[key] < 40_000]
+    log(f"  plan: {workers} worker processes, Fig. 5 T={plan['fig5_T']}, "
+        f"Fig. 6 T={plan['fig6_T']}, phase 9 estimated "
+        f"{plan['estimate_s']:.0f} s; T cuts: "
+        + ("; ".join(cuts) if cuts else "none"))
+    if plan["estimate_s"] > PAPER_BUDGET_S:
+        log(f"  over the {PAPER_BUDGET_S:.0f} s aim at the least T; the next "
+            "cut would be an earlier phase's depth")
+
+    steps_of = {"fig5_sparse_graphs": plan["fig5_T"],
+                "fig6_annealing": plan["fig6_T"]}
+    units = sorted(paper_units(fig5_tags, plan["fig5_T"], plan["fig6_T"]),
+                   key=lambda u: -u[2])  # longest first
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        futures = [pool.submit(paper_unit, name, tag, steps_of.get(name),
+                               str(dev))
+                   for name, tag, _, _ in units]
+        done = [f.result() for f in futures]
+    t_units = time.perf_counter() - t0
+    log(f"  the {len(units)} units on {workers} worker processes: "
+        f"{t_units:.2f} s")
+
+    figures: dict = {}
+    replay_runs: dict = {}
+    for name in ("fig3_ring", "fig4_erdos_renyi", "fig5_sparse_graphs",
+                 "fig6_annealing", "theorem1_remark1"):
+        parts = [d for d in done if d["name"] == name]
+        calls = [c for d in parts for c in d["calls"]]
+        steps = sum(c["steps"] for c in calls)
+        launches = sum(d["launches"] for d in parts)
+        if launches != steps or steps == 0:
+            raise AssertionError(f"{name}: {launches} sparse-kernel launches "
+                                 f"for {steps} training steps")
+        if name == "fig5_sparse_graphs":
+            out = {"T": plan["fig5_T"],
+                   **{d["tag"]: d["out"] for d in parts}}
+            out["derived"] = fig5_sparse_graphs.derived(out, fig5_tags)
+        else:
+            out = parts[0]["out"]
+        train_s = sum(c["s"] for c in calls)
+        figures[name] = {
+            "wall_s": max(d["wall_s"] for d in parts), "train_s": train_s,
+            "steps": steps, "ms_per_step": train_s / steps * 1e3,
+            "launches": launches, "calls": calls,
+            "units_wall_s": {d["tag"] or name: d["wall_s"] for d in parts},
+            "derived": out["derived"],
+            **({"T": steps_of[name]} if name in steps_of else {}),
+        }
+        if name == "fig6_annealing":
+            figures[name]["p_j_sweep"] = out["p_j_sweep"]
+        for d in parts:
+            replay_runs.update(d["replays"])
+        log(f"  {name}: {figures[name]['wall_s']:.2f} s wall, {steps} steps "
+            f"in {len(calls)} runs, {train_s / steps * 1e3:.4f} ms/step "
+            f"(side by side), walk_transition_sparse launches={launches}")
+        log(f"    derived: {json.dumps(out['derived'])}")
+
+    # the card-drawn runs, their first PAPER_REPLAY steps replayed on the
+    # CPU with the figure's own graph, data and settings
+    replays = {}
+    for tag, method in PAPER_REPLAYED:
+        card = replay_runs[tag, method]
+        graph, data, gamma, kw = card["args"]
+        cpu = run_rw_sgd(method, graph, data, gamma, PAPER_REPLAY,
+                         uniforms=torch.from_numpy(card["u"]), device="cpu",
+                         **kw)
+        same = (np.array_equal(card["nodes"], cpu.update_nodes)
+                and np.array_equal(card["hops"], cpu.transitions))
+        if tag == "ring":  # the timed run is Fig. 3's first steps
+            same = (same and np.array_equal(card["u"], u3.cpu().numpy())
+                    and np.array_equal(timed.update_nodes, cpu.update_nodes))
+        mse_rel = float(np.max(np.abs(card["mse"] - cpu.mse)
+                               / np.abs(cpu.mse)))
+        width = int(graph.degrees.max())
+        replays[tag] = {"equal": same, "width": width, "mse_max_rel": mse_rel}
+        log(f"  replay {tag} (max width {width}): first {PAPER_REPLAY} update "
+            f"nodes and hops card == CPU: {same}; MSE max rel diff "
+            f"{mse_rel:.3g}")
+        if not same:
+            raise AssertionError(f"{tag}: the card's walk differs from the "
+                                 "CPU replay")
+
+    # the claims the reference's tests assert, as hard gates
+    d3 = figures["fig3_ring"]["derived"]
+    dt1 = figures["theorem1_remark1"]["derived"]
+    f6 = figures["fig6_annealing"]
+    gaps = list(f6["p_j_sweep"].values())
+    gates = {
+        "fig3 is_entrapped_occupancy > mhlj_occupancy":
+            d3["is_entrapped_occupancy"] > d3["mhlj_occupancy"],
+        "fig3 mhlj_vs_is_early_ratio < 1": d3["mhlj_vs_is_early_ratio"] < 1,
+        "fig3 mhlj_comm_overhead <= remark1_bound(0.1, 0.5, 3)":
+            d3["mhlj_comm_overhead"] <= remark1_bound(0.1, 0.5, 3),
+        "theorem1 ring_tau_ratio > 1": dt1["ring_tau_ratio"] > 1,
+        "theorem1 ws_tau_ratio > 1": dt1["ws_tau_ratio"] > 1,
+        "theorem1 remark1_within": bool(dt1["remark1_within"]),
+        "fig6 gaps strictly decrease":
+            all(a > b for a, b in zip(gaps, gaps[1:])),
+        "fig6 final_slope > 1.5": f6["derived"]["final_slope"] > 1.5,
+        "fig6 gap_shrink < 0.05": f6["derived"]["gap_shrink"] < 0.05,
+    }
+    for name, ok in gates.items():
+        log(f"  gate {name}: {'pass' if ok else 'FAIL'}")
+    for fig, claims in PAPER_CLAIMS.items():
+        d = figures[fig]["derived"]
+        if isinstance(claims, str):
+            log(f"  reported {fig} ({claims}): " + ", ".join(
+                f"{k}={v:.6g}" for k, v in d.items()))
+        else:
+            for k, claim in claims.items():
+                log(f"  reported {fig} {k}={d[k]:.6g} ({claim})")
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"paper claims failed on the card: {failed}")
+    return {"ms_per_step_first": ms_step, "timed_s": t_timed,
+            "setup_s_first": setup_s,
+            "profile": {k: v for k, v in prof.items()
+                        if not k.startswith("device_")},
+            "plan": plan, "cuts": cuts, "units_s": t_units,
+            "figures": figures, "replays": replays, "gates": gates}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1937,6 +2282,13 @@ def main() -> int:
     log(f"phases 6-8 LLM: {dt:.2f} s")
     report["phases"]["llm"] = {"s": dt, **p6}
 
+    # -- phase 9: the paper's reproduction on the card -----------------------
+    t0 = time.perf_counter()
+    p9 = phase_paper(dev, smi)
+    dt = time.perf_counter() - t0
+    log(f"phase 9 paper: {dt:.2f} s")
+    report["phases"]["paper"] = {"s": dt, **p9}
+
     def entry(name, source, replaces, launches, err):
         tm = p4["timing"][name]
         return {
@@ -2027,6 +2379,10 @@ def main() -> int:
     )]
     if kernels[-1]["launches"] != 2:
         raise AssertionError("ops.rmsnorm did not launch its kernel once per model")
+    # phase 9 launches the sparse kernel once per training step of a figure
+    sparse = next(k for k in kernels if k["name"] == "walk_transition_sparse")
+    sparse["launches_by_figure"] = {
+        name: f["launches"] for name, f in p9["figures"].items()}
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -16,10 +16,10 @@ classes, one per engine layout:
   ``degrees`` and nothing sized by ``max_degree``), the substrate of the
   engine's ragged layout.
 
-Families: ``ring``, ``grid2d``, ``erdos_renyi``, ``barabasi_albert``,
-``sbm`` and ``dumbbell``.  Edge churn and the other families
-(Watts-Strogatz, star, complete, expander, lollipop) are not ported yet
-(ROADMAP Queue 1).
+Families: ``ring``, ``grid2d``, ``watts_strogatz``, ``erdos_renyi``,
+``star``, ``complete``, ``expander``, ``barabasi_albert``, ``sbm``,
+``dumbbell`` and ``lollipop``.  Edge churn is not ported yet (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -37,10 +37,15 @@ __all__ = [
     "flat_edge_values",
     "ring",
     "grid2d",
+    "watts_strogatz",
     "erdos_renyi",
+    "star",
+    "complete",
+    "expander",
     "barabasi_albert",
     "sbm",
     "dumbbell",
+    "lollipop",
     "from_adjacency",
     "from_edges",
 ]
@@ -737,6 +742,38 @@ def grid2d(
     )
 
 
+def watts_strogatz(n: int, k: int, p: float, seed: int = 0) -> Graph:
+    """Watts-Strogatz small world (paper Fig 5b: WS(1000, 4, 0.1)).
+
+    Ring lattice with k nearest neighbors (k even), each "forward" edge
+    rewired with probability p (no self/multi edges).  A rewiring that
+    disconnects the graph retries with the next seed.
+    """
+    if k % 2 != 0 or k >= n:
+        raise ValueError("watts_strogatz requires even k < n")
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n))
+    for v in range(n):
+        for j in range(1, k // 2 + 1):
+            adj[v, (v + j) % n] = 1
+            adj[(v + j) % n, v] = 1
+    for v in range(n):
+        for j in range(1, k // 2 + 1):
+            if rng.random() < p:
+                u = (v + j) % n
+                # rewire edge (v, u) -> (v, w)
+                candidates = np.nonzero((adj[v] == 0))[0]
+                candidates = candidates[candidates != v]
+                if len(candidates) == 0:
+                    continue
+                w = int(rng.choice(candidates))
+                adj[v, u] = adj[u, v] = 0
+                adj[v, w] = adj[w, v] = 1
+    if not _is_connected(np.maximum(adj, np.eye(n))):
+        return watts_strogatz(n, k, p, seed=seed + 1)
+    return from_adjacency(adj, name=f"ws({n},{k},{p})")  # validates
+
+
 def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
     """Erdos-Renyi G(n, p) (paper Fig 4 uses ER(1000, 0.1)); resamples
     until connected."""
@@ -748,6 +785,39 @@ def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
         if _is_connected(np.maximum(adj, np.eye(n))):
             return from_adjacency(adj, name=f"er({n},{p})")  # validates
     raise RuntimeError(f"could not sample a connected ER({n},{p}) in 64 tries")
+
+
+def star(n: int) -> Graph:
+    """Star graph — worst-case hub topology, useful in entrapment tests."""
+    adj = np.zeros((n, n))
+    adj[0, 1:] = 1
+    adj[1:, 0] = 1
+    return from_adjacency(adj, name=f"star({n})")
+
+
+def complete(n: int) -> Graph:
+    """Complete graph — the centralized-equivalent reference topology."""
+    adj = np.ones((n, n))
+    return from_adjacency(adj, name=f"complete({n})")
+
+
+def expander(n: int, d: int = 6, seed: int = 0) -> Graph:
+    """Random d-regular-ish expander: the union of d/2 random perfect
+    matchings plus a ring (for connectivity).  Good conductance — a control
+    topology where entrapment should not occur."""
+    if n % 2 != 0:
+        raise ValueError("expander needs even n")
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n))
+    for _ in range(max(1, d // 2)):
+        perm = rng.permutation(n)
+        for i in range(0, n, 2):
+            a, b = perm[i], perm[i + 1]
+            adj[a, b] = adj[b, a] = 1
+    idx = np.arange(n)
+    adj[idx, (idx + 1) % n] = 1
+    adj[(idx + 1) % n, idx] = 1
+    return from_adjacency(adj, name=f"expander({n},{d})")  # validates
 
 
 def barabasi_albert(
@@ -891,5 +961,29 @@ def dumbbell(
     dst = np.concatenate([ju, ju + off_b, chain[1:]])
     return from_edges(
         n, src, dst, name=f"dumbbell({clique_n},{path_len})", layout=layout,
+        bucket_factor=bucket_factor,
+    )
+
+
+def lollipop(
+    clique_n: int, path_len: int, layout: str = "dense",
+    bucket_factor: int = 2,
+):
+    """A ``clique_n``-clique with a ``path_len``-node path hanging off it.
+
+    Maximizes hitting time clique -> path tip (the classical Theta(n^3)
+    lollipop bound) — the sharpest single-walk entrapment stressor.
+    """
+    if clique_n < 3:
+        raise ValueError("lollipop needs clique_n >= 3")
+    if path_len < 1:
+        raise ValueError("lollipop needs path_len >= 1")
+    n = clique_n + path_len
+    iu, ju = np.triu_indices(clique_n, k=1)
+    chain = np.concatenate([[clique_n - 1], np.arange(clique_n, n)])
+    src = np.concatenate([iu, chain[:-1]])
+    dst = np.concatenate([ju, chain[1:]])
+    return from_edges(
+        n, src, dst, name=f"lollipop({clique_n},{path_len})", layout=layout,
         bucket_factor=bucket_factor,
     )

@@ -8,6 +8,13 @@ and the jump performs ``d`` consecutive uniform simple-random-walk hops
 with no model updates.  The law's host-side constants are numpy;
 :func:`trunc_geom_icdf` is the one float32 formula every sampler of the
 port (the engine's plain path and the CUDA kernel) shares.
+
+The induced one-shot transition matrix comes in two dense forms, numpy
+copies of the reference's: :func:`levy_matrix`, the paper's closed form
+``sum_i w_i diag(A^i 1)^{-1} A^i`` (row-normalised adjacency powers,
+which count i-hop paths), and :func:`levy_matrix_chained`, the exact law
+of Algorithm 1's jump loop ``sum_i w_i D^i`` with ``D = diag(A 1)^{-1} A``.
+They coincide on regular graphs.
 """
 from __future__ import annotations
 
@@ -19,6 +26,9 @@ __all__ = [
     "trunc_geom_mean",
     "trunc_geom_icdf",
     "icdf_constants",
+    "levy_weights",
+    "levy_matrix",
+    "levy_matrix_chained",
     "expected_transitions_per_update",
     "remark1_bound",
 ]
@@ -73,6 +83,38 @@ def trunc_geom_icdf(u: torch.Tensor, p_d: float, r: int) -> torch.Tensor:
     den = torch.log(torch.full((), q32, dtype=torch.float32, device=u.device))
     d = torch.ceil(torch.log1p(-u * z32) / den).to(torch.int32)
     return torch.clamp(d, 1, r)
+
+
+def levy_weights(p_d: float, r: int) -> np.ndarray:
+    """Alias for the mixture weights w_i (identical to the pmf)."""
+    return trunc_geom_pmf(p_d, r)
+
+
+def levy_matrix(graph, p_d: float, r: int) -> np.ndarray:
+    """Paper closed form: sum_i w_i diag(A^i 1)^{-1} A^i, for a dense
+    :class:`~repro_torch.core.graphs.Graph`."""
+    a = graph.adj
+    w = levy_weights(p_d, r)
+    out = np.zeros_like(a)
+    a_pow = np.eye(graph.n)
+    for i in range(1, r + 1):
+        a_pow = a_pow @ a
+        row_sums = a_pow.sum(axis=1, keepdims=True)
+        out += w[i - 1] * (a_pow / row_sums)
+    return out
+
+
+def levy_matrix_chained(graph, p_d: float, r: int) -> np.ndarray:
+    """Exact law of Algorithm 1's jump loop: sum_i w_i D^i, D = deg^{-1} A."""
+    a = graph.adj
+    d_mat = a / a.sum(axis=1, keepdims=True)
+    w = levy_weights(p_d, r)
+    out = np.zeros_like(a)
+    d_pow = np.eye(graph.n)
+    for i in range(1, r + 1):
+        d_pow = d_pow @ d_mat
+        out += w[i - 1] * d_pow
+    return out
 
 
 def expected_transitions_per_update(p_j: float, p_d: float, r: int) -> float:

@@ -7,6 +7,7 @@ need, bit for bit:
 2. ``mh``             general Metropolis–Hastings, Eq. (6)
 3. ``mh_uniform``     MH targeting uniform pi
 4. ``mh_importance``  P_IS of Eq. (7): MH targeting pi_IS ∝ L_v
+5. ``mhlj``           P = (1-p_J) P_IS + p_J P_Lévy (paper §V), dense only
 
 Each law comes as a dense row-stochastic ``(n, n)`` matrix (a
 :class:`~repro_torch.core.graphs.Graph` only; :func:`row_probs_padded`
@@ -15,9 +16,9 @@ rows built from local information, as a tuple of per-bucket
 ``(n_b, width_b)`` rows, or as a flat ``(nnz,)`` buffer aligned with the
 CSR ``indices``.  The local builders share one block function per law,
 and pads carry exactly 0, so a bucket row is the column truncation of the
-padded row and a flat entry is the padded entry.  The MHLJ law itself is
-never materialized: the engine samples it in two phases (MH move or Lévy
-jump).  The heterogeneity and private laws are not ported yet.
+padded row and a flat entry is the padded entry.  The MHLJ law exists
+only as the dense matrix :func:`mhlj`, for the chain analysis: the engine
+samples it in two phases (MH move or Lévy jump).  The heterogeneity and private laws are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core import levy as levy_mod
 from repro_torch.core.graphs import (
     Graph,
     _pad_neighbor_lists,
@@ -39,6 +41,7 @@ __all__ = [
     "mh",
     "mh_uniform",
     "mh_importance",
+    "mhlj",
     "is_row_stochastic",
     "supported_on_graph",
     "row_probs_padded",
@@ -145,6 +148,30 @@ def mh_importance(graph: Graph, lipschitz: np.ndarray) -> np.ndarray:
     if np.any(lipschitz <= 0):
         raise ValueError("Lipschitz constants must be strictly positive")
     return mh(graph, lipschitz / lipschitz.sum())
+
+
+def mhlj(
+    graph: Graph,
+    lipschitz: np.ndarray,
+    params: MHLJParams,
+    *,
+    chained_levy: bool = True,
+) -> np.ndarray:
+    """MHLJ effective transition: P = (1 - p_J) P_IS + p_J P_Lévy (paper §V).
+
+    ``chained_levy=True`` uses the exact law of Algorithm 1's jump loop
+    (composition of uniform hops); ``False`` uses the paper's adjacency-power
+    closed form.  They coincide on regular graphs (ring, torus grid).
+    """
+    params.validate()
+    p_is = mh_importance(graph, lipschitz)
+    if params.p_j == 0.0:
+        return p_is
+    if chained_levy:
+        p_levy = levy_mod.levy_matrix_chained(graph, params.p_d, params.r)
+    else:
+        p_levy = levy_mod.levy_matrix(graph, params.p_d, params.r)
+    return (1.0 - params.p_j) * p_is + params.p_j * p_levy
 
 
 def is_row_stochastic(p: np.ndarray, atol: float = 1e-9) -> bool:

@@ -393,6 +393,57 @@ def test_layout_engines_launch_their_kernels(padded):
         assert torch.equal(hops, outs["sparse"][1])
 
 
+def test_fig3_mhlj_setting_card_equals_cpu(dev):
+    """Fig. 3's mhlj run (``repro_torch.paper.fig3_ring``'s data, step and
+    start) at ring(256), T = 2,000, on one injected block: the card's walk
+    (through the sparse kernel, once a step) equals the CPU's bit for bit,
+    and its MSE trace agrees to 1e-4 relative."""
+    from repro_torch.core.graphs import ring
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import run_rw_sgd
+
+    n, steps = 256, 2_000
+    data = make_heterogeneous_regression(
+        n, dim=10, sigma_high_sq=100.0, p_high=0.002, seed=0,
+        force_min_high=2, x_star_scale=10.0,
+    )
+    u = torch.rand((steps, 1, 6), generator=torch.Generator().manual_seed(1))
+    u[..., 0] = (u[..., 0] < np.float32(0.1)).to(torch.float32)
+    kw = dict(mhlj_params=MHLJParams(0.1, 0.5, 3), seed=1,
+              v0=int(np.argmax(data.lipschitz)))
+    gamma = 0.5 / data.lipschitz.mean()
+    before = wt.walk_transition_sparse.launches
+    card = run_rw_sgd("mhlj", ring(n), data, gamma, steps, uniforms=u.to(dev),
+                      device=dev, **kw)
+    assert wt.walk_transition_sparse.launches - before == steps
+    cpu = run_rw_sgd("mhlj", ring(n), data, gamma, steps, uniforms=u,
+                     device="cpu", **kw)
+    np.testing.assert_array_equal(card.update_nodes, cpu.update_nodes)
+    np.testing.assert_array_equal(card.transitions, cpu.transitions)
+    np.testing.assert_allclose(card.mse, cpu.mse, rtol=1e-4)
+
+
+def test_walk_markov_card_equals_cpu(dev):
+    """``core.walk.walk_markov_batched`` on the card launches the sparse
+    kernel once a step and walks as the CPU does on the same block."""
+    from repro_torch.core import walk as twalk
+    from repro_torch.core.graphs import lollipop
+    from repro_torch.core.transition import mh_uniform, row_probs_padded
+
+    g = lollipop(40, 30)
+    rows = torch.from_numpy(row_probs_padded(mh_uniform(g), g))
+    nbrs, _ = twalk.graph_tensors(g, device="cpu")
+    u = torch.rand((300, 64, 4), generator=torch.Generator().manual_seed(2))
+    u[..., 0] = 0.0
+    v0s = torch.arange(64, dtype=torch.int32)
+    cpu = twalk.walk_markov_batched(rows, nbrs, v0s, 300, uniforms=u)
+    before = wt.walk_transition_sparse.launches
+    card = twalk.walk_markov_batched(rows.to(dev), nbrs.to(dev), v0s.to(dev),
+                                     300, uniforms=u.to(dev))
+    assert wt.walk_transition_sparse.launches - before == 300
+    assert torch.equal(card.cpu(), cpu)
+
+
 # -- the LLM kernels ------------------------------------------------------------
 
 LLM_TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
