@@ -14,10 +14,16 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    at W=257 with r=1 and r=5, and measures over 10^6 draws how often the
    kernel's Lévy distance d differs from PyTorch's on the card and on the
    CPU;
-2. runs ``WalkEngine.run`` for 200 steps on that graph (launch count,
-   walk-steps/s, and the kernel's own time replayed on the run's inputs),
-   then a 50-step run under ``torch.profiler`` for the device's idle
-   share; then what the kernel's time is made of: the launch floor (a
+2. runs ``WalkEngine.run`` for 200 steps on that graph on its default
+   path, captured in CUDA graphs (``repro_torch.core.scan``), and once
+   more uncaptured from the same generator state: walks, hops, overflow
+   vector and generator state bit for bit, launches counted on the
+   captured run, each loop's ms/step, the graphs' K and capture time,
+   and the idle share of a 97-step profiled window of each loop (the
+   captured one after its capture); the walks' digest must equal ``WALK_DIGESTS``;
+   then the kernel's own time replayed on the run's inputs, a 50-step
+   uncaptured run under ``torch.profiler``, and what the kernel's time
+   is made of: the launch floor (a
    one-element ``add_``), the latency of one dependent load (the slope of
    132 all-jumping walks' time over r = 1 … 16 hops), the chain bound (the
    longest chain of dependent loads the step forces, times that latency)
@@ -25,10 +31,13 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    nodes, and at every lane-group width (``kernel.RAGGED_GROUPS``), each
    by events and by CUPTI;
 3. trains ``run_rw_sgd_multi("mhlj", ...)`` on ``barabasi_albert(100_000,
-   3)`` with W=2048, avg_every=50, 500 steps, replays every step's exact
-   kernel inputs through the kernel and its plain version, times the
-   kernel on them as in 2 (the hop slope on this graph), and checks the
-   trainer against its CPU run on a small input;
+   3)`` with W=2048, avg_every=50, 500 steps (captured), runs its loop
+   again uncaptured from the same generator state (update nodes, hops,
+   MSE traces and models bit for bit; ms/step, K, capture time and idle
+   share of each, as in 2), replays every step's exact kernel inputs
+   through the kernel and its plain version, times the kernel on them as
+   in 2 (the hop slope on this graph), and checks the trainer against
+   its CPU run on a small input;
 4. on ``barabasi_albert(100_000, 3)`` as a ``CSRGraph`` (max degree 1196)
    with W=2048, builds the engine of every layout of the reference's
    ``benchmarks/large_graph_walk.py`` (sparse, dense, bucketed,
@@ -36,8 +45,11 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    ``walk_transition_sparse`` (on the sparse tiles and on every compacted
    bucket tile) and ``walk_transition`` against their plain versions on
    one injected block at W = 1, 257, 2048 and r = 1, 3, 5, runs each
-   engine for 200 steps (launches, walk-steps/s, compaction overflow rate,
-   a 20-step profiler window's idle share), checks that all six layouts give the
+   engine for 200 steps captured and uncaptured as in 2 (launches,
+   walk-steps/s, compaction overflow rate, idle shares; a compacted step
+   launches the sparse kernel twice a bucket: its compacted passes and
+   the full dispatch's, gated off by the device's overflow flag, whose
+   cost is timed apart), checks that all six layouts give the
    same ``(next, hops)`` on the same blocks, and times both kernels (the
    sparse one also at every bucket width, on the bucketed engine's (W,
    width) tiles and the compacted engine's (cap, width) tiles) beside
@@ -48,9 +60,9 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
 5. trains ``run_rw_sgd_multi("mhlj", ...)`` as in 3 on that graph given as
    a ``CSRGraph`` (sparse layout), as a ``BucketedCSRGraph`` (compacted)
    and with ``engine_kwargs={"layout": "dense"}``: launches per run, the
-   walk-steps that differ from the ragged run of 3, ``avg_mse`` at the
-   least-squares floor, and every step replayed through kernel and plain
-   version.
+   captured loop against the uncaptured one as in 3, the walk-steps that
+   differ from the ragged run of 3, ``avg_mse`` at the least-squares
+   floor, and every step replayed through kernel and plain version.
 6.-8. the LLM slice, per model, each built once at full width in bf16
    with random weights from seed 0 (minitron-8b, then mamba2-370m, freed
    in between): 6. its kernel against its plain version at the path's
@@ -85,13 +97,16 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
 9. the paper's reproduction, ``repro_torch.paper``, on the card at the
    paper's graph sizes (Fig. 3 ring(1000), T = 40,000; Fig. 4 ER(1000,
    0.1), T = 20,000; Fig. 5's five 1000-node graphs; Fig. 6 ring(64), six
-   replicas; Theorem 1 at n = 128): first the first 2,000 steps of Fig. 3's
-   mhlj run, timed (ms/step at W=1) and profiled (idle share); then the
-   figures run side by side, one worker process a unit (a figure, or Fig.
-   5 on one graph), since each is a host-bound loop that leaves the card
-   idle; Fig. 5's T and then Fig. 6's are cut, never below 20,000, only
-   where the timed ms/step says the phase would pass ~5 minutes (each cut
-   is printed); each figure's wall time, ms/step and
+   replicas; Theorem 1 at n = 128), every loop captured: first the first
+   2,000 steps of Fig. 3's mhlj run at W=1, captured and uncaptured (bit
+   for bit; ms/step, K, capture time), 4,001 steps of it at each graph
+   length K of ``PAPER_K_SWEEP`` (capture time, ms/step), and 500 steps
+   of each loop profiled (idle share); then the figures one unit (a
+   figure, or Fig. 5 on one graph) after another in this process, beside
+   the estimate of a side-by-side plan; Fig. 5's T and then Fig.
+   6's are cut, never below 20,000, only where the measured ms/step says
+   the phase would pass ~5 minutes (each cut is printed); each figure's
+   wall time, ms/step, K, capture time and
    ``walk_transition_sparse`` launches (one per training step, checked);
    Fig. 3's and Fig. 5's BA(1000,3) mhlj runs take uniform blocks drawn on
    the card, and their first 2,000 steps are replayed on the CPU plain path
@@ -128,6 +143,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 SECTOR = 32
+# the walks' digests of phase 2's engine, phase 3's trainer and phase 4's
+# sparse engine, as the uncaptured loops of earlier commits logged them:
+# the captured loops draw the same streams, so a run that differs fails
+WALK_DIGESTS = {"engine": "0443043a29af39ff", "trainer": "55247e8bcd26b353",
+                "sparse": "f8330f2ef8b68117"}
 
 
 def log(msg: str) -> None:
@@ -141,6 +161,13 @@ def digest(*arrays) -> str:
     for a in arrays:
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()[:16]
+
+
+def check_digest(name: str, value: str) -> str:
+    if value != WALK_DIGESTS[name]:
+        raise AssertionError(f"the {name} walks' digest {value} is not "
+                             f"{WALK_DIGESTS[name]}")
+    return value
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
@@ -182,13 +209,16 @@ def device_time_ms(fn, iters: int) -> tuple:
     return per_call, enqueue_ms, idle
 
 
-def profile_window(fn, kernel_name: str) -> dict:
+def profile_window(fn, kernel_name: str, after: str = None) -> dict:
     """Device busy and idle share of ``fn()`` from a ``torch.profiler``
     trace, and the named kernel's device time per launch.
 
     The window runs from the first device activity to the last; idle is the
-    part of it that no kernel, copy or fill covers.  Returns all None when
-    the profiler records no device activity.
+    part of it that no kernel, copy or fill covers.  With ``after``, the
+    name of a CPU range (``"scan.capture"``: the capture of a walk loop,
+    during which the card idles by design), only device activity that
+    starts after that range ends counts: the replays of a captured loop.
+    Returns all None when the profiler records no device activity there.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -196,8 +226,14 @@ def profile_window(fn, kernel_name: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    start = -float("inf")
+    if after is not None:
+        marks = [e.time_range.end for e in events if e.name == after]
+        start = max(marks) if marks else float("inf")
+    dev_events = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.start >= start]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     by_name: dict = {}
     count_by_name: dict = {}
@@ -226,6 +262,125 @@ def profile_window(fn, kernel_name: str) -> dict:
             "kernel_ms": sum(mine) / len(mine) / 1e3 if mine else None,
             "kernel_launches": len(mine), "device_ms_by_name": by_name,
             "device_launches_by_name": count_by_name}
+
+
+class ScanLog:
+    """Keeps the ``ScanStats`` of every ``repro_torch.core.scan.scan`` call
+    made inside it (the engine and the fleet look ``scan`` up at call
+    time); with ``chunk``, every call's graphs hold ``chunk`` steps."""
+
+    def __init__(self, chunk: int = None):
+        self.chunk, self.stats = chunk, []
+
+    def __enter__(self):
+        from repro_torch.core import scan as scan_mod
+
+        self._mod, self._scan = scan_mod, scan_mod.scan
+
+        def recording(*args, **kw):
+            if self.chunk is not None:
+                kw["chunk"] = self.chunk
+            out = self._scan(*args, **kw)
+            self.stats.append(out[2])
+            return out
+
+        scan_mod.scan = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.scan = self._scan
+
+
+def scan_summary(stats, seconds: float) -> dict:
+    """A captured call's graphs: K, replays, tail, capture seconds, the
+    call's ms/step and the replayed ms/step (device, replays and tail)."""
+    replay_ms = stats.replay_ms()
+    return {"chunk": stats.chunk, "replays": stats.replays,
+            "tail": stats.tail, "capture_s": stats.capture_s,
+            "ms_per_step": seconds * 1e3 / stats.steps,
+            "replayed_ms_per_step": (None if replay_ms is None
+                                     else replay_ms / (stats.steps - 1))}
+
+
+def fmt_loop(c: dict) -> str:
+    return (f"captured {c['ms_per_step']:.5f} ms/step (replayed "
+            f"{c['replayed_ms_per_step']:.5f}; K={c['chunk']} x "
+            f"{c['replays']} replays + {c['tail']} tail, capture "
+            f"{c['capture_s']:.4f} s), uncaptured "
+            f"{c['uncaptured_ms_per_step']:.5f} ms/step; idle share captured "
+            f"(replay window) {c['idle_share']}, uncaptured "
+            f"{c['idle_share_uncaptured']}")
+
+
+# steps of a profiled walk loop: the first, 12 replays of 8, no tail
+PROFILE_STEPS = 97
+
+
+def engine_loop(e, v0, steps: int, seed: int, dev, counters: dict,
+                expect: dict, symbol: str, where: str) -> dict:
+    """``e.run`` for ``steps`` steps from a generator seeded ``seed``: the
+    default path (captured; every count set to 0 just before and held to
+    ``expect`` just after) and the uncaptured loop, bit for bit equal
+    (walks, hops, the (T,) overflow vector, the generator's final state);
+    each one's ms/step, the graphs' K and capture time, and the idle share
+    of a :data:`PROFILE_STEPS`-step window of each loop."""
+    runs = {}
+    for capture in (None, False):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for c in counters.values():
+            c.launches = 0
+        with ScanLog() as sl:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nodes, hops, aux = e.run(v0, steps, generator=gen, with_aux=True,
+                                     capture=capture)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        if capture is None and launches != expect:
+            raise AssertionError(f"{where} run launched {launches}, "
+                                 f"expected {expect}")
+        runs[capture] = {"nodes": nodes, "hops": hops,
+                         "overflow": aux["compact_overflow"],
+                         "state": gen.get_state(), "s": dt,
+                         "stats": sl.stats[0]}
+    c, u = runs[None], runs[False]
+    for key in ("nodes", "hops", "overflow", "state"):
+        if not torch.equal(c[key], u[key]):
+            raise AssertionError(f"{where}: captured and uncaptured runs "
+                                 f"differ in {key}")
+    prof = {}
+    for capture in (None, False):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        prof[capture] = profile_window(
+            lambda: e.run(v0, PROFILE_STEPS, generator=gen, capture=capture),
+            symbol, after="scan.capture" if capture is None else None)
+    summary = scan_summary(c["stats"], c["s"])
+    summary.update(uncaptured_ms_per_step=u["s"] * 1e3 / steps,
+                   idle_share=prof[None]["idle_share"],
+                   idle_share_uncaptured=prof[False]["idle_share"],
+                   profile_kernel_ms=prof[None]["kernel_ms"],
+                   launches=launches_of(expect),
+                   launches_per_step=launches_of(expect) / steps)
+    log(f"  {where}: {fmt_loop(summary)}; "
+        f"{summary['launches_per_step']:g} kernel launches a step; captured "
+        f"== uncaptured bit for bit (walks, hops, overflow, generator)")
+    return {"nodes": c["nodes"], "hops": c["hops"], "overflow": c["overflow"],
+            "loop": summary}
+
+
+def launches_of(expect: dict) -> int:
+    return sum(expect.values())
+
+
+def launches_per_step(e) -> int:
+    """Kernel launches a step of engine ``e`` makes: one, or one a degree
+    bucket on the bucketed layout, two a bucket when compacted (the
+    compacted passes and the full dispatch's, gated by the overflow)."""
+    if e.layout != "bucketed":
+        return 1
+    b = len(e.bucket_neighbors)
+    return 2 * b if (e.compact and b > 1) else b
 
 
 def compare_with_plain(nxt_k, hops_k, nxt_p, hops_p, u, where: str) -> dict:
@@ -643,41 +798,24 @@ def phase_layouts(dev, params) -> dict:
         gen.manual_seed(99)
         e.run(v0, 5, generator=gen)  # warm
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        gen.manual_seed(7)
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        ev0.record()
-        nodes_t, hops_t, aux = e.run(v0, steps, generator=gen, with_aux=True)
-        ev1.record()
-        torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
         mine = KERNEL_OF_LAYOUT[e.layout]
-        per_step = len(e.bucket_neighbors) if e.layout == "bucketed" else 1
-        expect = {k: (steps * per_step if k == mine else 0) for k in counters}
-        if launches != expect:
-            raise AssertionError(f"{name} run launched {launches}, expected "
-                                 f"{expect}")
-        run_ms = ev0.elapsed_time(ev1)
-        gen.manual_seed(7)
-        prof = profile_window(lambda: e.run(v0, 20, generator=gen),
-                              KERNEL_SYMBOL[mine])
-        overflow = float(aux["compact_overflow"].float().mean())
+        expect = {k: (steps * launches_per_step(e) if k == mine else 0)
+                  for k in counters}
+        loop = engine_loop(e, v0, steps, 7, dev, counters, expect,
+                           KERNEL_SYMBOL[mine], f"engine {name}")
+        overflow = float(loop["overflow"].float().mean())
         runs[name] = {
-            "launches": launches[mine], "run_ms": run_ms,
-            "ms_per_step": run_ms / steps,
-            "walk_steps_per_s": w * steps / (run_ms / 1e3),
-            "overflow_rate": overflow, "idle_share": prof["idle_share"],
-            "profile_kernel_ms": prof["kernel_ms"],
-            "profile_window_ms": prof["window_ms"],
-            "hops_mean": float(hops_t.double().mean()),
+            "launches": loop["loop"]["launches"],
+            "run_ms": loop["loop"]["ms_per_step"] * steps,
+            "ms_per_step": loop["loop"]["ms_per_step"],
+            "walk_steps_per_s": w / (loop["loop"]["ms_per_step"] / 1e3),
+            "overflow_rate": overflow, "loop": loop["loop"],
+            "hops_mean": float(loop["hops"].double().mean()),
+            "nodes": loop["nodes"], "hops": loop["hops"],
         }
-        runs[name]["nodes"], runs[name]["hops"] = nodes_t, hops_t
-        log(f"  engine {name}: {launches[mine]} {mine} launches in {steps} "
-            f"steps, {runs[name]['walk_steps_per_s']:.4e} walk-steps/s "
-            f"({run_ms / steps:.4f} ms/step), overflow rate {overflow:.4f}, "
-            f"profiler idle share {prof['idle_share']}, kernel "
-            f"{prof['kernel_ms']} ms/launch (CUPTI)")
+        log(f"  engine {name}: {runs[name]['launches']} {mine} launches in "
+            f"{steps} steps, {runs[name]['walk_steps_per_s']:.4e} "
+            f"walk-steps/s captured, overflow rate {overflow:.4f}")
 
     # (c) the layouts against each other on the same injected blocks
     gen.manual_seed(7)
@@ -697,8 +835,8 @@ def phase_layouts(dev, params) -> dict:
         name: int((rr["nodes"] != base["nodes"]).sum())
         for name, rr in runs.items()
     }
-    walks_digest = digest(base["nodes"].cpu().numpy(),
-                          base["hops"].cpu().numpy())
+    walks_digest = check_digest("sparse", digest(base["nodes"].cpu().numpy(),
+                                                 base["hops"].cpu().numpy()))
     log(f"  layouts on the same 20 injected blocks: all six agree bitwise "
         f"outside {cross_d} d differences; 200-step trajectories differing "
         f"from sparse (walk-steps): {traj_diff}; sparse walks' digest "
@@ -762,6 +900,21 @@ def phase_layouts(dev, params) -> dict:
                 f", {entry['width']}): {entry['ms']:.5f} ms/launch, bound "
                 f"{entry['bound'][0]:.6f} ms by {entry['bound'][1]}, longest "
                 f"chain {entry['chain']} adds")
+    # what a compacted step's unused branch costs when the compacted one is
+    # taken: the full dispatch's gathers, issued every step, and its tile
+    # passes, launched gated off
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    dead = {
+        "gathers_ms": device_time_ms(lambda i: ec._bucket_tiles(cur[i]),
+                                     20)[0],
+        "gated_passes_ms": device_time_ms(
+            lambda i: [wt.walk_transition_sparse(rw, tl, um, off)
+                       for rw, tl, um in per_width["full"][i]], 20)[0],
+        "passes": len(per_width["full"][0]),
+    }
+    log(f"  bucketed_compact's unused full branch a step: gathers "
+        f"{dead['gathers_ms']:.5f} ms, {dead['passes']} gated passes "
+        f"{dead['gated_passes_ms']:.5f} ms (device, CUDA events)")
     del per_width
 
     timing = {
@@ -770,6 +923,7 @@ def phase_layouts(dev, params) -> dict:
             "plain_ms": sp_plain[0], "bytes": sp_bytes, "ops": sp_ops,
             "bound": bound(sp_bytes, sp_ops, FP32_OPS_PER_S),
             "chain": sp_chain, "by_bucket_width": by_width,
+            "unused_branch": dead,
         },
         "walk_transition": {
             "ms": de_ms[0], "host_ms": de_ms[1], "idle_ms": de_ms[2],
@@ -831,11 +985,12 @@ def phase_layout_trainers(ttrain, g, data, gamma, params, dev,
         )
         launches = [c.launches for c in counters]
         eng = seen["fleet"].engine
-        per_step = len(eng.bucket_neighbors) if eng.layout == "bucketed" else 1
+        per_step = launches_per_step(eng)
         expect = [steps * per_step if c is kern else 0 for c in counters]
         if launches != expect:
             raise AssertionError(f"trainer ({name}) launched {launches}, "
                                  f"expected {expect}")
+        loop = trainer_loop_check(ttrain, res, seen, f"trainer {name}")
         avg = res.avg_mse
         if not (np.isfinite(res.mse).all() and np.isfinite(avg).all()):
             raise AssertionError(f"trainer ({name}) produced non-finite MSE")
@@ -923,7 +1078,7 @@ def phase_layout_trainers(ttrain, g, data, gamma, params, dev,
             "walk_steps_differing_from_ragged": diff,
             "overflow_steps": overflow, "replay_max_abs_err": err,
             "replay_d_differs": d_diff,
-            "hops_per_update": res.transitions_per_update,
+            "hops_per_update": res.transitions_per_update, "loop": loop,
         }
         log(f"  trainer mhlj on {name} (W={w}, T={steps}): launches "
             f"{dict(zip(('sparse', 'dense', 'ragged'), launches))}, avg_mse "
@@ -936,34 +1091,89 @@ def phase_layout_trainers(ttrain, g, data, gamma, params, dev,
     return out
 
 
-def timed_training(ttrain, method, graph, data, gamma, steps, walks, **kw):
-    """``run_rw_sgd_multi`` with its set-up and its training loop timed
-    apart, and the loop's fleet, p_J schedule and generator starting state
-    kept so every step's kernel inputs can be replayed exactly.  The
-    trainer runs unchanged: only ``run_fleet`` is wrapped."""
+def timed_training(ttrain, method, graph, data, gamma, steps, *walks,
+                   entry="run_rw_sgd_multi", capture=None, **kw):
+    """``ttrain.<entry>`` (``run_rw_sgd_multi``, or ``run_rw_sgd`` with no
+    ``walks``) with its set-up and its training loop timed apart, and the
+    loop's arguments, fleet, p_J schedule, generator starting state and
+    ``ScanStats`` kept, so every step's kernel inputs can be replayed and
+    the loop run again.  The trainer runs unchanged: only ``run_fleet`` is
+    wrapped (``capture=False`` runs its loop uncaptured)."""
     seen: dict = {}
     run_fleet = ttrain.run_fleet
 
     def timed_run_fleet(*args, **fkw):
         torch.cuda.synchronize()
         seen["enter"] = time.perf_counter()
+        seen["args"], seen["kwargs"] = args, dict(fkw)
         seen["fleet"], seen["p_j_sched"] = args[4], args[7]
-        seen["gen_state"] = fkw["generator"].get_state()
-        out = run_fleet(*args, **fkw)
-        torch.cuda.synchronize()
+        gen = fkw.get("generator")
+        seen["gen_state"] = None if gen is None else gen.get_state()
+        with ScanLog() as sl:
+            out = run_fleet(*args, **fkw, capture=capture)
+            torch.cuda.synchronize()
         seen["loop_s"] = time.perf_counter() - seen["enter"]
+        seen["scan"] = sl.stats[0]
         return out
 
     ttrain.run_fleet = timed_run_fleet
     try:
         t0 = time.perf_counter()
-        res = ttrain.run_rw_sgd_multi(method, graph, data, gamma, steps,
-                                      walks, **kw)
+        res = getattr(ttrain, entry)(method, graph, data, gamma, steps,
+                                     *walks, **kw)
         seen["train_s"] = time.perf_counter() - t0
     finally:
         ttrain.run_fleet = run_fleet
     seen["setup_s"] = seen.pop("enter") - t0
     return res, seen
+
+
+def fleet_loop_again(ttrain, seen, num_steps=None, capture=False):
+    """The loop ``timed_training`` saw, run again from the generator's
+    starting state (``num_steps`` of it, default all; ``capture=False``
+    uncaptured); returns ``run_fleet``'s outputs and its seconds."""
+    args = list(seen["args"])
+    if num_steps is not None:
+        args[5], args[7] = num_steps, args[7][:num_steps]
+    kw = dict(seen["kwargs"], capture=capture)
+    if seen["gen_state"] is not None:
+        gen = torch.Generator(device=args[0].device)
+        gen.set_state(seen["gen_state"])
+        kw["generator"] = gen
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ttrain.run_fleet(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def trainer_loop_check(ttrain, res, seen, where: str) -> dict:
+    """The captured training loop against the same loop uncaptured, from
+    the same generator state: update nodes, hops, both MSE traces and the
+    final models bit for bit; ms/step of each, K and the capture time, and
+    the idle share of a :data:`PROFILE_STEPS`-step window of each loop."""
+    (xs, mse, avg, nodes, hops, _), dt = fleet_loop_again(ttrain, seen)
+    got = {"update_nodes": nodes, "transitions": hops, "mse": mse,
+           "avg_mse": avg, "x_final": xs}
+    for name, t in got.items():
+        want = getattr(res, name)
+        if not np.array_equal(t.cpu().numpy(), want):
+            raise AssertionError(f"{where}: captured and uncaptured loops "
+                                 f"differ in {name}")
+    steps = seen["scan"].steps
+    summary = scan_summary(seen["scan"], seen["loop_s"])
+    summary["uncaptured_ms_per_step"] = dt * 1e3 / steps
+    for capture, key in ((None, "idle_share"),
+                         (False, "idle_share_uncaptured")):
+        prof = profile_window(
+            lambda: fleet_loop_again(ttrain, seen, PROFILE_STEPS, capture),
+            "walk_transition",
+            after="scan.capture" if capture is None else None)
+        summary[key] = prof["idle_share"]
+    log(f"  {where} loop: {fmt_loop(summary)}; "
+        "captured == uncaptured bit for bit (walks, hops, MSE traces, "
+        "models)")
+    return summary
 
 
 # -- the LLM slice: phases 6-8 ---------------------------------------------------
@@ -1551,13 +1761,11 @@ def phase_llm(dev) -> dict:
 
 PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
-PAPER_SPAWN_S = 20.0  # the worker processes' start, to the card
-# a step's slow-down with the workers side by side: none was measured on
-# an H100 machine's 8-core host (1.44 ms/step side by side, 1.39-1.65
-# alone), so 10% of headroom
-PAPER_CONTENTION = 1.1
+PAPER_SPAWN_S = 20.0  # a worker process's start (the side-by-side plan)
+PAPER_WORKERS = 8  # the side-by-side plan's worker processes
 PAPER_MIN_T = 20_000  # the reference's quick T, the floor of any cut
 PAPER_REPLAY = 2_000  # steps of each card-drawn run replayed on the CPU
+PAPER_K_SWEEP = (2, 8, 32)  # graph lengths timed on Fig. 3's loop
 # the runs whose uniform blocks are drawn on the card and replayed
 PAPER_REPLAYED = (("ring", "mhlj"), ("barabasi_albert", "mhlj"))
 PAPER_CLAIMS = {
@@ -1574,9 +1782,9 @@ PAPER_CLAIMS = {
 
 
 def paper_units(fig5_tags, t5: int, t6: int) -> list:
-    """Phase 9's units of work, each run by one worker process: ``(figure,
-    Fig. 5 graph or None, training steps, training calls)``.  Fig. 5 runs
-    one unit per graph; the other figures one unit each."""
+    """Phase 9's units of work: ``(figure, Fig. 5 graph or None, training
+    steps, training calls)``.  Fig. 5 runs one unit per graph; the other
+    figures one unit each."""
     return ([("fig3_ring", None, 3 * 40_000, 3),
              ("fig4_erdos_renyi", None, 4 * 20_000, 4),
              ("fig6_annealing", None, 2 * t6, 2),
@@ -1593,21 +1801,24 @@ def makespan(costs, workers: int) -> float:
     return max(loads)
 
 
-def paper_plan(fig5_tags, ms_step: float, setup_s: float, spent_s: float,
-               workers: int) -> dict:
+def paper_plan(fig5_tags, ms_step: float, call_s: float, spent_s: float,
+               busy_ms_step: float) -> dict:
     """Each figure's T: the paper's, cut only where phase 9's time aim
     forces it — Fig. 5's T first, then Fig. 6's, neither below
     ``PAPER_MIN_T``, and no further than a cut shortens the phase (Fig.
-    3's unit is never cut) — with the units spread over ``workers``
-    processes.  A unit costs its steps at ``ms_step`` times
-    ``PAPER_CONTENTION`` (a W=6 fleet step costs one engine step) and
-    ``setup_s`` a call."""
+    3's unit is never cut) — with the units run one after another in
+    this process.  A unit costs its steps at ``ms_step`` (a W=6 fleet step
+    costs one engine step) and ``call_s`` a call (set-up and capture).
+    Beside it, the side-by-side plan at the chosen T: the units in
+    ``PAPER_WORKERS`` processes, no shorter than the card's share, the
+    steps at ``busy_ms_step`` of device time, since they share one card."""
+
+    def costs(t5, t6):
+        return [steps * ms_step / 1e3 + calls * call_s
+                for _, _, steps, calls in paper_units(fig5_tags, t5, t6)]
 
     def estimate(t5, t6):
-        costs = [steps * ms_step * PAPER_CONTENTION / 1e3 + calls * setup_s
-                 for _, _, steps, calls in paper_units(fig5_tags, t5, t6)]
-        return (spent_s + PAPER_SPAWN_S + PAPER_HOST_S
-                + makespan(costs, workers))
+        return spent_s + PAPER_HOST_S + sum(costs(t5, t6))
 
     aim = max(PAPER_BUDGET_S, estimate(PAPER_MIN_T, PAPER_MIN_T))
     candidates = ([(t5, 40_000) for t5 in range(40_000, PAPER_MIN_T - 1, -1_000)]
@@ -1617,22 +1828,25 @@ def paper_plan(fig5_tags, ms_step: float, setup_s: float, spent_s: float,
         est_s = estimate(t5, t6)
         if est_s <= aim:
             break
+    device_s = sum(steps for _, _, steps, _ in paper_units(fig5_tags, t5, t6)
+                   ) * busy_ms_step / 1e3
+    side_s = (spent_s + PAPER_SPAWN_S + PAPER_HOST_S
+              + max(makespan(costs(t5, t6), PAPER_WORKERS), device_s))
     return {"fig5_T": t5, "fig6_T": t6, "estimate_s": est_s,
-            "workers": workers}
+            "side_by_side_estimate_s": side_s, "device_s": device_s}
 
 
-def paper_unit(name: str, tag, num_steps, device: str) -> dict:
-    """One unit of phase 9, in a worker process of its own: a figure's
-    ``run`` (Fig. 5: ``run_graph`` on one graph) on the card, its training
-    calls recorded (time, steps, finite MSE) and its sparse-kernel launches
-    counted; the runs of ``PAPER_REPLAYED`` take blocks drawn on the card
-    and return their first ``PAPER_REPLAY`` steps for the CPU replay."""
+def paper_unit(name: str, tag, num_steps, dev) -> dict:
+    """One unit of phase 9: a figure's ``run`` (Fig. 5: ``run_graph`` on
+    one graph) on the card, its training calls recorded (time, steps,
+    finite MSE, the graphs' K and capture seconds) and its sparse-kernel
+    launches counted; the runs of ``PAPER_REPLAYED`` take blocks drawn on
+    the card and keep their first ``PAPER_REPLAY`` steps for the CPU
+    replay."""
     import importlib
 
     from repro_torch.kernels.walk_transition import kernel as wt
 
-    torch.set_num_threads(1)
-    dev = torch.device(device)
     mod = importlib.import_module(f"repro_torch.paper.{name}")
     gen = torch.Generator(device=dev)
     calls: list = []
@@ -1651,10 +1865,13 @@ def paper_unit(name: str, tag, num_steps, device: str) -> dict:
 
     def recording(blocks_, tag_, method, graph, data, gamma, steps, **kw):
         t0 = time.perf_counter()
-        res = train(blocks_, tag_, method, graph, data, gamma, steps, **kw)
+        with ScanLog() as sl:
+            res = train(blocks_, tag_, method, graph, data, gamma, steps, **kw)
         calls.append({"tag": tag_, "method": method, "steps": steps,
                       "walks": kw.get("num_walks") or 1,
-                      "s": time.perf_counter() - t0})
+                      "s": time.perf_counter() - t0,
+                      "chunk": sl.stats[0].chunk,
+                      "capture_s": sl.stats[0].capture_s})
         if not np.isfinite(res.mse).all():
             raise AssertionError(f"{name} {tag_}/{method}: the MSE trace is "
                                  "not finite")
@@ -1668,7 +1885,7 @@ def paper_unit(name: str, tag, num_steps, device: str) -> dict:
         return res
 
     train = mod.train
-    mod.train = recording  # a pool's process runs several units
+    mod.train = recording
     wt.walk_transition_sparse.launches = 0
     t0 = time.perf_counter()
     try:
@@ -1689,24 +1906,22 @@ def paper_unit(name: str, tag, num_steps, device: str) -> dict:
 def phase_paper(dev, smi: str) -> dict:
     """Phase 9: the paper's reproduction (``repro_torch.paper``) on the
     card at the paper's graph sizes, every training step through
-    ``walk_transition_sparse``.  The units run side by side in worker
-    processes: each is a host-bound loop that leaves the card idle most
-    of the time."""
-    import concurrent.futures
-    import multiprocessing
-
+    ``walk_transition_sparse``, the loops captured in CUDA graphs, the
+    units one after another in this process."""
     from repro_torch.core.graphs import ring
     from repro_torch.core.levy import remark1_bound
     from repro_torch.core.transition import MHLJParams
     from repro_torch.data import make_heterogeneous_regression
     from repro_torch.paper import fig5_sparse_graphs
     from repro_torch.walk_sgd import run_rw_sgd
+    from repro_torch.walk_sgd import trainer as ttrain
 
     t_phase = time.perf_counter()
     log(f"phase 9 (the paper on the card): {smi}")
 
-    # Fig. 3's mhlj setting alone in this process: the loop's ms/step at
-    # W=1 over its first PAPER_REPLAY steps, and a profiler window
+    # Fig. 3's mhlj setting alone: the loop's ms/step at W=1 over its first
+    # PAPER_REPLAY steps, captured and uncaptured, graphs of each
+    # PAPER_K_SWEEP length, and a profiler window of each loop
     n3 = 1000
     data3 = make_heterogeneous_regression(
         n3, dim=10, sigma_high_sq=100.0, p_high=0.002, seed=0,
@@ -1716,44 +1931,67 @@ def phase_paper(dev, smi: str) -> dict:
                v0=int(np.argmax(data3.lipschitz)))
     gamma3 = 0.5 / data3.lipschitz.mean()
     gen = torch.Generator(device=dev).manual_seed(1)  # as Fig. 3's block
-    u3 = torch.rand((40_000, 1, 6), generator=gen, device=dev)[:PAPER_REPLAY]
-    u3[..., 0] = (u3[..., 0] < np.float32(0.1)).to(torch.float32)
+    u3_all = torch.rand((40_000, 1, 6), generator=gen, device=dev)
+    u3_all[..., 0] = (u3_all[..., 0] < np.float32(0.1)).to(torch.float32)
+    u3 = u3_all[:PAPER_REPLAY]
     run_rw_sgd("mhlj", ring(n3), data3, gamma3, 50, uniforms=u3[:50],
                device=dev, **kw3)  # warm-up
-    t0 = time.perf_counter()
-    run_rw_sgd("mhlj", ring(n3), data3, gamma3, 50, uniforms=u3[:50],
-               device=dev, **kw3)
-    t_short = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    timed = run_rw_sgd("mhlj", ring(n3), data3, gamma3, PAPER_REPLAY,
-                       uniforms=u3, device=dev, **kw3)
-    t_timed = time.perf_counter() - t0
-    # the loop's time a step, and the call's set-up (graph, dense law, rows)
-    ms_step = (t_timed - t_short) / (PAPER_REPLAY - 50) * 1e3
-    setup_s = max(0.0, t_short - 50 * ms_step / 1e3)
-    log(f"  Fig. 3 mhlj, ring(1000), first {PAPER_REPLAY} steps on the card: "
-        f"{t_timed:.3f} s, {ms_step:.4f} ms/step in the loop (W=1) after "
-        f"{setup_s:.3f} s of set-up")
-    prof = profile_window(
-        lambda: run_rw_sgd("mhlj", ring(n3), data3, gamma3, 500,
-                           uniforms=u3[:500], device=dev, **kw3),
-        KERNEL_SYMBOL["walk_transition_sparse"])
-    log(f"  profiler, 500 of those steps: idle share {prof['idle_share']}, "
-        f"walk_transition_sparse {prof['kernel_ms']} ms/launch "
-        f"x {prof['kernel_launches']}")
+
+    def fig3_loop(steps, capture=None):
+        return timed_training(ttrain, "mhlj", ring(n3), data3, gamma3, steps,
+                              entry="run_rw_sgd", capture=capture,
+                              uniforms=u3_all[:steps], device=dev, **kw3)
+
+    timed, seen = fig3_loop(PAPER_REPLAY)
+    plain, seen_u = fig3_loop(PAPER_REPLAY, capture=False)
+    for name in ("update_nodes", "transitions", "mse", "x_final"):
+        if not np.array_equal(getattr(timed, name), getattr(plain, name)):
+            raise AssertionError(f"Fig. 3 loop: captured and uncaptured "
+                                 f"differ in {name}")
+    loop = scan_summary(seen["scan"], seen["loop_s"])
+    loop["uncaptured_ms_per_step"] = seen_u["loop_s"] * 1e3 / PAPER_REPLAY
+    setup_s = seen["setup_s"]
+    sweep = {}
+    for k in PAPER_K_SWEEP:
+        with ScanLog(chunk=k):
+            _, seen_k = fig3_loop(1 + 4_000)
+        sweep[k] = scan_summary(seen_k["scan"], seen_k["loop_s"])
+        log(f"  Fig. 3 loop, 4,001 steps, K={k}: capture "
+            f"{sweep[k]['capture_s']:.4f} s, {sweep[k]['replays']} replays, "
+            f"{sweep[k]['ms_per_step']:.5f} ms/step the call, "
+            f"{sweep[k]['replayed_ms_per_step']:.5f} ms/step replayed")
+    prof = profile_window(lambda: fig3_loop(500),
+                          "walk_transition_sparse_kernel",
+                          after="scan.capture")
+    prof_u = profile_window(lambda: fig3_loop(500, capture=False),
+                            "walk_transition_sparse_kernel")
+    loop["idle_share"], loop["idle_share_uncaptured"] = (
+        prof["idle_share"], prof_u["idle_share"])
+    # the card's time a step, which processes side by side would share:
+    # the replayed step less its idle share
+    busy_ms_step = loop["replayed_ms_per_step"] * (1.0 - (prof["idle_share"]
+                                                           or 0.0))
+    log(f"  Fig. 3 mhlj, ring(1000), first {PAPER_REPLAY} steps (W=1), "
+        f"set-up {setup_s:.3f} s: {fmt_loop(loop)}; "
+        f"captured == uncaptured bit for bit; the card busy "
+        f"{busy_ms_step:.5f} ms a replayed step, walk_transition_sparse "
+        f"{prof['kernel_ms']} ms/launch (CUPTI)")
 
     fig5_tags = list(fig5_sparse_graphs._graphs("full"))
-    # one process a unit, up to the host's cores (this one mostly waits)
-    workers = max(1, min(len(fig5_tags) + 4, os.cpu_count() or 1))
-    plan = paper_plan(fig5_tags, ms_step, setup_s,
-                      time.perf_counter() - t_phase, workers)
+    # a call: its set-up and the capture of at most MAX_CHUNK steps
+    from repro_torch.core.scan import MAX_CHUNK
+    call_s = setup_s + MAX_CHUNK * loop["uncaptured_ms_per_step"] / 1e3
+    plan = paper_plan(fig5_tags, loop["replayed_ms_per_step"], call_s,
+                      time.perf_counter() - t_phase, busy_ms_step)
     cuts = [f"{fig}: T 40000 -> {plan[key]}"
             for fig, key in (("fig5_sparse_graphs", "fig5_T"),
                              ("fig6_annealing", "fig6_T"))
             if plan[key] < 40_000]
-    log(f"  plan: {workers} worker processes, Fig. 5 T={plan['fig5_T']}, "
-        f"Fig. 6 T={plan['fig6_T']}, phase 9 estimated "
-        f"{plan['estimate_s']:.0f} s; T cuts: "
+    log(f"  plan: one process, Fig. 5 T={plan['fig5_T']}, Fig. 6 "
+        f"T={plan['fig6_T']}, phase 9 estimated {plan['estimate_s']:.0f} s "
+        f"(the side-by-side plan, {PAPER_WORKERS} workers sharing the card's "
+        f"{plan['device_s']:.0f} s of device time: "
+        f"{plan['side_by_side_estimate_s']:.0f} s); T cuts: "
         + ("; ".join(cuts) if cuts else "none"))
     if plan["estimate_s"] > PAPER_BUDGET_S:
         log(f"  over the {PAPER_BUDGET_S:.0f} s aim at the least T; the next "
@@ -1761,18 +1999,12 @@ def phase_paper(dev, smi: str) -> dict:
 
     steps_of = {"fig5_sparse_graphs": plan["fig5_T"],
                 "fig6_annealing": plan["fig6_T"]}
-    units = sorted(paper_units(fig5_tags, plan["fig5_T"], plan["fig6_T"]),
-                   key=lambda u: -u[2])  # longest first
+    units = paper_units(fig5_tags, plan["fig5_T"], plan["fig6_T"])
     t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        futures = [pool.submit(paper_unit, name, tag, steps_of.get(name),
-                               str(dev))
-                   for name, tag, _, _ in units]
-        done = [f.result() for f in futures]
+    done = [paper_unit(name, tag, steps_of.get(name), dev)
+            for name, tag, _, _ in units]
     t_units = time.perf_counter() - t0
-    log(f"  the {len(units)} units on {workers} worker processes: "
-        f"{t_units:.2f} s")
+    log(f"  the {len(units)} units in one process: {t_units:.2f} s")
 
     figures: dict = {}
     replay_runs: dict = {}
@@ -1793,7 +2025,7 @@ def phase_paper(dev, smi: str) -> dict:
             out = parts[0]["out"]
         train_s = sum(c["s"] for c in calls)
         figures[name] = {
-            "wall_s": max(d["wall_s"] for d in parts), "train_s": train_s,
+            "wall_s": sum(d["wall_s"] for d in parts), "train_s": train_s,
             "steps": steps, "ms_per_step": train_s / steps * 1e3,
             "launches": launches, "calls": calls,
             "units_wall_s": {d["tag"] or name: d["wall_s"] for d in parts},
@@ -1805,8 +2037,11 @@ def phase_paper(dev, smi: str) -> dict:
         for d in parts:
             replay_runs.update(d["replays"])
         log(f"  {name}: {figures[name]['wall_s']:.2f} s wall, {steps} steps "
-            f"in {len(calls)} runs, {train_s / steps * 1e3:.4f} ms/step "
-            f"(side by side), walk_transition_sparse launches={launches}")
+            f"in {len(calls)} runs, {train_s / steps * 1e3:.5f} ms/step "
+            f"(captured, set-up and capture included; K "
+            f"{sorted({c['chunk'] for c in calls})}, capture "
+            f"{sum(c['capture_s'] for c in calls):.3f} s in all), "
+            f"walk_transition_sparse launches={launches}")
         log(f"    derived: {json.dumps(out['derived'])}")
 
     # the card-drawn runs, their first PAPER_REPLAY steps replayed on the
@@ -1866,12 +2101,17 @@ def phase_paper(dev, smi: str) -> dict:
     failed = [name for name, ok in gates.items() if not ok]
     if failed:
         raise AssertionError(f"paper claims failed on the card: {failed}")
-    return {"ms_per_step_first": ms_step, "timed_s": t_timed,
-            "setup_s_first": setup_s,
+    return {"loop_first": loop, "setup_s_first": setup_s,
+            "k_sweep": sweep, "busy_ms_per_step": busy_ms_step,
             "profile": {k: v for k, v in prof.items()
                         if not k.startswith("device_")},
+            "profile_uncaptured": {k: v for k, v in prof_u.items()
+                                   if not k.startswith("device_")},
             "plan": plan, "cuts": cuts, "units_s": t_units,
+            "wall_s": time.perf_counter() - t_phase,
             "figures": figures, "replays": replays, "gates": gates}
+
+
 
 
 def main() -> int:
@@ -2011,18 +2251,16 @@ def main() -> int:
     gen.manual_seed(99)
     eng.run(v0, 5, generator=gen)  # warm
     torch.cuda.synchronize()
-    gen.manual_seed(7)
-    wt.walk_transition_ragged.launches = 0
-    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    ev0.record()
-    update_nodes, hops = eng.run(v0, steps, generator=gen)
-    ev1.record()
-    torch.cuda.synchronize()
-    launches = wt.walk_transition_ragged.launches
-    if launches != steps:
-        raise AssertionError(f"engine run launched the kernel {launches} "
-                             f"times in {steps} steps")
-    run_ms = ev0.elapsed_time(ev1)
+    counters = {"walk_transition_sparse": wt.walk_transition_sparse,
+                "walk_transition": wt.walk_transition,
+                "walk_transition_ragged": wt.walk_transition_ragged}
+    loop2 = engine_loop(
+        eng, v0, steps, 7, dev, counters,
+        {k: steps if k == "walk_transition_ragged" else 0 for k in counters},
+        KERNEL_SYMBOL["walk_transition_ragged"], f"engine ragged W={w}")
+    update_nodes, hops = loop2["nodes"], loop2["hops"]
+    launches = loop2["loop"]["launches"]
+    run_ms = loop2["loop"]["ms_per_step"] * steps
     rate = w * steps / (run_ms / 1e3)
     # replay the run's exact kernel inputs: same generator stream, same nodes
     gen.manual_seed(7)
@@ -2044,8 +2282,9 @@ def main() -> int:
         50,
     )
     gen.manual_seed(7)
-    prof = profile_window(lambda: eng.run(v0, 50, generator=gen),
-                          KERNEL_SYMBOL["walk_transition_ragged"])
+    prof = profile_window(
+        lambda: eng.run(v0, 50, generator=gen, capture=False),
+        KERNEL_SYMBOL["walk_transition_ragged"])
     nbytes = nops = 0
     for t in range(steps):
         b, o = bound_for_step(cur[t], eng.indptr, eng.degrees, eng.indices,
@@ -2057,7 +2296,8 @@ def main() -> int:
     ops_ms = nops / steps / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     hops_mean = float(hops.double().mean())
-    engine_digest = digest(update_nodes.cpu().numpy(), hops.cpu().numpy())
+    engine_digest = check_digest(
+        "engine", digest(update_nodes.cpu().numpy(), hops.cpu().numpy()))
     # what the kernel's time is made of: the floor of a launch, the latency
     # of a dependent load, the chain bound, the p_J split, the group widths
     floor_t = launch_floor(dev)
@@ -2090,10 +2330,11 @@ def main() -> int:
     if prof["window_ms"] is None:
         log("  profiler: no device activity recorded; idle share not measured")
     else:
-        log(f"  profiler, 50-step run: window {prof['window_ms']:.4f} ms, "
-            f"device busy {prof['busy_ms']:.4f} ms, idle share "
-            f"{prof['idle_share']:.4f}, kernel {prof['kernel_ms']} ms/launch "
-            f"over {prof['kernel_launches']} launches")
+        log(f"  profiler, 50-step uncaptured run: window "
+            f"{prof['window_ms']:.4f} ms, device busy {prof['busy_ms']:.4f} "
+            f"ms, idle share {prof['idle_share']:.4f}, kernel "
+            f"{prof['kernel_ms']} ms/launch over {prof['kernel_launches']} "
+            f"launches")
     log(f"phase 2 engine: {dt:.2f} s")
     report["phases"]["engine"] = {
         "s": dt, "w": w, "steps": steps, "launches": launches,
@@ -2103,6 +2344,7 @@ def main() -> int:
         "plain_idle_ms": plain_idle, "bound_ms": bound_ms, "bytes_per_step":
         nbytes / steps, "ops_per_step": nops / steps, "hops_mean": hops_mean,
         "profile_50_steps": prof, "walks_digest": engine_digest,
+        "loop": loop2["loop"],
         "launch_floor": floor_t, "hop_slope": slope,
         "chain_loads_max": max(chains), "chain_bound_ms": chain_ms,
         "study": study,
@@ -2140,13 +2382,15 @@ def main() -> int:
     if not avg[-1] < avg[0]:
         raise AssertionError(f"avg_mse did not fall: {avg[0]} -> {avg[-1]}")
     floor = data.mse(data.optimum())
+    trainer_digest = digest(res.update_nodes, res.transitions)
     log(f"  trainer mhlj BA(100k,3) W={w3} T={steps3}: {train_launches} "
         f"launches, avg_mse {avg[0]:.4f} -> {avg[steps3 // 2]:.4f} -> "
         f"{avg[-1]:.4f} (least-squares floor {floor:.4f}), "
         f"hops/update {res.transitions_per_update:.4f}, {t_train:.2f} s "
         f"(set-up: P_IS rows on the host and CDF on the device "
         f"{t_setup:.2f} s; loop {t_loop / steps3 * 1e3:.4f} ms/step), "
-        f"walks' digest {digest(res.update_nodes, res.transitions)}")
+        f"walks' digest {check_digest('trainer', trainer_digest)}")
+    loop3 = trainer_loop_check(ttrain, res, seen, f"trainer ragged W={w3}")
     # replay every step of the run with its exact inputs (the trainer's
     # engine, the node vector, the block regenerated from the generator's
     # starting state): the kernel must reproduce the run, and its plain
@@ -2252,8 +2496,8 @@ def main() -> int:
         "avg_mse_first": float(avg[0]), "avg_mse_mid": float(avg[steps3 // 2]),
         "avg_mse_last": float(avg[-1]), "floor": float(floor),
         "hops_per_update": res.transitions_per_update,
-        "walks_digest": digest(res.update_nodes, res.transitions),
-        "kernel": train_t, "plain_ms": train_plain_ms,
+        "walks_digest": trainer_digest,
+        "loop": loop3, "kernel": train_t, "plain_ms": train_plain_ms,
         "bound_ms": train_bound_ms, "hop_slope": slope3,
         "chain_loads_max": max(chains3), "chain_bound_ms": chain3_ms,
         "study": study3,

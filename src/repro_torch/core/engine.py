@@ -19,14 +19,17 @@ layouts (:data:`LAYOUTS`) differ only in how the MH move finds its row:
 * ``"bucketed"`` runs the same tile inversion once per degree bucket of a
   ``BucketedCSRGraph`` at that bucket's width — by default *compacted*:
   the walks are sorted by bucket and each bucket's pass runs at a static
-  capacity (:func:`bucket_capacities`), with a fallback to the full
-  dispatch on overflow; the Lévy hops read the CSR arrays;
+  capacity (:func:`bucket_capacities`), with the full dispatch taken on
+  overflow, chosen on the device; the Lévy hops read the CSR arrays;
 * ``"ragged"`` keeps one flat per-edge CDF and binary-searches each
   walk's own segment in one fused step
   (``kernels.walk_transition.walk_transition_ragged``).
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors (or
-raises) and runs its plain PyTorch version for CPU tensors.
+raises) and runs its plain PyTorch version for CPU tensors.  A step reads
+nothing from the device on the host, so :meth:`WalkEngine.run` is a
+device-resident loop that ``repro_torch.core.scan`` captures in CUDA
+graphs on the card, as the reference's ``run`` is a ``lax.scan``.
 
 **The row-CDF rule.**  Every CDF over a probability row — the per-edge
 CDF, the tile inversion, the dense row, and the self-slot mass of live
@@ -50,6 +53,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import scan as scan_mod
 from repro_torch.core.graphs import _ragged_row_chunks, flat_edge_values
 from repro_torch.core.levy import trunc_geom_icdf
 
@@ -371,10 +375,14 @@ def compact_plan(bucket_ids: torch.Tensor, num_buckets: int) -> tuple:
     Returns ``(order, starts, counts)``, all int32: ``order`` is the stable
     argsort of ``bucket_ids`` (the walks of bucket b occupy positions
     ``starts[b] : starts[b] + counts[b]`` of it, in walk order), and
-    ``counts[b]`` the number of walks in bucket b.
+    ``counts[b]`` the number of walks in bucket b, summed over a one-hot
+    ``(W, num_buckets)`` mask (``bincount`` sizes its output from the
+    data on the host).
     """
-    counts = torch.bincount(bucket_ids.long(), minlength=num_buckets).to(
-        torch.int32
+    buckets = torch.arange(num_buckets, dtype=bucket_ids.dtype,
+                           device=bucket_ids.device)
+    counts = (bucket_ids[:, None] == buckets[None, :]).sum(
+        dim=0, dtype=torch.int32
     )
     order = torch.argsort(bucket_ids, stable=True).to(torch.int32)
     starts = torch.cat(
@@ -489,6 +497,10 @@ class WalkEngine:
     # -- ragged layout --------------------------------------------------------
     edge_cdf: Optional[torch.Tensor] = None  # (nnz,) float32 flat CDF
     max_degree: Optional[int] = None  # bound of the binary search
+    # device copies of host constants, made once (a step copies nothing)
+    _consts: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False
+    )
 
     @classmethod
     def from_graph(
@@ -731,15 +743,17 @@ class WalkEngine:
         nodes: torch.Tensor,
         u_mh: torch.Tensor,
         lipschitz: Optional[torch.Tensor] = None,
+        live: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Uncompacted bucketed MH move: every bucket pass runs all W walks
-        (the ``compact=False`` path and the overflow fallback)."""
+        (the ``compact=False`` path and the overflow fallback, whose passes
+        the device flag ``live`` gates)."""
         from repro_torch.kernels.walk_transition.kernel import (
             walk_transition_bucketed,
         )
 
         bid, rows_by, tiles_by = self._bucket_tiles(nodes, lipschitz)
-        return walk_transition_bucketed(bid, rows_by, tiles_by, u_mh)
+        return walk_transition_bucketed(bid, rows_by, tiles_by, u_mh, live)
 
     def compacted_bucket_inputs(
         self,
@@ -798,6 +812,17 @@ class WalkEngine:
             )
         return bucket_capacities(num_walks, shares, self.capacity_factor)
 
+    def _capacities_on_device(self, caps: Tuple[int, ...]) -> torch.Tensor:
+        """``caps`` as an int32 device vector, made once per ``caps`` with
+        fills (no host-to-device copy, so a warm-up may make it)."""
+        key = ("caps", caps)
+        if key not in self._consts:
+            t = torch.empty(len(caps), dtype=torch.int32, device=self.device)
+            for i, c in enumerate(caps):
+                t[i].fill_(c)
+            self._consts[key] = t
+        return self._consts[key]
+
     def _bucketed_mh_compacted(
         self,
         nodes: torch.Tensor,
@@ -810,9 +835,12 @@ class WalkEngine:
         bucket b's pass runs on a ``[cap_b, width_b]`` tile and
         :func:`scatter_compacted` puts the results back in walk order.  If
         a bucket holds more walks than its capacity, the step takes
-        :meth:`_bucketed_mh_full` instead — decided on the host, so the
-        overflow flag is read from the device once per step.  Returns
-        ``(v_mh, overflow)``.
+        :meth:`_bucketed_mh_full` instead.  The choice is the reference's
+        ``lax.cond``, made on the device: both dispatches are issued, each
+        tile pass gated by the overflow flag (the unused branch's passes
+        read no tile), and ``torch.where`` keeps the taken branch's
+        result.  Returns ``(v_mh, overflow)``, ``overflow`` a 0-d device
+        bool.
         """
         from repro_torch.kernels.walk_transition.kernel import (
             walk_transition_bucketed_compacted,
@@ -823,19 +851,18 @@ class WalkEngine:
         caps = self.bucket_capacities(num_walks)
         bid = self.node_bucket[nodes]
         order, starts, counts = compact_plan(bid, len(caps))
-        caps_t = torch.as_tensor(caps, dtype=counts.dtype).to(counts.device)
-        overflow = bool((counts > caps_t).any())  # the per-step host sync
-        if overflow:
-            return self._bucketed_mh_full(nodes, u_mh, lipschitz), True
+        overflow = (counts > self._capacities_on_device(caps)).any()
         widx_by, valid_by, rows_by, tiles_by, u_by = (
             self.compacted_bucket_inputs(
                 nodes, u_mh, caps, order, starts, counts, lipschitz
             )
         )
-        v_mh = walk_transition_bucketed_compacted(
-            rows_by, tiles_by, u_by, widx_by, valid_by, num_walks
+        compacted = walk_transition_bucketed_compacted(
+            rows_by, tiles_by, u_by, widx_by, valid_by, num_walks,
+            live=~overflow,
         )
-        return v_mh, False
+        full = self._bucketed_mh_full(nodes, u_mh, lipschitz, live=overflow)
+        return torch.where(overflow, full, compacted), overflow
 
     # -- the transition -----------------------------------------------------
 
@@ -864,10 +891,12 @@ class WalkEngine:
         block is drawn with the flag ``u < p_j`` (``p_j`` defaults to the
         engine's).  ``lipschitz`` gives live Eq.-7 rows to an engine
         without precomputed rows.  Returns ``(next_nodes, hops)``, both
-        (W,) int32; with ``with_aux`` also ``{"compact_overflow": bool}``,
-        True when this step's compacted bucketed dispatch overflowed a
-        capacity and took the full dispatch.  A 0-d ``nodes`` (with a
-        ``(3 + r,)`` or ``(1, 3 + r)`` block) returns 0-d outputs.
+        (W,) int32; with ``with_aux`` also ``{"compact_overflow": 0-d
+        bool tensor}`` on the engine's device, True when this step's
+        compacted bucketed dispatch overflowed a capacity and took the
+        full dispatch.  A 0-d ``nodes`` (with a ``(3 + r,)`` or
+        ``(1, 3 + r)`` block) returns 0-d outputs.  The step reads nothing
+        from the device on the host.
         """
         from repro_torch.kernels.walk_transition.kernel import (
             walk_transition,
@@ -897,7 +926,7 @@ class WalkEngine:
             lipschitz = torch.as_tensor(
                 lipschitz, dtype=torch.float32, device=self.device
             )
-        overflow = False
+        overflow = None
         if self.layout == "ragged":
             nxt, hops = walk_transition_ragged(
                 nodes, self.indptr, self.degrees, self.indices, self.edge_cdf,
@@ -930,8 +959,24 @@ class WalkEngine:
         if squeeze:
             nxt, hops = nxt[0], hops[0]
         if with_aux:
+            if overflow is None:
+                overflow = torch.zeros((), dtype=torch.bool,
+                                       device=self.device)
             return nxt, hops, {"compact_overflow": overflow}
         return nxt, hops
+
+    def _p_schedule(self, p_j, num_steps: int) -> torch.Tensor:
+        """``p_j`` (default the engine's) as a ``(num_steps,)`` float32
+        device schedule; a scalar becomes a fill, not a copy."""
+        p = self.p_j if p_j is None else p_j
+        if isinstance(p, torch.Tensor):
+            sched = p.to(device=self.device, dtype=torch.float32)
+        elif np.ndim(p) == 0:
+            sched = torch.full((num_steps,), float(np.float32(p)),
+                               dtype=torch.float32, device=self.device)
+        else:
+            sched = _f32(p, self.device)
+        return sched.broadcast_to((num_steps,))
 
     def run(
         self,
@@ -943,6 +988,7 @@ class WalkEngine:
         p_j=None,
         lipschitz: Optional[torch.Tensor] = None,
         with_aux: bool = False,
+        capture: Optional[bool] = None,
     ) -> tuple:
         """Whole trajectories for W walks (Algorithm 1's update sequence).
 
@@ -951,8 +997,16 @@ class WalkEngine:
         or a (T,) schedule.  Returns ``(update_nodes, hops)``, both
         (W, T) int32: element t is the node holding the model when update
         t runs (the first at v0) and the hops taken after it; with
-        ``with_aux`` also ``{"compact_overflow": (T,) bool tensor}``.  A
-        0-d ``v0s`` (with a ``(T, 3 + r)`` block) drops the walk axis.
+        ``with_aux`` also ``{"compact_overflow": (T,) bool tensor}`` on
+        the engine's device.  A 0-d ``v0s`` (with a ``(T, 3 + r)`` block)
+        drops the walk axis.
+
+        The loop is the reference's ``lax.scan``: a step over ``(t, v)``
+        on the device, driven by ``repro_torch.core.scan.scan``, which
+        captures it in CUDA graphs on the card (``capture=False`` runs it
+        uncaptured, for comparison) and runs it as a plain loop on the
+        CPU.  Both give the same walks, bit for bit, and leave
+        ``generator`` in the same state.
         """
         v = torch.as_tensor(v0s, dtype=torch.int32, device=self.device)
         squeeze = v.ndim == 0
@@ -965,28 +1019,33 @@ class WalkEngine:
             uniforms = self._check_block(
                 uniforms, (num_steps, w, num_uniforms(self.r))
             )
-        p_sched = torch.as_tensor(
-            self.p_j if p_j is None else p_j, dtype=torch.float32,
-            device=self.device,
-        ).broadcast_to((num_steps,))
-        nodes_out = torch.empty((num_steps, w), dtype=torch.int32,
-                                device=self.device)
-        hops_out = torch.empty_like(nodes_out)
-        overflow = torch.zeros(num_steps, dtype=torch.bool)
-        for t in range(num_steps):
-            nodes_out[t] = v
+        elif generator is None:
+            raise ValueError("pass uniforms= (injected blocks) or generator=")
+        p_sched = self._p_schedule(p_j, num_steps)
+        if lipschitz is not None:
+            lipschitz = torch.as_tensor(
+                lipschitz, dtype=torch.float32, device=self.device
+            )
+
+        def body(carry):
+            t, v = carry
+            row = t.view(1)
             if uniforms is not None:
-                v, hops, aux = self.step(
-                    v, uniforms=uniforms[t], lipschitz=lipschitz,
-                    with_aux=True,
-                )
+                draw = dict(uniforms=uniforms.index_select(0, row)[0])
             else:
-                v, hops, aux = self.step(
-                    v, generator=generator, p_j=p_sched[t],
-                    lipschitz=lipschitz, with_aux=True,
-                )
-            hops_out[t] = hops
-            overflow[t] = aux["compact_overflow"]
+                draw = dict(generator=generator,
+                            p_j=p_sched.index_select(0, row))
+            nxt, hops, aux = self.step(
+                v, lipschitz=lipschitz, with_aux=True, **draw
+            )
+            return (t + 1, nxt), (v, hops, aux["compact_overflow"])
+
+        t0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        flag = torch.zeros((), dtype=torch.bool, device=self.device)
+        (nodes_out, hops_out, overflow), _, _ = scan_mod.scan(
+            body, (t0, v), num_steps, (v, v, flag), capture=capture,
+            generators=() if generator is None else (generator,),
+        )
         update_nodes = nodes_out.T.contiguous()
         hops = hops_out.T.contiguous()
         if squeeze:

@@ -29,6 +29,13 @@
 // deg(v) nonzeros at most, so only a hub walk's chain (~1200 adds) is
 // long, and where a walk sits at a hub that chain sets the launch's time.
 //
+// Gate: `live`, when not null, is one device byte read by every warp
+// before anything else.  Where it is 0 the launch writes v_mh = 0 and
+// reads no tile: the compacted bucketed dispatch puts both of its
+// branches (the compacted tiles and the full-width fallback) into one
+// CUDA graph and lets the device's overflow flag pick, in place of the
+// reference's lax.cond (repro/core/engine.py, `_bucketed_mh_compacted`).
+//
 // Numerics: built with --fmad=false and without fast math (no flush to
 // zero); every add and the threshold product round alone.  Offsets into
 // the tiles are 64-bit.
@@ -47,6 +54,7 @@ __global__ void __launch_bounds__(32 * WARPS) walk_transition_sparse_kernel(
     const float* __restrict__ rows,     // (W, width) P_IS rows
     const int* __restrict__ neigh_rows, // (W, width) padded neighbor rows
     const float* __restrict__ u_mh,     // (W,) the U_MH uniform per walk
+    const unsigned char* __restrict__ live,  // 1-byte gate, or null
     int* __restrict__ v_mh,             // (W,) out
     int num_walks, int width) {
   __shared__ __align__(16) float s_val[WARPS * SEG];
@@ -55,6 +63,10 @@ __global__ void __launch_bounds__(32 * WARPS) walk_transition_sparse_kernel(
   const int slot = static_cast<int>(threadIdx.x >> 5);
   const int w = blockIdx.x * WARPS + slot;
   if (w >= num_walks) return;  // the whole warp leaves together
+  if (live != nullptr && *live == 0) {  // gated off: no tile is read
+    if (lane == 0) v_mh[w] = 0;
+    return;
+  }
   const long long base = static_cast<long long>(w) * width;
   const int idx = walk_row_cdf::row_cdf_count(
       lane, rows + base, width, u_mh + w, s_val + slot * SEG,
@@ -65,15 +77,15 @@ __global__ void __launch_bounds__(32 * WARPS) walk_transition_sparse_kernel(
 }  // namespace
 
 extern "C" int walk_transition_sparse_launch(
-    const void* rows, const void* neigh_rows, const void* u_mh, void* v_mh,
-    int num_walks, int width, void* stream) {
+    const void* rows, const void* neigh_rows, const void* u_mh,
+    const void* live, void* v_mh, int num_walks, int width, void* stream) {
   if (num_walks <= 0) return 0;
   if (width <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (num_walks + WARPS - 1) / WARPS;
   walk_transition_sparse_kernel<<<grid, 32 * WARPS, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), static_cast<const int*>(neigh_rows),
-      static_cast<const float*>(u_mh), static_cast<int*>(v_mh), num_walks,
-      width);
+      static_cast<const float*>(u_mh), static_cast<const unsigned char*>(live),
+      static_cast<int*>(v_mh), num_walks, width);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """What every kernel wrapper of the port shares: device and input checks,
-the current stream, and the ctypes call of a library's launch function.
+the current stream, the ctypes call of a library's launch function, and
+the registry of launch counts.
 
 Each CUDA source exposes one C function ``<name>_launch`` that returns
 ``cudaGetLastError()`` after its launch; :func:`launch` raises on any
@@ -14,10 +15,25 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["P", "I", "F", "launch", "device_of", "check", "stream"]
+__all__ = ["P", "I", "F", "COUNTED", "counted", "launch", "device_of",
+           "check", "stream"]
 
 # ctypes argument types: a pointer or the stream, an int, a float
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# The wrappers whose ``launches`` attribute counts their kernel's launches.
+# A wrapper adds one where it launches; under a CUDA graph that is once per
+# launch captured, and ``repro_torch.core.scan`` adds what each replay of
+# the graph runs, so every count stays the number of launches the card ran.
+COUNTED: list = []
+
+
+def counted(fn):
+    """Give the kernel wrapper ``fn`` a ``launches`` count of 0 and register
+    it in :data:`COUNTED`."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

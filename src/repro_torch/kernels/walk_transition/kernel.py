@@ -16,9 +16,13 @@ kernel of ``repro/kernels/walk_transition/kernel.py``:
 For CUDA tensors a wrapper launches its kernel on the current stream or
 raises; for CPU tensors it runs the plain version from
 :mod:`repro_torch.kernels.walk_transition.ref`.  Each wrapper's
-``launches`` attribute counts its kernel launches.
+``launches`` attribute counts its kernel launches
+(``kernels._launch.counted``; under a replayed CUDA graph
+``repro_torch.core.scan`` keeps it equal to the launches the card ran).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,7 +33,7 @@ from repro_torch.core.engine import (
     scatter_compacted,
 )
 from repro_torch.core.levy import icdf_constants
-from repro_torch.kernels._launch import F, I, P, launch
+from repro_torch.kernels._launch import F, I, P, counted, launch
 from repro_torch.kernels._launch import check as _check
 from repro_torch.kernels._launch import device_of as _device
 from repro_torch.kernels._launch import stream as _stream
@@ -51,8 +55,8 @@ _ARGTYPES = {
     # nodes, indptr, degrees, indices, edge_cdf, uniforms, den, next, hops,
     # W, r, z, group, stream
     "walk_transition_ragged": [P] * 9 + [I, I, F, I, P],
-    # rows, neigh_rows, u_mh, v_mh, W, width, stream
-    "walk_transition_sparse": [P] * 4 + [I, I, P],
+    # rows, neigh_rows, u_mh, live, v_mh, W, width, stream
+    "walk_transition_sparse": [P] * 5 + [I, I, P],
     # nodes, row_probs, neighbors, degrees, uniforms, den, next, hops,
     # W, max_deg, r, z, stream
     "walk_transition_dense": [P] * 8 + [I, I, I, F, P],
@@ -91,6 +95,7 @@ def _check_uniforms(uniforms, w: int, r: int) -> None:
         )
 
 
+@counted
 def walk_transition_ragged(
     nodes: torch.Tensor,  # (W,) int32
     indptr: torch.Tensor,  # (n+1,) int32 CSR row pointers
@@ -145,24 +150,28 @@ def walk_transition_ragged(
     return next_nodes, hops
 
 
-walk_transition_ragged.launches = 0
-
-
+@counted
 def walk_transition_sparse(
     rows: torch.Tensor,  # (W, width) float32 — the W walks' P_IS rows
     neigh_rows: torch.Tensor,  # (W, width) int32 — their padded neighbor rows
     u_mh: torch.Tensor,  # (W,) float32 — the U_MH uniform per walk
+    live: Optional[torch.Tensor] = None,  # 0-d bool gate on the device
 ) -> torch.Tensor:
     """The MH move for W walks from gathered tiles: per walk the index of
     ``u_mh · total`` in the row's CDF (row-CDF rule), clamped to
     ``width - 1``, and the neighbor there.  Rows must be non-negative.
-    Returns ``v_mh`` (W,) int32."""
-    device = _device(rows, neigh_rows, u_mh)
+    Where the device flag ``live`` is False the kernel reads no tile and
+    every pick is 0 (the gated branch of a captured dispatch).  Returns
+    ``v_mh`` (W,) int32."""
+    tensors = (rows, neigh_rows, u_mh) + (() if live is None else (live,))
+    device = _device(*tensors)
     if device.type == "cpu":
-        return walk_transition_sparse_ref(rows, neigh_rows, u_mh)
+        return walk_transition_sparse_ref(rows, neigh_rows, u_mh, live=live)
     _check("rows", rows, torch.float32, 2)
     _check("neigh_rows", neigh_rows, torch.int32, 2)
     _check("u_mh", u_mh, torch.float32, 1)
+    if live is not None:
+        _check("live", live, torch.bool, 0)
     w, width = rows.shape
     if tuple(neigh_rows.shape) != (w, width) or u_mh.shape[0] != w:
         raise ValueError(
@@ -177,13 +186,11 @@ def walk_transition_sparse(
     _launch(
         "walk_transition_sparse",
         rows.data_ptr(), neigh_rows.data_ptr(), u_mh.data_ptr(),
-        v_mh.data_ptr(), w, width, _stream(device),
+        None if live is None else live.data_ptr(), v_mh.data_ptr(), w, width,
+        _stream(device),
     )
     walk_transition_sparse.launches += 1
     return v_mh
-
-
-walk_transition_sparse.launches = 0
 
 
 def walk_transition_bucketed(
@@ -191,15 +198,16 @@ def walk_transition_bucketed(
     rows_by_bucket,  # tuple of (W, width_b) float32 P_IS tiles
     tiles_by_bucket,  # tuple of (W, width_b) int32 neighbor tiles
     u_mh: torch.Tensor,  # (W,) float32
+    live: Optional[torch.Tensor] = None,  # 0-d bool gate of every pass
 ) -> torch.Tensor:
     """The bucketed MH move: one :func:`walk_transition_sparse` pass per
     bucket at its width over all W walks; walk w keeps the result of
-    bucket ``bucket_ids[w]`` (``engine.combine_bucketed``).  Returns
-    ``v_mh`` (W,)."""
+    bucket ``bucket_ids[w]`` (``engine.combine_bucketed``).  ``live``
+    gates every pass.  Returns ``v_mh`` (W,)."""
     return combine_bucketed(
         bucket_ids,
         [
-            walk_transition_sparse(rows, tiles, u_mh)
+            walk_transition_sparse(rows, tiles, u_mh, live)
             for rows, tiles in zip(rows_by_bucket, tiles_by_bucket)
         ],
     )
@@ -212,17 +220,18 @@ def walk_transition_bucketed_compacted(
     walk_idx_by_bucket,  # tuple of (cap_b,) int32 — original walk index
     valid_by_bucket,  # tuple of (cap_b,) bool — lane holds a real walk
     num_walks: int,
+    live: Optional[torch.Tensor] = None,  # 0-d bool gate of every pass
 ) -> torch.Tensor:
     """The compacted bucketed MH move: one :func:`walk_transition_sparse`
     pass per bucket over its ``cap_b`` lanes only, scattered back to walk
-    order (``engine.scatter_compacted``, slop lanes dropped).  Returns
-    ``v_mh`` (num_walks,)."""
+    order (``engine.scatter_compacted``, slop lanes dropped).  ``live``
+    gates every pass.  Returns ``v_mh`` (num_walks,)."""
     return scatter_compacted(
         num_walks,
         walk_idx_by_bucket,
         valid_by_bucket,
         [
-            walk_transition_sparse(rows, tiles, u_b)
+            walk_transition_sparse(rows, tiles, u_b, live)
             for rows, tiles, u_b in zip(
                 rows_by_bucket, tiles_by_bucket, u_by_bucket
             )
@@ -230,6 +239,7 @@ def walk_transition_bucketed_compacted(
     )
 
 
+@counted
 def walk_transition(
     nodes: torch.Tensor,  # (W,) int32
     row_probs: torch.Tensor,  # (n, max_deg) float32, pads exactly 0
@@ -277,6 +287,3 @@ def walk_transition(
     )
     walk_transition.launches += 1
     return next_nodes, hops
-
-
-walk_transition.launches = 0

@@ -7,6 +7,8 @@ rule (``engine.row_cdf``), as the kernels do.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.engine import (
@@ -50,10 +52,13 @@ def walk_transition_sparse_ref(
     rows: torch.Tensor,  # (W, width) float32
     neigh_rows: torch.Tensor,  # (W, width) int32
     u_mh: torch.Tensor,  # (W,) float32
+    live: Optional[torch.Tensor] = None,  # 0-d bool gate
 ) -> torch.Tensor:
     """Same contract as ``kernel.walk_transition_sparse``: the CDF
-    inversion over gathered tiles; returns ``v_mh`` (W,) int32."""
-    return mh_cdf_invert(rows, neigh_rows, u_mh)
+    inversion over gathered tiles, every pick 0 where ``live`` is False;
+    returns ``v_mh`` (W,) int32."""
+    v_mh = mh_cdf_invert(rows, neigh_rows, u_mh)
+    return v_mh if live is None else torch.where(live, v_mh, 0)
 
 
 def walk_transition_bucketed_ref(

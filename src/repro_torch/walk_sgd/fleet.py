@@ -4,8 +4,10 @@ W parallel walks ride one batched :class:`~repro_torch.core.engine.WalkEngine`
 transition per step, each walk carrying its own model; every
 ``avg_every`` steps the models are averaged across walkers (local-SGD
 style, :func:`fleet_average`).  :func:`run_fleet` is the one training
-loop — the W=1 case is single-walk RW-SGD — written as a plain Python
-loop over steps on the engine's device.
+loop — the W=1 case is single-walk RW-SGD — and the reference's
+``_fleet_scan``: a step over ``(t, xs, vs)`` on the device, driven by
+``repro_torch.core.scan.scan`` (captured in CUDA graphs on the card, a
+plain loop on the CPU).
 
 Faults, checkpoints and the multi-device mesh are not ported yet.
 """
@@ -17,6 +19,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import scan as scan_mod
 from repro_torch.core.engine import WalkEngine, num_uniforms
 from repro_torch.models import regression as reg
 
@@ -57,9 +60,18 @@ def sample_initial_nodes(
     return v0s
 
 
-def fleet_average(xs: torch.Tensor) -> torch.Tensor:
-    """Cross-walker model average, re-broadcast to all W walkers."""
-    return xs.mean(dim=0, keepdim=True).expand_as(xs).clone()
+def fleet_average(
+    xs: torch.Tensor, do_avg: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Cross-walker model average, re-broadcast to all W walkers.
+
+    ``do_avg=None`` averages unconditionally; a 0-d device bool makes the
+    average conditional (the ``(t + 1) % avg_every == 0`` gate of the
+    fleet loop), selected on the device: the mean where ``do_avg``, else
+    ``xs``.
+    """
+    mean = xs.mean(dim=0, keepdim=True).expand_as(xs)
+    return mean.clone() if do_avg is None else torch.where(do_avg, mean, xs)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -90,6 +102,33 @@ class WalkFleet:
             avg_every=avg_every,
         )
 
+    def advance(
+        self,
+        *,
+        uniforms: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        p_j=None,
+        lipschitz: Optional[torch.Tensor] = None,
+        faults=None,
+    ):
+        """ONE batched MHLJ transition for all W walkers.
+
+        The block is an injected ``(W, 3 + r)`` ``uniforms`` (slot 0 = jump
+        flag) or drawn from ``generator`` at ``p_j``, in place of the
+        reference's key.  Returns ``(advanced_fleet, hops)``; ``hops`` is
+        the Remark-1 physical transition count per walker.
+        """
+        if faults is not None:
+            raise NotImplementedError(
+                "advance(faults=...) is not ported yet: fault models come "
+                "with a later slice of the port (ROADMAP Queue 1 item 7)"
+            )
+        nxt, hops = self.engine.step(
+            self.nodes, uniforms=uniforms, generator=generator, p_j=p_j,
+            lipschitz=lipschitz,
+        )
+        return dataclasses.replace(self, nodes=nxt), hops
+
 
 def run_fleet(
     x0s: torch.Tensor,  # (W, dim)
@@ -105,6 +144,7 @@ def run_fleet(
     *,
     uniforms: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    capture: Optional[bool] = None,
 ):
     """Train the fleet for ``num_steps`` steps.
 
@@ -113,7 +153,10 @@ def run_fleet(
     averaged on steps ``t`` with ``(t + 1) % avg_every == 0``, and all
     walkers advance through one engine step — with the injected block
     ``uniforms[t]`` of a ``(T, W, 3 + r)`` tensor (slot 0 = jump flag), or
-    drawn from ``generator`` at ``p_j_sched[t]``.
+    drawn from ``generator`` at ``p_j_sched[t]``.  The step is the
+    reference's ``_fleet_scan`` step over ``(t, xs, vs)``, ``t`` on the
+    device; ``repro_torch.core.scan.scan`` captures the loop on the card
+    (``capture=False`` runs it uncaptured, for comparison only).
 
     Returns ``(x_final (W, dim), mse (W, T+1), avg_mse (T+1,),
     update_nodes (W, T), hops (W, T), final_nodes (W,))``.
@@ -130,33 +173,40 @@ def run_fleet(
     elif generator is None:
         raise ValueError("pass uniforms= (injected blocks) or generator=")
     device = engine.device
-    mses = torch.empty((num_steps + 1, w), device=device)
-    avg_mses = torch.empty(num_steps + 1, device=device)
-    nodes_out = torch.empty((num_steps, w), dtype=torch.int32, device=device)
-    hops_out = torch.empty_like(nodes_out)
-    mses[0] = reg.mse_objective(x0s, features, targets)
-    avg_mses[0] = reg.mse_objective(x0s.mean(dim=0), features, targets)
+    avg_every = fleet.avg_every
     ones = torch.ones(w, device=device)
-    xs, vs = x0s, fleet.nodes
-    for t in range(num_steps):
+
+    def step(carry):
+        t, xs, vs = carry
+        row = t.view(1)
         gs = loss_grad(xs, features[vs], targets[vs])  # (W, dim)
         ws = (weights[vs] if use_weights else ones)[:, None]
-        xs = xs - gamma * ws * gs
-        if fleet.avg_every > 0 and (t + 1) % fleet.avg_every == 0:
-            xs = fleet_average(xs)
-        nodes_out[t] = vs
+        xs_new = xs - gamma * ws * gs
+        if avg_every > 0:
+            xs_new = fleet_average(xs_new, (t + 1) % avg_every == 0)
         if uniforms is not None:
-            vs, hops = engine.step(vs, uniforms=uniforms[t])
+            draw = dict(uniforms=uniforms.index_select(0, row)[0])
         else:
-            vs, hops = engine.step(vs, generator=generator, p_j=p_j_sched[t])
-        hops_out[t] = hops
-        mses[t + 1] = reg.mse_objective(xs, features, targets)
-        avg_mses[t + 1] = reg.mse_objective(xs.mean(dim=0), features, targets)
+            draw = dict(generator=generator,
+                        p_j=p_j_sched.index_select(0, row))
+        vs_next, hops = engine.step(vs, **draw)  # ONE batched call
+        mses = reg.mse_objective(xs_new, features, targets)
+        avg_mse = reg.mse_objective(xs_new.mean(dim=0), features, targets)
+        return (t + 1, xs_new, vs_next), (mses, avg_mse, vs, hops)
+
+    mse0 = reg.mse_objective(x0s, features, targets)
+    avg0 = reg.mse_objective(x0s.mean(dim=0), features, targets)
+    t0 = torch.zeros((), dtype=torch.int64, device=device)
+    (mses, avg_mses, nodes, hops), (_, xs, vs), _ = scan_mod.scan(
+        step, (t0, x0s, fleet.nodes), num_steps,
+        (mse0, avg0, fleet.nodes, fleet.nodes), capture=capture,
+        generators=() if generator is None else (generator,),
+    )
     return (
         xs,
-        mses.T.contiguous(),
-        avg_mses,
-        nodes_out.T.contiguous(),
-        hops_out.T.contiguous(),
+        torch.cat([mse0[None], mses]).T.contiguous(),
+        torch.cat([avg0[None], avg_mses]),
+        nodes.T.contiguous(),
+        hops.T.contiguous(),
         vs,
     )

@@ -11,12 +11,14 @@ The LLM kernels are held at ``tests/test_kernels.py``'s tolerances
 bfloat16, as atol and rtol).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import engine as teng
+from repro_torch.core import scan as tscan
 from repro_torch.core.graphs import barabasi_albert, from_edges
 from repro_torch.core.transition import (
     MHLJParams,
@@ -391,6 +393,171 @@ def test_layout_engines_launch_their_kernels(padded):
     for nxt, hops in outs.values():
         assert torch.equal(nxt, outs["sparse"][0])
         assert torch.equal(hops, outs["sparse"][1])
+
+
+def test_sparse_kernel_gate(padded):
+    """The device gate of ``walk_transition_sparse``: live, the kernel's
+    pick equals the plain version's; gated off, every pick is 0 (as the
+    plain version's ``where``), and each call is one launch."""
+    g, rows, nbrs, deg = padded
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    nodes = _walk_nodes(g, 2049, gen, dev)
+    u_mh = torch.rand(2049, generator=gen, device=dev)
+    tiles = (rows[nodes], nbrs[nodes], u_mh)
+    for live in (True, False):
+        flag = torch.tensor(live, device=dev)
+        before = wt.walk_transition_sparse.launches
+        got = wt.walk_transition_sparse(*tiles, flag)
+        torch.cuda.synchronize()
+        assert wt.walk_transition_sparse.launches == before + 1
+        want = walk_transition_sparse_ref(*tiles, live=flag)
+        assert torch.equal(got, want)
+        assert bool((got == 0).all()) is not live
+    with pytest.raises(TypeError):
+        wt.walk_transition_sparse(*tiles, torch.tensor(1, device=dev))
+
+
+# the six engines of chip_smoke.py's layout phase; the compacted ones at a
+# capacity that the injected blocks below overflow on about half the steps
+CAPTURE_ENGINES = {
+    "sparse": dict(layout="sparse"),
+    "dense": dict(layout="dense"),
+    "bucketed": dict(layout="bucketed", compact=False),
+    "bucketed_compact": dict(layout="bucketed", compact=True,
+                             capacity_factor=0.85),
+    "bucketed_compact_f4": dict(layout="bucketed", compact=True,
+                                bucket_factor=4, capacity_factor=0.85),
+    "ragged": dict(layout="ragged"),
+}
+# 50 steps: the first, 8 replays of a 6-step graph, and a 1-step tail
+CAPTURE_STEPS = 50
+
+
+@pytest.fixture(scope="module")
+def capture_engines(padded):
+    g = padded[0]
+    lips = np.exp(np.random.default_rng(0).normal(size=g.n))
+    return {name: teng.WalkEngine.from_graph(
+                g, MHLJParams(0.3, 0.5, 3), lipschitz=lips,
+                device=torch.device("cuda"), **kw)
+            for name, kw in CAPTURE_ENGINES.items()}
+
+
+@pytest.mark.parametrize("name", sorted(CAPTURE_ENGINES))
+def test_captured_run_equals_uncaptured(padded, capture_engines, name):
+    """``WalkEngine.run`` replayed from CUDA graphs against the same loop
+    uncaptured, bit for bit (walks, hops, the (T,) overflow vector), from
+    one generator state, whose state after either run is the same; the
+    captured run holds no host read (under sync debug mode "error"), and
+    each kernel's count equals its launches.  On injected blocks that
+    overflow the compacted capacities on some steps only, again."""
+    g = padded[0]
+    eng = capture_engines[name]
+    dev = torch.device("cuda")
+    k, replays, tail = tscan.plan(CAPTURE_STEPS)
+    assert replays > 1 and tail > 0
+    v0 = _walk_nodes(g, 512, torch.Generator(device=dev).manual_seed(1), dev)
+    counters = (wt.walk_transition_sparse, wt.walk_transition,
+                wt.walk_transition_ragged)
+    runs = {}
+    for capture in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        before = [c.launches for c in counters]
+        old = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error" if capture else old)
+        try:
+            out = eng.run(v0, CAPTURE_STEPS, generator=gen, with_aux=True,
+                          capture=capture)
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+        torch.cuda.synchronize()
+        runs[capture] = (out, gen.get_state(),
+                         [c.launches - b for c, b in zip(counters, before)])
+    (nc, hc, ac), state_c, launched_c = runs[True]
+    (nu, hu, au), state_u, launched_u = runs[False]
+    assert torch.equal(nc, nu) and torch.equal(hc, hu)
+    assert torch.equal(ac["compact_overflow"], au["compact_overflow"])
+    assert torch.equal(state_c, state_u)
+    per_step = {"sparse": (1, 0, 0), "dense": (0, 1, 0), "ragged": (0, 0, 1),
+                "bucketed": (len(eng.bucket_neighbors or ()), 0, 0)}
+    if eng.layout == "bucketed" and eng.compact:
+        # both branches of the dispatch: compacted and gated full passes
+        want = (2 * len(eng.bucket_neighbors), 0, 0)
+    else:
+        want = per_step[eng.layout]
+    assert launched_c == launched_u == [CAPTURE_STEPS * x for x in want]
+    # injected blocks drawn on the CPU
+    gen = torch.Generator().manual_seed(3)
+    blocks = torch.stack([teng.draw_uniforms(512, 3, 0.3, gen,
+                                             torch.device("cpu"))
+                          for _ in range(CAPTURE_STEPS)]).to(dev)
+    got = [eng.run(v0, CAPTURE_STEPS, uniforms=blocks, with_aux=True,
+                   capture=capture) for capture in (True, False)]
+    for a, b in zip(*got[:2]):
+        if isinstance(a, dict):
+            a, b = a["compact_overflow"], b["compact_overflow"]
+        assert torch.equal(a, b)
+    if eng.layout == "bucketed" and eng.compact:
+        over = got[0][2]["compact_overflow"][1:].cpu()
+        assert over.any() and not over.all()  # both branches in the graph
+
+
+def test_captured_launch_counts_equal_the_kernels_the_card_ran(
+        capture_engines):
+    """Under replay the counts equal the kernel instances CUPTI records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    v0 = torch.arange(256, dtype=torch.int32, device=dev)
+    for name, symbol, counter in (
+            ("ragged", "walk_transition_ragged_kernel",
+             wt.walk_transition_ragged),
+            ("bucketed_compact", "walk_transition_sparse_kernel",
+             wt.walk_transition_sparse)):
+        eng = capture_engines[name]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        eng.run(v0, 3, generator=gen)  # builds and loads the library
+        torch.cuda.synchronize()
+        before = counter.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(v0, CAPTURE_STEPS, generator=gen)
+            torch.cuda.synchronize()
+        ran = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and symbol in e.name)
+        assert counter.launches - before == ran >= CAPTURE_STEPS
+
+
+def test_captured_trainer_equals_uncaptured(monkeypatch):
+    """``run_rw_sgd_multi`` (W=64, avg_every=5, 101 steps: 14 replays of a
+    7-step graph and a 2-step tail) replayed from CUDA graphs against
+    its uncaptured loop: walks, hops, MSE traces and models bit for bit."""
+    from repro_torch.core.graphs import barabasi_albert as ba
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import fleet as tfleet
+    from repro_torch.walk_sgd import run_rw_sgd_multi
+    from repro_torch.walk_sgd import trainer as ttrain
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the captured loop runs only on the GPU")
+    dev = torch.device("cuda")
+    g = ba(2_000, 3, seed=0, layout="ragged")
+    data = make_heterogeneous_regression(g.n, dim=6, sigma_high_sq=100.0,
+                                         p_high=0.03, seed=7, x_star_scale=3.0)
+    kw = dict(mhlj_params=MHLJParams(0.1, 0.5, 3), avg_every=5, seed=0,
+              device=dev)
+    gamma = float(0.3 / data.lipschitz.mean())
+    captured = run_rw_sgd_multi("mhlj", g, data, gamma, 101, 64, **kw)
+    monkeypatch.setattr(ttrain, "run_fleet",
+                        functools.partial(tfleet.run_fleet, capture=False))
+    plain = run_rw_sgd_multi("mhlj", g, data, gamma, 101, 64, **kw)
+    assert tscan.plan(101) == (7, 14, 2)
+    for name in ("update_nodes", "transitions", "mse", "avg_mse", "x_final"):
+        np.testing.assert_array_equal(getattr(captured, name),
+                                      getattr(plain, name), err_msg=name)
+    assert captured.avg_mse[-1] < captured.avg_mse[0]
 
 
 def test_fig3_mhlj_setting_card_equals_cpu(dev):

@@ -32,7 +32,9 @@ from repro_torch.core import engine as teng
 from repro_torch.core import graphs as tg
 from repro_torch.core import levy as tlevy
 from repro_torch.core import transition as ttr
+from repro.kernels.walk_transition import ops as jops
 from repro_torch.kernels.walk_transition import kernel as tkernel
+from repro_torch.kernels.walk_transition import ops as tops
 from repro_torch.kernels.walk_transition.ref import walk_transition_ragged_ref
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -328,6 +330,99 @@ def test_scalar_node_step_and_run_match_reference(layout):
     assert nodes.shape == hops_t.shape == (30,)
     np.testing.assert_array_equal(nodes.numpy(), np.asarray(nodes_ref))
     np.testing.assert_array_equal(hops_t.numpy(), np.asarray(hops_t_ref))
+
+
+def test_run_overflow_vector_matches_reference_scan():
+    """The compacted bucketed engine's ``run`` under a capacity that some
+    steps overflow: walks, hops and the (T,) ``compact_overflow`` vector
+    (a device tensor, decided on the device) against the reference's
+    ``run(..., with_aux=True)`` on the reference's blocks (its
+    ``split(key, T)``), on an SBM whose rows stay <= 17 wide."""
+    params = (0.3, 0.5, 3)
+    g_ref = jg.sbm([40] * 3, 0.2, 0.01, seed=0, layout="csr")
+    g = tg.sbm([40] * 3, 0.2, 0.01, seed=0, layout="csr")
+    lips = np.exp(np.random.default_rng(1).normal(size=g.n))
+    rows = ttr.mh_importance_rows(g, lips)
+    kw = dict(layout="bucketed", compact=True, capacity_factor=1.0)
+    ref = jeng.WalkEngine.from_graph(g_ref, jtr.MHLJParams(*params),
+                                     row_probs=jnp.asarray(rows),
+                                     backend="scan", **kw)
+    eng = teng.WalkEngine.from_graph(g, ttr.MHLJParams(*params),
+                                     row_probs=rows, device="cpu", **kw)
+    w, steps = 96, 40
+    v0s = (np.arange(w) * 7 % g.n).astype(np.int32)
+    key = jax.random.PRNGKey(3)
+    nodes_ref, hops_ref, aux_ref = ref.run(key, jnp.asarray(v0s), steps,
+                                           with_aux=True)
+    over_ref = np.asarray(aux_ref["compact_overflow"])
+    assert over_ref.any() and not over_ref.all()
+    blocks = _ref_blocks(key, steps, w, 3, params[0])
+    assert not _d_mismatch(blocks, 0.5, 3).any()
+    nodes, hops, aux = eng.run(torch.from_numpy(v0s), steps,
+                               uniforms=torch.from_numpy(blocks),
+                               with_aux=True)
+    np.testing.assert_array_equal(nodes.numpy(), np.asarray(nodes_ref))
+    np.testing.assert_array_equal(hops.numpy(), np.asarray(hops_ref))
+    over = aux["compact_overflow"]
+    assert over.dtype == torch.bool and over.device == eng.device
+    np.testing.assert_array_equal(over.numpy(), over_ref)
+
+
+MHLJ_STEP_GRAPHS = {
+    "ring": lambda m: m.ring(16),
+    "grid2d": lambda m: m.grid2d(6, 6),
+    "ba": lambda m: m.barabasi_albert(40, 2, seed=1),  # rows <= 17 wide
+}
+
+
+@pytest.mark.parametrize("graph", sorted(MHLJ_STEP_GRAPHS))
+def test_mhlj_step_views_match_reference(graph):
+    """Every ``mhlj_step_*`` view of the port on the reference's block
+    equals the reference's ``mhlj_step_oracle`` on its key, bit for bit
+    (as ``tests/test_kernels.py`` holds the reference's views), and a
+    view of the wrong engine raises."""
+    g_ref, g = MHLJ_STEP_GRAPHS[graph](jg), MHLJ_STEP_GRAPHS[graph](tg)
+    lips = np.ones(g.n)
+    lips[g.n // 2] = 40.0
+    rows = ttr.row_probs_padded(ttr.mh_importance(g, lips), g)
+    np.testing.assert_array_equal(
+        rows, jtr.row_probs_padded(jtr.mh_importance(g_ref, lips), g_ref))
+    p = dict(p_j=0.2, p_d=0.5, r=3)
+    w = 48
+    nodes = (np.arange(w) % g.n).astype(np.int32)
+    key = jax.random.PRNGKey(7)
+    want = np.asarray(jops.mhlj_step_oracle(
+        key, jnp.asarray(nodes), jnp.asarray(rows, jnp.float32),
+        jnp.asarray(g_ref.neighbors), jnp.asarray(g_ref.degrees), **p))
+    u = np.array(jax.random.uniform(key, (w, 6), jnp.float32))
+    u[:, 0] = (u[:, 0] < np.float32(0.2)).astype(np.float32)
+    assert not _d_mismatch(u, 0.5, 3).any()
+    u = torch.from_numpy(u)
+    tables = (_t(nodes), torch.from_numpy(rows.astype(np.float32)),
+              _t(g.neighbors), _t(g.degrees))
+    params = ttr.MHLJParams(0.2, 0.5, 3)
+    bucketed = teng.WalkEngine.from_graph(g.to_csr().to_bucketed(), params,
+                                          row_probs=rows, device="cpu")
+    ragged = teng.WalkEngine.from_graph(g, params, row_probs=rows,
+                                        layout="ragged", device="cpu")
+    got = {
+        "batched": tops.mhlj_step_batched(*tables, **p, uniforms=u),
+        "sparse": tops.mhlj_step_sparse(*tables, **p, uniforms=u),
+        "dense": tops.mhlj_step_dense(*tables, **p, uniforms=u),
+        "bucketed": tops.mhlj_step_bucketed(tables[0], bucketed, uniforms=u),
+        "ragged": tops.mhlj_step_ragged(tables[0], ragged, uniforms=u),
+        "oracle": tops.mhlj_step_oracle(*tables, **p, uniforms=u),
+    }
+    for name, nxt in got.items():
+        np.testing.assert_array_equal(nxt.numpy(), want, err_msg=name)
+    # a generator draws the block the engine's step draws
+    gen_a, gen_b = (torch.Generator().manual_seed(5) for _ in range(2))
+    assert torch.equal(tops.mhlj_step_oracle(*tables, **p, generator=gen_a),
+                       tops.mhlj_step_sparse(*tables, **p, generator=gen_b))
+    with pytest.raises(ValueError, match="bucketed"):
+        tops.mhlj_step_bucketed(tables[0], ragged, uniforms=u)
+    with pytest.raises(ValueError, match="ragged"):
+        tops.mhlj_step_ragged(tables[0], bucketed, uniforms=u)
 
 
 def _chi_square_stat(counts, probs, min_expected=10.0):

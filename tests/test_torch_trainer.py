@@ -20,6 +20,7 @@ from repro.core import graphs as jg
 from repro.core import levy as jlevy
 from repro.core import transition as jtr
 from repro.data import make_heterogeneous_regression as j_data
+from repro.walk_sgd import fleet as jfleet
 from repro.walk_sgd import run_rw_sgd as j_run
 from repro.walk_sgd import run_rw_sgd_multi as j_run_multi
 from repro_torch import interop
@@ -241,3 +242,57 @@ def test_interop_carries_fleet_and_models():
         )
     avg = tfleet.fleet_average(torch.tensor([[1.0, 2.0], [3.0, 6.0]]))
     torch.testing.assert_close(avg, torch.tensor([[2.0, 4.0], [2.0, 4.0]]))
+
+
+@pytest.mark.parametrize("do_avg", [None, True, False])
+def test_fleet_average_matches_reference(do_avg):
+    """``fleet_average(xs, do_avg)``: the reference's traced ``do_avg``
+    (``repro/walk_sgd/fleet.py`` ``fleet_average``) as a 0-d device bool,
+    the mean where it holds, else ``xs``."""
+    xs = np.random.default_rng(4).normal(size=(5, 3)).astype(np.float32)
+    ref = jfleet.fleet_average(
+        jnp.asarray(xs), None if do_avg is None else jnp.asarray(do_avg))
+    port = tfleet.fleet_average(
+        torch.from_numpy(xs), None if do_avg is None else torch.tensor(do_avg))
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+    if do_avg is False:
+        np.testing.assert_array_equal(port.numpy(), xs)
+
+
+ADVANCE_GRAPHS = {
+    "ring": lambda m: m.ring(64, layout="ragged"),
+    "grid2d": lambda m: m.grid2d(8, 8, layout="ragged"),
+    "ba": lambda m: m.barabasi_albert(40, 2, seed=1, layout="ragged"),
+}
+
+
+@pytest.mark.parametrize("graph", sorted(ADVANCE_GRAPHS))
+def test_fleet_advance_matches_reference(graph):
+    """Three ``WalkFleet.advance`` calls on the reference's blocks (its
+    ``step`` draws from the key itself) walk as the reference's fleet
+    does, bit for bit; ``faults=`` waits for its slice."""
+    p_j, p_d, r = 0.3, 0.5, 3
+    g_ref = ADVANCE_GRAPHS[graph](jg)
+    lips = np.exp(np.random.default_rng(3).normal(size=g_ref.n))
+    rows = jtr.mh_importance_rows_ragged(g_ref, lips)
+    ref_eng = jeng.WalkEngine.from_graph(
+        g_ref, jtr.MHLJParams(p_j, p_d, r), row_probs=rows, backend="scan")
+    ref = jfleet.WalkFleet.create(ref_eng, 12, seed=2)
+    port = tfleet.WalkFleet.create(_port_engine(g_ref, rows, p_d, r), 12,
+                                   seed=2)
+    np.testing.assert_array_equal(port.nodes.numpy(), np.asarray(ref.nodes))
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        ref, hops_ref = ref.advance(key, p_j=p_j)
+        u = jax.random.uniform(key, (12, jeng.num_uniforms(r)), jnp.float32)
+        u = np.array(u.at[:, 0].set((u[:, 0] < p_j).astype(jnp.float32)))
+        assert _no_d_mismatch(u, p_d, r)
+        port, hops = port.advance(uniforms=torch.from_numpy(u))
+        np.testing.assert_array_equal(port.nodes.numpy(),
+                                      np.asarray(ref.nodes))
+        np.testing.assert_array_equal(hops.numpy(), np.asarray(hops_ref))
+    gen = torch.Generator().manual_seed(0)
+    moved, hops = port.advance(generator=gen, p_j=1.0)
+    assert moved.num_walks == 12 and int(hops.min()) >= 1
+    with pytest.raises(NotImplementedError, match="item 7"):
+        port.advance(generator=gen, faults=object())
