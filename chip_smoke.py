@@ -114,7 +114,36 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    finite, and the claims the reference's tests assert are hard gates
    (Fig. 3's entrapment, early ratio and Remark-1 overhead; Theorem 1's
    tau ratios and Remark 1; Fig. 6's shrinking gaps, final slope and
-   ``gap_shrink``), the others are printed with the claim they bear on.
+   ``gap_shrink``), the others are printed with the claim they bear on;
+10. the other chain laws and the fault path (aim ``PHASE10_AIM_S``):
+   (a) ``repro_torch.paper.law_sweep`` at the reference's full tier (BA(1000,3),
+   dumbbell(128,64), lollipop(256,128); seven laws; W=1 on the sparse
+   layout, one sparse launch a step, checked; T = 40,000, cut only past
+   ``LAWS_AIM_S``, never below 15,000, each cut printed), every
+   ``{family}_{law}_herfindahl`` beside ``results/BENCH_law_sweep.json``'s
+   and finite, a card-drawn 2,000-step heterogeneity run replayed on the
+   CPU bit for bit; (b) phase 3's trainer (BA(100k,3) ragged, W=2048,
+   avg_every=50, 500 steps) under the private law (gamma 0.1) and the
+   heterogeneity law with a stand-in pi passed through ``law_kwargs``, and,
+   under MHLJ, under Markov faults (5% crash, 2% recovery, patience 2)
+   with the rescue on and off and under the 10 top hubs killed with an
+   edge window over the cut ``id < n/2``: each captured against
+   uncaptured bit for bit (with the fault state, the rescue and blocked
+   totals and the generator), ms/step, idle share, no rescue with it off,
+   and ``edge_slot_lookup`` alone (time, peak memory); (c) a kill at step
+   250 of the Markov run, ``save_fleet_checkpoint`` (models, FaultState
+   and generator state as extras), ``load_fleet_checkpoint`` and the rest:
+   equal to the uninterrupted run bit for bit; (d) the fault sweep's
+   training leg at its full scale, its criterion beside
+   ``results/BENCH_faults.json``'s, the rescue-off ratio above the
+   rescue-on one at 5% on both families gated; (e) Fig. 6's
+   ``annealed_vs_const`` on four more card streams (reported).
+
+Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
+of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
+that spins until the host sets a pinned flag after the chunk's last
+launch, so no host time enters a call's events.  The script prints its
+total time.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel measurements, and as its last line
@@ -178,35 +207,82 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+# the stream hold of device_time_ms: its timeout, and the most launches a
+# chunk of timed calls may queue behind it (well inside CUDA's launch queue,
+# so the host never blocks on a full queue while the stream is held)
+HOLD_TIMEOUT_NS = 2_000_000_000
+HOLD_BUDGET = 128
+
+
+def stream_hold(flag: torch.Tensor, timed_out: torch.Tensor) -> None:
+    """Enqueue ``csrc/stream_hold.cu`` on the current stream: it spins on
+    the device until the host sets ``flag`` (one pinned host int32), or
+    writes 1 to ``timed_out`` (a device int32) after HOLD_TIMEOUT_NS."""
+    import ctypes
+
+    from repro_torch.kernels import _launch
+
+    _launch.launch("stream_hold", (_launch.P, _launch.P, ctypes.c_longlong,
+                                   _launch.P),
+                   flag.data_ptr(), timed_out.data_ptr(), HOLD_TIMEOUT_NS,
+                   _launch.stream(timed_out.device))
+
+
+def launches_per_call(fn) -> int:
+    """The device activities (kernels, copies, fills) one ``fn(0)`` makes,
+    from a ``torch.profiler`` trace."""
+    prof = profile_window(lambda: fn(0), "")
+    return max(1, sum(prof["device_launches_by_name"].values()))
+
+
 def device_time_ms(fn, iters: int) -> tuple:
-    """Device milliseconds per call of ``fn(i)``, with the host's launch
-    overhead kept out: a spin kernel holds the stream while the host
-    enqueues every call between its own pair of CUDA events, so the pairs
-    time back-to-back device work.  Returns ``(device ms per call, host
-    enqueue ms per call, device idle ms between calls in total)``.
+    """Device milliseconds per call of ``fn(i)``, i < iters, back to back on
+    the card, with the host kept out.
+
+    The calls are enqueued in chunks, each behind a stream hold
+    (:func:`stream_hold`) that the host releases only after the chunk's
+    last launch, between one pair of CUDA events: the chunk then runs back
+    to back, and its events time device work only (each launch's own
+    start-up on the card included, which CUPTI's kernel times leave out).
+    A chunk queues at most ``HOLD_BUDGET`` launches (``launches_per_call``
+    from a profiler trace of one call).  A call that alone makes more
+    launches than that cannot be held: each is timed by its own events
+    between synchronizations, host gaps included, and a line says so.
+    Raises if a hold timed out (a timed call waited on the device).
+    Returns ``(device ms per call, host enqueue ms per call, calls per
+    held chunk (0: not held))``.
     """
     fn(0)
     torch.cuda.synchronize()
-    probe = min(iters, 5)
-    t = time.perf_counter()
-    for i in range(probe):
-        fn(i)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t) * 1e3 / probe
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    # at most 2 GHz, so this spins at least 1.5x the expected enqueue time
-    torch.cuda._sleep(int(host_ms * iters * 1.5 * 2.0e6) + 2_000_000)
-    t = time.perf_counter()
-    for i in range(iters):
-        starts[i].record()
-        fn(i)
-        ends[i].record()
-    enqueue_ms = (time.perf_counter() - t) * 1e3 / iters
-    torch.cuda.synchronize()
-    per_call = sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
-    idle = sum(e.elapsed_time(s) for e, s in zip(ends[:-1], starts[1:]))
-    return per_call, enqueue_ms, idle
+    per_call_launches = launches_per_call(fn)
+    chunk = HOLD_BUDGET // (per_call_launches + 2)
+    flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    timed_out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    enqueue_s, device_ms = 0.0, 0.0
+    for lo in range(0, iters, max(chunk, 1)):
+        hi = min(iters, lo + max(chunk, 1))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flag.zero_()
+        torch.cuda.synchronize()
+        if chunk:
+            stream_hold(flag, timed_out)
+        t = time.perf_counter()
+        start.record()
+        for i in range(lo, hi):
+            fn(i)
+        end.record()
+        enqueue_s += time.perf_counter() - t
+        flag.fill_(1)
+        torch.cuda.synchronize()
+        device_ms += start.elapsed_time(end)
+    if int(timed_out.item()):
+        raise AssertionError("device_time_ms: a stream hold timed out; a "
+                             "timed call waited on the device")
+    if not chunk:
+        log(f"    (not held: {per_call_launches} launches a call exceed the "
+            f"hold's {HOLD_BUDGET}; host gaps are in this time)")
+    return device_ms / iters, enqueue_s * 1e3 / iters, chunk
 
 
 def profile_window(fn, kernel_name: str, after: str = None) -> dict:
@@ -477,10 +553,11 @@ def events_and_cupti(fn, iters: int, symbol: str) -> dict:
     """Device ms per call of ``fn(i)``, i < iters, by CUDA events
     (:func:`device_time_ms`) and by CUPTI (:func:`profile_window` over the
     same calls, the mean of the events named ``symbol``)."""
-    ms, host_ms, _ = device_time_ms(fn, iters)
+    ms, host_ms, chunk = device_time_ms(fn, iters)
     prof = profile_window(lambda: [fn(i) for i in range(iters)], symbol)
     return {"events_ms": ms, "cupti_ms": prof["kernel_ms"],
-            "cupti_launches": prof["kernel_launches"], "host_ms": host_ms}
+            "cupti_launches": prof["kernel_launches"], "host_ms": host_ms,
+            "held_chunk": chunk}
 
 
 def fmt_ms(t: dict) -> str:
@@ -847,7 +924,8 @@ def phase_layouts(dev, params) -> dict:
     cur = [base["nodes"][:, t].contiguous() for t in range(steps)]
     tiles = [(sp.rows_for(cur[t]), sp.neighbors[cur[t]],
               blocks[t][:, teng.U_MH].contiguous()) for t in range(50)]
-    sp_ms = device_time_ms(lambda i: wt.walk_transition_sparse(*tiles[i]), 50)
+    sp_t = events_and_cupti(lambda i: wt.walk_transition_sparse(*tiles[i]),
+                            50, KERNEL_SYMBOL["walk_transition_sparse"])
     sp_plain = device_time_ms(
         lambda i: walk_transition_sparse_ref(*tiles[i]), 5)
     # the bounds average every fifth (sparse) or tenth (dense) launch's
@@ -859,8 +937,9 @@ def phase_layouts(dev, params) -> dict:
     dargs = (de.row_probs, de.neighbors, de.degrees)
     dcur = [runs["dense"]["nodes"][:, t].contiguous() for t in range(steps)]
     kw = dict(p_d=params.p_d, r=params.r)
-    de_ms = device_time_ms(
-        lambda i: wt.walk_transition(dcur[i], *dargs, blocks[i], **kw), steps)
+    de_t = events_and_cupti(
+        lambda i: wt.walk_transition(dcur[i], *dargs, blocks[i], **kw), steps,
+        KERNEL_SYMBOL["walk_transition"])
     de_plain = device_time_ms(
         lambda i: walk_transition_ref(dcur[i], *dargs, blocks[i], **kw), 10)
     b, o, c, h = zip(*(bound_dense(dcur[t], *dargs, blocks[t], params.r,
@@ -919,22 +998,26 @@ def phase_layouts(dev, params) -> dict:
 
     timing = {
         "walk_transition_sparse": {
-            "ms": sp_ms[0], "host_ms": sp_ms[1], "idle_ms": sp_ms[2],
+            "ms": sp_t["events_ms"], "host_ms": sp_t["host_ms"],
+            "cupti_ms": sp_t["cupti_ms"], "held_chunk": sp_t["held_chunk"],
             "plain_ms": sp_plain[0], "bytes": sp_bytes, "ops": sp_ops,
             "bound": bound(sp_bytes, sp_ops, FP32_OPS_PER_S),
             "chain": sp_chain, "by_bucket_width": by_width,
             "unused_branch": dead,
         },
         "walk_transition": {
-            "ms": de_ms[0], "host_ms": de_ms[1], "idle_ms": de_ms[2],
+            "ms": de_t["events_ms"], "host_ms": de_t["host_ms"],
+            "cupti_ms": de_t["cupti_ms"], "held_chunk": de_t["held_chunk"],
             "plain_ms": de_plain[0], "bytes": de_bytes, "ops": de_ops,
             "bound": bound(de_bytes, de_ops, FP32_OPS_PER_S),
             "chain": de_chain, "hop_chain": de_hops,
         },
     }
     for name, tm in timing.items():
-        log(f"  {name}: {tm['ms']:.5f} ms/launch on the device (host enqueue "
-            f"{tm['host_ms']:.5f} ms), plain {tm['plain_ms']:.5f} ms, bound "
+        log(f"  {name}: {tm['ms']:.5f} ms/launch back to back on the device "
+            f"(CUPTI {tm['cupti_ms']} ms; held in chunks of "
+            f"{tm['held_chunk']}; host enqueue {tm['host_ms']:.5f} ms), plain "
+            f"{tm['plain_ms']:.5f} ms, bound "
             f"{tm['bound'][0]:.6f} ms by {tm['bound'][1]} ({tm['bytes']:.0f} "
             f"B, {tm['ops']:.0f} ops per launch); longest chain "
             f"{tm['chain']} adds"
@@ -1760,6 +1843,8 @@ def phase_llm(dev) -> dict:
 # -- phase 9: the paper on the card ----------------------------------------------
 
 PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
+PHASE10_AIM_S = 240.0  # phase 10's aim: the script within ~12 min
+LAWS_AIM_S = 110.0  # of which the law sweep's 21 runs (T cut past it)
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
 PAPER_SPAWN_S = 20.0  # a worker process's start (the side-by-side plan)
 PAPER_WORKERS = 8  # the side-by-side plan's worker processes
@@ -1836,13 +1921,14 @@ def paper_plan(fig5_tags, ms_step: float, call_s: float, spent_s: float,
             "side_by_side_estimate_s": side_s, "device_s": device_s}
 
 
-def paper_unit(name: str, tag, num_steps, dev) -> dict:
-    """One unit of phase 9: a figure's ``run`` (Fig. 5: ``run_graph`` on
-    one graph) on the card, its training calls recorded (time, steps,
-    finite MSE, the graphs' K and capture seconds) and its sparse-kernel
-    launches counted; the runs of ``PAPER_REPLAYED`` take blocks drawn on
-    the card and keep their first ``PAPER_REPLAY`` steps for the CPU
-    replay."""
+def paper_unit(name: str, tag, num_steps, dev,
+               replayed=PAPER_REPLAYED) -> dict:
+    """One unit of phase 9 (or of phase 10's law sweep): a module's ``run``
+    (Fig. 5 and the law sweep: ``run_graph`` on one graph) on the card,
+    its training calls recorded (time, steps, finite MSE, the graphs' K
+    and capture seconds) and its sparse-kernel launches counted; the runs
+    of ``replayed`` take blocks drawn on the card and keep their first
+    ``PAPER_REPLAY`` steps for the CPU replay."""
     import importlib
 
     from repro_torch.kernels.walk_transition import kernel as wt
@@ -1853,7 +1939,7 @@ def paper_unit(name: str, tag, num_steps, dev) -> dict:
     replays: dict = {}
 
     def blocks(*, tag, method, seed, num_steps, num_walks, r, p_j):
-        if (tag, method) not in PAPER_REPLAYED:
+        if (tag, method) not in replayed:
             return None  # the call draws from its own generator
         gen.manual_seed(seed)
         u = torch.rand((num_steps, num_walks, 3 + r), generator=gen,
@@ -1868,6 +1954,7 @@ def paper_unit(name: str, tag, num_steps, dev) -> dict:
         with ScanLog() as sl:
             res = train(blocks_, tag_, method, graph, data, gamma, steps, **kw)
         calls.append({"tag": tag_, "method": method, "steps": steps,
+                      "law_kwargs": kw.get("law_kwargs"),
                       "walks": kw.get("num_walks") or 1,
                       "s": time.perf_counter() - t0,
                       "chunk": sl.stats[0].chunk,
@@ -2114,6 +2201,437 @@ def phase_paper(dev, smi: str) -> dict:
 
 
 
+# -- phase 10: the other chain laws and the fault path ---------------------------
+
+LAWS_FULL_T = 40_000  # the reference's full T
+LAWS_MIN_T = 15_000  # the reference's quick T, the floor of any cut
+LAWS_REPLAYED = (("ba", "heterogeneity"),)  # card-drawn, replayed on the CPU
+# the main path's trainer of phase 3 (large_graph_walk's): BA(n, m) ragged
+FAULT_GRAPH, FAULT_STEPS, FAULT_WALKS, FAULT_AVG = (100_000, 3), 500, 2048, 50
+FIG6_SEEDS = (1, 2, 3, 4)  # Fig. 6's stream seeds beyond phase 9's
+
+
+def counts_zero(wt) -> None:
+    for fn in (wt.walk_transition_sparse, wt.walk_transition,
+               wt.walk_transition_ragged):
+        fn.launches = 0
+
+
+def counts_read(wt) -> dict:
+    return {"walk_transition_sparse": wt.walk_transition_sparse.launches,
+            "walk_transition": wt.walk_transition.launches,
+            "walk_transition_ragged": wt.walk_transition_ragged.launches}
+
+
+def replay_on_cpu(card: dict, method: str, where: str) -> dict:
+    """A card run's first ``PAPER_REPLAY`` steps (blocks drawn on the card)
+    run again on the CPU plain path: update nodes and hops bit for bit."""
+    from repro_torch.walk_sgd import run_rw_sgd
+
+    graph, data, gamma, kw = card["args"]
+    cpu = run_rw_sgd(method, graph, data, gamma, PAPER_REPLAY,
+                     uniforms=torch.from_numpy(card["u"]), device="cpu", **kw)
+    same = (np.array_equal(card["nodes"], cpu.update_nodes)
+            and np.array_equal(card["hops"], cpu.transitions))
+    mse_rel = float(np.max(np.abs(card["mse"] - cpu.mse) / np.abs(cpu.mse)))
+    log(f"  replay {where} (max width {int(graph.degrees.max())}): first "
+        f"{PAPER_REPLAY} update nodes and hops card == CPU: {same}; MSE max "
+        f"rel diff {mse_rel:.3g}")
+    if not same:
+        raise AssertionError(f"{where}: the card's walk differs from the "
+                             "CPU replay")
+    return {"equal": same, "mse_max_rel": mse_rel}
+
+
+def phase10_law_sweep(dev, wt, ms_step: float) -> dict:
+    """(a) ``repro_torch.paper.law_sweep`` at the reference's full tier:
+    three graphs, seven laws, W=1 on the sparse layout (one sparse launch a
+    step, checked); T cut only where ``ms_step`` says the 21 runs would pass
+    LAWS_AIM_S, never below LAWS_MIN_T; every Herfindahl key beside the
+    reference's, finite; a card-drawn heterogeneity run replayed on the
+    CPU."""
+    from repro_torch.paper import law_sweep
+
+    runs = 3 * len(law_sweep.LAWS)
+    T = LAWS_FULL_T
+    while T > LAWS_MIN_T and runs * T * ms_step / 1e3 > LAWS_AIM_S:
+        T -= 1_000
+    est = runs * T * ms_step / 1e3
+    cut = f"T {LAWS_FULL_T} -> {T}" if T < LAWS_FULL_T else "none"
+    log(f"  (a) law sweep plan: {runs} runs at T={T}, estimated {est:.0f} s "
+        f"at {ms_step:.5f} ms/step (Fig. 5's, set-up and capture included); "
+        f"T cut: {cut}")
+    with open(os.path.join(ROOT, "results", "BENCH_law_sweep.json")) as fh:
+        ref = json.load(fh)["derived"]
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    units = [paper_unit("law_sweep", tag, T, dev, replayed=LAWS_REPLAYED)
+             for tag in law_sweep._graphs("full")]
+    wall = time.perf_counter() - t0
+    # paper_unit counts each unit's sparse launches from 0
+    launches = dict(counts_read(wt),
+                    walk_transition_sparse=sum(u["launches"] for u in units))
+    derived, calls, replays = {}, [], {}
+    for u in units:
+        derived.update(u["out"][1])
+        calls += u["calls"]
+        replays.update(u["replays"])
+    steps = sum(c["steps"] for c in calls)
+    if launches["walk_transition_sparse"] != steps or steps != runs * T:
+        raise AssertionError(f"law sweep: {launches} launches for {steps} "
+                             "training steps")
+    missing = sorted(set(ref) - set(derived))
+    bad = sorted(k for k, v in derived.items() if not np.isfinite(v))
+    if missing or bad:
+        raise AssertionError(f"law sweep keys missing {missing}, not finite "
+                             f"{bad}")
+    for c in calls:
+        law = c["method"] + (f" {c['law_kwargs']}" if c["law_kwargs"] else "")
+        log(f"    {c['tag']}/{law}: {c['s']:.2f} s, "
+            f"{c['s'] / c['steps'] * 1e3:.5f} ms/step (set-up and capture "
+            f"included; K {c['chunk']}, capture {c['capture_s']:.4f} s)")
+    for k in sorted(derived):
+        log(f"    {k} = {derived[k]:.6g} (reference {ref[k]:.6g})")
+    tag, method = LAWS_REPLAYED[0]
+    replay = replay_on_cpu(replays[tag, method], method,
+                           f"law sweep {tag}/{method}")
+    train_s = sum(c["s"] for c in calls)
+    log(f"  (a) law sweep: {wall:.2f} s wall, {steps} steps in {len(calls)} "
+        f"runs, {train_s / steps * 1e3:.5f} ms/step, sparse launches "
+        f"{launches['walk_transition_sparse']}; all {len(derived)} keys "
+        "present and finite")
+    return {"T": T, "cut": cut, "estimate_s": est, "wall_s": wall,
+            "ms_per_step": train_s / steps * 1e3, "calls": calls,
+            "derived": derived, "reference": ref, "launches": launches,
+            "replay": replay}
+
+
+def faulted_loop(fleet, args, fm, steps, dev, *, capture=None, gen_seed=0,
+                 **kw):
+    """``run_fleet(faults=fm)`` for ``steps`` steps from a generator seeded
+    ``gen_seed``; returns its outputs, seconds, ``ScanStats`` and the
+    generator's final state."""
+    from repro_torch.models import regression as treg
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    x0, feats, targs, weights, gamma, sched = args
+    gen = kw.pop("generator", None)
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    start = kw.pop("start_step", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ScanLog() as sl:
+        out = tfleet.run_fleet(
+            kw.pop("xs", x0), feats, targs, weights, fleet, steps, gamma,
+            sched[start:start + steps], True, treg.linear_grad,
+            generator=gen, faults=fm, capture=capture, start_step=start,
+            **kw)
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, sl.stats[0], gen.get_state()
+
+
+def same_fleet_run(a, b, where: str) -> None:
+    for i, name in enumerate(("models", "mse", "avg_mse", "update_nodes",
+                              "hops")):
+        if not torch.equal(a[i], b[i]):
+            raise AssertionError(f"{where}: runs differ in {name}")
+    for k in ("nodes", "rescued", "blocked"):
+        if not torch.equal(a[5][k], b[5][k]):
+            raise AssertionError(f"{where}: runs differ in {k}")
+    for k in ("live", "blocked", "t"):
+        if not torch.equal(getattr(a[5]["fault_state"], k),
+                           getattr(b[5]["fault_state"], k)):
+            raise AssertionError(f"{where}: fault states differ in {k}")
+
+
+def phase10_trainers(dev, wt, ttrain, params) -> dict:
+    """(b) the main path's trainer (BA(100k,3) ragged, W=2048, avg_every=50,
+    500 steps) under the private and heterogeneity laws and, under MHLJ,
+    under Markov faults (rescue on and off) and under dead hubs with a cut
+    partition; each captured against uncaptured, bit for bit, with its
+    ms/step, idle share and fault totals.  (c) a kill-and-restore through
+    disk, bit for bit."""
+    import dataclasses
+
+    from repro_torch import interop
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core.graphs import barabasi_albert
+    from repro_torch.core.heterogeneity import project_to_simplex
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    out: dict = {"trainers": {}, "faults": {}}
+    t0 = time.perf_counter()
+    g = barabasi_albert(*FAULT_GRAPH, seed=0, layout="ragged")
+    data = make_heterogeneous_regression(
+        g.n, dim=6, sigma_high_sq=100.0, p_high=0.03, seed=7,
+        x_star_scale=3.0,
+    )
+    gamma = float(0.3 / data.lipschitz.mean())
+    lips = np.asarray(data.lipschitz, np.float64)
+    # heterogeneity_pi's (n, n) H would be 80 GB here: a stand-in target,
+    # the floored importance distribution, passed through law_kwargs
+    pi = project_to_simplex(lips / lips.sum(), 0.25)
+    log(f"  BA{FAULT_GRAPH} and data built: {time.perf_counter() - t0:.2f} s")
+    for name, method, law_kwargs in (
+            ("private_g0.1", "private", {"gamma": 0.1}),
+            ("heterogeneity_pi", "heterogeneity", {"pi": pi})):
+        counts_zero(wt)
+        res, seen = timed_training(
+            ttrain, method, g, data, gamma, FAULT_STEPS, FAULT_WALKS,
+            avg_every=FAULT_AVG, seed=0, device=dev, law_kwargs=law_kwargs)
+        launches = counts_read(wt)
+        if launches["walk_transition_ragged"] != FAULT_STEPS:
+            raise AssertionError(f"{name} trainer: {launches}")
+        if not (np.isfinite(res.mse).all() and np.isfinite(res.avg_mse).all()):
+            raise AssertionError(f"{name} trainer: MSE not finite")
+        loop = trainer_loop_check(ttrain, res, seen,
+                                  f"trainer {name} ragged W={FAULT_WALKS}")
+        out["trainers"][name] = {
+            "setup_s": seen["setup_s"], "launches": launches, "loop": loop,
+            "avg_mse_first": float(res.avg_mse[0]),
+            "avg_mse_last": float(res.avg_mse[-1])}
+        log(f"  trainer {name}: set-up {seen['setup_s']:.2f} s, avg_mse "
+            f"{res.avg_mse[0]:.4f} -> {res.avg_mse[-1]:.4f}, "
+            f"{launches['walk_transition_ragged']} ragged launches")
+
+    # MHLJ under faults, through run_fleet with the trainer's engine
+    rows, weights, sched, p_d, r, _ = ttrain._setup_method(
+        "mhlj", g, data, params, None, FAULT_STEPS)
+    eng = ttrain._build_engine(g, p_d, r, rows, None, dev)
+    fleet = tfleet.WalkFleet.create(eng, FAULT_WALKS, seed=0,
+                                    avg_every=FAULT_AVG)
+    args = (torch.zeros(FAULT_WALKS, data.dim, device=dev),
+            torch.as_tensor(np.asarray(data.features, np.float32), device=dev),
+            torch.as_tensor(np.asarray(data.targets, np.float32), device=dev),
+            torch.as_tensor(weights, device=dev), gamma,
+            torch.as_tensor(sched, device=dev))
+    markov = tfaults.FaultModel(crash_rate=0.05, recovery_rate=0.02,
+                                patience=2, rescue=True)
+    # the hubs die and the cut opens at step 100 for 200 steps (of 500)
+    at, duration = FAULT_STEPS // 5, 2 * FAULT_STEPS // 5
+    hubs = tfaults.kill_top_hubs(g.degrees, 10, at=at, duration=duration,
+                                 device=dev, patience=2)
+    cut = tfaults.partition_groups(g.indptr, g.indices,
+                                   np.arange(g.n) < g.n // 2, at=at,
+                                   duration=duration, device=dev)
+    scenarios = {
+        "markov_rescue": markov,
+        "markov_no_rescue": dataclasses.replace(markov, rescue=False),
+        "hubs_and_cut": dataclasses.replace(
+            hubs, edge_down_at=cut.edge_down_at, edge_up_at=cut.edge_up_at),
+    }
+    kept = {}
+    for name, fm in scenarios.items():
+        counts_zero(wt)
+        cap, cap_s, stats, cap_gen = faulted_loop(fleet, args, fm,
+                                                  FAULT_STEPS, dev)
+        launches = counts_read(wt)
+        if launches["walk_transition_ragged"] != FAULT_STEPS:
+            raise AssertionError(f"faulted {name}: {launches}")
+        unc, unc_s, _, unc_gen = faulted_loop(fleet, args, fm, FAULT_STEPS,
+                                              dev, capture=False)
+        same_fleet_run(cap, unc, f"faulted {name} captured vs uncaptured")
+        if not torch.equal(cap_gen, unc_gen):
+            raise AssertionError(f"faulted {name}: generator states differ")
+        rescued = int(cap[5]["rescued"].sum())
+        blocked = int(cap[5]["blocked"].sum())
+        if not fm.rescue and rescued:
+            raise AssertionError(f"faulted {name}: {rescued} rescues with the "
+                                 "rescue off")
+        prof = profile_window(
+            lambda: faulted_loop(fleet, args, fm, PROFILE_STEPS, dev),
+            "walk_transition", after="scan.capture")
+        prof_u = profile_window(
+            lambda: faulted_loop(fleet, args, fm, PROFILE_STEPS, dev,
+                                 capture=False), "walk_transition")
+        loop = scan_summary(stats, cap_s)
+        loop.update(uncaptured_ms_per_step=unc_s * 1e3 / FAULT_STEPS,
+                    idle_share=prof["idle_share"],
+                    idle_share_uncaptured=prof_u["idle_share"])
+        avg = cap[2].cpu().numpy()
+        out["faults"][name] = {"loop": loop, "launches": launches,
+                               "rescued": rescued, "blocked": blocked,
+                               "avg_mse_first": float(avg[0]),
+                               "avg_mse_last": float(avg[-1])}
+        log(f"  faulted {name} (MHLJ, W={FAULT_WALKS}): {fmt_loop(loop)}; "
+            f"rescued {rescued}, blocked {blocked} walker-steps; avg_mse "
+            f"{avg[0]:.4f} -> {avg[-1]:.4f}; captured == uncaptured bit for "
+            "bit (walks, hops, models, totals, fault state, generator)")
+        kept[name] = cap
+    # edge_slot_lookup alone, on the hubs_and_cut run's walk pairs
+    nodes = kept["hubs_and_cut"][3]
+    pairs = [(nodes[:, t].contiguous(), nodes[:, t + 1].contiguous())
+             for t in range(at, min(at + 50, FAULT_STEPS - 1))]
+    def lookup(i):
+        return tfaults.edge_slot_lookup(eng.indptr, eng.indices, *pairs[i],
+                                        eng.max_degree)
+
+    slot_ms, slot_host_ms, _ = device_time_ms(lookup, len(pairs))
+    prof = profile_window(lambda: [lookup(i) for i in range(len(pairs))], "")
+    slot_t = {"events_ms": slot_ms, "host_ms": slot_host_ms,
+              "cupti_busy_ms": prof["busy_ms"] / len(pairs),
+              "device_ops": sum(prof["device_launches_by_name"].values())
+              // len(pairs)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tfaults.edge_slot_lookup(eng.indptr, eng.indices, *pairs[0],
+                             eng.max_degree)
+    torch.cuda.synchronize()
+    slot_mem = torch.cuda.max_memory_allocated() - base
+    out["edge_slot_lookup"] = {"width": eng.max_degree, "walks": FAULT_WALKS,
+                               "entries": FAULT_WALKS * eng.max_degree,
+                               "time": slot_t, "peak_bytes": slot_mem}
+    log(f"  edge_slot_lookup W={FAULT_WALKS} x width {eng.max_degree} "
+        f"({FAULT_WALKS * eng.max_degree} entries): {slot_ms:.5f} ms by "
+        f"events, {slot_t['cupti_busy_ms']:.5f} ms busy by CUPTI in "
+        f"{slot_t['device_ops']} device ops a call; peak "
+        f"{slot_mem / 2**20:.2f} MiB above the inputs")
+
+    # (c) kill at step 250 of the Markov run, restore from disk, resume
+    fm = scenarios["markov_rescue"]
+    half = FAULT_STEPS // 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, _, _, _ = faulted_loop(fleet, args, fm, half, dev, generator=gen,
+                              total_steps=FAULT_STEPS)
+    st = a[5]["fault_state"]
+    path = os.path.join(ROOT, "build", "phase10_fleet.npz")
+    tfleet.save_fleet_checkpoint(
+        path, dataclasses.replace(fleet, nodes=a[5]["nodes"]), step=half,
+        extras={"xs": a[0], "fault_live": st.live,
+                "fault_blocked": st.blocked, "fault_t": st.t,
+                "generator": gen.get_state()})
+    loaded, step, ex = tfleet.load_fleet_checkpoint(path, device=dev)
+    gen_b = torch.Generator(device=dev)
+    gen_b.set_state(torch.from_numpy(ex["generator"]))
+    state = interop.fault_state_from_reference(
+        live=ex["fault_live"], blocked=ex["fault_blocked"], t=ex["fault_t"],
+        device=dev)
+    b, _, _, _ = faulted_loop(
+        loaded, args, fm, FAULT_STEPS - half, dev, generator=gen_b,
+        xs=torch.as_tensor(ex["xs"], device=dev), fault_state=state,
+        start_step=half, total_steps=FAULT_STEPS)
+    full = kept["markov_rescue"]
+    stitched = (b[0], torch.cat([a[1], b[1][:, 1:]], dim=1),
+                torch.cat([a[2], b[2][1:]]), torch.cat([a[3], b[3]], dim=1),
+                torch.cat([a[4], b[4]], dim=1),
+                {"nodes": b[5]["nodes"], "fault_state": b[5]["fault_state"],
+                 "rescued": torch.cat([a[5]["rescued"], b[5]["rescued"]]),
+                 "blocked": torch.cat([a[5]["blocked"], b[5]["blocked"]])})
+    same_fleet_run(stitched, full, "kill-and-restore")
+    size = os.path.getsize(path)
+    os.unlink(path)
+    out["restore"] = {"step": step, "checkpoint_bytes": size,
+                      "equal": True}
+    log(f"  (c) kill-and-restore: [0, {half}) + checkpoint ({size} bytes, "
+        f"models, FaultState and generator state as extras) + [{half}, "
+        f"{FAULT_STEPS}) == the uninterrupted run, bit for bit")
+    return out
+
+
+def phase10_fault_sweep(dev, wt) -> dict:
+    """(d) the fault sweep's training leg at its full scale: the criterion
+    beside the reference's, the rescue ordering at 5% gated on both
+    families, the "within ~2x" claim reported."""
+    from repro_torch.paper import fault_sweep
+
+    with open(os.path.join(ROOT, "results", "BENCH_faults.json")) as fh:
+        ref = json.load(fh)
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    res = fault_sweep.run(scale="full", device=dev)
+    wall = time.perf_counter() - t0
+    launches = counts_read(wt)
+    legs = 1 + 2 * len(fault_sweep.RATES["full"])
+    steps = legs * fault_sweep.SCALES["full"]["steps"]
+    if (launches["walk_transition_sparse"] != steps
+            or launches["walk_transition_ragged"] != steps):
+        raise AssertionError(f"fault sweep: {launches} for {steps} steps a "
+                             "family")
+    gates = {}
+    for fam, legs_out in res["train"].items():
+        on = legs_out["f5_with_rescue"]["excess_vs_fault_free"]
+        off = legs_out["f5_no_rescue"]["excess_vs_fault_free"]
+        gates[f"{fam} f5 no_rescue > with_rescue"] = off > on
+        log(f"    {fam}: f5 excess/fault-free with rescue {on:.4g}, without "
+            f"{off:.4g}; rescues "
+            f"{legs_out['f5_with_rescue']['rescues']}, blocked "
+            f"{legs_out['f5_no_rescue']['blocked_steps']} (rescue off)")
+    for k in sorted(res["derived"]):
+        log(f"    {k} = {res['derived'][k]:.6g} (reference "
+            f"{ref['derived'][k]:.6g})")
+    crit = res["criterion"]
+    within = crit["dumbbell_f5_with_rescue_vs_fault_free"] <= 2.0
+    log(f"  (d) fault sweep: {wall:.2f} s; criterion {json.dumps(crit)} "
+        f"(reference {json.dumps(ref['criterion'])}); the reference's "
+        f"\"within ~2x\" claim on this stream: "
+        f"{'holds' if within else 'does not hold'} (reported, not gated); "
+        f"launches {launches}")
+    for name, ok in gates.items():
+        log(f"  gate {name}: {'pass' if ok else 'FAIL'}")
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"fault sweep: {failed}")
+    return {"wall_s": wall, "launches": launches, "criterion": crit,
+            "reference_criterion": ref["criterion"], "within_2x": within,
+            "derived": res["derived"], "gates": gates}
+
+
+def phase10_fig6_seeds(dev, wt) -> dict:
+    """(e) Fig. 6's ``annealed_vs_const`` on FIG6_SEEDS more streams: both
+    runs of a seed draw their blocks on the card from a generator seeded
+    with it, as the reference's two runs share its key."""
+    from repro_torch.paper import fig6_annealing
+
+    def card_blocks(stream_seed):
+        gen = torch.Generator(device=dev)
+
+        def blocks(*, num_steps, num_walks, r, p_j, **_):
+            gen.manual_seed(stream_seed)
+            u = torch.rand((num_steps, num_walks, 3 + r), generator=gen,
+                           device=dev)
+            u[..., 0] = (u[..., 0] < torch.as_tensor(p_j, device=dev)[:, None]
+                         ).to(torch.float32)
+            return u
+
+        return blocks
+
+    out = {}
+    for seed in FIG6_SEEDS:
+        counts_zero(wt)
+        t0 = time.perf_counter()
+        res = fig6_annealing.run(device=dev, blocks=card_blocks(seed))
+        out[seed] = {"annealed_vs_const": res["derived"]["annealed_vs_const"],
+                     "s": time.perf_counter() - t0,
+                     "launches": counts_read(wt)["walk_transition_sparse"]}
+        log(f"  (e) Fig. 6 stream seed {seed}: annealed_vs_const "
+            f"{out[seed]['annealed_vs_const']:.6g} ({out[seed]['s']:.2f} s, "
+            f"{out[seed]['launches']} sparse launches)")
+    return out
+
+
+def phase_laws_faults(dev, smi, p9: dict) -> dict:
+    """Phase 10: the chain laws and the fault path on the card."""
+    from repro_torch.core.transition import MHLJParams
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.walk_sgd import trainer as ttrain
+
+    t_phase = time.perf_counter()
+    log(f"phase 10 (laws and faults): {smi}; aim {PHASE10_AIM_S:.0f} s")
+    out = {"law_sweep": phase10_law_sweep(
+        dev, wt, p9["figures"]["fig5_sparse_graphs"]["ms_per_step"])}
+    out.update(phase10_trainers(dev, wt, ttrain, MHLJParams(0.1, 0.5, 3)))
+    out["fault_sweep"] = phase10_fault_sweep(dev, wt)
+    out["fig6_seeds"] = phase10_fig6_seeds(dev, wt)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2273,11 +2791,11 @@ def main() -> int:
         nxt, _ = wt.walk_transition_ragged(cur[t], *kargs, blocks[t], **kw)
         if not torch.equal(nxt, cur[t + 1]):
             raise AssertionError(f"replay of step {t} does not reproduce the run")
-    kernel_ms, kernel_host_ms, kernel_idle = device_time_ms(
+    kernel_t = events_and_cupti(
         lambda i: wt.walk_transition_ragged(cur[i], *kargs, blocks[i], **kw),
-        steps,
-    )
-    plain_ms, plain_host_ms, plain_idle = device_time_ms(
+        steps, KERNEL_SYMBOL["walk_transition_ragged"])
+    kernel_ms, kernel_host_ms = kernel_t["events_ms"], kernel_t["host_ms"]
+    plain_ms, plain_host_ms, plain_chunk = device_time_ms(
         lambda i: walk_transition_ragged_ref(cur[i], *kargs, blocks[i], **kw),
         50,
     )
@@ -2321,10 +2839,11 @@ def main() -> int:
     log(f"  engine run W={w} T={steps}: {launches} launches, "
         f"{rate:.4e} walk-steps/s ({run_ms / steps:.4f} ms/step), "
         f"hops/update {hops_mean:.4f}, walks' digest {engine_digest}")
-    log(f"  kernel {kernel_ms:.5f} ms/launch on the device (host enqueue "
-        f"{kernel_host_ms:.5f} ms/call, device idle between launches "
-        f"{kernel_idle:.4f} ms in all), plain {plain_ms:.5f} ms (host "
-        f"{plain_host_ms:.5f} ms/call, idle {plain_idle:.4f} ms in all), "
+    log(f"  kernel {kernel_ms:.5f} ms/launch back to back on the device "
+        f"(held in chunks of {kernel_t['held_chunk']}; CUPTI "
+        f"{kernel_t['cupti_ms']} ms; host enqueue {kernel_host_ms:.5f} "
+        f"ms/call), plain {plain_ms:.5f} ms (held in chunks of {plain_chunk}; "
+        f"host {plain_host_ms:.5f} ms/call), "
         f"bound {bound_ms:.6f} ms ({nbytes / steps:.0f} B/step over HBM; "
         f"ops bound {ops_ms:.2e} ms)")
     if prof["window_ms"] is None:
@@ -2339,9 +2858,9 @@ def main() -> int:
     report["phases"]["engine"] = {
         "s": dt, "w": w, "steps": steps, "launches": launches,
         "run_ms": run_ms, "walk_steps_per_s": rate, "kernel_ms": kernel_ms,
-        "kernel_host_ms": kernel_host_ms, "kernel_idle_ms": kernel_idle,
+        "kernel_host_ms": kernel_host_ms, "kernel_timing": kernel_t,
         "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
-        "plain_idle_ms": plain_idle, "bound_ms": bound_ms, "bytes_per_step":
+        "plain_held_chunk": plain_chunk, "bound_ms": bound_ms, "bytes_per_step":
         nbytes / steps, "ops_per_step": nops / steps, "hops_mean": hops_mean,
         "profile_50_steps": prof, "walks_digest": engine_digest,
         "loop": loop2["loop"],
@@ -2533,6 +3052,13 @@ def main() -> int:
     log(f"phase 9 paper: {dt:.2f} s")
     report["phases"]["paper"] = {"s": dt, **p9}
 
+    # -- phase 10: the other chain laws and the fault path ------------------
+    t0 = time.perf_counter()
+    p10 = phase_laws_faults(dev, smi, p9)
+    dt = time.perf_counter() - t0
+    log(f"phase 10 laws and faults: {dt:.2f} s (aim {PHASE10_AIM_S:.0f} s)")
+    report["phases"]["laws_faults"] = {"s": dt, **p10}
+
     def entry(name, source, replaces, launches, err):
         tm = p4["timing"][name]
         return {
@@ -2627,6 +3153,26 @@ def main() -> int:
     sparse = next(k for k in kernels if k["name"] == "walk_transition_sparse")
     sparse["launches_by_figure"] = {
         name: f["launches"] for name, f in p9["figures"].items()}
+    # phase 10's paths, each counted from 0 just before it and read just after
+    p10_paths = {"law_sweep": [p10["law_sweep"]["launches"]],
+                 "law_trainers": [t["launches"]
+                                  for t in p10["trainers"].values()],
+                 "faulted_trainers": [f["launches"]
+                                      for f in p10["faults"].values()],
+                 "fault_sweep": [p10["fault_sweep"]["launches"]],
+                 "fig6_seeds": [{"walk_transition_sparse": f["launches"]}
+                                for f in p10["fig6_seeds"].values()]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p10_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase10"] = by_path
+            k["launches"] += sum(by_path.values())
+    for name in ("walk_transition_sparse", "walk_transition_ragged"):
+        if not next(k for k in kernels if k["name"] == name).get(
+                "launches_phase10"):
+            raise AssertionError(f"phase 10 launched {name} no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2634,6 +3180,7 @@ def main() -> int:
         json.dump(report, fh, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']}"
                                 for k in kernels))
+    log(f"chip_smoke total: {time.perf_counter() - T_START:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -53,6 +53,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import scan as scan_mod
 from repro_torch.core.graphs import _ragged_row_chunks, flat_edge_values
 from repro_torch.core.levy import trunc_geom_icdf
@@ -883,6 +884,8 @@ class WalkEngine:
         p_j=None,
         lipschitz: Optional[torch.Tensor] = None,
         with_aux: bool = False,
+        faults: Optional[tuple] = None,
+        rescue_uniforms: Optional[torch.Tensor] = None,
     ) -> tuple:
         """One batched MHLJ transition of the (W,) int32 ``nodes``.
 
@@ -897,6 +900,19 @@ class WalkEngine:
         full dispatch.  A 0-d ``nodes`` (with a ``(3 + r,)`` or
         ``(1, 3 + r)`` block) returns 0-d outputs.  The step reads nothing
         from the device on the host.
+
+        ``faults=(FaultModel, FaultState)`` takes the liveness-masked path
+        (``repro_torch.core.faults``, docs/faults.md): the layout's
+        proposal is computed as without faults, then
+        :func:`~repro_torch.core.faults.apply_liveness` rejects handoffs
+        onto dead nodes or dropped edges and moves walkers blocked
+        ``patience`` steps to a uniform live node.  It needs
+        ``with_aux=True``; the aux gains ``blocked_steps`` (the updated
+        (W,) counter, the caller's next ``FaultState.blocked``),
+        ``fault_blocked`` and ``rescued`` (W,) masks.  With a rescuing
+        model the rescue takes ``rescue_uniforms`` (W,) beside an injected
+        block, or draws them from ``generator`` after the block.  Edge
+        faults need the ragged layout.
         """
         from repro_torch.kernels.walk_transition.kernel import (
             walk_transition,
@@ -904,6 +920,15 @@ class WalkEngine:
             walk_transition_sparse,
         )
 
+        if faults is not None and not with_aux:
+            raise ValueError(
+                "the liveness-masked path returns its blocked counter "
+                "through aux; call step(..., faults=..., with_aux=True)"
+            )
+        if (faults is not None and faults[0].rescue and uniforms is not None
+                and rescue_uniforms is None):
+            raise ValueError("a rescuing fault model draws (W,) rescue "
+                             "uniforms: pass rescue_uniforms= beside uniforms=")
         nodes = torch.as_tensor(nodes, dtype=torch.int32, device=self.device)
         squeeze = nodes.ndim == 0
         if squeeze:
@@ -956,13 +981,32 @@ class WalkEngine:
                 nodes, u, self.degrees, self.p_d, self.r, **jump
             )
             nxt, hops = combine_mh_jump(v_mh, v_jump, d, u)
+        aux = {}
+        if faults is not None:
+            # the masking follows the dispatch, the same on every layout
+            fmodel, fstate = faults
+            nxt, hops, blocked, was_blocked, rescued = faults_mod.apply_liveness(
+                nodes, nxt, hops, fstate.blocked.reshape(-1),
+                fmodel.live_mask(fstate),
+                patience=fmodel.patience, rescue=fmodel.rescue,
+                rescue_hops=self.r,
+                uniforms=None if rescue_uniforms is None
+                else torch.as_tensor(rescue_uniforms).reshape(-1),
+                generator=None if uniforms is not None else generator,
+                edge_live=fmodel.edge_live_mask(fstate),
+                indptr=self.indptr, indices=self.indices,
+                max_degree=self.max_degree,
+            )
+            aux.update(blocked_steps=blocked, fault_blocked=was_blocked,
+                       rescued=rescued)
         if squeeze:
             nxt, hops = nxt[0], hops[0]
+            aux = {k: v[0] for k, v in aux.items()}
         if with_aux:
             if overflow is None:
                 overflow = torch.zeros((), dtype=torch.bool,
                                        device=self.device)
-            return nxt, hops, {"compact_overflow": overflow}
+            return nxt, hops, {"compact_overflow": overflow, **aux}
         return nxt, hops
 
     def _p_schedule(self, p_j, num_steps: int) -> torch.Tensor:

@@ -18,7 +18,13 @@ CSR ``indices``.  The local builders share one block function per law,
 and pads carry exactly 0, so a bucket row is the column truncation of the
 padded row and a flat entry is the padded entry.  The MHLJ law exists
 only as the dense matrix :func:`mhlj`, for the chain analysis: the engine
-samples it in two phases (MH move or Lévy jump).  The heterogeneity and private laws are not ported yet.
+samples it in two phases (MH move or Lévy jump).
+
+Two more laws are MH with another target, through the same block math:
+the heterogeneity-aware law (``heterogeneity_*``, MH targeting a pi from
+:mod:`repro_torch.core.heterogeneity`) and the private weighted walk
+(``private_weighted_*``, MH targeting Gamma-noised weights from
+:func:`private_weights`).
 """
 from __future__ import annotations
 
@@ -54,6 +60,15 @@ __all__ = [
     "simple_rw_rows_ragged",
     "mh_uniform_rows_ragged",
     "mh_importance_rows_ragged",
+    "heterogeneity_mh",
+    "heterogeneity_rows",
+    "heterogeneity_rows_bucketed",
+    "heterogeneity_rows_ragged",
+    "private_weights",
+    "private_weighted_mh",
+    "private_weighted_rows",
+    "private_weighted_rows_bucketed",
+    "private_weighted_rows_ragged",
 ]
 
 
@@ -351,5 +366,128 @@ def mh_importance_rows_ragged(
         lambda nbrs, ids, deg_v: _mh_rows_block(
             nbrs, ids, deg_v, deg, lipschitz
         ),
+        chunk_rows,
+    )
+
+
+# -- the heterogeneity-aware law (Dandi et al., arXiv:2204.06477) ------------
+#
+# MH targeting the pi that ``repro_torch.core.heterogeneity`` optimizes
+# against the measured gradient-dissimilarity matrix: Eq. (6) with w = pi,
+# one call into the shared block math on every layout.
+
+
+def _check_target_pi(graph, pi) -> np.ndarray:
+    pi = np.asarray(pi, dtype=np.float64)
+    if pi.shape != (graph.n,):
+        raise ValueError(f"pi must have shape ({graph.n},), got {pi.shape}")
+    if np.any(pi <= 0):
+        raise ValueError(
+            "heterogeneity target pi must be strictly positive — a zero "
+            "entry disconnects the MH chain (use the optimizer's floor)"
+        )
+    return pi
+
+
+def heterogeneity_mh(graph: Graph, pi: np.ndarray) -> np.ndarray:
+    """Dense MH chain targeting a heterogeneity-optimized (n,) ``pi``."""
+    return mh(graph, _check_target_pi(graph, pi))
+
+
+def heterogeneity_rows(graph, pi: np.ndarray) -> np.ndarray:
+    """Padded MH rows targeting a heterogeneity-optimized pi."""
+    pi = _check_target_pi(graph, pi)
+    nbrs, ids, deg = _graph_locals(graph)
+    return _mh_rows_block(nbrs, ids, deg, deg, pi)
+
+
+def heterogeneity_rows_bucketed(graph, pi: np.ndarray) -> tuple:
+    """Per-bucket heterogeneity-law rows for a :class:`BucketedCSRGraph`."""
+    return _mh_rows_bucketed(graph, _check_target_pi(graph, pi))
+
+
+def heterogeneity_rows_ragged(
+    graph, pi: np.ndarray, chunk_rows: Optional[int] = None
+) -> np.ndarray:
+    """Flat (nnz,) heterogeneity-law probabilities for any CSR-core graph."""
+    pi = _check_target_pi(graph, pi)
+    deg = np.asarray(graph.degrees, dtype=np.int64)
+    return _rows_ragged(
+        graph,
+        lambda nbrs, ids, deg_v: _mh_rows_block(nbrs, ids, deg_v, deg, pi),
+        chunk_rows,
+    )
+
+
+# -- the private weighted walk (Ayache & El Rouayheb, arXiv:2009.01790) ------
+#
+# MH targeting Gamma-perturbed weights ŵ_v = w_v + G_v, G_v ~ Gamma(1/n,
+# theta) i.i.d., theta = gamma · n · mean(w): the aggregate noise is an
+# Exponential(theta) whatever n, while each node's share stays vague.
+
+
+def private_weights(
+    weights: np.ndarray, gamma: float, *, seed: int = 0
+) -> np.ndarray:
+    """Gamma-noised node weights ŵ = w + G, G_v ~ Gamma(1/n, gamma·n·w̄),
+    drawn once from ``np.random.default_rng(seed)``; ``gamma=0`` returns
+    ``w`` exactly."""
+    w = np.asarray(weights, dtype=np.float64)
+    if w.ndim != 1:
+        raise ValueError(f"weights must be (n,), got shape {w.shape}")
+    if np.any(w <= 0):
+        raise ValueError("node weights must be strictly positive")
+    if gamma < 0:
+        raise ValueError(f"privacy gamma must be >= 0, got {gamma}")
+    if gamma == 0.0:
+        return w.copy()
+    n = w.size
+    rng = np.random.default_rng(seed)
+    noise = rng.gamma(shape=1.0 / n, scale=gamma * n * w.mean(), size=n)
+    return w + noise
+
+
+def _private_target(graph, weights, gamma, seed) -> np.ndarray:
+    return private_weights(_check_lipschitz(graph, weights), gamma, seed=seed)
+
+
+def private_weighted_mh(
+    graph: Graph, weights: np.ndarray, gamma: float, *, seed: int = 0
+) -> np.ndarray:
+    """Dense private weighted walk: MH targeting ŵ = ``private_weights``."""
+    w_hat = _private_target(graph, weights, gamma, seed)
+    return mh(graph, w_hat / w_hat.sum())
+
+
+def private_weighted_rows(
+    graph, weights: np.ndarray, gamma: float, *, seed: int = 0
+) -> np.ndarray:
+    """Padded private-weighted-walk rows (MH targeting ŵ)."""
+    w_hat = _private_target(graph, weights, gamma, seed)
+    nbrs, ids, deg = _graph_locals(graph)
+    return _mh_rows_block(nbrs, ids, deg, deg, w_hat)
+
+
+def private_weighted_rows_bucketed(
+    graph, weights: np.ndarray, gamma: float, *, seed: int = 0
+) -> tuple:
+    """Per-bucket private-weighted-walk rows for a :class:`BucketedCSRGraph`."""
+    return _mh_rows_bucketed(graph, _private_target(graph, weights, gamma, seed))
+
+
+def private_weighted_rows_ragged(
+    graph,
+    weights: np.ndarray,
+    gamma: float,
+    *,
+    seed: int = 0,
+    chunk_rows: Optional[int] = None,
+) -> np.ndarray:
+    """Flat (nnz,) private-weighted-walk probabilities for any CSR-core graph."""
+    w_hat = _private_target(graph, weights, gamma, seed)
+    deg = np.asarray(graph.degrees, dtype=np.int64)
+    return _rows_ragged(
+        graph,
+        lambda nbrs, ids, deg_v: _mh_rows_block(nbrs, ids, deg_v, deg, w_hat),
         chunk_rows,
     )

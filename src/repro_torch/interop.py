@@ -9,6 +9,9 @@ requested device:
   state (padded rows, per-bucket rows, or the per-edge CDF) to the port,
   so a last-ulp difference between two row builders cannot hide or fake a
   sampler fault;
+* :func:`fault_model_from_reference` / :func:`fault_state_from_reference`
+  — a ``FaultModel`` and a ``FaultState`` from the numpy leaves of the
+  reference's (the ``extras`` a reference checkpoint carries);
 * :func:`model_from_reference_params` — a language model from the JAX
   package's params pytree, so both packages run on the same weights.
 """
@@ -20,9 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import LAYOUTS, WalkEngine
+from repro_torch.core.faults import FaultModel, FaultState
 from repro_torch.walk_sgd.fleet import WalkFleet
 
-__all__ = ["from_reference_state", "model_from_reference_params"]
+__all__ = ["from_reference_state", "fault_model_from_reference",
+           "fault_state_from_reference", "model_from_reference_params"]
 
 
 def from_reference_state(
@@ -37,6 +42,7 @@ def from_reference_state(
     edge_cdf=None,
     max_degree: Optional[int] = None,
     cdf_width: Optional[int] = None,
+    graph_version: int = 0,
     neighbors=None,
     row_probs=None,
     node_bucket=None,
@@ -58,7 +64,8 @@ def from_reference_state(
 
     * ``"ragged"``: ``indptr``/``indices``/``edge_cdf``/``max_degree`` and
       ``cdf_width`` (the port builds no CDF here, so ``cdf_width`` is only
-      checked against ``max_degree``);
+      checked against ``max_degree``), kept as they are: a CDF that
+      decreases inside a row is refused;
     * ``"sparse"``/``"dense"``: ``neighbors`` and ``row_probs`` (None for
       live rows);
     * ``"bucketed"``: ``indptr``/``indices``, ``node_bucket``/``node_slot``,
@@ -67,10 +74,16 @@ def from_reference_state(
 
     ``nodes`` are the fleet's (W,) positions and ``models`` its (W, dim)
     per-walker models.  Returns ``(engine, fleet, models)`` — ``fleet`` is
-    None without ``nodes``, ``models`` None without models.
+    None without ``nodes``, ``models`` None without models.  A churned
+    engine (``graph_version`` > 0) is refused: the port has no edge churn.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
+    if graph_version:
+        raise ValueError(
+            f"graph_version={graph_version}: the engine was churned, and the "
+            "port has no edge churn yet"
+        )
     device = torch.device(device)
 
     def i32(x):
@@ -136,6 +149,40 @@ def from_reference_state(
     if models is not None:
         models = torch.as_tensor(np.asarray(models, np.float32), device=device)
     return engine, fleet, models
+
+
+def fault_model_from_reference(
+    *,
+    crash_rate: float = 0.0,
+    recovery_rate: float = 0.0,
+    down_at=None,
+    up_at=None,
+    edge_down_at=None,
+    edge_up_at=None,
+    patience: int = 3,
+    rescue: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> FaultModel:
+    """The port's ``FaultModel`` from a reference model's fields (its
+    scripted windows as numpy arrays), the windows int32 on ``device``."""
+    return FaultModel(
+        crash_rate=float(crash_rate), recovery_rate=float(recovery_rate),
+        down_at=down_at, up_at=up_at, edge_down_at=edge_down_at,
+        edge_up_at=edge_up_at, patience=int(patience), rescue=bool(rescue),
+    ).to(device)
+
+
+def fault_state_from_reference(
+    *, live, blocked, t, device: Union[str, torch.device] = "cuda"
+) -> FaultState:
+    """The port's ``FaultState`` from a reference state's leaves: ``live``
+    (n,) bool, ``blocked`` (W,) int32 and the 0-d int32 tick ``t``."""
+    return FaultState(
+        live=torch.as_tensor(np.asarray(live, bool), device=device),
+        blocked=torch.as_tensor(np.atleast_1d(np.asarray(blocked, np.int32)),
+                                device=device),
+        t=torch.as_tensor(np.asarray(t, np.int32).reshape(()), device=device),
+    )
 
 
 def _flatten(tree, prefix: str = "") -> dict:

@@ -33,6 +33,9 @@ SOURCES = {
     "ssd_scan": "ssd_scan.cu",
     "ssd_scan_mma": "ssd_scan_mma.cu",
     "rmsnorm": "rmsnorm.cu",
+    # not a kernel of the port: the timing harness's stream hold
+    # (chip_smoke.py, device_time_ms)
+    "stream_hold": "stream_hold.cu",
 }
 
 # No fast math, and no fused multiply-add contraction: the kernels' float32

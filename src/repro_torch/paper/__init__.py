@@ -11,12 +11,19 @@ on the card.  ``blocks`` injects uniform blocks (see
 :func:`repro_torch.paper.common.train`).
 
     python -c "from repro_torch.paper import fig3_ring; print(fig3_ring.run()['derived'])"
+
+Beside the figures, two sweeps with the same ``run`` signature:
+``law_sweep`` (every chain law on the trap-prone families) and
+``fault_sweep`` (the fleet under node faults, rescue on and off; its
+training leg).
 """
 from repro_torch.paper import (
+    fault_sweep,
     fig3_ring,
     fig4_erdos_renyi,
     fig5_sparse_graphs,
     fig6_annealing,
+    law_sweep,
     theorem1_remark1,
 )
 
@@ -30,9 +37,11 @@ FIGURES = (
 
 __all__ = [
     "FIGURES",
+    "fault_sweep",
     "fig3_ring",
     "fig4_erdos_renyi",
     "fig5_sparse_graphs",
     "fig6_annealing",
+    "law_sweep",
     "theorem1_remark1",
 ]

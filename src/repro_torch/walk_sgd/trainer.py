@@ -8,6 +8,11 @@ by the chosen method's chain law:
   method='importance'  MH-IS (Eq. 7), weighted gradient w(v)=L_bar/L_v
   method='mhlj'        Algorithm 1 (MH-IS + Lévy jumps), weighted gradient
   method='simple'      simple random walk, plain gradient (degree-biased)
+  method='heterogeneity'  MH targeting the gradient-heterogeneity-optimized
+                       pi of ``core.heterogeneity`` (arXiv:2204.06477),
+                       weighted gradient w ∝ 1/pi
+  method='private'     private weighted walk on Gamma-noised weights
+                       (arXiv:2009.01790), weighted gradient w ∝ 1/ŵ
 
 Non-jump methods are the engine at p_J = 0.  The graph class picks the
 rows and the engine layout, as in the reference: a dense ``Graph`` gets
@@ -16,17 +21,19 @@ local rows (both the ``sparse`` layout), a ``BucketedCSRGraph`` per-bucket
 rows (``bucketed``), a ``RaggedCSRGraph`` flat per-edge rows
 (``ragged``); ``engine_kwargs`` may ask for another layout.
 :func:`repro_torch.walk_sgd.fleet.run_fleet` is the one training loop —
-:func:`run_rw_sgd` is its W=1 case.  ``method='heterogeneity'`` and
-``method='private'`` belong to a later slice of the port.
+:func:`run_rw_sgd` is its W=1 case.  ``law_kwargs`` parameterizes the
+heterogeneity and private laws (see :func:`_setup_method`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import heterogeneity as het_mod
 from repro_torch.core import transition as trans_mod
 from repro_torch.core.engine import WalkEngine
 from repro_torch.core.transition import MHLJParams
@@ -40,7 +47,6 @@ __all__ = ["METHODS", "RWSGDResult", "MultiRWSGDResult", "run_rw_sgd",
 METHODS = (
     "uniform", "importance", "mhlj", "simple", "heterogeneity", "private"
 )
-_LATER = ("heterogeneity", "private")
 _GRADS = {"linear": reg.linear_grad, "logistic": reg.logistic_grad}
 
 
@@ -84,6 +90,7 @@ def _setup_method(
     mhlj_params: Optional[MHLJParams],
     p_j_schedule: Optional[np.ndarray],
     num_steps: int,
+    law_kwargs: Optional[dict] = None,
 ):
     """Method dispatch: rows, weights, p_J schedule and (p_d, r).
 
@@ -91,16 +98,25 @@ def _setup_method(
     numpy: ``row_probs`` by graph class — the dense law gathered onto the
     padded rows (``Graph``), padded local rows (``CSRGraph``), a tuple of
     per-bucket rows (``BucketedCSRGraph``) or flat (nnz,) rows
-    (``RaggedCSRGraph``) — ``weights`` (n,) float32 and ``p_j_sched``
-    (num_steps,) float32.
+    (``RaggedCSRGraph``) — ``weights`` (n,) float32, ``mean(target) /
+    target`` for the chain's target weights (L_v but for the two laws
+    below), and ``p_j_sched`` (num_steps,) float32.
+
+    ``law_kwargs`` parameterizes the chain law:
+
+    * ``method="heterogeneity"`` — ``pi``, a precomputed (n,) target; when
+      absent it is measured and optimized from ``data`` by
+      ``core.heterogeneity.heterogeneity_pi``, whose ``floor`` /
+      ``num_probes`` / ``probe_scale`` / ``seed`` / ``steps`` pass through
+      (its dissimilarity matrix is dense (n, n) float64, so pass ``pi`` on
+      large graphs);
+    * ``method="private"`` — ``gamma`` (the privacy knob, default 0.1) and
+      ``noise_seed`` (the Gamma noise's seed, default 0).
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}")
-    if method in _LATER:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: its chain law comes with "
-            "a later slice of the port (ROADMAP Queue 1 item 1)"
-        )
+    if law_kwargs and method not in ("heterogeneity", "private"):
+        raise ValueError(f"law_kwargs is not consumed by method={method!r}")
     lips = data.lipschitz
     dense = getattr(graph, "adj", None) is not None
     bucketed = hasattr(graph, "buckets")
@@ -113,8 +129,18 @@ def _setup_method(
             return bucket_rows()
         return ragged_rows() if ragged else padded_rows()
 
+    def law(name, *args, **kw):
+        """``pick`` over the four row functions ``{name}_mh``, ``_rows``,
+        ``_rows_bucketed`` and ``_rows_ragged`` of one law."""
+        return pick(*(
+            functools.partial(getattr(trans_mod, name + sfx), graph, *args,
+                              **kw)
+            for sfx in ("_mh", "_rows", "_rows_bucketed", "_rows_ragged")
+        ))
+
     use_jumps = method == "mhlj"
-    use_weights = method in ("importance", "mhlj")
+    use_weights = method not in ("uniform", "simple")
+    target = np.asarray(lips, dtype=np.float64)
     if method == "uniform":
         rows = pick(
             lambda: trans_mod.mh_uniform(graph),
@@ -129,6 +155,27 @@ def _setup_method(
             lambda: trans_mod.simple_rw_rows_bucketed(graph),
             lambda: trans_mod.simple_rw_rows_ragged(graph),
         )
+    elif method == "heterogeneity":
+        kw = dict(law_kwargs or {})
+        pi = kw.pop("pi", None)
+        if pi is None:
+            pi = het_mod.heterogeneity_pi(data, **kw)
+        elif kw:
+            raise ValueError(
+                f"unused heterogeneity law_kwargs besides pi: {sorted(kw)}"
+            )
+        target = np.asarray(pi, dtype=np.float64)
+        rows = law("heterogeneity", target)
+    elif method == "private":
+        kw = dict(law_kwargs or {})
+        priv_gamma = float(kw.pop("gamma", 0.1))
+        noise_seed = int(kw.pop("noise_seed", 0))
+        if kw:
+            raise ValueError(f"unknown private-walk law_kwargs: {sorted(kw)}")
+        rows = law("private_weighted", lips, priv_gamma, seed=noise_seed)
+        # the update sees only the noised weights (the chain's target)
+        target = trans_mod.private_weights(target, priv_gamma,
+                                           seed=noise_seed)
     else:  # importance / mhlj share the P_IS rows; jumps sampled live
         rows = pick(
             lambda: trans_mod.mh_importance(graph, lips),
@@ -136,7 +183,6 @@ def _setup_method(
             lambda: trans_mod.mh_importance_rows_bucketed(graph, lips),
             lambda: trans_mod.mh_importance_rows_ragged(graph, lips),
         )
-    target = np.asarray(lips, dtype=np.float64)
     weights = (target.mean() / target).astype(np.float32)
     if use_jumps:
         mhlj_params = mhlj_params or MHLJParams()
@@ -167,10 +213,10 @@ def _build_engine(graph, p_d, r, row_probs, engine_kwargs, device):
 def _train(
     method, graph, data, gamma, num_steps, num_walks, *, mhlj_params,
     p_j_schedule, loss, x0, v0s, avg_every, seed, engine, engine_kwargs,
-    uniforms, device,
+    law_kwargs, uniforms, device,
 ):
     rows, weights, p_j_sched, p_d, r, use_weights = _setup_method(
-        method, graph, data, mhlj_params, p_j_schedule, num_steps
+        method, graph, data, mhlj_params, p_j_schedule, num_steps, law_kwargs
     )
     if engine is None:
         engine = _build_engine(graph, p_d, r, rows, engine_kwargs, device)
@@ -229,6 +275,7 @@ def run_rw_sgd(
     seed: int = 0,
     engine: Optional[WalkEngine] = None,
     engine_kwargs: Optional[dict] = None,
+    law_kwargs: Optional[dict] = None,
     uniforms: Optional[torch.Tensor] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> RWSGDResult:
@@ -240,13 +287,14 @@ def run_rw_sgd(
     pre-built engine (e.g. from ``repro_torch.interop``) whose ``(p_d, r)``
     must match the method's; ``engine_kwargs`` instead forwards ``layout``,
     ``compact``, ``capacity_factor`` or ``bucket_factor`` to
-    :meth:`WalkEngine.from_graph`.
+    :meth:`WalkEngine.from_graph`; ``law_kwargs`` parameterizes the
+    heterogeneity and private laws (:func:`_setup_method`).
     """
     xs, mses, _, nodes, hops, _ = _train(
         method, graph, data, gamma, num_steps, 1, mhlj_params=mhlj_params,
         p_j_schedule=p_j_schedule, loss=loss, x0=x0, v0s=[v0], avg_every=0,
         seed=seed, engine=engine, engine_kwargs=engine_kwargs,
-        uniforms=uniforms, device=device,
+        law_kwargs=law_kwargs, uniforms=uniforms, device=device,
     )
     return RWSGDResult(
         mse=mses[0].cpu().numpy(),
@@ -274,6 +322,7 @@ def run_rw_sgd_multi(
     seed: int = 0,
     engine: Optional[WalkEngine] = None,
     engine_kwargs: Optional[dict] = None,
+    law_kwargs: Optional[dict] = None,
     uniforms: Optional[torch.Tensor] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> MultiRWSGDResult:
@@ -283,13 +332,14 @@ def run_rw_sgd_multi(
     ``v0s`` is given; ``avg_every > 0`` averages the models across walks
     every that many updates.  ``uniforms`` injects a ``(T, W, 3 + r)``
     block, ``engine`` a pre-built engine and ``engine_kwargs`` engine
-    options, as in :func:`run_rw_sgd`.
+    options, and ``law_kwargs`` the law, as in :func:`run_rw_sgd`.
     """
     xs, mses, avg_mses, nodes, hops, _ = _train(
         method, graph, data, gamma, num_steps, num_walks,
         mhlj_params=mhlj_params, p_j_schedule=p_j_schedule, loss=loss, x0=x0,
         v0s=v0s, avg_every=avg_every, seed=seed, engine=engine,
-        engine_kwargs=engine_kwargs, uniforms=uniforms, device=device,
+        engine_kwargs=engine_kwargs, law_kwargs=law_kwargs, uniforms=uniforms,
+        device=device,
     )
     return MultiRWSGDResult(
         mse=mses.cpu().numpy(),

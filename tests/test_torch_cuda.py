@@ -560,6 +560,131 @@ def test_captured_trainer_equals_uncaptured(monkeypatch):
     assert captured.avg_mse[-1] < captured.avg_mse[0]
 
 
+def _faulted_case(dev, n=2_000, w=64):
+    """A ragged BA(n,3) fleet under Markov faults, the 10 top hubs killed
+    for 30 ticks and an edge window over the cut ``id < n/2``."""
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core.graphs import barabasi_albert as ba
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import trainer as ttrain
+    from repro_torch.walk_sgd.fleet import WalkFleet
+
+    g = ba(n, 3, seed=0, layout="ragged")
+    data = make_heterogeneous_regression(g.n, dim=6, sigma_high_sq=100.0,
+                                         p_high=0.03, seed=7, x_star_scale=3.0)
+    rows, weights, sched, p_d, r, _ = ttrain._setup_method(
+        "mhlj", g, data, MHLJParams(0.1, 0.5, 3), None, 101)
+    eng = ttrain._build_engine(g, p_d, r, rows, None, dev)
+    hubs = tfaults.kill_top_hubs(g.degrees, 10, at=20, duration=30,
+                                 device=dev)
+    cut = tfaults.partition_groups(g.indptr, g.indices,
+                                   np.arange(g.n) < g.n // 2, at=10,
+                                   duration=40, device=dev)
+    fm = dataclasses.replace(hubs, crash_rate=0.05, recovery_rate=0.02,
+                             patience=2, edge_down_at=cut.edge_down_at,
+                             edge_up_at=cut.edge_up_at)
+    fleet = WalkFleet.create(eng, w, seed=0, avg_every=5)
+    args = (torch.as_tensor(data.features, dtype=torch.float32, device=dev),
+            torch.as_tensor(data.targets, dtype=torch.float32, device=dev),
+            torch.as_tensor(weights, device=dev))
+    return g, fm, fleet, args, torch.as_tensor(sched, device=dev)
+
+
+def test_captured_faulted_fleet_equals_uncaptured(dev):
+    """``run_fleet(faults=)`` replayed from CUDA graphs (the fault state in
+    the carry, three draws a step) against its uncaptured loop from the
+    same generator state: walks, hops, models, rescue and blocked totals,
+    the final fault state and the generator's state bit for bit; and with
+    the rescue off, no rescue."""
+    from repro_torch.models import regression as treg
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    g, fm, fleet, args, sched = _faulted_case(dev)
+    runs = {}
+    for rescue in (True, False):
+        model = dataclasses.replace(fm, rescue=rescue)
+        for capture in (None, False):
+            gen = torch.Generator(device=dev).manual_seed(3)
+            out = tfleet.run_fleet(
+                torch.zeros(64, 6, device=dev), *args, fleet, 101, 0.01,
+                sched, True, treg.linear_grad, generator=gen, faults=model,
+                capture=capture)
+            runs[rescue, capture] = (out, gen.get_state())
+    for rescue in (True, False):
+        (c, c_gen), (u, u_gen) = runs[rescue, None], runs[rescue, False]
+        for i in range(5):
+            assert torch.equal(c[i], u[i]), i
+        for k in ("nodes", "rescued", "blocked"):
+            assert torch.equal(c[5][k], u[5][k]), k
+        for k in ("live", "blocked", "t"):
+            assert torch.equal(getattr(c[5]["fault_state"], k),
+                               getattr(u[5]["fault_state"], k)), k
+        assert torch.equal(c_gen, u_gen)
+        assert int(c[5]["blocked"].sum()) > 0
+        assert (int(c[5]["rescued"].sum()) > 0) == rescue
+
+
+def test_faulted_fleet_card_equals_cpu_and_resumes_from_disk(dev, tmp_path):
+    """The faulted loop on injected streams walks on the card as on the
+    CPU; and a kill-and-restore on the card ([0, 50), a checkpoint with the
+    models, the FaultState and the generator's state, [50, 101)) equals
+    the uninterrupted run bit for bit."""
+    from repro_torch import interop
+    from repro_torch.models import regression as treg
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    g, fm, fleet, args, sched = _faulted_case(dev, n=500, w=16)
+    blk = torch.Generator().manual_seed(9)
+    u = torch.rand((101, 16, 6), generator=blk)
+    u[..., 0] = (u[..., 0] < np.float32(0.1)).to(torch.float32)
+    streams = dict(uniforms=u, fault_uniforms=torch.rand((101, g.n),
+                                                         generator=blk),
+                   rescue_uniforms=torch.rand((101, 16), generator=blk))
+    cpu_fleet = tfleet.WalkFleet.restore(fleet.checkpoint(), device="cpu")
+    outs = {}
+    for d, fl, a in ((dev, fleet, args),
+                     ("cpu", cpu_fleet, tuple(x.cpu() for x in args))):
+        outs[str(d)] = tfleet.run_fleet(
+            torch.zeros(16, 6, device=d), *a, fl, 101, 0.01, sched.to(d),
+            True, treg.linear_grad, faults=fm,
+            **{k: v.to(d) for k, v in streams.items()})
+    card, cpu = outs[str(dev)], outs["cpu"]
+    for i in (3, 4):
+        assert torch.equal(card[i].cpu(), cpu[i])
+    assert torch.equal(card[5]["rescued"].cpu(), cpu[5]["rescued"])
+
+    def run(fl, steps, start, xs, gen, state=None):
+        return tfleet.run_fleet(xs, *args, fl, steps, 0.01,
+                                sched[start:start + steps], True,
+                                treg.linear_grad, generator=gen, faults=fm,
+                                fault_state=state, start_step=start,
+                                total_steps=101)
+
+    full = run(fleet, 101, 0, torch.zeros(16, 6, device=dev),
+               torch.Generator(device=dev).manual_seed(4))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = run(fleet, 50, 0, torch.zeros(16, 6, device=dev), gen)
+    st = a[5]["fault_state"]
+    path = tfleet.save_fleet_checkpoint(
+        str(tmp_path / "card.npz"),
+        dataclasses.replace(fleet, nodes=a[5]["nodes"]), step=50,
+        extras={"xs": a[0], "fault_live": st.live,
+                "fault_blocked": st.blocked, "fault_t": st.t,
+                "generator": gen.get_state()})
+    loaded, step, ex = tfleet.load_fleet_checkpoint(path, device=dev)
+    gen_b = torch.Generator(device=dev)
+    gen_b.set_state(torch.from_numpy(ex["generator"]))
+    state = interop.fault_state_from_reference(
+        live=ex["fault_live"], blocked=ex["fault_blocked"], t=ex["fault_t"],
+        device=dev)
+    b = run(loaded, 51, 50, torch.as_tensor(ex["xs"], device=dev), gen_b,
+            state)
+    assert step == 50 and torch.equal(b[0], full[0])
+    assert torch.equal(torch.cat([a[3], b[3]], dim=1), full[3])
+    assert torch.equal(torch.cat([a[5]["blocked"], b[5]["blocked"]]),
+                       full[5]["blocked"])
+
+
 def test_fig3_mhlj_setting_card_equals_cpu(dev):
     """Fig. 3's mhlj run (``repro_torch.paper.fig3_ring``'s data, step and
     start) at ring(256), T = 2,000, on one injected block: the card's walk

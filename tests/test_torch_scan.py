@@ -185,6 +185,50 @@ def test_no_host_read_in_advance_or_the_fleet_step():
         assert out[1].shape == (8, 4) and out[3].shape == (8, 3)
 
 
+@pytest.mark.parametrize("name", ["ragged", "sparse", "compacted"])
+def test_no_host_read_in_the_faulted_fleet_step(name):
+    """The faulted loop (``run_fleet(faults=)``: the Markov advance, the
+    masked update and average, the rejection and the rescue's live-set
+    draw with its device gate) and ``advance(faults=)``, on a model with
+    Markov rates and scripted hub windows; on the ragged engine with an
+    edge window over a cut too (the ``(W, max_degree)`` slot lookup)."""
+    from repro_torch.core import faults as tfaults
+
+    g, engines = _engines()
+    eng = engines[name]
+    never = np.full(g.n, tfaults.NEVER, np.int32)
+    down, up = never.copy(), never.copy()
+    down[np.argsort(-g.degrees, kind="stable")[:3]], up[:] = 1, 4
+    kw = dict(crash_rate=0.2, recovery_rate=0.3, patience=1,
+              down_at=torch.as_tensor(down), up_at=torch.as_tensor(up))
+    if name == "ragged":
+        side = np.arange(g.n) < g.n // 2
+        edges = tfaults.partition_groups(g.indptr, g.indices, side, at=0,
+                                         duration=3, device="cpu")
+        kw.update(edge_down_at=edges.edge_down_at,
+                  edge_up_at=edges.edge_up_at)
+    fm = tfaults.FaultModel(**kw)
+    data = make_heterogeneous_regression(g.n, dim=4, seed=0)
+    feats = torch.as_tensor(data.features, dtype=torch.float32)
+    targs = torch.as_tensor(data.targets, dtype=torch.float32)
+    fleet = tfleet.WalkFleet.create(eng, 8, seed=0, avg_every=2)
+    gen = torch.Generator().manual_seed(2)
+    state = fm.init_state(g.n, 8, device="cpu")
+    with NoHostReads():
+        advanced, hops, aux = fleet.advance(generator=gen, p_j=0.3,
+                                            faults=(fm, state))
+        out = tfleet.run_fleet(
+            torch.zeros(8, 4), feats, targs, torch.ones(g.n), fleet, 6,
+            1e-3, torch.full((6,), 0.3), True, treg.linear_grad,
+            generator=gen, faults=fm,
+        )
+    assert aux["blocked_steps"].shape == hops.shape == (8,)
+    final = out[5]
+    assert final["rescued"].shape == final["blocked"].shape == (6,)
+    assert int(final["blocked"].sum()) > 0
+    assert int(final["fault_state"].t) == 6
+
+
 def test_the_guard_catches_the_reads_it_names():
     """The dispatch mode sees the host reads a capture cannot hold."""
     x = torch.tensor([1, 0, 2])

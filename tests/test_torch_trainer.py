@@ -55,16 +55,34 @@ def _data(m, n):
              x_star_scale=3.0)
 
 
-def _fleet_blocks(seed, total, w, r, p_j_sched, start=0):
+def _fleet_blocks(seed, total, w, r, p_j_sched, start=0, fault_nodes=None):
     """Blocks as the reference fleet draws them: ``split(key, total)[start:]``,
-    one ``(W, 3 + r)`` uniform per key, slot 0 -> ``u < p_j[t]``."""
-    keys = jax.random.split(jax.random.PRNGKey(seed), total)[start:]
+    one ``(W, 3 + r)`` uniform per key, slot 0 -> ``u < p_j[t]``.
 
-    def one(k, pj):
+    With ``fault_nodes=n``, the three streams of a faulted step instead
+    (``repro/walk_sgd/fleet.py`` ``_fleet_scan``, ``repro/core/engine.py``
+    ``step``): ``key_t, key_f = split(key)``; ``key_t`` splits again into
+    the walk's key and the rescue's; returns ``(blocks (T, W, 3 + r),
+    Markov uniforms (T, n) from key_f, rescue uniforms (T, W))``.
+    """
+    keys = jax.random.split(jax.random.PRNGKey(seed), total)
+    keys = keys[start:start + len(p_j_sched)]
+
+    def block(k, pj):
         u = jax.random.uniform(k, (w, jeng.num_uniforms(r)), jnp.float32)
         return u.at[:, 0].set((u[:, 0] < pj).astype(jnp.float32))
 
-    return np.array(jax.vmap(one)(keys, jnp.asarray(p_j_sched, jnp.float32)))
+    def faulted(k, pj):
+        key_t, key_f = jax.random.split(k)
+        key_w, key_r = jax.random.split(key_t)
+        return (block(key_w, pj),
+                jax.random.uniform(key_f, (fault_nodes,), jnp.float32),
+                jax.random.uniform(key_r, (w,), jnp.float32))
+
+    p_j = jnp.asarray(p_j_sched, jnp.float32)
+    if fault_nodes is None:
+        return np.array(jax.vmap(block)(keys, p_j))
+    return tuple(np.array(x) for x in jax.vmap(faulted)(keys, p_j))
 
 
 def _port_engine(g, rows, p_d, r):
@@ -170,14 +188,6 @@ def test_trainer_own_rng_converges_and_counts_hops():
     assert annealed.transitions[-30:].max() == 1
 
 
-@pytest.mark.parametrize("method", ["heterogeneity", "private"])
-def test_later_slice_methods_raise(method):
-    g = tg.ring(10, layout="ragged")
-    data = _data(t_data, 10)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_rw_sgd(method, g, data, 0.01, 5, device="cpu")
-
-
 def test_trainer_rejects_bad_arguments():
     g = tg.ring(10, layout="ragged")
     data = _data(t_data, 10)
@@ -270,7 +280,7 @@ ADVANCE_GRAPHS = {
 def test_fleet_advance_matches_reference(graph):
     """Three ``WalkFleet.advance`` calls on the reference's blocks (its
     ``step`` draws from the key itself) walk as the reference's fleet
-    does, bit for bit; ``faults=`` waits for its slice."""
+    does, bit for bit (``advance(faults=)``: ``tests/test_torch_faults.py``)."""
     p_j, p_d, r = 0.3, 0.5, 3
     g_ref = ADVANCE_GRAPHS[graph](jg)
     lips = np.exp(np.random.default_rng(3).normal(size=g_ref.n))
@@ -294,5 +304,3 @@ def test_fleet_advance_matches_reference(graph):
     gen = torch.Generator().manual_seed(0)
     moved, hops = port.advance(generator=gen, p_j=1.0)
     assert moved.num_walks == 12 and int(hops.min()) >= 1
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port.advance(generator=gen, faults=object())
