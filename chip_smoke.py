@@ -137,7 +137,32 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    training leg at its full scale, its criterion beside
    ``results/BENCH_faults.json``'s, the rescue-off ratio above the
    rescue-on one at 5% on both families gated; (e) Fig. 6's
-   ``annealed_vs_const`` on four more card streams (reported).
+   ``annealed_vs_const`` on four more card streams (reported);
+11. dynamic graphs (aim ``PHASE11_AIM_S``): (a) the reference's churn
+   sweep at its full tier (``benchmarks/large_graph_walk.py``
+   ``_churn_sweep``: BA(100k,3) ragged, Lipschitz ``exp(N(0,1))`` from
+   seed 5, one batch of 0.1% of the undirected edges, half deletes between
+   nodes of degree >= 4, halved and retried on a disconnect, half
+   inserts) the incremental way (``apply_edge_churn`` +
+   ``WalkEngine.apply_churn``) and as a rebuild (``from_edges`` +
+   ``from_graph``), each warmed once and timed the second time: the
+   patched CDF equals the card's rebuild and the CPU's patch bit for bit;
+   touched rows, both times and their ratio; (b) the ragged kernel against
+   its plain version on the churned buffers, W=2048 for 200 steps
+   captured and uncaptured from one generator state (walks, hops,
+   generator bit for bit), and one post-churn step of fresh sparse, dense
+   and bucketed engines equal to the ragged one; (c) phase 3's trainer
+   (W=2048, avg_every 50, MHLJ(0.1, 0.5, 3)) 500 steps, the batch of (a),
+   ``WalkFleet.migrate``, 500 more steps: each segment captured ==
+   uncaptured bit for bit (models and ``avg_mse`` too), the replayed
+   ms/step before and after, the re-capture seconds, the walks displaced;
+   (d) ``run_dada`` on BA(2000,3) (4 rounds x 500 steps, W=64, k=3,
+   avg_every 25): captured == ``capture=False``, a kill after round 2 and
+   a resume from its checkpoint == the uninterrupted run, the card's
+   per-round blocks replayed on the CPU (edges, displaced walks, graph
+   versions, update nodes equal), wall seconds per round of the walk,
+   personalization, similarity and churn; (e) ``core.torch_sampling``:
+   BA(100k,3) edges and an SBM 4x250 from injected uniforms, card == CPU.
 
 Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
 of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
@@ -2629,6 +2654,626 @@ def phase_laws_faults(dev, smi, p9: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: dynamic graphs
+# ---------------------------------------------------------------------------
+
+PHASE11_AIM_S = 120.0  # phase 11's aim
+# the reference's churn sweep at its full tier (large_graph_walk.py
+# _churn_sweep): BA(n, m) ragged, Lipschitz exp(N(0,1)) from seed 5, one
+# batch of CHURN_FRACTION of the undirected edges
+CHURN_GRAPH, CHURN_SEED, CHURN_FRACTION = (100_000, 3), 5, 0.001
+P11_WALKS, P11_STEPS = 2048, 200  # (b) walks on the churned engine
+P11_TRAIN_STEPS = 500  # (c) each segment of the trainer across the churn
+# (d) run_dada at the Dada scale
+DADA_N, DADA_KW = 2000, dict(rounds=4, num_steps=500, num_walks=64, k=3,
+                             avg_every=25, seed=0)
+SBM_SIZES, SBM_P = [250] * 4, (0.1, 0.004)  # (e) Fig. 5's SBM 4x250
+
+
+def churn_batch(g, rng):
+    """The churn sweep's batch: half the budget deletes between nodes of
+    degree >= 4 (halved and retried while a delete disconnects), the rest
+    uniform non-edge inserts; returns ``(insert, delete, undirected
+    edges)``."""
+    from repro_torch.core.graphs import apply_edge_churn
+
+    n = g.n
+    deg = np.asarray(g.degrees, np.int64)
+    src = np.repeat(np.arange(n, dtype=np.int64),
+                    np.diff(np.asarray(g.indptr, np.int64)))
+    dst = np.asarray(g.indices, np.int64)
+    keep = src < dst
+    pairs = np.stack([src[keep], dst[keep]], axis=1)
+    budget = max(2, int(CHURN_FRACTION * pairs.shape[0]))
+    cand = pairs[(deg[pairs[:, 0]] >= 4) & (deg[pairs[:, 1]] >= 4)]
+    k_del = min(budget // 2, cand.shape[0])
+    dele = None
+    while k_del:
+        sel = rng.choice(cand.shape[0], size=k_del, replace=False)
+        try:
+            apply_edge_churn(g, delete=cand[sel], check_connectivity=True)
+        except ValueError:
+            k_del //= 2
+            continue
+        dele = cand[sel]
+        break
+    num_del = 0 if dele is None else dele.shape[0]
+    codes = set((pairs[:, 0] * n + pairs[:, 1]).tolist())
+    ins = []
+    while len(ins) < budget - num_del:
+        a, b = (int(x) for x in rng.integers(0, n, size=2))
+        if a == b:
+            continue
+        lo, hi = min(a, b), max(a, b)
+        if lo * n + hi in codes:
+            continue
+        codes.add(lo * n + hi)
+        ins.append((lo, hi))
+    return np.asarray(ins, np.int64), dele, int(pairs.shape[0])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def phase11_churn_sweep(dev, params) -> dict:
+    """(a) the churn sweep at its full tier: the incremental path
+    (``apply_edge_churn`` + ``WalkEngine.apply_churn``) against a rebuild
+    (``from_edges`` + ``from_graph``), each warmed once and timed the
+    second time; the patched CDF equals the card's rebuild and the CPU's
+    patch bit for bit."""
+    from repro_torch import interop
+    from repro_torch.core.engine import WalkEngine
+    from repro_torch.core.graphs import (apply_edge_churn, barabasi_albert,
+                                         from_edges)
+
+    n, m = CHURN_GRAPH
+    g = barabasi_albert(n, m, seed=0, layout="ragged")
+    rng = np.random.default_rng(CHURN_SEED)
+    lips = np.exp(rng.normal(0.0, 1.0, n))
+    eng = WalkEngine.from_graph(g, params, lipschitz=lips, device=dev)
+    ins, dele, num_pairs = churn_batch(g, rng)
+
+    def incremental():
+        g2, churn = apply_edge_churn(g, insert=ins, delete=dele)
+        e2 = eng.apply_churn(g2, churn, lipschitz=lips)
+        torch.cuda.synchronize()
+        return g2, churn, e2
+
+    g2, churn, e_inc = incremental()  # warm
+    src2 = np.repeat(np.arange(n, dtype=np.int64),
+                     np.diff(np.asarray(g2.indptr, np.int64)))
+    dst2 = np.asarray(g2.indices, np.int64)
+    keep2 = src2 < dst2
+
+    def rebuild():
+        g3 = from_edges(n, src2[keep2], dst2[keep2], layout="ragged")
+        e3 = WalkEngine.from_graph(g3, params, lipschitz=lips, device=dev)
+        torch.cuda.synchronize()
+        return g3, e3
+
+    rebuild()  # warm
+    t0 = time.perf_counter()
+    g2, churn, e_inc = incremental()
+    inc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g3, e_reb = rebuild()
+    reb_s = time.perf_counter() - t0
+    for f in ("indptr", "indices", "degrees"):
+        if not np.array_equal(getattr(g2, f), getattr(g3, f)):
+            raise AssertionError(f"churned graph differs from rebuild in {f}")
+    if not same_bits(e_inc.edge_cdf, e_reb.edge_cdf):
+        raise AssertionError("patched CDF on the card differs from the "
+                             "card's from-scratch build")
+    cpu_eng, _, _ = interop.from_reference_state(
+        indptr=g.indptr, indices=g.indices, degrees=g.degrees,
+        edge_cdf=eng.edge_cdf.cpu().numpy(), max_degree=eng.max_degree,
+        cdf_width=eng.cdf_width, p_d=params.p_d, r=params.r, device="cpu")
+    t0 = time.perf_counter()
+    cpu_patch = cpu_eng.apply_churn(g2, churn, lipschitz=lips)
+    cpu_s = time.perf_counter() - t0
+    if not same_bits(e_inc.edge_cdf, cpu_patch.edge_cdf):
+        raise AssertionError("patched CDF on the card differs from the "
+                             "CPU's patch")
+    touched = int(churn.touched_rows.size)
+    ratio = reb_s / inc_s
+    log(f"  (a) churn sweep BA({n},{m}): {ins.shape[0]} inserts + "
+        f"{0 if dele is None else dele.shape[0]} deletes of {num_pairs} "
+        f"undirected edges; touched_rows {touched} ({touched / n:.4f} of "
+        f"rows); max degree {eng.max_degree} -> {e_inc.max_degree}, "
+        f"cdf_width {e_inc.cdf_width}; incremental {inc_s:.4f} s, rebuild "
+        f"{reb_s:.4f} s, ratio {ratio:.2f}x; patched CDF == card rebuild == "
+        f"CPU patch ({cpu_s:.2f} s) bit for bit")
+    return {"out": {"inserts": int(ins.shape[0]),
+                    "deletes": 0 if dele is None else int(dele.shape[0]),
+                    "undirected_edges": num_pairs, "touched_rows": touched,
+                    "max_degree": [eng.max_degree, e_inc.max_degree],
+                    "cdf_width": e_inc.cdf_width, "incremental_s": inc_s,
+                    "rebuild_s": reb_s, "ratio": ratio, "cpu_patch_s": cpu_s,
+                    "bitwise": True},
+            "g2": g2, "engine": e_inc, "lips": lips, "batch": (ins, dele)}
+
+
+def phase11_walks(dev, wt, teng, params, g2, e2, lips) -> dict:
+    """(b) walks on the churned engine: the ragged kernel against its plain
+    version on the churned buffers; P11_STEPS steps captured and
+    uncaptured from one generator state, bit for bit; one step of fresh
+    sparse, dense and bucketed engines of the churned graph equal to the
+    ragged step."""
+    from repro_torch.kernels.walk_transition.ref import (
+        walk_transition_ragged_ref,
+    )
+
+    out: dict = {"kernel_vs_plain": []}
+    w = P11_WALKS
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hub = int(np.argmax(g2.degrees))
+    kargs = (e2.indptr, e2.degrees, e2.indices, e2.edge_cdf)
+    kw = dict(p_d=params.p_d, r=params.r, max_degree=e2.max_degree)
+    for hub_walks in (w // 16 + 1, w):
+        nodes = torch.randint(0, g2.n, (w,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        nodes[:hub_walks] = hub
+        u = teng.draw_uniforms(w, params.r, params.p_j, gen, dev)
+        nxt_k, hops_k = wt.walk_transition_ragged(nodes, *kargs, u, **kw)
+        nxt_p, hops_p = walk_transition_ragged_ref(nodes, *kargs, u, **kw)
+        c = compare_with_plain(nxt_k, hops_k, nxt_p, hops_p, u,
+                               f"churned engine, hub walks {hub_walks}")
+        out["kernel_vs_plain"].append({"hub_walks": hub_walks, **c})
+        log(f"  (b) kernel vs plain on the churned buffers, W={w}, hub walks "
+            f"{hub_walks}: bitwise outside {c['d_differs']} d differences "
+            f"in {c['jumps']} jumps, max abs err {c['max_abs_err']}")
+    v0 = torch.as_tensor(np.random.default_rng(3).integers(
+        0, g2.n, w).astype(np.int32), device=dev)
+    runs = {}
+    for capture in (None, False):
+        g_run = torch.Generator(device=dev).manual_seed(7)
+        counts_zero(wt)
+        with ScanLog() as sl:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nodes, hops = e2.run(v0, P11_STEPS, generator=g_run,
+                                 capture=capture)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        runs[capture] = (nodes, hops, g_run.get_state(), dt, sl.stats[0],
+                         counts_read(wt))
+    (n_c, h_c, s_c, dt_c, st_c, l_c), (n_u, h_u, s_u, dt_u, _, _) = (
+        runs[None], runs[False])
+    if not (torch.equal(n_c, n_u) and torch.equal(h_c, h_u)
+            and torch.equal(s_c, s_u)):
+        raise AssertionError("churned engine: captured and uncaptured runs "
+                             "differ")
+    if l_c["walk_transition_ragged"] != P11_STEPS:
+        raise AssertionError(f"churned engine run launched {l_c}")
+    loop = scan_summary(st_c, dt_c)
+    loop["uncaptured_ms_per_step"] = dt_u * 1e3 / P11_STEPS
+    out.update(run=loop, launches_run=l_c)
+    log(f"  (b) churned engine W={w} T={P11_STEPS}: captured "
+        f"{loop['ms_per_step']:.5f} ms/step (replayed "
+        f"{loop['replayed_ms_per_step']:.5f}; capture "
+        f"{loop['capture_s']:.4f} s), uncaptured "
+        f"{loop['uncaptured_ms_per_step']:.5f} ms/step; captured == "
+        f"uncaptured bit for bit (walks, hops, generator)")
+    # one post-churn step of fresh engines of every other layout
+    t0 = time.perf_counter()
+    g2c = g2.to_csr()
+    u = teng.draw_uniforms(w, params.r, params.p_j, gen, dev)
+    cur = n_c[:, -1].contiguous()
+    ref_next, ref_hops = e2.step(cur, uniforms=u)
+    out["layouts"] = {}
+    for layout, extra in (("sparse", {}), ("dense", {}),
+                          ("bucketed", {"compact": True})):
+        e = teng.WalkEngine.from_graph(g2c, params, lipschitz=lips,
+                                       layout=layout, device=dev, **extra)
+        counts_zero(wt)
+        nxt, hops = e.step(cur, uniforms=u)
+        torch.cuda.synchronize()
+        launches = counts_read(wt)
+        if not (torch.equal(nxt, ref_next) and torch.equal(hops, ref_hops)):
+            raise AssertionError(f"post-churn {layout} step differs from the "
+                                 "ragged step")
+        out["layouts"][layout] = launches
+        del e
+    log(f"  (b) one post-churn step of fresh sparse, dense and bucketed "
+        f"engines == the churned ragged engine's, bit for bit "
+        f"({time.perf_counter() - t0:.2f} s with their set-up); launches "
+        f"{out['layouts']}")
+    return out
+
+
+def phase11_trainer(dev, wt, ttrain, params, batch) -> dict:
+    """(c) phase 3's trainer across a churn: P11_TRAIN_STEPS steps, the
+    batch of (a) applied to its graph (the trainer's row source, restricted
+    to the touched rows), ``WalkFleet.migrate``, P11_TRAIN_STEPS more on
+    the churned engine; each segment captured and uncaptured bit for
+    bit."""
+    import dataclasses
+
+    from repro_torch.core.graphs import apply_edge_churn, barabasi_albert
+    from repro_torch.core.transition import mh_importance_rows_ragged
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.models import regression as treg
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    t0 = time.perf_counter()
+    g = barabasi_albert(*CHURN_GRAPH, seed=0, layout="ragged")
+    data = make_heterogeneous_regression(
+        g.n, dim=6, sigma_high_sq=100.0, p_high=0.03, seed=7,
+        x_star_scale=3.0)
+    gamma = float(0.3 / data.lipschitz.mean())
+    total = 2 * P11_TRAIN_STEPS
+    rows, weights, sched, p_d, r, _ = ttrain._setup_method(
+        "mhlj", g, data, params, None, total)
+    eng = ttrain._build_engine(g, p_d, r, rows, None, dev)
+    fleet = tfleet.WalkFleet.create(eng, FAULT_WALKS, seed=0,
+                                    avg_every=FAULT_AVG)
+    feats = torch.as_tensor(np.asarray(data.features, np.float32), device=dev)
+    targs = torch.as_tensor(np.asarray(data.targets, np.float32), device=dev)
+    w_t = torch.as_tensor(weights, device=dev)
+    sched_t = torch.as_tensor(sched, device=dev)
+    setup_s = time.perf_counter() - t0
+
+    def segment(fl, xs, start, state, capture):
+        gen = torch.Generator(device=dev)
+        gen.set_state(state)
+        with ScanLog() as sl:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = tfleet.run_fleet(
+                xs, feats, targs, w_t, fl, P11_TRAIN_STEPS, gamma,
+                sched_t[start:start + P11_TRAIN_STEPS], True,
+                treg.linear_grad, generator=gen, start_step=start,
+                total_steps=total, capture=capture)
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t1, sl.stats[0], gen.get_state()
+
+    def both(fl, xs, start, state, where):
+        counts_zero(wt)
+        cap = segment(fl, xs, start, state, None)
+        launches = counts_read(wt)
+        unc = segment(fl, xs, start, state, False)
+        for i, name in enumerate(("models", "mse", "avg_mse", "update_nodes",
+                                  "hops")):
+            if not torch.equal(cap[0][i], unc[0][i]):
+                raise AssertionError(f"{where}: captured and uncaptured "
+                                     f"differ in {name}")
+        if not (torch.equal(cap[0][5]["nodes"], unc[0][5]["nodes"])
+                and torch.equal(cap[3], unc[3])):
+            raise AssertionError(f"{where}: final nodes or generator differ")
+        if launches["walk_transition_ragged"] != P11_TRAIN_STEPS:
+            raise AssertionError(f"{where}: launched {launches}")
+        loop = scan_summary(cap[2], cap[1])
+        loop["uncaptured_ms_per_step"] = unc[1] * 1e3 / P11_TRAIN_STEPS
+        return cap, loop, launches
+
+    x0 = torch.zeros(FAULT_WALKS, data.dim, device=dev)
+    state0 = torch.Generator(device=dev).manual_seed(0).get_state()
+    a, loop_a, launch_a = both(fleet, x0, 0, state0, "trainer before churn")
+    t1 = time.perf_counter()
+    ins, dele = batch
+    g2, churn = apply_edge_churn(g, insert=ins, delete=dele)
+    need_full = g2.max_degree > eng.cdf_width
+    e2 = eng.apply_churn(g2, churn, touched_probs=mh_importance_rows_ragged(
+        g2, data.lipschitz, node_ids=None if need_full else churn.touched_rows))
+    fleet2, displaced = dataclasses.replace(
+        fleet, nodes=a[0][5]["nodes"]).migrate(e2, seed=7919)
+    torch.cuda.synchronize()
+    churn_s = time.perf_counter() - t1
+    b, loop_b, launch_b = both(fleet2, a[0][0], P11_TRAIN_STEPS, a[3],
+                               "trainer after churn")
+    avg = torch.cat([a[0][2], b[0][2][1:]]).cpu().numpy()
+    if not np.isfinite(avg).all():
+        raise AssertionError("trainer across the churn: avg_mse not finite")
+    log(f"  (c) trainer BA{CHURN_GRAPH} ragged W={FAULT_WALKS} across the "
+        f"churn (set-up {setup_s:.2f} s): before {loop_a['replayed_ms_per_step']:.5f} "
+        f"ms/step replayed, after {loop_b['replayed_ms_per_step']:.5f} "
+        f"(re-capture {loop_b['capture_s']:.4f} s, before "
+        f"{loop_a['capture_s']:.4f}); uncaptured {loop_a['uncaptured_ms_per_step']:.5f} "
+        f"/ {loop_b['uncaptured_ms_per_step']:.5f}; churn + patch + migrate "
+        f"{churn_s:.2f} s ({'full rebuild' if need_full else 'touched rows'}), "
+        f"walks displaced {int(displaced.sum())}; avg_mse {avg[0]:.4f} -> "
+        f"{avg[P11_TRAIN_STEPS]:.4f} -> {avg[-1]:.4f}; each segment captured "
+        f"== uncaptured bit for bit")
+    return {"setup_s": setup_s, "before": loop_a, "after": loop_b,
+            "churn_s": churn_s, "escalated": bool(need_full),
+            "displaced": int(displaced.sum()),
+            "avg_mse": [float(avg[0]), float(avg[P11_TRAIN_STEPS]),
+                        float(avg[-1])],
+            "launches": [launch_a, launch_b]}
+
+
+DADA_FIELDS = ("round_mse", "personalized_mse", "edges_inserted",
+               "edges_deleted", "walks_displaced", "graph_versions",
+               "x_final")
+
+
+def engine_on(e, device):
+    """A walk engine's copy on ``device`` (through its checkpoint)."""
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    one = tfleet.WalkFleet(engine=e, nodes=torch.zeros(
+        1, dtype=torch.int32, device=e.device), num_walks=1)
+    return tfleet.WalkFleet.restore(one.checkpoint(), device=device).engine
+
+
+def phase11_dada(dev, wt, teng) -> dict:
+    """(d) ``run_dada`` at the Dada scale on the card: captured against
+    ``capture=False`` bit for bit; a kill after round 2 and a resume from
+    the checkpoint bit for bit; each round replayed on the CPU from the
+    card's round-start state and blocks (update nodes, then the rewire
+    from the card's personalized models: edges, patched CDF, displaced
+    walks, graph version); the CPU's own run of the card's blocks
+    equal to the card's run (edges, every round's kNN edge set, displaced
+    walks, graph versions, update nodes); wall seconds per round of each
+    part."""
+    import tempfile
+
+    from repro_torch.core.graphs import barabasi_albert
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import fleet as tfleet
+    from repro_torch.walk_sgd import graph_learning as gl
+
+    g = barabasi_albert(DADA_N, 3, seed=0, layout="ragged")
+    data = make_heterogeneous_regression(
+        DADA_N, dim=6, sigma_high_sq=100.0, p_high=0.03, seed=7,
+        x_star_scale=3.0)
+    lips = np.asarray(data.lipschitz, np.float64)
+    parts = ("_walk_round", "personalize_models", "similarity_edges",
+             "_rewire")
+    saved = {p: getattr(gl, p) for p in parts}
+    times = {p: [] for p in parts}
+    seen = {p: [] for p in parts}
+
+    def timed(name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*a, **k)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            seen[name].append((a, k, out))
+            return out
+        return run
+
+    def dada(**kw):
+        for p in parts:
+            times[p].clear()
+            seen[p].clear()
+            setattr(gl, p, timed(p))
+        try:
+            return gl.run_dada(g, data, **DADA_KW, **kw)
+        finally:
+            for p in parts:
+                setattr(gl, p, saved[p])
+
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    cap = dada(device=dev)
+    cap_s = time.perf_counter() - t0
+    launches = counts_read(wt)
+    per_round = {p: list(times[p]) for p in parts}
+    card = {p: list(seen[p]) for p in parts}
+    rounds, steps = DADA_KW["rounds"], DADA_KW["num_steps"]
+    if launches["walk_transition_ragged"] != rounds * steps:
+        raise AssertionError(f"run_dada launched {launches}")
+    t0 = time.perf_counter()
+    unc = dada(device=dev, capture=False)
+    unc_s = time.perf_counter() - t0
+
+    def same(a, b, where):
+        for f in DADA_FIELDS:
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"run_dada {where}: {f} differs")
+
+    same(cap, unc, "captured vs uncaptured")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dada.npz")
+        calls = []
+
+        def dying(**k):
+            if len(calls) == 2:
+                raise KeyboardInterrupt("killed after round 2")
+            calls.append(1)
+            return saved["_walk_round"](**k)
+
+        gl._walk_round = dying
+        try:
+            gl.run_dada(g, data, **DADA_KW, device=dev, checkpoint_path=path)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            gl._walk_round = saved["_walk_round"]
+        _, killed_at, _ = tfleet.load_fleet_checkpoint(path, device="cpu")
+        resumed = gl.run_dada(g, data, **DADA_KW, device=dev,
+                              checkpoint_path=path)
+    if killed_at != 2:
+        raise AssertionError(f"the killed run's checkpoint is at {killed_at}")
+    same(cap, resumed, "killed after round 2 and resumed")
+    # the card's per-round streams, drawn again step by step as run_fleet
+    # draws them
+    blocks = []
+    p_j = torch.full((1,), np.float32(0.1), device=dev)
+    for rnd in range(rounds):
+        gen = torch.Generator(device=dev).manual_seed(DADA_KW["seed"] + rnd)
+        blocks.append(torch.stack([
+            teng.draw_uniforms(DADA_KW["num_walks"], 3, p_j, gen, dev)
+            for _ in range(steps)]).cpu())
+    # each round on the CPU from the card's round-start state
+    t0 = time.perf_counter()
+    for rnd, (_, kw, res) in enumerate(card["_walk_round"]):
+        kw = dict(kw, device=torch.device("cpu"), uniforms=blocks[rnd],
+                  generator=None, capture=None,
+                  engine=engine_on(kw["engine"], "cpu"))
+        cpu_res = saved["_walk_round"](**kw)
+        if not np.array_equal(cpu_res.update_nodes, res.update_nodes):
+            raise AssertionError(f"run_dada round {rnd}: the CPU's update "
+                                 "nodes differ from the card's")
+        if rnd == rounds - 1:
+            break
+        (core, e_card, desired, _), _, out = card["_rewire"][rnd]
+        core2, e2, n_ins, n_del = saved["_rewire"](
+            core, engine_on(e_card, "cpu"), desired, lips)
+        if (n_ins, n_del) != (int(cap.edges_inserted[rnd]),
+                              int(cap.edges_deleted[rnd])):
+            raise AssertionError(f"run_dada round {rnd}: CPU rewire "
+                                 f"{(n_ins, n_del)}")
+        if not (same_bits(e2.edge_cdf, out[1].edge_cdf)
+                and e2.graph_version == out[1].graph_version
+                == cap.graph_versions[rnd + 1]):
+            raise AssertionError(f"run_dada round {rnd}: the CPU's patched "
+                                 "engine differs from the card's")
+        _, displaced = tfleet.migrate_walk_nodes(
+            res.update_nodes[:, -1], core2.degrees,
+            seed=DADA_KW["seed"] + 7919 * (rnd + 1))
+        if int(displaced.sum()) != int(cap.walks_displaced[rnd + 1]):
+            raise AssertionError(f"run_dada round {rnd}: displaced walks")
+    replay_s = time.perf_counter() - t0
+    # the CPU's own run on the card's blocks: its models follow its own
+    # float32 reductions (a few ulps off the card's), and the kNN at this
+    # scale is ill-conditioned, so equal edges also say no near tie flipped
+    card_models = [o for _, _, o in card["personalize_models"]]
+    t0 = time.perf_counter()
+    free = dada(device="cpu", uniforms=blocks)
+    free_s = time.perf_counter() - t0
+    free_models = [o for _, _, o in seen["personalize_models"]]
+    free_same = {f: bool(np.array_equal(getattr(cap, f), getattr(free, f)))
+                 for f in ("edges_inserted", "edges_deleted",
+                           "walks_displaced", "graph_versions")}
+    free_same["update_nodes"] = all(
+        np.array_equal(a[2].update_nodes, b[2].update_nodes)
+        for a, b in zip(card["_walk_round"], seen["_walk_round"]))
+    free_same["rewires"] = all(
+        np.array_equal(a[0][2], b[0][2])
+        for a, b in zip(card["_rewire"], seen["_rewire"]))
+    if not all(free_same.values()):
+        raise AssertionError(f"run_dada: the CPU's run of the card's blocks "
+                             f"differs from the card's: {free_same}")
+    models0 = float(np.max(np.abs(card_models[0] - free_models[0])))
+    mse_rel = float(np.max(np.abs(cap.round_mse - free.round_mse)
+                           / np.abs(free.round_mse)))
+    gaps, scale = [], []
+    for x in card_models[:-1]:
+        x = np.asarray(x, np.float64)
+        sq = (x * x).sum(axis=1)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+        np.fill_diagonal(d2, np.inf)
+        srt = np.sort(d2, axis=1)
+        k = DADA_KW["k"]
+        gaps.append(float(np.min(srt[:, k] - srt[:, k - 1])))
+        scale.append(float(np.median(srt[:, k - 1])))
+    for rnd in range(rounds):
+        log(f"  (d) run_dada round {rnd}: walk "
+            f"{per_round['_walk_round'][rnd]:.3f} s, personalize "
+            f"{per_round['personalize_models'][rnd]:.4f} s"
+            + (f", similarity {per_round['similarity_edges'][rnd]:.3f} s, "
+               f"churn {per_round['_rewire'][rnd]:.3f} s; inserted "
+               f"{cap.edges_inserted[rnd]}, deleted {cap.edges_deleted[rnd]}"
+               if rnd < rounds - 1 else "")
+            + f"; displaced entering {cap.walks_displaced[rnd]}, graph "
+            f"version {cap.graph_versions[rnd]}, round_mse "
+            f"{cap.round_mse[rnd]:.6g}")
+    log(f"  (d) run_dada BA({DADA_N},3) rounds {rounds} x {steps} steps W="
+        f"{DADA_KW['num_walks']}: {cap_s:.2f} s captured, {unc_s:.2f} s "
+        f"uncaptured, equal bit for bit; killed after round 2 and resumed: "
+        f"equal; each round on the CPU from the card's state and blocks "
+        f"({replay_s:.2f} s): update nodes, rewire, patched CDF, displaced "
+        f"walks and graph versions equal")
+    log(f"  (d) the CPU's own run of the card's blocks ({free_s:.2f} s): "
+        f"equal to the card's {free_same}; round-0 personalized models max "
+        f"|d| {models0:.3g}, round_mse max rel diff {mse_rel:.3g}; smallest "
+        f"k-th/(k+1)-th kNN gap per rewire {gaps} against a median k-th "
+        f"squared distance {scale}")
+    return {"captured_s": cap_s, "uncaptured_s": unc_s,
+            "cpu_replay_s": replay_s, "per_round_s": per_round,
+            "launches": launches, "round_mse": cap.round_mse.tolist(),
+            "edges_inserted": cap.edges_inserted.tolist(),
+            "edges_deleted": cap.edges_deleted.tolist(),
+            "walks_displaced": cap.walks_displaced.tolist(),
+            "free_run_equal": free_same, "free_run_s": free_s,
+            "round0_models_max_abs": models0,
+            "round_mse_free_max_rel": mse_rel, "knn_gaps": gaps,
+            "knn_median_d2": scale}
+
+
+def phase11_sampling(dev) -> dict:
+    """(e) ``core.torch_sampling`` on the card: BA(100k,3) edges and an SBM
+    4x250 from injected uniforms equal the CPU's bit for bit; a BA graph
+    from the card's generator is valid."""
+    from repro_torch.core import torch_sampling as ts
+
+    n, m = CHURN_GRAPH
+    gen = torch.Generator().manual_seed(0)
+    u = torch.rand(m * (n - m), generator=gen)
+    out = {}
+    for d in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        edges = ts.barabasi_albert_edges(n, m, uniforms=u, device=d)
+        torch.cuda.synchronize()
+        out[str(d)] = (edges, time.perf_counter() - t0)
+    card, cpu = out[str(dev)], out["cpu"]
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card[0], cpu[0])):
+        raise AssertionError("BA edges on the card differ from the CPU's")
+    pairs = sum(SBM_SIZES) * (sum(SBM_SIZES) - 1) // 2
+    us = [torch.rand(pairs, generator=gen) for _ in range(8)]
+    sbm = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sbm[str(d)] = (ts.sbm_torch(SBM_SIZES, *SBM_P, uniforms=us, device=d,
+                                    layout="ragged"),
+                       time.perf_counter() - t0)
+    for f in ("indptr", "indices", "degrees"):
+        if not np.array_equal(getattr(sbm[str(dev)][0], f),
+                              getattr(sbm["cpu"][0], f)):
+            raise AssertionError(f"SBM on the card differs from the CPU in {f}")
+    t0 = time.perf_counter()
+    drawn = ts.barabasi_albert_torch(
+        n, m, generator=torch.Generator(device=dev).manual_seed(1),
+        layout="ragged", device=dev)
+    drawn_s = time.perf_counter() - t0
+    log(f"  (e) torch_sampling: BA({n},{m}) edges card {card[1]:.4f} s, CPU "
+        f"{cpu[1]:.4f} s, equal; SBM {len(SBM_SIZES)}x{SBM_SIZES[0]} card "
+        f"{sbm[str(dev)][1]:.4f} s, CPU {sbm['cpu'][1]:.4f} s, equal; a BA "
+        f"graph from the card's generator: valid, max degree "
+        f"{drawn.max_degree}, {drawn_s:.3f} s with from_edges")
+    return {"ba_card_s": card[1], "ba_cpu_s": cpu[1],
+            "sbm_card_s": sbm[str(dev)][1], "sbm_cpu_s": sbm["cpu"][1],
+            "ba_generator_s": drawn_s, "ba_generator_max_degree":
+            drawn.max_degree}
+
+
+def phase_dynamic_graphs(dev, smi) -> dict:
+    """Phase 11: dynamic graphs on the card."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core.transition import MHLJParams
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.walk_sgd import trainer as ttrain
+
+    params = MHLJParams(0.1, 0.5, 3)
+    log(f"phase 11 (dynamic graphs): {smi}; aim {PHASE11_AIM_S:.0f} s")
+    out: dict = {}
+    marks = [time.perf_counter()]
+    sweep = phase11_churn_sweep(dev, params)
+    out["churn_sweep"] = sweep["out"]
+    marks.append(time.perf_counter())
+    out["walks"] = phase11_walks(dev, wt, teng, params, sweep["g2"],
+                                 sweep["engine"], sweep["lips"])
+    del sweep["engine"]
+    marks.append(time.perf_counter())
+    out["trainer"] = phase11_trainer(dev, wt, ttrain, params, sweep["batch"])
+    marks.append(time.perf_counter())
+    out["dada"] = phase11_dada(dev, wt, teng)
+    marks.append(time.perf_counter())
+    out["sampling"] = phase11_sampling(dev)
+    marks.append(time.perf_counter())
+    out["part_s"] = dict(zip("abcde", np.diff(marks).tolist()))
+    log("  phase 11 parts: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in out["part_s"].items()))
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3059,6 +3704,13 @@ def main() -> int:
     log(f"phase 10 laws and faults: {dt:.2f} s (aim {PHASE10_AIM_S:.0f} s)")
     report["phases"]["laws_faults"] = {"s": dt, **p10}
 
+    # -- phase 11: dynamic graphs ------------------------------------------
+    t0 = time.perf_counter()
+    p11 = phase_dynamic_graphs(dev, smi)
+    dt = time.perf_counter() - t0
+    log(f"phase 11 dynamic graphs: {dt:.2f} s (aim {PHASE11_AIM_S:.0f} s)")
+    report["phases"]["dynamic_graphs"] = {"s": dt, **p11}
+
     def entry(name, source, replaces, launches, err):
         tm = p4["timing"][name]
         return {
@@ -3173,6 +3825,23 @@ def main() -> int:
         if not next(k for k in kernels if k["name"] == name).get(
                 "launches_phase10"):
             raise AssertionError(f"phase 10 launched {name} no time")
+    # phase 11's paths, each counted from 0 just before it and read just after
+    p11_paths = {"churned_engine": [p11["walks"]["launches_run"]],
+                 "churned_layouts": list(p11["walks"]["layouts"].values()),
+                 "trainer_across_churn": p11["trainer"]["launches"],
+                 "run_dada": [p11["dada"]["launches"]]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p11_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase11"] = by_path
+            k["launches"] += sum(by_path.values())
+    for name in ("walk_transition_sparse", "walk_transition",
+                 "walk_transition_ragged"):
+        if not next(k for k in kernels if k["name"] == name).get(
+                "launches_phase11"):
+            raise AssertionError(f"phase 11 launched {name} no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -39,6 +39,10 @@ alike.  Pads carry exactly 0 and rows are non-negative, so a row's CDF
 does not depend on its padded width, on the device, or on the layout:
 the four layouts sample the same walk bit for bit from the same rows.
 
+A ragged engine follows an edge churn without a rebuild:
+:meth:`WalkEngine.apply_churn` patches the per-edge CDF segment-locally
+(:func:`ragged_edge_cdf_update`) into a new engine.
+
 The engine draws its uniforms from an explicit ``torch.Generator``, or
 takes an injected block — the seam the parity tests use to feed both
 packages the same numbers.  Every step returns the Remark-1 hop count per
@@ -55,7 +59,11 @@ import torch
 
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import scan as scan_mod
-from repro_torch.core.graphs import _ragged_row_chunks, flat_edge_values
+from repro_torch.core.graphs import (
+    _concat_ranges,
+    _ragged_row_chunks,
+    flat_edge_values,
+)
 from repro_torch.core.levy import trunc_geom_icdf
 
 __all__ = [
@@ -71,6 +79,7 @@ __all__ = [
     "p_is_rows_block",
     "mh_cdf_invert",
     "ragged_edge_cdf",
+    "ragged_edge_cdf_update",
     "ragged_mh_invert",
     "combine_bucketed",
     "bucket_capacities",
@@ -188,6 +197,42 @@ def mh_cdf_invert(
     return torch.gather(neigh_rows, 1, idx[:, None])[:, 0]
 
 
+def _host(x, dtype) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
+def _rows_cdf(
+    ids: np.ndarray,
+    deg_ids: np.ndarray,
+    device: torch.device,
+    *,
+    probs: Optional[torch.Tensor] = None,
+    nbr_ids: Optional[torch.Tensor] = None,
+    lips: Optional[torch.Tensor] = None,
+    deg_t: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The CDF segments of rows ``ids`` (ascending), concatenated in CSR
+    edge order: the rows padded to their own longest row, their CDF by
+    :func:`row_cdf`, the pad columns stripped.  Row source: the rows' flat
+    ``probs``, or live Eq.-7 rows from their neighbor ids ``nbr_ids`` (flat,
+    CSR order), ``lips`` and the full degree vector ``deg_t``."""
+    cw = int(deg_ids.max())
+    deg_c = torch.as_tensor(deg_ids, device=device)
+    mask = torch.arange(cw, device=device)[None, :] < deg_c[:, None]
+    if probs is not None:
+        rows = torch.zeros((ids.size, cw), device=device)
+        rows[mask] = probs
+    else:
+        ids_t = torch.as_tensor(ids.astype(np.int32), device=device)
+        nbrs = ids_t[:, None].expand(ids.size, cw).clone()
+        nbrs[mask] = nbr_ids
+        rows = p_is_rows_block(nbrs, ids_t, deg_t[ids_t], deg_t, lips)
+    return row_cdf(rows)[mask]
+
+
 def ragged_edge_cdf(
     indptr,
     indices,
@@ -195,6 +240,7 @@ def ragged_edge_cdf(
     *,
     row_probs=None,
     lipschitz=None,
+    width: Optional[int] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
     """The flat per-edge CDF of the ragged layout — (nnz,) float32 on ``device``.
@@ -209,51 +255,179 @@ def ragged_edge_cdf(
     Row source: ``row_probs``, a flat (nnz,) probability buffer (e.g.
     ``transition.mh_importance_rows_ragged``) or an (n, max_deg) padded
     table, or live Eq.-7 rows from a ``lipschitz`` vector.
+
+    ``width`` is the reference's materialization width (its XLA row sums
+    change bits with it, so its churn patches at a recorded width).  Under
+    the row-CDF rule a row's bits do not depend on the width it is padded
+    to, so here ``width`` is only checked: one below the max degree
+    raises, as in the reference.
     """
     indptr_np = np.asarray(indptr, dtype=np.int64)
     deg_np = np.asarray(degrees, dtype=np.int64)
-    n, nnz, width = deg_np.size, int(indptr_np[-1]), int(deg_np.max())
+    n, nnz, max_deg = deg_np.size, int(indptr_np[-1]), int(deg_np.max())
+    if width is not None and width < max_deg:
+        raise ValueError(
+            f"width={width} cannot cover max degree {max_deg}; CDF rows "
+            "must materialize at least as wide as the longest row"
+        )
     device = torch.device(device)
-    flat = None
+    src = {}
     if row_probs is not None:
-        rp = np.asarray(row_probs)
-        if rp.ndim == 2 and rp.shape == (n, width):
+        rp = _host(row_probs, np.float32)
+        if rp.ndim == 2 and rp.shape == (n, max_deg):
             rp = flat_edge_values(indptr_np, deg_np, rp)
         if rp.shape != (nnz,):
             raise ValueError(
                 f"row_probs must be a flat (nnz,)=({nnz},) buffer or an "
-                f"(n, max_deg)=({n}, {width}) table, got {rp.shape}"
+                f"(n, max_deg)=({n}, {max_deg}) table, got {rp.shape}"
             )
-        flat = torch.as_tensor(rp.astype(np.float32), device=device)
+        flat = torch.as_tensor(rp, device=device)
     elif lipschitz is None:
         raise ValueError(
             "ragged_edge_cdf needs a row source: row_probs (flat buffer or "
             "padded table) or lipschitz"
         )
     else:
-        lips = torch.as_tensor(
-            np.asarray(lipschitz, dtype=np.float32), device=device
-        )
-        deg_t = torch.as_tensor(deg_np.astype(np.int32), device=device)
+        src = dict(lips=torch.as_tensor(_host(lipschitz, np.float32),
+                                        device=device),
+                   deg_t=torch.as_tensor(deg_np.astype(np.int32),
+                                         device=device))
         idx_t = torch.as_tensor(
             np.asarray(indices).astype(np.int32), device=device
         )
     out = torch.empty(nnz, dtype=torch.float32, device=device)
-    for ids in _ragged_row_chunks(n, width):
+    for ids in _ragged_row_chunks(n, max_deg):
         a, b = int(indptr_np[ids[0]]), int(indptr_np[ids[-1] + 1])
-        cw = int(deg_np[ids].max())  # this chunk's own width
-        deg_c = torch.as_tensor(deg_np[ids], device=device)
-        cols = torch.arange(cw, device=device)
-        mask = cols[None, :] < deg_c[:, None]
-        if flat is not None:
-            rows = torch.zeros((ids.size, cw), device=device)
-            rows[mask] = flat[a:b]
+        if src:
+            out[a:b] = _rows_cdf(ids, deg_np[ids], device,
+                                 nbr_ids=idx_t[a:b], **src)
         else:
-            ids_t = torch.as_tensor(ids.astype(np.int32), device=device)
-            nbrs = ids_t[:, None].expand(ids.size, cw).clone()
-            nbrs[mask] = idx_t[a:b]
-            rows = p_is_rows_block(nbrs, ids_t, deg_t[ids_t], deg_t, lips)
-        out[a:b] = row_cdf(rows)[mask]
+            out[a:b] = _rows_cdf(ids, deg_np[ids], device, probs=flat[a:b])
+    return out
+
+
+def ragged_edge_cdf_update(
+    old_indptr,
+    old_degrees,
+    old_edge_cdf,
+    new_indptr,
+    new_indices,
+    new_degrees,
+    touched_rows,
+    *,
+    touched_probs=None,
+    lipschitz=None,
+    width: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> torch.Tensor:
+    """The flat per-edge CDF after a batch of edge churn — a new (nnz',)
+    float32 tensor on ``device`` (default: ``old_edge_cdf``'s, else cuda).
+
+    The segment-local counterpart of :func:`ragged_edge_cdf`: a row not in
+    ``touched_rows`` (``graphs.EdgeChurn.touched_rows``) keeps its old CDF
+    segment, moved by one device gather ``out[new_pos] = old[old_pos]``
+    (the positions built on the host); the touched rows are recomputed in
+    bounded chunks by the same ops as :func:`ragged_edge_cdf`.  The old
+    buffer is read, never written.
+
+    Under the row-CDF rule a row's bits depend on its values only, not on
+    the width it is padded to, so the result equals
+    ``ragged_edge_cdf(new_graph)`` bit for bit at any width, on the CPU
+    and on the card, whenever the row source gives the same values (live
+    Eq.-7 rows from ``lipschitz`` always do).  ``width`` (the reference's
+    ``WalkEngine.cdf_width``) is only checked: below the new max degree it
+    raises, and the caller escalates to a full rebuild, as
+    :meth:`WalkEngine.apply_churn` does.
+
+    Row source of the touched rows, exactly one: ``touched_probs``, a flat
+    float32 buffer of ``sum(new_degrees[touched_rows])`` entries in CSR
+    edge order (any ``transition.*_rows_ragged(..., node_ids=touched_rows)``),
+    or a full-length ``lipschitz`` vector.  Raises, as the reference does,
+    when the node count changed, ``touched_rows`` is not unique ascending
+    in range, or a row outside it changed degree.
+    """
+    old_indptr_np = np.asarray(old_indptr, dtype=np.int64)
+    deg_old = np.asarray(old_degrees, dtype=np.int64)
+    new_indptr_np = np.asarray(new_indptr, dtype=np.int64)
+    deg_new = np.asarray(new_degrees, dtype=np.int64)
+    touched = np.asarray(touched_rows, dtype=np.int64)
+    if device is None:
+        device = (old_edge_cdf.device if isinstance(old_edge_cdf, torch.Tensor)
+                  else "cuda")
+    device = torch.device(device)
+    n = deg_new.size
+    if deg_old.size != n:
+        raise ValueError(
+            "node count changed across the churn; apply_edge_churn moves "
+            "edges, never nodes"
+        )
+    if touched.size and (
+        np.any(np.diff(touched) <= 0) or touched[0] < 0 or touched[-1] >= n
+    ):
+        raise ValueError(
+            "touched_rows must be unique ascending node ids in range "
+            "(EdgeChurn.touched_rows is)"
+        )
+    if (touched_probs is None) == (lipschitz is None):
+        raise ValueError(
+            "pass exactly one row source: touched_probs (flat buffer over "
+            "the touched rows) or lipschitz (full vector, live Eq.-7 rows)"
+        )
+    keep = np.ones(n, dtype=bool)
+    keep[touched] = False
+    keep_ids = np.nonzero(keep)[0]
+    if not np.array_equal(deg_old[keep_ids], deg_new[keep_ids]):
+        raise ValueError(
+            "a row outside touched_rows changed degree; touched_rows must "
+            "cover every changed row (use EdgeChurn.touched_rows)"
+        )
+    max_deg = int(deg_new.max())
+    if width is not None and width < max_deg:
+        raise ValueError(
+            f"width={width} cannot cover the new max degree {max_deg}; "
+            "the churn outgrew the old build width — escalate to a full "
+            "ragged_edge_cdf rebuild at the wider width"
+        )
+    old_cdf = torch.as_tensor(old_edge_cdf, dtype=torch.float32).to(device)
+    out = torch.empty(int(new_indptr_np[-1]), dtype=torch.float32,
+                      device=device)
+    new_pos = _concat_ranges(new_indptr_np[keep_ids], deg_new[keep_ids])
+    old_pos = _concat_ranges(old_indptr_np[keep_ids], deg_old[keep_ids])
+    out[torch.as_tensor(new_pos, device=device)] = old_cdf[
+        torch.as_tensor(old_pos, device=device)]
+    if touched.size == 0:
+        return out
+    deg_t = deg_new[touched]
+    if lipschitz is not None:
+        src = dict(lips=torch.as_tensor(_host(lipschitz, np.float32),
+                                        device=device),
+                   deg_t=torch.as_tensor(deg_new.astype(np.int32),
+                                         device=device))
+        idx_t = torch.as_tensor(
+            np.asarray(new_indices).astype(np.int32), device=device
+        )
+    else:
+        tp = _host(touched_probs, np.float32)
+        expect = int(deg_t.sum())
+        if tp.ndim != 1 or tp.shape[0] != expect:
+            raise ValueError(
+                f"touched_probs must be a flat ({expect},) buffer covering "
+                f"the touched rows in CSR edge order, got {tp.shape}"
+            )
+        tp_t = torch.as_tensor(tp, device=device)
+        tp_off = np.concatenate([[0], np.cumsum(deg_t)])
+    # the reference's bound on a chunk's transient (rows, width) block
+    chunk = max(256, (32 << 20) // max(1, 4 * (width or max_deg)))
+    for a in range(0, touched.size, chunk):
+        ids, dt = touched[a : a + chunk], deg_t[a : a + chunk]
+        pos = torch.as_tensor(
+            _concat_ranges(new_indptr_np[ids], dt), device=device)
+        if lipschitz is not None:
+            out[pos] = _rows_cdf(ids, dt, device, nbr_ids=idx_t[pos], **src)
+        else:
+            out[pos] = _rows_cdf(
+                ids, dt, device,
+                probs=tp_t[int(tp_off[a]) : int(tp_off[a + ids.size])])
     return out
 
 
@@ -498,6 +672,11 @@ class WalkEngine:
     # -- ragged layout --------------------------------------------------------
     edge_cdf: Optional[torch.Tensor] = None  # (nnz,) float32 flat CDF
     max_degree: Optional[int] = None  # bound of the binary search
+    cdf_width: Optional[int] = None  # the reference's build width of
+    #   edge_cdf (>= max_degree, sticky across churn): recorded, carried
+    #   in checkpoints and checked; the port's CDF bits do not depend on it
+    # -- dynamic graphs --------------------------------------------------------
+    graph_version: int = 0  # bumped by apply_churn
     # device copies of host constants, made once (a step copies nothing)
     _consts: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False
@@ -567,6 +746,7 @@ class WalkEngine:
                 indices=_i32(core.indices, device),
                 edge_cdf=edge_cdf,
                 max_degree=int(np.asarray(core.degrees).max()),
+                cdf_width=int(np.asarray(core.degrees).max()),
                 **common,
             )
         if layout == "bucketed":
@@ -664,6 +844,103 @@ class WalkEngine:
             raise ValueError(
                 f"nnz={self.indices.shape[0]} exceeds the int32 index range"
             )
+        if (self.cdf_width is not None and self.max_degree is not None
+                and self.cdf_width < self.max_degree):
+            raise ValueError(
+                f"cdf_width={self.cdf_width} must cover max_degree="
+                f"{self.max_degree}"
+            )
+
+    def apply_churn(
+        self,
+        graph,
+        churn,
+        *,
+        lipschitz=None,
+        touched_probs=None,
+    ) -> "WalkEngine":
+        """A new engine over a churned graph, recomputing only touched rows.
+
+        ``graph`` is the post-churn ``CSRGraph``/``RaggedCSRGraph`` and
+        ``churn`` its ``graphs.EdgeChurn``, both from
+        ``graphs.apply_edge_churn``.  The CDF is patched by
+        :func:`ragged_edge_cdf_update` (untouched segments moved by one
+        device gather, ``churn.touched_rows`` recomputed from ``lipschitz``
+        or ``touched_probs``, exactly one) into fresh tensors; this
+        engine's tensors are never written, and the new engine has its own
+        device constants.  ``graph_version`` goes up by one.
+
+        ``cdf_width`` is sticky as in the reference: kept when the max
+        degree stays at or below it, raised to the new max degree when an
+        insert pushes past it.  That escalation rebuilds the whole CDF by
+        :func:`ragged_edge_cdf`, so a ``touched_probs`` buffer must then be
+        full length (nnz,), or the call raises.  The port's bits do not
+        depend on the width (the row-CDF rule), so the patched buffer
+        equals ``ragged_edge_cdf(graph)`` of the same row values either
+        way; the escalation only keeps the reference's contract.  Walk
+        positions are not moved here: ``WalkFleet.migrate`` does that.
+
+        Ragged layout only: rebuild the other layouts with
+        :meth:`from_graph`.
+        """
+        if self.layout != "ragged":
+            raise ValueError(
+                "incremental churn updates exist on layout='ragged' only "
+                "(the flat per-edge CDF is segment-local); rebuild other "
+                "layouts via WalkEngine.from_graph"
+            )
+        if not hasattr(graph, "indptr"):
+            raise TypeError(
+                "apply_churn needs the post-churn CSRGraph/RaggedCSRGraph "
+                f"(got {type(graph).__name__})"
+            )
+        new_max = int(np.asarray(graph.degrees).max())
+        old_width = (self.cdf_width if self.cdf_width is not None
+                     else self.max_degree)
+        if new_max <= old_width:
+            new_cdf = ragged_edge_cdf_update(
+                self.indptr.cpu().numpy(), self.degrees.cpu().numpy(),
+                self.edge_cdf, graph.indptr, graph.indices, graph.degrees,
+                churn.touched_rows, touched_probs=touched_probs,
+                lipschitz=lipschitz, width=old_width, device=self.device,
+            )
+            new_width = old_width
+        else:
+            if (touched_probs is None) == (lipschitz is None):
+                raise ValueError(
+                    "pass exactly one row source: touched_probs or "
+                    "lipschitz"
+                )
+            nnz = int(np.asarray(graph.indices).shape[0])
+            if touched_probs is not None:
+                tp = _host(touched_probs, np.float32)
+                if tp.ndim != 1 or tp.shape[0] != nnz:
+                    raise ValueError(
+                        f"churn raised the max degree past the engine's "
+                        f"cdf_width ({old_width} -> {new_max}); the "
+                        "escalated full rebuild needs a full-length "
+                        f"({nnz},) row-probability buffer, not one "
+                        "restricted to the touched rows — recompute "
+                        f"without node_ids (got {tp.shape})"
+                    )
+                src = dict(row_probs=tp)
+            else:
+                src = dict(lipschitz=lipschitz)
+            new_cdf = ragged_edge_cdf(
+                graph.indptr, graph.indices, graph.degrees, width=new_max,
+                device=self.device, **src,
+            )
+            new_width = new_max
+        return dataclasses.replace(
+            self,
+            degrees=_i32(graph.degrees, self.device),
+            indptr=_i32(graph.indptr, self.device),
+            indices=_i32(graph.indices, self.device),
+            edge_cdf=new_cdf,
+            max_degree=new_max,
+            cdf_width=new_width,
+            graph_version=self.graph_version + 1,
+        )
 
     @property
     def device(self) -> torch.device:

@@ -18,8 +18,11 @@ classes, one per engine layout:
 
 Families: ``ring``, ``grid2d``, ``watts_strogatz``, ``erdos_renyi``,
 ``star``, ``complete``, ``expander``, ``barabasi_albert``, ``sbm``,
-``dumbbell`` and ``lollipop``.  Edge churn is not ported yet (ROADMAP
-Queue 1).
+``dumbbell`` and ``lollipop``.  :func:`apply_edge_churn` inserts and
+deletes a batch of undirected edges on a ``CSRGraph`` or
+``RaggedCSRGraph`` and returns the :class:`EdgeChurn` receipt that the
+engine's segment-local CDF patch and the fleet's walk-continuity rule
+key off (docs/dynamic_graphs.md).
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ __all__ = [
     "DegreeBucket",
     "BucketedCSRGraph",
     "RaggedCSRGraph",
+    "EdgeChurn",
+    "apply_edge_churn",
     "flat_edge_values",
     "ring",
     "grid2d",
@@ -162,6 +167,15 @@ class CSRGraph:
 
     def to_csr(self) -> "CSRGraph":
         return self
+
+    def apply_edge_churn(
+        self, insert=None, delete=None, *, check_connectivity: bool = False
+    ):
+        """Batched edge insert/delete — see :func:`apply_edge_churn`.
+        Returns ``(new_graph, EdgeChurn)``."""
+        return apply_edge_churn(
+            self, insert, delete, check_connectivity=check_connectivity
+        )
 
     def to_bucketed(
         self, min_width: int = 8, bucket_factor: int = 2
@@ -375,6 +389,15 @@ class RaggedCSRGraph:
 
     def validate(self) -> None:
         _validate_csr_core(self.indptr, self.indices, self.degrees)
+
+    def apply_edge_churn(
+        self, insert=None, delete=None, *, check_connectivity: bool = False
+    ):
+        """Batched edge insert/delete — see :func:`apply_edge_churn`.
+        Returns ``(new_graph, EdgeChurn)``."""
+        return apply_edge_churn(
+            self, insert, delete, check_connectivity=check_connectivity
+        )
 
     def to_ragged(self) -> "RaggedCSRGraph":
         return self
@@ -706,6 +729,205 @@ def _bucketed_from_csr_arrays(
         min_width=min_width,
         bucket_factor=bucket_factor,
     )
+
+
+# ---------------------------------------------------------------------------
+# Dynamic graphs: batched edge churn
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeChurn:
+    """Receipt of one batch applied by :func:`apply_edge_churn`.
+
+    Attributes:
+      inserted: (k_i, 2) int64 undirected pairs inserted, ``(min, max)``
+        each, sorted by pair code ``lo*n + hi``.
+      deleted: (k_d, 2) int64 undirected pairs deleted, same form.
+      endpoints: unique ascending int64 ids of the nodes incident to a
+        churned edge — the rows whose neighbor lists changed.
+      degree_changed: the endpoints whose degree changed (a node that
+        gained and lost as many edges keeps its degree).
+      touched_rows: unique ascending int64 ids of the rows whose per-edge
+        state must be recomputed: ``endpoints`` plus every new-graph
+        neighbor of a node in ``degree_changed`` (an MH row reads its
+        neighbors' degrees, Eq. 7).
+      num_edges_before/num_edges_after: directed nnz incl. self-loops.
+    """
+
+    inserted: np.ndarray
+    deleted: np.ndarray
+    endpoints: np.ndarray
+    degree_changed: np.ndarray
+    touched_rows: np.ndarray
+    num_edges_before: int
+    num_edges_after: int
+
+
+def _canonical_pairs(pairs, n: int, tag: str) -> np.ndarray:
+    """A batch of undirected pairs checked and put in canonical form:
+    ``(min, max)`` rows sorted by ``lo*n + hi``.  Raises on a batch that
+    is not ``(k, 2)``, on ids out of range, on a self-pair (self-loops are
+    structural, paper §II.A) and on a duplicate pair."""
+    if pairs is None:
+        return np.empty((0, 2), dtype=np.int64)
+    arr = np.asarray(pairs, dtype=np.int64)
+    if arr.size == 0:
+        return np.empty((0, 2), dtype=np.int64)
+    if arr.ndim != 2 or arr.shape[1] != 2:
+        raise ValueError(f"{tag} must be a (k, 2) array of node pairs")
+    if arr.min() < 0 or arr.max() >= n:
+        raise ValueError(f"{tag} endpoints out of range for n={n}")
+    if np.any(arr[:, 0] == arr[:, 1]):
+        raise ValueError(
+            f"{tag} contains a self-loop; self-loops are structural "
+            "(paper §II.A) and cannot be churned"
+        )
+    lo = np.minimum(arr[:, 0], arr[:, 1])
+    hi = np.maximum(arr[:, 0], arr[:, 1])
+    order = np.argsort(lo * n + hi, kind="stable")
+    lo, hi = lo[order], hi[order]
+    if np.any((np.diff(lo) == 0) & (np.diff(hi) == 0)):
+        raise ValueError(f"{tag} contains duplicate undirected pairs")
+    return np.stack([lo, hi], axis=1)
+
+
+def _directed_codes(pairs: np.ndarray, n: int) -> np.ndarray:
+    """Sorted int64 ``src*n + dst`` codes of both orientations of each
+    pair — the edge-code space of the CSR core."""
+    a = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    b = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    return np.sort(a * n + b)
+
+
+def apply_edge_churn(
+    graph,
+    insert=None,
+    delete=None,
+    *,
+    check_connectivity: bool = False,
+):
+    """Insert and delete a batch of undirected edges of a sparse graph.
+
+    Returns ``(new_graph, churn)``: ``new_graph`` of ``graph``'s class
+    (:class:`CSRGraph` or :class:`RaggedCSRGraph`) and the
+    :class:`EdgeChurn` receipt.  The update is linear passes over the
+    sorted edge-code array (deletes masked out of it, inserts merged in
+    at their ``searchsorted`` positions), so the new core is sorted,
+    symmetric and self-looped by construction; ``validate()`` stays the
+    from-scratch audit.  Host numpy, bit for bit the reference's.
+
+    The whole batch is checked before anything changes, and a bad one
+    raises ``ValueError``: a self-pair, a duplicate pair or an id out of
+    range in either side, an insert that overlaps a delete, a delete of an
+    absent edge, an insert of a present one.  A node may lose its last
+    non-loop edge: it "departs" (degree 1, its self-loop) and stays a
+    row; ``check_connectivity=True`` raises instead when the new graph is
+    disconnected.
+    """
+    if not isinstance(graph, (CSRGraph, RaggedCSRGraph)):
+        raise TypeError(
+            "apply_edge_churn needs a CSRGraph or RaggedCSRGraph, got "
+            f"{type(graph).__name__}; convert dense/bucketed graphs via "
+            "to_csr()/to_ragged() first"
+        )
+    n = graph.n
+    ins = _canonical_pairs(insert, n, "insert")
+    dele = _canonical_pairs(delete, n, "delete")
+    if ins.shape[0] and dele.shape[0]:
+        overlap = np.intersect1d(
+            ins[:, 0] * n + ins[:, 1], dele[:, 0] * n + dele[:, 1]
+        )
+        if overlap.size:
+            raise ValueError(
+                "insert and delete batches overlap on "
+                f"{overlap.size} pair(s); resolve the net churn first"
+            )
+
+    indptr = np.asarray(graph.indptr, dtype=np.int64)
+    deg_old = np.diff(indptr)
+    nnz_old = int(graph.indices.shape[0])
+    codes_old = (
+        np.repeat(np.arange(n, dtype=np.int64), deg_old) * n
+        + graph.indices.astype(np.int64)
+    )  # sorted: the CSR invariant
+
+    kept = codes_old
+    if dele.shape[0]:
+        del_codes = _directed_codes(dele, n)
+        pos = np.searchsorted(codes_old, del_codes)
+        if np.any(pos >= nnz_old) or np.any(codes_old[pos] != del_codes):
+            raise ValueError(
+                "delete batch contains an edge not present in the graph"
+            )
+        mask = np.ones(nnz_old, dtype=bool)
+        mask[pos] = False
+        kept = codes_old[mask]
+    if ins.shape[0]:
+        ins_codes = _directed_codes(ins, n)
+        pos = np.searchsorted(kept, ins_codes)
+        clamped = np.minimum(pos, kept.shape[0] - 1)
+        if kept.size and np.any(kept[clamped] == ins_codes):
+            raise ValueError(
+                "insert batch contains an edge already present in the graph"
+            )
+        new_codes = np.insert(kept, pos, ins_codes)
+    else:
+        new_codes = kept
+
+    new_rows = new_codes // n
+    new_indices = (new_codes % n).astype(np.int32)
+    new_degrees = np.bincount(new_rows, minlength=n).astype(np.int32)
+    new_indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(new_degrees, out=new_indptr[1:])
+    if check_connectivity and not _csr_is_connected(new_indptr, new_indices):
+        raise ValueError("churn disconnects the graph")
+
+    if ins.shape[0] or dele.shape[0]:
+        endpoints = np.unique(np.concatenate([ins.ravel(), dele.ravel()]))
+    else:
+        endpoints = np.empty(0, dtype=np.int64)
+    deg_new64 = new_degrees.astype(np.int64)
+    degree_changed = endpoints[deg_new64[endpoints] != deg_old[endpoints]]
+    if degree_changed.size:
+        nbrs = new_indices[
+            _concat_ranges(new_indptr[degree_changed], deg_new64[degree_changed])
+        ].astype(np.int64)
+        touched_rows = np.unique(np.concatenate([endpoints, nbrs]))
+    else:
+        touched_rows = endpoints
+
+    churn = EdgeChurn(
+        inserted=ins,
+        deleted=dele,
+        endpoints=endpoints,
+        degree_changed=degree_changed,
+        touched_rows=touched_rows,
+        num_edges_before=nnz_old,
+        num_edges_after=int(new_codes.shape[0]),
+    )
+    if isinstance(graph, RaggedCSRGraph):
+        return RaggedCSRGraph(
+            indptr=new_indptr, indices=new_indices, degrees=new_degrees,
+            name=graph.name,
+        ), churn
+
+    # CSRGraph: while the padded width survives only the endpoint rows
+    # change (pads repeat the row's own id), so patch those rows
+    old_width = int(graph.neighbors.shape[1])
+    if int(deg_new64.max()) == old_width:
+        neighbors = graph.neighbors.copy()
+        if endpoints.size:
+            neighbors[endpoints] = _pad_neighbor_lists(
+                new_indptr, new_indices, new_degrees,
+                node_ids=endpoints, width=old_width,
+            )
+    else:
+        neighbors = _pad_neighbor_lists(new_indptr, new_indices, new_degrees)
+    return CSRGraph(
+        indptr=new_indptr, indices=new_indices, degrees=new_degrees,
+        neighbors=neighbors, name=graph.name,
+    ), churn
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,11 @@ for comparison only.  On the CPU the same step runs as a plain loop.
 Launch counts (``kernels._launch.COUNTED``) stay the launches the card
 ran: the capture's own increments are taken back, and each replay adds
 the launches the graph holds.
+
+A graph lives inside one :func:`scan` call and dies with it.  Across an
+edge churn (``WalkEngine.apply_churn``, which builds new buffers) the
+next loop is a new call and captures again, so no graph is ever replayed
+over the buffers of an earlier graph version (``run_dada``'s rounds).
 """
 from __future__ import annotations
 

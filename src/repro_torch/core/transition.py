@@ -320,11 +320,34 @@ def mh_importance_rows_bucketed(graph, lipschitz: np.ndarray) -> tuple:
     return _mh_rows_bucketed(graph, _check_lipschitz(graph, lipschitz))
 
 
-def _rows_ragged(graph, block_fn, chunk_rows: Optional[int] = None) -> np.ndarray:
+def _rows_ragged(
+    graph,
+    block_fn,
+    chunk_rows: Optional[int] = None,
+    node_ids: Optional[np.ndarray] = None,
+) -> np.ndarray:
     indptr = np.asarray(graph.indptr)
     indices = np.asarray(graph.indices)
     deg = np.asarray(graph.degrees, dtype=np.int64)
     n, max_deg = deg.size, int(deg.max())
+    if node_ids is not None:
+        # the rows of node_ids only, in ascending CSR edge order — the
+        # ``touched_probs`` of ``engine.ragged_edge_cdf_update``; built at
+        # the graph's full max_deg width, as the full build is
+        ids = np.asarray(node_ids, dtype=np.int64)
+        if ids.size and (
+            np.any(np.diff(ids) <= 0) or ids[0] < 0 or ids[-1] >= n
+        ):
+            raise ValueError(
+                "node_ids must be unique ascending node ids in range "
+                "(EdgeChurn.touched_rows is)"
+            )
+        nbrs = _pad_neighbor_lists(
+            indptr, indices, deg, node_ids=ids, width=max_deg
+        )
+        return flat_edge_values(
+            indptr, deg, block_fn(nbrs, ids, deg[ids]), node_ids=ids
+        )
     out = np.empty(indices.shape[0], dtype=np.float32)
     for ids in _ragged_row_chunks(n, max_deg, chunk_rows):
         nbrs = _pad_neighbor_lists(
@@ -336,27 +359,43 @@ def _rows_ragged(graph, block_fn, chunk_rows: Optional[int] = None) -> np.ndarra
     return out
 
 
-def simple_rw_rows_ragged(graph, chunk_rows: Optional[int] = None) -> np.ndarray:
-    """Flat (nnz,) simple-RW probabilities for any CSR-core graph."""
+def simple_rw_rows_ragged(
+    graph,
+    chunk_rows: Optional[int] = None,
+    node_ids: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Flat (nnz,) simple-RW probabilities for any CSR-core graph.
+
+    ``node_ids`` (unique ascending) restricts the buffer to those rows,
+    each bit for bit its entry of the full build: the row source of
+    ``engine.ragged_edge_cdf_update`` (so of the four builders below).
+    """
     return _rows_ragged(
         graph, lambda nbrs, ids, deg_v: _simple_rw_block(nbrs, deg_v),
-        chunk_rows,
+        chunk_rows, node_ids,
     )
 
 
-def mh_uniform_rows_ragged(graph, chunk_rows: Optional[int] = None) -> np.ndarray:
+def mh_uniform_rows_ragged(
+    graph,
+    chunk_rows: Optional[int] = None,
+    node_ids: Optional[np.ndarray] = None,
+) -> np.ndarray:
     """Flat (nnz,) MH-uniform probabilities for any CSR-core graph."""
     deg = np.asarray(graph.degrees, dtype=np.int64)
     weight = np.ones(deg.size)
     return _rows_ragged(
         graph,
         lambda nbrs, ids, deg_v: _mh_rows_block(nbrs, ids, deg_v, deg, weight),
-        chunk_rows,
+        chunk_rows, node_ids,
     )
 
 
 def mh_importance_rows_ragged(
-    graph, lipschitz: np.ndarray, chunk_rows: Optional[int] = None
+    graph,
+    lipschitz: np.ndarray,
+    chunk_rows: Optional[int] = None,
+    node_ids: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Flat (nnz,) P_IS probabilities of Eq. (7) for any CSR-core graph."""
     lipschitz = _check_lipschitz(graph, lipschitz)
@@ -366,7 +405,7 @@ def mh_importance_rows_ragged(
         lambda nbrs, ids, deg_v: _mh_rows_block(
             nbrs, ids, deg_v, deg, lipschitz
         ),
-        chunk_rows,
+        chunk_rows, node_ids,
     )
 
 
@@ -407,7 +446,10 @@ def heterogeneity_rows_bucketed(graph, pi: np.ndarray) -> tuple:
 
 
 def heterogeneity_rows_ragged(
-    graph, pi: np.ndarray, chunk_rows: Optional[int] = None
+    graph,
+    pi: np.ndarray,
+    chunk_rows: Optional[int] = None,
+    node_ids: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Flat (nnz,) heterogeneity-law probabilities for any CSR-core graph."""
     pi = _check_target_pi(graph, pi)
@@ -415,7 +457,7 @@ def heterogeneity_rows_ragged(
     return _rows_ragged(
         graph,
         lambda nbrs, ids, deg_v: _mh_rows_block(nbrs, ids, deg_v, deg, pi),
-        chunk_rows,
+        chunk_rows, node_ids,
     )
 
 
@@ -482,12 +524,15 @@ def private_weighted_rows_ragged(
     *,
     seed: int = 0,
     chunk_rows: Optional[int] = None,
+    node_ids: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """Flat (nnz,) private-weighted-walk probabilities for any CSR-core graph."""
+    """Flat (nnz,) private-weighted-walk probabilities for any CSR-core
+    graph.  The noise depends on (weights, gamma, seed) only, never on
+    ``node_ids``, so a restricted buffer matches the full build."""
     w_hat = _private_target(graph, weights, gamma, seed)
     deg = np.asarray(graph.degrees, dtype=np.int64)
     return _rows_ragged(
         graph,
         lambda nbrs, ids, deg_v: _mh_rows_block(nbrs, ids, deg_v, deg, w_hat),
-        chunk_rows,
+        chunk_rows, node_ids,
     )

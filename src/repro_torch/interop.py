@@ -62,10 +62,11 @@ def from_reference_state(
     The keyword arguments are a reference ``WalkEngine``'s fields of the
     same names, for its ``layout``:
 
-    * ``"ragged"``: ``indptr``/``indices``/``edge_cdf``/``max_degree`` and
-      ``cdf_width`` (the port builds no CDF here, so ``cdf_width`` is only
-      checked against ``max_degree``), kept as they are: a CDF that
-      decreases inside a row is refused;
+    * ``"ragged"``: ``indptr``/``indices``/``edge_cdf``/``max_degree``,
+      ``cdf_width`` (checked against ``max_degree`` and kept: the sticky
+      width of a churned engine) and ``graph_version``, kept as they are
+      (the stored ``edge_cdf`` too, never rebuilt): a CDF that decreases
+      inside a row is refused;
     * ``"sparse"``/``"dense"``: ``neighbors`` and ``row_probs`` (None for
       live rows);
     * ``"bucketed"``: ``indptr``/``indices``, ``node_bucket``/``node_slot``,
@@ -73,17 +74,12 @@ def from_reference_state(
       ``bucket_share``, ``compact`` and ``capacity_factor``.
 
     ``nodes`` are the fleet's (W,) positions and ``models`` its (W, dim)
-    per-walker models.  Returns ``(engine, fleet, models)`` — ``fleet`` is
-    None without ``nodes``, ``models`` None without models.  A churned
-    engine (``graph_version`` > 0) is refused: the port has no edge churn.
+    per-walker models.  ``graph_version`` is carried on every layout.
+    Returns ``(engine, fleet, models)`` — ``fleet`` is None without
+    ``nodes``, ``models`` None without models.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {LAYOUTS}")
-    if graph_version:
-        raise ValueError(
-            f"graph_version={graph_version}: the engine was churned, and the "
-            "port has no edge churn yet"
-        )
     device = torch.device(device)
 
     def i32(x):
@@ -97,7 +93,7 @@ def from_reference_state(
         )
 
     fields = dict(degrees=i32(degrees), layout=layout, p_j=float(p_j),
-                  p_d=float(p_d), r=int(r))
+                  p_d=float(p_d), r=int(r), graph_version=int(graph_version))
     if layout == "ragged":
         if edge_cdf is None or indices is None or max_degree is None:
             raise ValueError(
@@ -119,6 +115,7 @@ def from_reference_state(
         fields.update(
             indptr=i32(indptr), indices=i32(indices), edge_cdf=f32(edge_cdf),
             max_degree=int(max_degree),
+            cdf_width=int(max_degree if cdf_width is None else cdf_width),
         )
     elif layout == "bucketed":
         if bucket_neighbors is None:

@@ -12,8 +12,12 @@ plain loop on the CPU).
 
 Crash consistency: :func:`save_fleet_checkpoint` writes the npz layout of
 ``docs/faults.md`` atomically, :func:`load_fleet_checkpoint` reads it back
-(the reference's files too), and ``run_fleet(start_step=, total_steps=,
-fault_state=)`` resumes a run where it stopped, bit for bit.
+(the reference's files too, churned ones included), and
+``run_fleet(start_step=, total_steps=, fault_state=)`` resumes a run where
+it stopped, bit for bit.
+
+Dynamic graphs: :func:`migrate_walk_nodes` / :meth:`WalkFleet.migrate`
+carry the walks across an edge churn (``WalkEngine.apply_churn``).
 
 The multi-device mesh is not ported yet.
 """
@@ -36,6 +40,7 @@ from repro_torch.models import regression as reg
 __all__ = [
     "WalkFleet",
     "sample_initial_nodes",
+    "migrate_walk_nodes",
     "fleet_average",
     "run_fleet",
     "save_fleet_checkpoint",
@@ -85,6 +90,48 @@ def sample_initial_nodes(
             f"[{int(v0s.min())}, {int(v0s.max())}]"
         )
     return v0s
+
+
+def migrate_walk_nodes(
+    nodes,
+    new_degrees,
+    *,
+    seed: int = 0,
+):
+    """The walk-continuity rule across a graph version (host numpy, the
+    reference's bit for bit).
+
+    After an edge churn a walk on a node still in the graph (degree > 1:
+    an edge besides its self-loop) keeps its position.  A walk on a
+    departed node (degree 1) is re-seeded: walk ``w`` lands on
+    ``active[sample_initial_nodes(len(active), W, seed=seed)[w]]``,
+    ``active`` the ascending ids of the nodes still in the graph.  The
+    uniform streams belong to the fleet, not to a position, so a kept walk
+    keeps its stream.  Returns ``(new_nodes (W,) int32, displaced (W,)
+    bool)``; raises when no node has a non-loop edge or a position is out
+    of range.
+    """
+    nodes_np = np.atleast_1d(np.asarray(nodes, np.int32))
+    deg = np.asarray(new_degrees, np.int64)
+    in_graph = deg > 1
+    if not in_graph.any():
+        raise ValueError(
+            "no node of the churned graph has a non-loop edge; every walk "
+            "would be displaced with nowhere to land"
+        )
+    if nodes_np.size and (
+        int(nodes_np.min()) < 0 or int(nodes_np.max()) >= deg.size
+    ):
+        raise ValueError("walk positions out of range for the churned graph")
+    displaced = ~in_graph[nodes_np]
+    new_nodes = nodes_np.copy()
+    if displaced.any():
+        active = np.nonzero(in_graph)[0].astype(np.int32)
+        draws = sample_initial_nodes(
+            int(active.size), int(nodes_np.size), seed=seed
+        )
+        new_nodes[displaced] = active[draws[displaced]]
+    return new_nodes, displaced
 
 
 def fleet_average(
@@ -139,6 +186,21 @@ class WalkFleet:
             avg_every=avg_every,
         )
 
+    def migrate(self, engine: WalkEngine, *, seed: int = 0):
+        """This fleet on a churned ``engine`` (the next graph version):
+        :func:`migrate_walk_nodes` against the new degree vector.  Returns
+        ``(new_fleet, displaced)``; a 0-d ``nodes`` (the W=1 shape) stays
+        0-d."""
+        was_scalar = self.nodes.ndim == 0
+        new_nodes, displaced = migrate_walk_nodes(
+            self.nodes.cpu().numpy(), engine.degrees.cpu().numpy(), seed=seed
+        )
+        nodes = torch.as_tensor(
+            new_nodes[0] if was_scalar else new_nodes, dtype=torch.int32,
+            device=engine.device,
+        )
+        return dataclasses.replace(self, engine=engine, nodes=nodes), displaced
+
     def advance(
         self,
         *,
@@ -179,10 +241,10 @@ class WalkFleet:
     def checkpoint(self) -> dict:
         """Host snapshot in the reference's layout: every engine data field
         of the reference as a numpy array (tuples stay tuples; ``p_j`` a
-        float), the engine's statics in ``engine_meta`` and the fleet's at
-        the top level.  The port's engine has no graph versions and no
-        mesh, so ``graph_version`` is 0, ``walker_sharding`` None and
-        ``cdf_width`` the ragged CDF's width, ``max_degree``."""
+        float), the engine's statics in ``engine_meta`` (its sticky
+        ``cdf_width`` and its ``graph_version`` among them) and the fleet's
+        at the top level.  The port has no mesh: ``walker_sharding`` is
+        None."""
         e = self.engine
         data = {}
         for f in _ENGINE_DATA_FIELDS:
@@ -194,8 +256,7 @@ class WalkFleet:
             else:
                 data[f] = v.cpu().numpy()
         meta = {f: getattr(e, f, None) for f in _ENGINE_META_FIELDS}
-        meta.update(cdf_width=e.max_degree if e.layout == "ragged" else None,
-                    walker_sharding=None, graph_version=0)
+        meta.update(walker_sharding=None)
         return {
             "version": CHECKPOINT_VERSION,
             "num_walks": self.num_walks,
@@ -214,10 +275,10 @@ class WalkFleet:
         keeps the stored ``edge_cdf`` buffer as it is: a rebuilt CDF may
         differ in its last bits and would not resume bitwise.  The
         reference's JAX-only statics (``backend``, ``block_w``,
-        ``interpret``) are ignored.  Refused, with the reason: another
-        checkpoint version, a sharded fleet (``walker_sharding``; the port
-        has no mesh), a churned graph (``graph_version`` > 0; the port has
-        no churn), and fields the port does not know.
+        ``interpret``) are ignored.  A churned engine keeps its
+        ``graph_version`` and ``cdf_width``.  Refused, with the reason:
+        another checkpoint version, a sharded fleet (``walker_sharding``;
+        the port has no mesh), and fields the port does not know.
         """
         from repro_torch import interop
 
@@ -239,11 +300,13 @@ class WalkFleet:
         state = {f: data.get(f) for f in _ENGINE_DATA_FIELDS if f != "p_j"}
         state.update(
             {f: meta.get(f) for f in _ENGINE_META_FIELDS
-             if f not in ("walker_sharding", "max_degree", "cdf_width")},
+             if f not in ("walker_sharding", "max_degree", "cdf_width",
+                          "graph_version")},
         )
         engine, fleet, _ = interop.from_reference_state(
             **state, p_j=0.0 if p_j is None else float(np.asarray(p_j)),
             max_degree=meta.get("max_degree"), cdf_width=meta.get("cdf_width"),
+            graph_version=int(meta.get("graph_version") or 0),
             nodes=np.atleast_1d(np.asarray(ckpt["nodes"])),
             avg_every=int(ckpt["avg_every"]), device=device,
         )

@@ -213,8 +213,11 @@ def _build_engine(graph, p_d, r, row_probs, engine_kwargs, device):
 def _train(
     method, graph, data, gamma, num_steps, num_walks, *, mhlj_params,
     p_j_schedule, loss, x0, v0s, avg_every, seed, engine, engine_kwargs,
-    law_kwargs, uniforms, device,
+    law_kwargs, uniforms, device, generator=None, capture=None,
 ):
+    """One training run through :func:`run_fleet`; returns its outputs.
+    Without ``uniforms`` the walks draw from ``generator``, by default a
+    new one seeded with ``seed``; ``capture`` is ``run_fleet``'s."""
     rows, weights, p_j_sched, p_d, r, use_weights = _setup_method(
         method, graph, data, mhlj_params, p_j_schedule, num_steps, law_kwargs
     )
@@ -240,8 +243,9 @@ def _train(
         if x0 is None
         else torch.as_tensor(np.asarray(x0, np.float32), device=dev)
     )
-    generator = None
-    if uniforms is None:
+    if uniforms is not None:
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     return run_fleet(
@@ -257,6 +261,8 @@ def _train(
         _GRADS[loss],
         uniforms=uniforms,
         generator=generator,
+        # only when asked: callers that wrap run_fleet set capture themselves
+        **({} if capture is None else {"capture": capture}),
     )
 
 

@@ -736,6 +736,129 @@ def test_walk_markov_card_equals_cpu(dev):
     assert torch.equal(card.cpu(), cpu)
 
 
+# -- dynamic graphs ----------------------------------------------------------
+
+
+def _churn_case(n=20_000, seed=5):
+    """BA(n,3) ragged, Lipschitz exp(N(0,1)) and one batch of 0.1% of the
+    undirected edges: deletes between nodes of degree >= 4 (halved on a
+    disconnect), then as many non-edge inserts."""
+    from repro_torch.core.graphs import apply_edge_churn
+
+    g = barabasi_albert(n, 3, seed=0, layout="ragged")
+    rng = np.random.default_rng(seed)
+    lips = np.exp(rng.normal(0.0, 1.0, n))
+    deg = np.asarray(g.degrees, np.int64)
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    dst = g.indices.astype(np.int64)
+    pairs = np.stack([src, dst], axis=1)[src < dst]
+    budget = max(2, int(0.001 * pairs.shape[0]))
+    cand = pairs[(deg[pairs[:, 0]] >= 4) & (deg[pairs[:, 1]] >= 4)]
+    k = budget // 2
+    while True:
+        dele = cand[rng.choice(cand.shape[0], size=k, replace=False)]
+        try:
+            apply_edge_churn(g, delete=dele, check_connectivity=True)
+            break
+        except ValueError:
+            k //= 2
+    codes = set((pairs[:, 0] * n + pairs[:, 1]).tolist())
+    ins = []
+    while len(ins) < budget - k:
+        a, b = sorted(int(x) for x in rng.integers(0, n, size=2))
+        if a != b and a * n + b not in codes:
+            codes.add(a * n + b)
+            ins.append((a, b))
+    g2, churn = apply_edge_churn(g, insert=np.asarray(ins), delete=dele)
+    return g, g2, churn, lips
+
+
+@pytest.mark.parametrize("source", ["lipschitz", "touched_probs"])
+def test_churn_patch_card_equals_cpu(dev, source):
+    """The segment-local patch on the card equals the CPU's patch and the
+    card's from-scratch build, bit for bit, from both row sources."""
+    g, g2, churn, lips = _churn_case()
+    if source == "lipschitz":
+        kw, patch = dict(lipschitz=lips), dict(lipschitz=lips)
+        scratch = dict(lipschitz=lips)
+    else:
+        kw = dict(row_probs=mh_importance_rows_ragged(g, lips))
+        patch = dict(touched_probs=mh_importance_rows_ragged(
+            g2, lips, node_ids=churn.touched_rows))
+        scratch = dict(row_probs=mh_importance_rows_ragged(g2, lips))
+    outs = {}
+    for d in (dev, "cpu"):
+        e = teng.WalkEngine.from_graph(g, MHLJParams(0.1, 0.5, 3),
+                                       device=d, **kw)
+        outs[str(d)] = e.apply_churn(g2, churn, **patch).edge_cdf.cpu()
+    rebuilt = teng.ragged_edge_cdf(g2.indptr, g2.indices, g2.degrees,
+                                   device=dev, **scratch).cpu()
+    assert torch.equal(outs[str(dev)].view(torch.int32),
+                       outs["cpu"].view(torch.int32))
+    assert torch.equal(outs[str(dev)].view(torch.int32),
+                       rebuilt.view(torch.int32))
+
+
+def test_churned_engine_captured_equals_uncaptured(dev):
+    """On the churned engine (fresh buffers) ``run`` captures anew: the
+    captured loop equals the uncaptured one from the same generator state
+    (walks, hops, generator), and launches the ragged kernel every step."""
+    g, g2, churn, lips = _churn_case()
+    e = teng.WalkEngine.from_graph(g, MHLJParams(0.1, 0.5, 3),
+                                   lipschitz=lips, device=dev)
+    e2 = e.apply_churn(g2, churn, lipschitz=lips)
+    v0 = torch.arange(2048, dtype=torch.int32, device=dev) * 7 % g.n
+    e.run(v0, 20, generator=torch.Generator(device=dev).manual_seed(1))
+    runs = {}
+    for capture in (None, False):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        before = wt.walk_transition_ragged.launches
+        nodes, hops = e2.run(v0, 200, generator=gen, capture=capture)
+        torch.cuda.synchronize()
+        runs[capture] = (nodes, hops, gen.get_state(),
+                         wt.walk_transition_ragged.launches - before)
+    (n_c, h_c, s_c, l_c), (n_u, h_u, s_u, l_u) = runs[None], runs[False]
+    assert torch.equal(n_c, n_u) and torch.equal(h_c, h_u)
+    assert torch.equal(s_c, s_u) and l_c == l_u == 200
+
+
+def test_run_dada_captured_equals_uncaptured(dev):
+    """``run_dada`` on the card, captured against ``capture=False``: every
+    ``DadaResult`` field bit for bit (each round re-captures)."""
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import run_dada
+
+    g = barabasi_albert(300, 3, seed=2, layout="csr")
+    data = make_heterogeneous_regression(300, dim=5, seed=3)
+    res = {c: run_dada(g, data, rounds=3, num_steps=100, num_walks=16, k=3,
+                       avg_every=10, seed=5, capture=c, device=dev)
+           for c in (None, False)}
+    for f in ("round_mse", "personalized_mse", "edges_inserted",
+              "edges_deleted", "walks_displaced", "graph_versions",
+              "x_final"):
+        assert np.array_equal(getattr(res[None], f), getattr(res[False], f)), f
+    assert res[None].graph_versions.tolist() == [0, 1, 2]
+
+
+def test_samplers_card_equal_cpu(dev):
+    """BA(20k,3) edges and an SBM 4x250 mask and graph from the same
+    uniforms: the card equals the CPU bit for bit."""
+    from repro_torch.core import torch_sampling as ts
+
+    gen = torch.Generator().manual_seed(0)
+    u = torch.rand(3 * (20_000 - 3), generator=gen)
+    card = ts.barabasi_albert_edges(20_000, 3, uniforms=u, device=dev)
+    cpu = ts.barabasi_albert_edges(20_000, 3, uniforms=u, device="cpu")
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    sizes = [250] * 4
+    us = [torch.rand(1000 * 999 // 2, generator=gen) for _ in range(8)]
+    g_card = ts.sbm_torch(sizes, 0.1, 0.002, uniforms=us, device=dev)
+    g_cpu = ts.sbm_torch(sizes, 0.1, 0.002, uniforms=us, device="cpu")
+    for f in ("indptr", "indices", "degrees"):
+        assert np.array_equal(getattr(g_card, f), getattr(g_cpu, f))
+
+
 # -- the LLM kernels ------------------------------------------------------------
 
 LLM_TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},

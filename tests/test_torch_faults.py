@@ -614,10 +614,17 @@ def test_checkpoint_refuses_what_the_port_cannot_honour(tmp_path):
     ckpt = jfleet.WalkFleet.create(eng, 3, seed=0).checkpoint()
     fleet = tfleet.WalkFleet.restore(ckpt, device="cpu")  # JAX-only statics
     assert fleet.engine.layout == "ragged"
+    # a churned engine keeps its graph version and its sticky cdf_width
+    churned = tfleet.WalkFleet.restore(
+        {**ckpt, "engine_meta": {**ckpt["engine_meta"], "graph_version": 1}},
+        device="cpu")
+    assert churned.engine.graph_version == 1
+    assert churned.engine.cdf_width == ckpt["engine_meta"]["cdf_width"]
     for change, match in (
         (dict(version=2), "version"),
-        (dict(engine_meta={**ckpt["engine_meta"], "graph_version": 1}),
-         "churn"),
+        (dict(engine_meta={**ckpt["engine_meta"], "cdf_width":
+                           ckpt["engine_meta"]["max_degree"] - 1}),
+         "cover"),
         (dict(engine_meta={**ckpt["engine_meta"], "walker_sharding": "x"}),
          "sharded"),
         (dict(engine_meta={**ckpt["engine_meta"], "novel": 1}), "know"),

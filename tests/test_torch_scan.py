@@ -229,6 +229,40 @@ def test_no_host_read_in_the_faulted_fleet_step(name):
     assert int(final["fault_state"].t) == 6
 
 
+def test_no_host_read_on_a_churned_engine():
+    """After ``apply_churn`` (a fresh engine on the churned buffers) one
+    step, a ``run`` and ``run_fleet`` on the migrated fleet read nothing
+    from the device on the host; the churn itself is host set-up."""
+    g, engines = _engines()
+    core = g.to_ragged()
+    pairs = np.stack([np.repeat(np.arange(g.n), g.degrees),
+                      g.indices.astype(np.int64)], axis=1)
+    pairs = pairs[pairs[:, 0] < pairs[:, 1]]
+    core2, churn = tg.apply_edge_churn(
+        core, insert=np.asarray([[0, 119], [3, 77]]), delete=pairs[:2])
+    lips = _lips(g.n)
+    eng = engines["ragged"].apply_churn(
+        core2, churn, touched_probs=ttr.mh_importance_rows_ragged(
+            core2, lips, node_ids=churn.touched_rows))
+    assert eng.graph_version == 1
+    data = make_heterogeneous_regression(g.n, dim=4, seed=0)
+    feats = torch.as_tensor(data.features, dtype=torch.float32)
+    targs = torch.as_tensor(data.targets, dtype=torch.float32)
+    fleet, _ = tfleet.WalkFleet.create(engines["ragged"], 8, seed=0,
+                                       avg_every=2).migrate(eng, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    nodes = torch.as_tensor(np.arange(50) * 7 % g.n, dtype=torch.int32)
+    with NoHostReads():
+        nxt, hops = eng.step(nodes, generator=gen, p_j=torch.tensor([0.3]))
+        eng.run(nodes, 4, generator=gen)
+        out = tfleet.run_fleet(
+            torch.zeros(8, 4), feats, targs, torch.ones(g.n), fleet, 3,
+            1e-3, torch.full((3,), 0.3), True, treg.linear_grad,
+            generator=gen,
+        )
+    assert nxt.shape == hops.shape == (50,) and out[3].shape == (8, 3)
+
+
 def test_the_guard_catches_the_reads_it_names():
     """The dispatch mode sees the host reads a capture cannot hold."""
     x = torch.tensor([1, 0, 2])
