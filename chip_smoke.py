@@ -105,7 +105,9 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    figure, or Fig. 5 on one graph) after another in this process, beside
    the estimate of a side-by-side plan; Fig. 5's T and then Fig.
    6's are cut, never below 20,000, only where the measured ms/step says
-   the phase would pass ~5 minutes (each cut is printed); each figure's
+   the phase would pass what the script's 14-minute aim leaves it after
+   the phases before and the time expected after (at most ~5 minutes;
+   each cut is printed); each figure's
    wall time, ms/step, K, capture time and
    ``walk_transition_sparse`` launches (one per training step, checked);
    Fig. 3's and Fig. 5's BA(1000,3) mhlj runs take uniform blocks drawn on
@@ -133,10 +135,11 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    and ``edge_slot_lookup`` alone (time, peak memory); (c) a kill at step
    250 of the Markov run, ``save_fleet_checkpoint`` (models, FaultState
    and generator state as extras), ``load_fleet_checkpoint`` and the rest:
-   equal to the uninterrupted run bit for bit; (d) the fault sweep's
-   training leg at its full scale, its criterion beside
+   equal to the uninterrupted run bit for bit; (d) the fault sweep at
+   its full scale, its training leg's criterion beside
    ``results/BENCH_faults.json``'s, the rescue-off ratio above the
-   rescue-on one at 5% on both families gated; (e) Fig. 6's
+   rescue-on one at 5% on both families gated, its serving leg audited
+   for phase 12; (e) Fig. 6's
    ``annealed_vs_const`` on four more card streams (reported);
 11. dynamic graphs (aim ``PHASE11_AIM_S``): (a) the reference's churn
    sweep at its full tier (``benchmarks/large_graph_walk.py``
@@ -162,7 +165,25 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    per-round blocks replayed on the CPU (edges, displaced walks, graph
    versions, update nodes equal), wall seconds per round of the walk,
    personalization, similarity and churn; (e) ``core.torch_sampling``:
-   BA(100k,3) edges and an SBM 4x250 from injected uniforms, card == CPU.
+   BA(100k,3) edges and an SBM 4x250 from injected uniforms, card == CPU;
+12. walk-routed serving (aim ``PHASE12_AIM_S``): (a) the routed entry
+   point, ``launch.serve.main`` through its own parser, at mamba2-370m's
+   full width in float32 (BA(100k,3) ragged, W=512, MHLJ routing, rate
+   2.0, 8 slots, 300 + 100 ticks): exit 0, conservation, shed exactly
+   once, one ``walk_transition_ragged`` launch a tick; requests/s,
+   generated tokens/s, walk-steps/s, p50/p99 ticks, Herfindahl and each
+   tick's route / host / decode milliseconds; (b) the reduced model in
+   float32 on the same weights on the card and on the CPU, BA(2000,3),
+   W=64 at the fault sweep's full serving settings, fault-free and under
+   Markov 5%/2% with the rescue: the card's generator-driven run equals
+   the card run fed the same streams injected, and those streams on the
+   CPU give the same visits, arrival log, request records and fault
+   totals, and the same greedy tokens up to a near-tie (phase 8's rule);
+   (c) ``paper.serve_throughput`` at its full tier (six laws, BA(100k,3),
+   W=512, 1500 + 500 ticks): every law completes, conserves and sheds
+   once, every derived key is there; (d) the fault sweep's serving leg,
+   run inside phase 10 (d): every replayed leg offered the recorded
+   trace, conservation, no rescue with it off.
 
 Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
 of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
@@ -1767,6 +1788,26 @@ def serve(model, cfg, dev) -> dict:
     return {**stats, "wall_s": wall}
 
 
+def near_tie_split(cpu_logits, card_logits, where: str) -> tuple:
+    """The first decode step whose greedy tokens differ between the CPU's
+    and the card's logits, which must be a near-tie of the CPU's (a top-two
+    gap under 2 * (2e-4 + 2e-4 |top|)), or None; and the largest logit
+    difference up to it."""
+    max_diff = 0.0
+    for step, (lc, lg) in enumerate(zip(cpu_logits, card_logits)):
+        max_diff = max(max_diff, float((lc - lg).abs().max()))
+        rows = torch.nonzero(lc.argmax(-1) != lg.argmax(-1)).flatten()
+        if rows.numel():
+            for row in rows.tolist():
+                top2 = torch.topk(lc[row], 2).values
+                gap = float(top2[0] - top2[1])
+                if gap >= 2 * (2e-4 + 2e-4 * abs(float(top2[0]))):
+                    raise AssertionError(f"{where}: card token differs at "
+                                         f"step {step} with a CPU gap {gap}")
+            return step, max_diff
+    return None, max_diff
+
+
 def serve_card_vs_cpu(arch, dev) -> dict:
     """Reduced ``arch`` in float32 on the same weights on the CPU and on the
     card: the same greedy tokens, or a near-tie in the CPU's logits where
@@ -1795,19 +1836,8 @@ def serve_card_vs_cpu(arch, dev) -> dict:
         eng.run()
         logits[name] = rec
         runs[name] = {r.rid: r.generated for r in eng.completed}
-    max_diff, first_split = 0.0, None
-    for step, (lc, lg) in enumerate(zip(logits["cpu"], logits["card"])):
-        max_diff = max(max_diff, float((lc - lg).abs().max()))
-        rows = torch.nonzero(lc.argmax(-1) != lg.argmax(-1)).flatten()
-        if rows.numel():
-            for row in rows.tolist():
-                top2 = torch.topk(lc[row], 2).values
-                gap = float(top2[0] - top2[1])
-                if gap >= 2 * (2e-4 + 2e-4 * abs(float(top2[0]))):
-                    raise AssertionError(f"reduced {arch}: card token differs "
-                                         f"at step {step} with a CPU gap {gap}")
-            first_split = step
-            break
+    first_split, max_diff = near_tie_split(logits["cpu"], logits["card"],
+                                           f"reduced {arch}")
     if first_split is None and runs["cpu"] != runs["card"]:
         raise AssertionError(f"reduced {arch}: card and CPU tokens differ")
     log(f"  serve reduced {arch} float32: card == CPU greedy tokens "
@@ -1868,6 +1898,12 @@ def phase_llm(dev) -> dict:
 # -- phase 9: the paper on the card ----------------------------------------------
 
 PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
+SCRIPT_AIM_S = 840.0  # the whole script's aim (14 min of the 20 allowed)
+# the seconds phases 10-12 took after phase 9 on an H100 at 700 W (phase 10
+# ~254 plus its serving leg's ~17, phase 11 ~35, phase 12 ~101; PERF.md
+# section 5): phase 9 aims at what is left of SCRIPT_AIM_S, never above
+# PAPER_BUDGET_S
+LATER_PHASES_S = 407.0
 PHASE10_AIM_S = 240.0  # phase 10's aim: the script within ~12 min
 LAWS_AIM_S = 110.0  # of which the law sweep's 21 runs (T cut past it)
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
@@ -1912,9 +1948,9 @@ def makespan(costs, workers: int) -> float:
 
 
 def paper_plan(fig5_tags, ms_step: float, call_s: float, spent_s: float,
-               busy_ms_step: float) -> dict:
+               busy_ms_step: float, aim_s: float = PAPER_BUDGET_S) -> dict:
     """Each figure's T: the paper's, cut only where phase 9's time aim
-    forces it — Fig. 5's T first, then Fig. 6's, neither below
+    ``aim_s`` forces it — Fig. 5's T first, then Fig. 6's, neither below
     ``PAPER_MIN_T``, and no further than a cut shortens the phase (Fig.
     3's unit is never cut) — with the units run one after another in
     this process.  A unit costs its steps at ``ms_step`` (a W=6 fleet step
@@ -1930,7 +1966,7 @@ def paper_plan(fig5_tags, ms_step: float, call_s: float, spent_s: float,
     def estimate(t5, t6):
         return spent_s + PAPER_HOST_S + sum(costs(t5, t6))
 
-    aim = max(PAPER_BUDGET_S, estimate(PAPER_MIN_T, PAPER_MIN_T))
+    aim = max(aim_s, estimate(PAPER_MIN_T, PAPER_MIN_T))
     candidates = ([(t5, 40_000) for t5 in range(40_000, PAPER_MIN_T - 1, -1_000)]
                   + [(PAPER_MIN_T, t6)
                      for t6 in range(39_000, PAPER_MIN_T - 1, -1_000)])
@@ -2093,8 +2129,12 @@ def phase_paper(dev, smi: str) -> dict:
     # a call: its set-up and the capture of at most MAX_CHUNK steps
     from repro_torch.core.scan import MAX_CHUNK
     call_s = setup_s + MAX_CHUNK * loop["uncaptured_ms_per_step"] / 1e3
+    # what SCRIPT_AIM_S leaves phase 9 after the phases before it and the
+    # expected LATER_PHASES_S
+    aim_s = min(PAPER_BUDGET_S,
+                SCRIPT_AIM_S - LATER_PHASES_S - (t_phase - T_START))
     plan = paper_plan(fig5_tags, loop["replayed_ms_per_step"], call_s,
-                      time.perf_counter() - t_phase, busy_ms_step)
+                      time.perf_counter() - t_phase, busy_ms_step, aim_s)
     cuts = [f"{fig}: T 40000 -> {plan[key]}"
             for fig, key in (("fig5_sparse_graphs", "fig5_T"),
                              ("fig6_annealing", "fig6_T"))
@@ -2103,10 +2143,13 @@ def phase_paper(dev, smi: str) -> dict:
         f"T={plan['fig6_T']}, phase 9 estimated {plan['estimate_s']:.0f} s "
         f"(the side-by-side plan, {PAPER_WORKERS} workers sharing the card's "
         f"{plan['device_s']:.0f} s of device time: "
-        f"{plan['side_by_side_estimate_s']:.0f} s); T cuts: "
+        f"{plan['side_by_side_estimate_s']:.0f} s); aim {aim_s:.0f} s (the "
+        f"script's {SCRIPT_AIM_S:.0f} s less {t_phase - T_START:.0f} s spent "
+        f"and {LATER_PHASES_S:.0f} s expected after phase 9, at most "
+        f"{PAPER_BUDGET_S:.0f} s); T cuts: "
         + ("; ".join(cuts) if cuts else "none"))
-    if plan["estimate_s"] > PAPER_BUDGET_S:
-        log(f"  over the {PAPER_BUDGET_S:.0f} s aim at the least T; the next "
+    if plan["estimate_s"] > aim_s:
+        log(f"  over the {aim_s:.0f} s aim at the least T; the next "
             "cut would be an earlier phase's depth")
 
     steps_of = {"fig5_sparse_graphs": plan["fig5_T"],
@@ -2557,24 +2600,28 @@ def phase10_trainers(dev, wt, ttrain, params) -> dict:
 
 
 def phase10_fault_sweep(dev, wt) -> dict:
-    """(d) the fault sweep's training leg at its full scale: the criterion
+    """(d) the fault sweep at its full scale: the training leg's criterion
     beside the reference's, the rescue ordering at 5% gated on both
-    families, the "within ~2x" claim reported."""
+    families, the "within ~2x" claim reported; the serving leg audited
+    (see :class:`ServeAudit`) for phase 12."""
     from repro_torch.paper import fault_sweep
 
     with open(os.path.join(ROOT, "results", "BENCH_faults.json")) as fh:
         ref = json.load(fh)
     counts_zero(wt)
     t0 = time.perf_counter()
-    res = fault_sweep.run(scale="full", device=dev)
+    with ServeAudit(fault_sweep) as audit:
+        res = fault_sweep.run(scale="full", device=dev)
     wall = time.perf_counter() - t0
     launches = counts_read(wt)
     legs = 1 + 2 * len(fault_sweep.RATES["full"])
     steps = legs * fault_sweep.SCALES["full"]["steps"]
+    sp = fault_sweep.SCALES["full"]["serve"]
+    ticks = legs * (sp["ticks"] + sp["drain"])  # the serving leg's ticks
     if (launches["walk_transition_sparse"] != steps
-            or launches["walk_transition_ragged"] != steps):
+            or launches["walk_transition_ragged"] != steps + ticks):
         raise AssertionError(f"fault sweep: {launches} for {steps} steps a "
-                             "family")
+                             f"family and {ticks} serving ticks")
     gates = {}
     for fam, legs_out in res["train"].items():
         on = legs_out["f5_with_rescue"]["excess_vs_fault_free"]
@@ -2599,9 +2646,12 @@ def phase10_fault_sweep(dev, wt) -> dict:
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
         raise AssertionError(f"fault sweep: {failed}")
+    # the serving leg is printed and gated with phase 12
     return {"wall_s": wall, "launches": launches, "criterion": crit,
             "reference_criterion": ref["criterion"], "within_2x": within,
-            "derived": res["derived"], "gates": gates}
+            "derived": res["derived"], "gates": gates,
+            "serve": res["serve"], "serve_audits": audit.audits,
+            "serve_s": sum(a["wall_s"] for a in audit.audits)}
 
 
 def phase10_fig6_seeds(dev, wt) -> dict:
@@ -3274,6 +3324,365 @@ def phase_dynamic_graphs(dev, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: walk-routed serving
+# ---------------------------------------------------------------------------
+
+PHASE12_AIM_S = 120.0  # phase 12's aim
+# (a) serve_throughput's full routing fabric at mamba2-370m's full width,
+# float32 (the reference's default dtype), through the routed CLI's parser
+ROUTED_ARGV = ["--arch", "mamba2-370m", "--scale", "full", "--nodes", "100000",
+               "--walkers", "512", "--method", "mhlj", "--rate", "2.0",
+               "--pickup", "4", "--batch", "8", "--cache-len", "192",
+               "--max-queue", "128", "--deadline", "1000", "--max-new", "12",
+               "--ticks", "300", "--drain", "100"]
+WALL_CLOCK = ("requests_per_sec", "tokens_per_sec", "walk_steps_per_sec")
+
+
+def serve_records(sim) -> list:
+    """Every offered request's ``(rid, node, submit_tick, admit_tick,
+    done_tick, shed_reason)``, by rid."""
+    e = sim.engine
+    reqs = (e.completed + e.shed_requests + e.queue
+            + [r for r in e.slots if r is not None]
+            + [r for dq in sim.pending.values() for r in dq])
+    return sorted((r.rid, r.node, r.submit_tick, r.admit_tick, r.done_tick,
+                   r.shed_reason) for r in reqs)
+
+
+def serve_invariants(sim, m: dict) -> dict:
+    """The reference's conservation (``offered == completed + sheds +
+    pending_left + queued_left + occupied slots``) and shed-exactly-once
+    (no rid both completed and shed, or shed twice) after a run."""
+    e = sim.engine
+    shed = m["shed_queue_full"] + m["shed_deadline"] + m["shed_node_down"]
+    rids = [r.rid for r in e.shed_requests] + [r.rid for r in e.completed]
+    accounted = (m["completed"] + shed + m["pending_left"] + m["queued_left"]
+                 + sum(r is not None for r in e.slots))
+    return {"conserved": accounted == m["offered"],
+            "shed_once": (len(rids) == len(set(rids))
+                          and shed == len(e.shed_requests))}
+
+
+class ServeAudit:
+    """While open, the ``ServeSimulator`` of each given module (a module
+    that imported the class) records, after each ``run``, its metrics,
+    invariants, arrival log, fault totals and tick-time split in
+    ``audits``; the simulators run unchanged."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.audits: list = []
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+
+        audits = self.audits
+
+        class Audited(serve.ServeSimulator):
+            def run(self, num_ticks, drain_ticks=0):
+                t0 = time.perf_counter()
+                m = super().run(num_ticks, drain_ticks)
+                audits.append({
+                    "metrics": m, "wall_s": time.perf_counter() - t0,
+                    **serve_invariants(self, m),
+                    "arrival_log": list(self.arrival_log),
+                    "rescues": self.rescues, "ticks": self.ticks,
+                    "tick_seconds": dict(self.tick_seconds), "sim": self})
+                return m
+
+        self.saved = [(m, m.ServeSimulator) for m in self.modules]
+        for m in self.modules:
+            m.ServeSimulator = Audited
+        return self
+
+    def __exit__(self, *exc):
+        for m, cls in self.saved:
+            m.ServeSimulator = cls
+        for a in self.audits:
+            a.pop("sim")  # the engine and its model go with it
+        return False
+
+
+def fmt_split(a: dict) -> str:
+    sec = a["tick_seconds"]
+    return ", ".join(f"{k} {v / a['ticks'] * 1e3:.3f}"
+                     for k, v in sec.items()) + " ms/tick"
+
+
+def gate(gates: dict, name: str, ok: bool) -> None:
+    gates[name] = bool(ok)
+    log(f"  gate {name}: {'pass' if ok else 'FAIL'}")
+
+
+def phase12_routed_main(dev, wt) -> dict:
+    """(a) ``launch.serve.main(ROUTED_ARGV)``: BA(100k,3) ragged, W=512,
+    MHLJ routing, mamba2-370m at full width in float32, 300 + 100 ticks;
+    exit 0, conservation, shed exactly once, one ragged launch a tick."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    with ServeAudit(serve) as audit, contextlib.redirect_stdout(io.StringIO()):
+        rc = serve.main(ROUTED_ARGV)
+    wall = time.perf_counter() - t0
+    launches = counts_read(wt)
+    (a,) = audit.audits
+    m = a["metrics"]
+    log(f"  (a) routed main, mamba2-370m full width float32, BA(100k,3), "
+        f"W=512, {a['ticks']} ticks: exit {rc}; offered {m['offered']}, "
+        f"completed {m['completed']}, shed queue-full {m['shed_queue_full']} "
+        f"deadline {m['shed_deadline']}; {m['requests_per_sec']:.4f} "
+        f"requests/s, {m['tokens_per_sec']:.4f} generated tokens/s, "
+        f"{m['walk_steps_per_sec']:.6g} walk-steps/s; p50 {m['p50_ticks']} "
+        f"p99 {m['p99_ticks']} ticks; herfindahl {m['herfindahl']:.6g}; "
+        f"{fmt_split(a)} (route step, host pickup, decode step); "
+        f"run {a['wall_s']:.2f} s of {wall:.2f} s; launches {launches}")
+    gates: dict = {}
+    gate(gates, "(a) exit 0", rc == 0)
+    gate(gates, "(a) conservation", a["conserved"])
+    gate(gates, "(a) shed exactly once", a["shed_once"])
+    gate(gates, "(a) one ragged launch a tick",
+         launches["walk_transition_ragged"] == a["ticks"])
+    return {"rc": rc, "main_s": wall, "launches": launches, "gates": gates,
+            **{k: a[k] for k in ("metrics", "wall_s", "tick_seconds",
+                                 "ticks")}}
+
+
+def phase12_card_vs_cpu(dev, wt) -> dict:
+    """(b) reduced mamba2-370m in float32, the same weights on the card and
+    on the CPU; BA(2000,3), W=64 at the fault sweep's full serving settings,
+    fault-free and under Markov 5%/2%, patience 2, rescue on.  Gate 1: the
+    card's generator-driven run == a card run fed the same streams
+    injected.  Gate 2: those streams on the CPU give the same visits,
+    arrival log, request records and fault totals, and the same greedy
+    tokens up to a near-tie (phase 8's rule)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.graphs import barabasi_albert
+    from repro_torch.launch.serve import ServeEngine, ServeSimulator
+    from repro_torch.models.factory import build_model
+    from repro_torch.paper import fault_sweep
+
+    sp = fault_sweep.SCALES["full"]["serve"]
+    ticks = sp["ticks"] + sp["drain"]
+    cfg = reduced(get_arch("mamba2-370m"))
+    models = {"cpu": build_model(cfg, torch.float32, device="cpu")}
+    models["card"] = build_model(cfg, torch.float32, device=dev)
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    g = barabasi_albert(sp["n"], sp["m"], seed=0, layout="ragged")
+
+    def simulator(where, fm):
+        eng = ServeEngine(cfg, sp["batch"], sp["cache_len"],
+                          max_queue=sp["max_queue"], model=models[where],
+                          device=models[where].device)
+        return ServeSimulator(
+            g, eng, method="mhlj", num_walkers=sp["walkers"], rate=sp["rate"],
+            pickup=sp["pickup"], deadline_ticks=sp["deadline"],
+            prompt_len=sp["prompt_len"], max_new_tokens=sp["max_new"],
+            seed=0, fault_model=fm, relocate_after=sp["relocate_after"])
+
+    def recorded_run(sim):
+        model, rec = sim.engine.model, []
+        decode = model.decode_step
+
+        def recording(tokens, cache, pos):
+            out, cache = decode(tokens, cache, pos)
+            rec.append(out.cpu())
+            return out, cache
+
+        model.decode_step = recording
+        try:
+            m = sim.run(sp["ticks"], drain_ticks=sp["drain"])
+        finally:
+            del model.decode_step  # the class's method again
+        return m, rec
+
+    def same(a, b, ma, mb, where):
+        diff = [k for k in ma if k not in WALL_CLOCK and ma[k] != mb[k]]
+        diff += [k for k in ("rescues", "blocked_steps", "relocated",
+                             "down_node_ticks")
+                 if getattr(a, k) != getattr(b, k)]
+        if a.arrival_log != b.arrival_log:
+            diff.append("arrival_log")
+        if len(a.visits) != len(b.visits) or not all(
+                np.array_equal(x, y) for x, y in zip(a.visits, b.visits)):
+            diff.append("visits")
+        if serve_records(a) != serve_records(b):
+            diff.append("records")
+        if diff:
+            raise AssertionError(f"(b) {where}: the runs differ in {diff}")
+
+    out: dict = {"gates": {}}
+    for tag, fm in (("fault_free", None),
+                    ("markov_5_2", FaultModel(crash_rate=0.05,
+                                              recovery_rate=0.02, patience=2,
+                                              rescue=True))):
+        counts_zero(wt)
+        t0 = time.perf_counter()
+        by_gen = simulator("card", fm)
+        m_gen = by_gen.run(sp["ticks"], drain_ticks=sp["drain"])
+        t_gen = time.perf_counter() - t0
+        injected = simulator("card", fm)
+        drawn = torch.Generator(device=dev).manual_seed(0)
+        streams = injected.draw_streams(ticks, drawn)
+        injected.inject(streams)
+        m_inj, card_logits = recorded_run(injected)
+        launches = counts_read(wt)
+        same(by_gen, injected, m_gen, m_inj, f"{tag} generator vs injected")
+        if not torch.equal(by_gen.generator.get_state(), drawn.get_state()):
+            raise AssertionError(f"(b) {tag}: the generator-driven run drew "
+                                 "other streams than draw_streams")
+        if ({r.rid: r.generated for r in by_gen.engine.completed}
+                != {r.rid: r.generated for r in injected.engine.completed}):
+            raise AssertionError(f"(b) {tag}: generator and injected runs "
+                                 "generate other tokens on the card")
+        gate(out["gates"], f"(b) {tag}: generator-driven == injected on the "
+             "card", True)
+        t0 = time.perf_counter()
+        cpu = simulator("cpu", fm)
+        cpu.inject({k: v.cpu() for k, v in streams.items()})
+        m_cpu, cpu_logits = recorded_run(cpu)
+        t_cpu = time.perf_counter() - t0
+        same(injected, cpu, m_inj, m_cpu, f"{tag} card vs CPU")
+        split, max_diff = near_tie_split(cpu_logits, card_logits,
+                                         f"(b) {tag}")
+        if split is None and (
+                {r.rid: r.generated for r in cpu.engine.completed}
+                != {r.rid: r.generated for r in injected.engine.completed}):
+            raise AssertionError(f"(b) {tag}: card and CPU tokens differ")
+        gate(out["gates"], f"(b) {tag}: card == CPU on the card's streams",
+             True)
+        inv = serve_invariants(injected, m_inj)
+        gate(out["gates"], f"(b) {tag}: conservation and shed exactly once",
+             inv["conserved"] and inv["shed_once"])
+        if launches["walk_transition_ragged"] != 2 * ticks:
+            raise AssertionError(f"(b) {tag}: {launches} for 2 x {ticks} "
+                                 "card ticks")
+        log(f"  (b) {tag}, BA(2000,3) W=64 {ticks} ticks: offered "
+            f"{m_inj['offered']}, completed {m_inj['completed']}, sheds "
+            f"{m_inj['shed_queue_full']}/{m_inj['shed_deadline']}/"
+            f"{m_inj['shed_node_down']}, rescues {m_inj['walker_rescues']}, "
+            f"relocated {m_inj['relocated_requests']}; tokens card == CPU "
+            f"({'all' if split is None else f'until a near-tie at step {split}'}"
+            f", max logit difference {max_diff:.3e}); card {t_gen:.2f} s "
+            f"({fmt_split({'tick_seconds': by_gen.tick_seconds, 'ticks': ticks})}), "
+            f"CPU {t_cpu:.2f} s; launches {launches}")
+        out[tag] = {"metrics": m_inj, "card_s": t_gen, "cpu_s": t_cpu,
+                    "launches": launches, "tokens_split": split,
+                    "max_logit_diff": max_diff,
+                    "tick_seconds": dict(by_gen.tick_seconds)}
+    return out
+
+
+def phase12_serve_throughput(dev, wt) -> dict:
+    """(c) ``paper.serve_throughput.run(scale="full")``: BA(100k,3) ragged,
+    W=512, 1500 + 500 ticks, the six laws, reduced mamba2-370m.  Gates: each
+    law completes requests, conserves them and sheds each once; every
+    derived key is there; one ragged launch a tick.  The magnitudes are
+    reported, as in the reference."""
+    from repro_torch.paper import serve_throughput as st
+
+    with open(os.path.join(ROOT, "results", "BENCH_serve.json")) as fh:
+        ref = json.load(fh)
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    with ServeAudit(st) as audit:
+        res = st.run(scale="full", device=dev)
+    wall = time.perf_counter() - t0
+    launches = counts_read(wt)
+    p = st.SCALES["full"]
+    ticks = p["ticks"] + p["drain"]
+    laws = [law[0] for law in st.LAWS]
+    gates: dict = {}
+    for law, a in zip(laws, audit.audits):
+        m = a["metrics"]
+        log(f"  (c) {law}: {m['requests_per_sec']:.4f} requests/s, p50 "
+            f"{m['p50_ticks']} p99 {m['p99_ticks']} ticks (reference's file "
+            f"{ref[law]['p99_ticks']}), herfindahl {m['herfindahl']:.6g} "
+            f"(reference's file {ref[law]['herfindahl']:.6g}), top-8 share "
+            f"{m['topk_share']:.6g}, {m['walk_steps_per_sec']:.6g} "
+            f"walk-steps/s; offered {m['offered']}, completed "
+            f"{m['completed']}, shed queue-full {m['shed_queue_full']} "
+            f"deadline {m['shed_deadline']}; route set-up "
+            f"{res['route_setup_s'][law]:.2f} s; {fmt_split(a)}")
+        gate(gates, f"(c) {law}: completes, conserves, sheds once",
+             m["completed"] > 0 and a["conserved"] and a["shed_once"])
+    want = {f"ba_{law}_{k}" for law in laws
+            for k in ("herfindahl", "p99_ticks", "requests_per_sec")}
+    gate(gates, "(c) every derived key", set(res["derived"]) == want
+         and len(audit.audits) == len(laws))
+    gate(gates, "(c) one ragged launch a tick",
+         launches["walk_transition_ragged"] == len(laws) * ticks)
+    log(f"  (c) serve_throughput full: {wall:.2f} s, launches {launches}")
+    return {"wall_s": wall, "launches": launches, "gates": gates,
+            "derived": res["derived"], "route_setup_s": res["route_setup_s"],
+            "laws": {law: {"metrics": a["metrics"], "wall_s": a["wall_s"],
+                           "tick_seconds": a["tick_seconds"]}
+                     for law, a in zip(laws, audit.audits)}}
+
+
+def phase12_fault_sweep_serving(p10_sweep: dict) -> dict:
+    """(d) the fault sweep's serving leg, run inside phase 10 (d): every
+    replayed leg offered the fault-free leg's trace, row for row;
+    conservation and shed exactly once on every leg; no rescue with it
+    off."""
+    audits = p10_sweep["serve_audits"]
+    legs = list(p10_sweep["serve"])
+    trace = audits[0]["arrival_log"]
+    gates: dict = {}
+    for leg, a in zip(legs, audits):
+        m = a["metrics"]
+        log(f"  (d) fault sweep serving {leg}: offered {m['offered']} (trace "
+            f"rows {len(trace)}), completed {m['completed']}, shed rate "
+            f"{p10_sweep['serve'][leg]['shed_rate']:.6g}, p99 "
+            f"{m['p99_ticks']} ticks, rescues {m['walker_rescues']}, blocked "
+            f"{m['walker_blocked_steps']}, relocated "
+            f"{m['relocated_requests']}, downtime "
+            f"{m['node_downtime_frac']:.6g}; {a['wall_s']:.2f} s "
+            f"({fmt_split(a)})")
+        ok = a["conserved"] and a["shed_once"]
+        if leg != "fault_free":
+            ok = ok and a["arrival_log"] == trace
+        if leg.endswith("no_rescue"):
+            ok = ok and a["rescues"] == 0
+        gate(gates, f"(d) {leg}", ok)
+    gate(gates, "(d) every leg", len(audits) == len(legs))
+    return {"gates": gates, "legs": {leg: p10_sweep["serve"][leg]
+                                     for leg in legs},
+            "serve_s": p10_sweep["serve_s"]}
+
+
+def phase_routed_serving(dev, smi, p10: dict) -> dict:
+    """Phase 12: walk-routed serving on the card."""
+    from repro_torch.kernels.walk_transition import kernel as wt
+
+    log(f"phase 12 (walk-routed serving): {smi}; aim {PHASE12_AIM_S:.0f} s")
+    out: dict = {}
+    marks = [time.perf_counter()]
+    out["routed_main"] = phase12_routed_main(dev, wt)
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["card_vs_cpu"] = phase12_card_vs_cpu(dev, wt)
+    marks.append(time.perf_counter())
+    out["serve_throughput"] = phase12_serve_throughput(dev, wt)
+    marks.append(time.perf_counter())
+    out["fault_sweep"] = phase12_fault_sweep_serving(p10["fault_sweep"])
+    marks.append(time.perf_counter())
+    out["part_s"] = dict(zip("abcd", np.diff(marks).tolist()))
+    log("  phase 12 parts: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in out["part_s"].items())
+        + f"; (d) ran in phase 10: {out['fault_sweep']['serve_s']:.2f} s")
+    failed = [k for part in out.values() if isinstance(part, dict)
+              for k, ok in part.get("gates", {}).items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 12: {failed}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3711,6 +4120,13 @@ def main() -> int:
     log(f"phase 11 dynamic graphs: {dt:.2f} s (aim {PHASE11_AIM_S:.0f} s)")
     report["phases"]["dynamic_graphs"] = {"s": dt, **p11}
 
+    # -- phase 12: walk-routed serving ---------------------------------------
+    t0 = time.perf_counter()
+    p12 = phase_routed_serving(dev, smi, p10)
+    dt = time.perf_counter() - t0
+    log(f"phase 12 walk-routed serving: {dt:.2f} s (aim {PHASE12_AIM_S:.0f} s)")
+    report["phases"]["routed_serving"] = {"s": dt, **p12}
+
     def entry(name, source, replaces, launches, err):
         tm = p4["timing"][name]
         return {
@@ -3842,6 +4258,22 @@ def main() -> int:
         if not next(k for k in kernels if k["name"] == name).get(
                 "launches_phase11"):
             raise AssertionError(f"phase 11 launched {name} no time")
+    # phase 12's paths (the routing ticks), each counted from 0 just before
+    # it and read just after; the fault sweep's serving leg is in phase 10's
+    p12_paths = {"routed_main": [p12["routed_main"]["launches"]],
+                 "card_vs_cpu": [p12["card_vs_cpu"][tag]["launches"]
+                                 for tag in ("fault_free", "markov_5_2")],
+                 "serve_throughput": [p12["serve_throughput"]["launches"]]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p12_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase12"] = by_path
+            k["launches"] += sum(by_path.values())
+    if not next(k for k in kernels
+                if k["name"] == "walk_transition_ragged").get("launches_phase12"):
+        raise AssertionError("phase 12 launched walk_transition_ragged no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -12,10 +12,11 @@ on the card.  ``blocks`` injects uniform blocks (see
 
     python -c "from repro_torch.paper import fig3_ring; print(fig3_ring.run()['derived'])"
 
-Beside the figures, two sweeps with the same ``run`` signature:
-``law_sweep`` (every chain law on the trap-prone families) and
-``fault_sweep`` (the fleet under node faults, rescue on and off; its
-training leg).
+Beside the figures, three sweeps with the same ``run`` signature:
+``law_sweep`` (every chain law on the trap-prone families),
+``fault_sweep`` (training and walk-routed serving under node faults,
+rescue on and off) and ``serve_throughput`` (walk-routed serving under
+every routing law).
 """
 from repro_torch.paper import (
     fault_sweep,
@@ -24,6 +25,7 @@ from repro_torch.paper import (
     fig5_sparse_graphs,
     fig6_annealing,
     law_sweep,
+    serve_throughput,
     theorem1_remark1,
 )
 
@@ -43,5 +45,6 @@ __all__ = [
     "fig5_sparse_graphs",
     "fig6_annealing",
     "law_sweep",
+    "serve_throughput",
     "theorem1_remark1",
 ]

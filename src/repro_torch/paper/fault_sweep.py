@@ -1,7 +1,7 @@
-"""Convergence under node failures, with the Lévy-jump rescue on and off:
-the training leg of the reference's ``benchmarks/fault_sweep.py``.
+"""Convergence and serving under node failures, with the Lévy-jump rescue on
+and off: the port of the reference's ``benchmarks/fault_sweep.py``.
 
-The fleet loop under a Markov node-fault process
+Training leg — the fleet loop under a Markov node-fault process
 (``repro_torch.core.faults.FaultModel``: a per-tick crash probability and
 a slow recovery) on the two fault-sensitive families: the dumbbell (one
 bridge; a single death disconnects the cliques) and Barabasi-Albert (hub
@@ -11,9 +11,11 @@ and reports the *convergence excess*: the tail-window fleet-averaged MSE
 less the exact least-squares optimum.  The data is homogeneous on
 purpose (docs/faults.md, "rescue bias").
 
-The serving leg of the reference's sweep needs the walk-routed
-``ServeSimulator``, which the port does not have yet; :func:`run` says so
-in its result.
+Serving leg — one fault-free ``ServeSimulator`` run (mhlj routing on a
+ragged BA graph, the reduced mamba2-370m decoding) records its arrival
+trace, then every (failure rate × rescue) leg replays that identical
+workload under faults, so p99 ticks and the shed rate (queue-full +
+deadline + node_down over offered) isolate the policy.
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import get_arch, reduced
 from repro_torch.core.faults import FaultModel
 from repro_torch.core.graphs import barabasi_albert, dumbbell
 from repro_torch.core.transition import MHLJParams
 from repro_torch.data.synthetic import make_homogeneous_regression
+from repro_torch.launch.serve import ServeEngine, ServeSimulator
 from repro_torch.models import regression as reg
 from repro_torch.walk_sgd import trainer as trainer_mod
 from repro_torch.walk_sgd.fleet import WalkFleet
@@ -43,22 +47,37 @@ PAPER_CLAIM = (
 
 RATES = {"smoke": (0.05,), "quick": (0.05,), "full": (0.01, 0.05, 0.10)}
 
-# the training leg's settings of the reference's SCALES (its serve= part is
-# the serving leg's)
 SCALES = {
-    "smoke": dict(dumbbell=(10, 1), ba=(96, 2), dim=4, steps=240, walks=6,
-                  avg_every=20, recovery=0.05, patience=2),
-    "quick": dict(dumbbell=(30, 2), ba=(500, 3), dim=8, steps=800, walks=8,
-                  avg_every=25, recovery=0.05, patience=2),
-    "full": dict(dumbbell=(60, 2), ba=(2000, 3), dim=10, steps=600, walks=16,
-                 avg_every=25, recovery=0.02, patience=2),
+    "smoke": dict(
+        dumbbell=(10, 1), ba=(96, 2), dim=4, steps=240, walks=6,
+        avg_every=20, recovery=0.05, patience=2,
+        serve=dict(
+            n=96, m=2, walkers=8, ticks=60, drain=30, rate=1.0, pickup=2,
+            batch=2, cache_len=64, max_queue=16, deadline=50,
+            prompt_len=(3, 6), max_new=4, relocate_after=2,
+        ),
+    ),
+    "quick": dict(
+        dumbbell=(30, 2), ba=(500, 3), dim=8, steps=800, walks=8,
+        avg_every=25, recovery=0.05, patience=2,
+        serve=dict(
+            n=500, m=3, walkers=24, ticks=200, drain=80, rate=1.2, pickup=4,
+            batch=4, cache_len=96, max_queue=32, deadline=150,
+            prompt_len=(4, 10), max_new=6, relocate_after=3,
+        ),
+    ),
+    "full": dict(
+        dumbbell=(60, 2), ba=(2000, 3), dim=10, steps=600, walks=16,
+        avg_every=25, recovery=0.02, patience=2,
+        serve=dict(
+            n=2000, m=3, walkers=64, ticks=500, drain=200, rate=1.5,
+            pickup=4, batch=8, cache_len=128, max_queue=64, deadline=350,
+            prompt_len=(4, 16), max_new=8, relocate_after=3,
+        ),
+    ),
 }
 
 MHLJ = MHLJParams()  # the law every leg trains under (the trainer's default)
-
-SERVING_LEG = ("not ported: the serving leg needs the walk-routed "
-               "ServeSimulator (ROADMAP Queue 1 item 11)")
-
 
 def _graphs(p):
     """``(family, graph, data)`` for the two families, homogeneous data."""
@@ -114,6 +133,35 @@ def _train_leg(graph, data, p, *, seed=0, fault_model=None, device="cuda",
     return out
 
 
+def _serve_leg(graph, sp, engine, *, fault_model=None, trace=None,
+               streams: Optional[dict] = None) -> dict:
+    """One serving run (mhlj routing): the simulator's metrics, the shed
+    rate and the run's arrival log.  ``streams`` injects the walk's
+    per-tick streams (:meth:`ServeSimulator.inject`)."""
+    sim = ServeSimulator(
+        graph,
+        engine.reset(),
+        method="mhlj",
+        num_walkers=sp["walkers"],
+        rate=sp["rate"],
+        pickup=sp["pickup"],
+        deadline_ticks=sp["deadline"],
+        prompt_len=sp["prompt_len"],
+        max_new_tokens=sp["max_new"],
+        seed=0,
+        fault_model=fault_model,
+        relocate_after=sp["relocate_after"],
+        arrival_trace=trace,
+    )
+    if streams is not None:
+        sim.inject(streams)
+    m = sim.run(sp["ticks"], drain_ticks=sp["drain"])
+    shed = m["shed_queue_full"] + m["shed_deadline"] + m["shed_node_down"]
+    m["shed_rate"] = shed / max(1, m["offered"])
+    m["arrival_log"] = sim.arrival_log
+    return m
+
+
 def legs(rates):
     """``(tag, rate, rescue)`` of every leg: fault-free, then each rate
     with and without the rescue."""
@@ -131,17 +179,19 @@ def run(
     device="cuda",
     blocks: Optional[Callable] = None,
 ) -> dict:
-    """The training leg at ``scale``.  ``blocks(*, family, leg, seed,
-    steps, walks, n, r, p_j, markov, rescue)`` may return a leg's
-    ``run_fleet`` streams (a dict, see :func:`_train_leg`) or None to let
-    the leg draw from its generator."""
+    """Both legs at ``scale``.  ``blocks(*, family, leg, seed, steps,
+    walks, n, r, p_j, markov, rescue)`` may return a leg's streams or None
+    to let the leg draw from its generator: for a training family
+    (``"dumbbell"``, ``"ba"``) ``run_fleet``'s (see :func:`_train_leg`),
+    for ``family="serve"`` (``steps`` the ticks, ``walks`` the walkers)
+    :meth:`ServeSimulator.inject`'s."""
     scale = scale or ("quick" if quick else "full")
     p = SCALES[scale]
     rates = RATES[scale]
     out = {
         "scale": scale, "claim": PAPER_CLAIM, "rates": list(rates),
         "recovery_rate": p["recovery"], "patience": p["patience"],
-        "train": {}, "serve": SERVING_LEG,
+        "train": {}, "serve": {},
     }
     derived: dict = {}
     for fam, graph, data in _graphs(p):
@@ -170,6 +220,34 @@ def run(
             fam_out[leg] = res
             derived[f"{fam}_excess_{leg}"] = excess
         out["train"][fam] = fam_out
+
+    # -- serving leg: one recorded trace replayed across the rescue legs ----
+    sp = p["serve"]
+    graph = barabasi_albert(sp["n"], sp["m"], seed=0, layout="ragged")
+    engine = ServeEngine(reduced(get_arch("mamba2-370m")), sp["batch"],
+                         sp["cache_len"], seed=0, max_queue=sp["max_queue"],
+                         device=device)
+    ticks = sp["ticks"] + sp["drain"]
+    trace = None
+    for leg, rate, rescue in legs(rates):
+        fm = None if rate is None else FaultModel(
+            crash_rate=rate, recovery_rate=p["recovery"],
+            patience=p["patience"], rescue=rescue,
+        )
+        streams = None if blocks is None else blocks(
+            family="serve", leg=leg, seed=0, steps=ticks,
+            walks=sp["walkers"], n=graph.n, r=MHLJ.r,
+            p_j=np.full(ticks, MHLJ.p_j, np.float32),
+            markov=fm is not None, rescue=bool(rescue),
+        )
+        m = _serve_leg(graph, sp, engine, fault_model=fm, trace=trace,
+                       streams=streams)
+        log = m.pop("arrival_log")
+        if trace is None:  # the fault-free leg records the workload
+            trace = np.asarray(log, np.int64)
+        out["serve"][leg] = m
+        derived[f"serve_p99_{leg}"] = m["p99_ticks"]
+        derived[f"serve_shed_rate_{leg}"] = m["shed_rate"]
     if 0.05 in rates:
         d = out["train"]["dumbbell"]
         out["criterion"] = {
@@ -183,5 +261,6 @@ def run(
 
 
 def run_smoke(*, device="cuda", blocks=None) -> dict:
-    """The reference's tiny tier, training leg only."""
+    """The reference's tiny tier: both families train through every fault
+    leg, and the serving trace replays across the rescue legs."""
     return run(scale="smoke", device=device, blocks=blocks)

@@ -1262,3 +1262,86 @@ def test_reduced_model_kernel_path_matches_einsum_path(dev, arch, counter):
     out = model.apply({"tokens": tokens})
     assert c.launches == before + cfg.num_layers
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=2e-4)
+
+
+# -- walk-routed serving on the card ----------------------------------------------
+
+def _routed_sims(devices, *, faults):
+    """One ``ServeSimulator`` per device on BA(300,3) with the reduced
+    mamba2-370m in float32, the same weights on each (a ``state_dict``
+    copy)."""
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.launch.serve import ServeEngine, ServeSimulator
+
+    cfg = reduced(get_arch("mamba2-370m"))
+    g = barabasi_albert(300, 3, seed=0, layout="ragged")
+    base = build_model(cfg, torch.float32, device="cpu")
+    sims = []
+    for d in devices:
+        model = build_model(cfg, torch.float32, device=d)
+        model.load_state_dict(base.state_dict())
+        fm = FaultModel(crash_rate=0.05, recovery_rate=0.1,
+                        patience=2) if faults else None
+        sims.append(ServeSimulator(
+            g, ServeEngine(cfg, 4, 64, max_queue=16, model=model, device=d),
+            num_walkers=32, rate=1.0, deadline_ticks=40, prompt_len=(4, 8),
+            max_new_tokens=4, seed=0, fault_model=fm, relocate_after=2))
+    return sims
+
+
+def _same_routing(a, b, ma, mb):
+    """Visits every tick, every request's schedule and the fault totals."""
+    for t, (va, vb) in enumerate(zip(a.visits, b.visits)):
+        assert np.array_equal(va, vb), f"tick {t}"
+
+    def records(sim):
+        e = sim.engine
+        reqs = (e.completed + e.shed_requests + e.queue
+                + [s for s in e.slots if s is not None]
+                + [r for dq in sim.pending.values() for r in dq])
+        return sorted((r.rid, r.node, r.submit_tick, r.admit_tick,
+                       r.done_tick, r.shed_reason) for r in reqs)
+
+    assert records(a) == records(b)
+    wall = ("requests_per_sec", "tokens_per_sec", "walk_steps_per_sec")
+    assert ({k: v for k, v in ma.items() if k not in wall}
+            == {k: v for k, v in mb.items() if k not in wall})
+    for k in ("rescues", "blocked_steps", "relocated", "down_node_ticks"):
+        assert getattr(a, k) == getattr(b, k), k
+
+
+@pytest.mark.parametrize("faults", [False, True])
+def test_routed_ticks_on_the_card_equal_the_cpu(dev, faults):
+    """The same injected per-tick streams on the card and on the CPU: the
+    card's ragged kernel routes as the CPU's plain version does."""
+    card, cpu = _routed_sims([dev, "cpu"], faults=faults)
+    streams = cpu.draw_streams(60, torch.Generator().manual_seed(4))
+    card.inject(streams)
+    cpu.inject(streams)
+    before = wt.walk_transition_ragged.launches
+    m_card = card.run(45, drain_ticks=15)
+    assert wt.walk_transition_ragged.launches == before + 60
+    _same_routing(card, cpu, m_card, cpu.run(45, drain_ticks=15))
+    assert m_card["completed"] > 0
+    assert (m_card["walker_blocked_steps"] > 0) == faults
+
+
+@pytest.mark.parametrize("faults", [False, True])
+def test_routed_generator_run_equals_its_streams_injected(dev, faults):
+    """Per tick the card's generator draws the Markov uniforms, the walk
+    block, then the rescue's: the same draws, injected, give the same run."""
+    a, b = _routed_sims([dev, dev], faults=faults)
+    drawn = torch.Generator(device=dev).manual_seed(0)
+    b.inject(b.draw_streams(60, drawn))
+    ma, mb = a.run(45, drain_ticks=15), b.run(45, drain_ticks=15)
+    _same_routing(a, b, ma, mb)
+    assert torch.equal(a.generator.get_state(), drawn.get_state())
+
+
+def test_routed_main_on_the_card(dev, capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--device", "cuda", "--nodes", "2000", "--walkers",
+                       "32", "--ticks", "60", "--drain", "20",
+                       "--crash-rate", "0.02", "--recovery-rate", "0.1"]) == 0
+    assert "completed: 0" not in capsys.readouterr().out

@@ -524,7 +524,7 @@ def test_port_imports_with_jax_blocked():
         "            'repro_torch.models.layers.mamba2', 'repro_torch.models.layers.embedding',\n"
         "            'repro_torch.kernels.flash_attention.ops', 'repro_torch.kernels.ssd.ops',\n"
         "            'repro_torch.kernels.rmsnorm.ops', 'repro_torch.launch.serve',\n"
-        "            'repro_torch.interop'}\n"
+        "            'repro_torch.paper.serve_throughput', 'repro_torch.interop'}\n"
         "assert expected <= set(sys.modules), expected - set(sys.modules)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "importlib.util.module_from_spec(spec)\n"

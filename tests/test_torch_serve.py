@@ -140,12 +140,16 @@ def test_latency_percentiles_bookkeeping(engine):
     }
 
 
-def test_standalone_main_and_unported_routed_mode(capsys):
+def test_standalone_main_and_routed_mode_run(capsys):
     assert tserve.main(["--standalone", "--device", "cpu", "--requests", "3",
                         "--max-new", "4"]) == 0
     assert "completed: 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ServeSimulator"):
-        tserve.main(["--device", "cpu"])
+    # the routed mode (the default): a BA graph, a walker fleet, exit 0 iff
+    # something completed
+    assert tserve.main(["--device", "cpu", "--nodes", "200", "--walkers", "8",
+                        "--ticks", "30", "--drain", "10"]) == 0
+    out = capsys.readouterr().out
+    assert "walk_steps_per_sec" in out and "completed: 0" not in out
 
 
 # -- greedy tokens against the JAX engine ----------------------------------------

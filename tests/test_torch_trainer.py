@@ -55,34 +55,57 @@ def _data(m, n):
              x_star_scale=3.0)
 
 
-def _fleet_blocks(seed, total, w, r, p_j_sched, start=0, fault_nodes=None):
-    """Blocks as the reference fleet draws them: ``split(key, total)[start:]``,
-    one ``(W, 3 + r)`` uniform per key, slot 0 -> ``u < p_j[t]``.
-
-    With ``fault_nodes=n``, the three streams of a faulted step instead
-    (``repro/walk_sgd/fleet.py`` ``_fleet_scan``, ``repro/core/engine.py``
-    ``step``): ``key_t, key_f = split(key)``; ``key_t`` splits again into
-    the walk's key and the rescue's; returns ``(blocks (T, W, 3 + r),
-    Markov uniforms (T, n) from key_f, rescue uniforms (T, W))``.
-    """
-    keys = jax.random.split(jax.random.PRNGKey(seed), total)
-    keys = keys[start:start + len(p_j_sched)]
-
-    def block(k, pj):
-        u = jax.random.uniform(k, (w, jeng.num_uniforms(r)), jnp.float32)
+def _key_streams(k, pj, w, r, fault_nodes=None):
+    """One step's streams from the reference's step key ``k``: the ``(W, 3 +
+    r)`` block, slot 0 -> ``u < pj``; with ``fault_nodes=n`` a faulted
+    step's three (``repro/walk_sgd/fleet.py`` ``_fleet_scan``,
+    ``repro/core/engine.py`` ``step``): ``key_t, key_f = split(k)``,
+    ``key_t`` split again into the walk's key and the rescue's, returning
+    ``(block, Markov (n,) uniforms from key_f, rescue (W,) uniforms)``."""
+    def block(key):
+        u = jax.random.uniform(key, (w, jeng.num_uniforms(r)), jnp.float32)
         return u.at[:, 0].set((u[:, 0] < pj).astype(jnp.float32))
 
-    def faulted(k, pj):
-        key_t, key_f = jax.random.split(k)
-        key_w, key_r = jax.random.split(key_t)
-        return (block(key_w, pj),
-                jax.random.uniform(key_f, (fault_nodes,), jnp.float32),
-                jax.random.uniform(key_r, (w,), jnp.float32))
-
-    p_j = jnp.asarray(p_j_sched, jnp.float32)
     if fault_nodes is None:
-        return np.array(jax.vmap(block)(keys, p_j))
-    return tuple(np.array(x) for x in jax.vmap(faulted)(keys, p_j))
+        return block(k)
+    key_t, key_f = jax.random.split(k)
+    key_w, key_r = jax.random.split(key_t)
+    return (block(key_w),
+            jax.random.uniform(key_f, (fault_nodes,), jnp.float32),
+            jax.random.uniform(key_r, (w,), jnp.float32))
+
+
+def _fleet_blocks(seed, total, w, r, p_j_sched, start=0, fault_nodes=None):
+    """Blocks as the reference fleet draws them: ``split(key, total)[start:]``,
+    one :func:`_key_streams` per key.  Returns the blocks ``(T, W, 3 + r)``,
+    or with ``fault_nodes=n`` ``(blocks, Markov uniforms (T, n), rescue
+    uniforms (T, W))``."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), total)
+    keys = keys[start:start + len(p_j_sched)]
+    out = jax.vmap(lambda k, pj: _key_streams(k, pj, w, r, fault_nodes))(
+        keys, jnp.asarray(p_j_sched, jnp.float32))
+    if fault_nodes is None:
+        return np.array(out)
+    return tuple(np.array(x) for x in out)
+
+
+def _serve_blocks(seed, ticks, w, r, p_j, *, n=None, markov=False,
+                  rescue=False):
+    """The walk streams of the reference's ``ServeSimulator``: tick ``t``
+    keys ``fold_in(PRNGKey(seed), t)`` (``repro/launch/serve.py`` ``tick``);
+    under faults (``n``, the node count) the faulted step's three streams
+    of that key.  Returns the dict ``ServeSimulator.inject`` takes: the
+    Markov uniforms only when ``markov``, the rescue's only when
+    ``rescue``."""
+    base = jax.random.PRNGKey(seed)
+    keys = jax.vmap(lambda t: jax.random.fold_in(base, t))(jnp.arange(ticks))
+    pj = jnp.float32(p_j)
+    out = jax.vmap(lambda k: _key_streams(k, pj, w, r, n))(keys)
+    if n is None:
+        return {"uniforms": np.array(out)}
+    u, fu, ru = (np.array(x) for x in out)
+    return {"uniforms": u, "fault_uniforms": fu if markov else None,
+            "rescue_uniforms": ru if rescue else None}
 
 
 def _port_engine(g, rows, p_d, r):
