@@ -183,7 +183,25 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    W=512, 1500 + 500 ticks): every law completes, conserves and sheds
    once, every derived key is there; (d) the fault sweep's serving leg,
    run inside phase 10 (d): every replayed leg offered the recorded
-   trace, conservation, no rescue with it off.
+   trace, conservation, no rescue with it off;
+13. walk-orchestrated LLM training (aim ``PHASE13_AIM_S``), float32, the
+   plain layers (the kernels have no backward; under grad they raise): (a)
+   ``launch.train.main`` through its own parser on mamba2-370m at full
+   width and depth, WS(16,4,0.1), MHLJ with the online estimator, 60 steps
+   of 4 x 128: exit 0, finite losses that drop, Remark 1, a spread of L_v,
+   one ``walk_transition_sparse`` launch a step; ms/step split by CUDA
+   events into host / forward+backward / optimizer / fingerprint / advance,
+   steps/s, tokens/s, peak memory; (b) minitron-8b at full width with its
+   depth cut to 2 layers: every gradient leaf nonzero, 10 train steps, and
+   ``use_kernels=True`` raising the guard without training; (c) the fleet
+   step on mamba2-370m at full width cut to 8 layers, W=4, averaging
+   every 5, 20 steps:
+   the models equal bit for bit exactly after each average; (d) reduced
+   qwen2.5-32b and mamba2-370m, 20 steps of ``run_training`` on the card
+   and, on the card's blocks, on the CPU: ``uniform`` nodes and hops bit
+   for bit, ``mhlj`` nodes up to a near-tie (printed), losses at 1e-3;
+   (e) a kill after a step-20 checkpoint and a resume, bit for bit under
+   ``torch.use_deterministic_algorithms(True)``, ms/step with and without.
 
 Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
 of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
@@ -1709,7 +1727,8 @@ def prefill(model, cfg, batch, seq, dev, gen) -> dict:
         finally:
             mamba_mod.ssd_chunked = chunked
     rms_ops.rmsnorm_fused.launches = 0
-    normed = rms_ops.rmsnorm(h_k, model.ln_f["scale"], cfg.norm_eps)
+    with torch.no_grad():  # the scale is a trainable parameter
+        normed = rms_ops.rmsnorm(h_k, model.ln_f["scale"], cfg.norm_eps)
     rms_launches = rms_ops.rmsnorm_fused.launches
     rms_err = hold("rmsnorm_fused", normed, rmsnorm(model.ln_f, h_k, cfg.norm_eps),
                    h_k.dtype, f"through ops.rmsnorm on {cfg.name}'s prefill output")
@@ -1898,12 +1917,12 @@ def phase_llm(dev) -> dict:
 # -- phase 9: the paper on the card ----------------------------------------------
 
 PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
-SCRIPT_AIM_S = 840.0  # the whole script's aim (14 min of the 20 allowed)
+SCRIPT_AIM_S = 840.0 + 90.0  # the whole script's aim, phase 13's included
 # the seconds phases 10-12 took after phase 9 on an H100 at 700 W (phase 10
 # ~254 plus its serving leg's ~17, phase 11 ~35, phase 12 ~101; PERF.md
-# section 5): phase 9 aims at what is left of SCRIPT_AIM_S, never above
-# PAPER_BUDGET_S
-LATER_PHASES_S = 407.0
+# section 5) and phase 13's aim (PHASE13_AIM_S): phase 9 aims at what is
+# left of SCRIPT_AIM_S, never above PAPER_BUDGET_S
+LATER_PHASES_S = 407.0 + 90.0
 PHASE10_AIM_S = 240.0  # phase 10's aim: the script within ~12 min
 LAWS_AIM_S = 110.0  # of which the law sweep's 21 runs (T cut past it)
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
@@ -3683,6 +3702,544 @@ def phase_routed_serving(dev, smi, p10: dict) -> dict:
     return out
 
 
+# -- phase 13: walk-orchestrated LLM training on the card --------------------------
+
+PHASE13_AIM_S = 90.0  # phase 13's aim
+TRAIN_ARGV = ["--arch", "mamba2-370m", "--scale", "full", "--graph",
+              "watts_strogatz", "--silos", "16", "--method", "mhlj", "--steps",
+              "60", "--batch", "4", "--seq", "128", "--device", "cuda"]
+P13_DENSE_LAYERS = 2  # minitron-8b's depth cut in (b): 32 -> 2
+P13_FLEET = dict(walkers=4, avg_every=5, steps=20)
+# (c)'s depth cut: mamba2-370m's 48 layers -> 8, for the phase's time aim
+# (a fleet step at full depth is W host-bound train steps; PERF.md 6)
+P13_FLEET_LAYERS = 8
+P13_CPU_STEPS = 20  # (d): steps of each card run replayed on the CPU
+P13_RESUME = dict(steps=40, every=20)  # (e)
+P13_LOSS_RTOL = 1e-3  # (d): card against CPU losses, per step
+PHASES13 = ("host", "forward_backward", "optimizer", "fingerprint", "advance")
+
+
+class PhaseTimer:
+    """``on_phase`` of ``run_training`` / ``make_train_step``: a CUDA event at
+    each phase boundary; :meth:`split` gives the median ms per step of each
+    phase after ``skip`` warm-up steps, the interval ending at a phase named
+    after it (``host``: the node read and batch fetch, from the step's top),
+    and ``loop`` (from the advance to the next step's top: the loss read,
+    logging, checkpoints)."""
+
+    def __init__(self):
+        self.steps: list = []
+
+    def __call__(self, name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if name == "step":
+            self.steps.append([])
+        self.steps[-1].append((name, ev))
+
+    def split(self, skip: int = 2) -> dict:
+        torch.cuda.synchronize()
+        per: dict = {}
+        rows = self.steps[skip:]
+        for i, marks in enumerate(rows):
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                per.setdefault(name, []).append(a.elapsed_time(b))
+            if i + 1 < len(rows):
+                per.setdefault("loop", []).append(
+                    marks[-1][1].elapsed_time(rows[i + 1][0][1]))
+        return {k: float(np.median(v)) for k, v in per.items()}
+
+
+def fmt_phases(split: dict) -> str:
+    return ", ".join(f"{k} {split[k]:.3f}" for k in PHASES13 + ("loop",)
+                     if k in split)
+
+
+class TrainAudit:
+    """While open, ``launch.train.run_training`` records each call's result
+    and runs under a :class:`PhaseTimer` (the training runs unchanged)."""
+
+    def __init__(self):
+        self.runs: list = []
+
+    def __enter__(self):
+        from repro_torch.launch import train
+
+        self.saved = train.run_training
+        runs, orig = self.runs, train.run_training
+
+        def recorded(*args, **kw):
+            timer = PhaseTimer()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = orig(*args, **kw, on_phase=timer)
+            torch.cuda.synchronize()
+            runs.append({"res": res, "wall_s": time.perf_counter() - t0,
+                         "split": timer.split(),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            return res
+
+        train.run_training = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+
+        train.run_training = self.saved
+        return False
+
+
+def phase13_main(dev, wt) -> dict:
+    """(a) ``launch.train.main(TRAIN_ARGV)``: mamba2-370m at full width and
+    depth (48 layers, d_model 1024, vocab 50280) in float32, WS(16,4,0.1),
+    MHLJ with the online estimator, 60 steps of batch 4 x 128."""
+    import contextlib
+    import io
+
+    from repro_torch.core.levy import remark1_bound
+    from repro_torch.launch import train
+
+    counts_zero(wt)
+    out_buf = io.StringIO()
+    with TrainAudit() as audit, contextlib.redirect_stdout(out_buf):
+        rc = train.main(TRAIN_ARGV)
+    launches = counts_read(wt)
+    (run,) = audit.runs
+    res = run["res"]
+    losses = res["losses"]
+    steps, batch, seq = 60, 4, 128
+    ms_step = sum(v for k, v in run["split"].items())
+    bound = remark1_bound(0.1, 0.5, 3)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    lips = res["final_lipschitz"]
+    log(f"  (a) train main, mamba2-370m full (48 layers, d_model 1024, vocab "
+        f"50280) float32, WS(16,4,0.1), mhlj online, {steps} steps of "
+        f"{batch}x{seq}: exit {rc}; loss first 10 {first:.4f}, last 10 "
+        f"{last:.4f}; transitions/update {res['transitions_per_update']:.4f} "
+        f"(Remark-1 bound {bound:.4f}); {np.unique(lips).size} distinct L_v; "
+        f"ms/step {ms_step:.3f} (median by CUDA events: "
+        f"{fmt_phases(run['split'])}); {res['steps_per_sec']:.4f} steps/s, "
+        f"{res['steps_per_sec'] * batch * seq:.1f} tokens/s; peak "
+        f"{run['peak_gb']:.2f} GB; run {run['wall_s']:.2f} s; launches "
+        f"{launches}")
+    gates: dict = {}
+    gate(gates, "(a) exit 0", rc == 0)
+    gate(gates, "(a) losses finite", bool(np.isfinite(losses).all()))
+    gate(gates, "(a) loss drops", last < first)
+    gate(gates, "(a) Remark 1", 1.0 <= res["transitions_per_update"] <= bound + 0.2)
+    gate(gates, "(a) L_v spread", np.unique(lips).size > 1)
+    gate(gates, "(a) one sparse launch a step",
+         launches["walk_transition_sparse"] == steps
+         and launches["walk_transition"] == launches["walk_transition_ragged"] == 0)
+    return {"rc": rc, "launches": launches, "gates": gates,
+            "losses": losses.tolist(), "split_ms": run["split"],
+            "ms_per_step": ms_step, "steps_per_sec": res["steps_per_sec"],
+            "tokens_per_sec": res["steps_per_sec"] * batch * seq,
+            "peak_gb": run["peak_gb"], "wall_s": run["wall_s"],
+            "transitions_per_update": res["transitions_per_update"],
+            "summary": out_buf.getvalue().splitlines()[-6:]}
+
+
+def _walk_and_data(arch_cfg, dev, silos=16, seq=128, seed=0, online=True):
+    """WS(16,4,0.1), its walk context on ``dev`` and the token shards, as
+    ``run_training`` builds them."""
+    from repro_torch.core.graphs import watts_strogatz
+    from repro_torch.core.transition import MHLJParams
+    from repro_torch.data import NodeDataPipeline, make_node_token_shards
+    from repro_torch.walk_sgd.llm_trainer import WalkContext
+
+    g = watts_strogatz(silos, 4, 0.1, seed)
+    walk = WalkContext.from_graph(g, MHLJParams(0.1, 0.5, 3),
+                                  online_lipschitz=online, device=dev)
+    data = make_node_token_shards(g.n, arch_cfg.vocab_size,
+                                  shard_len=max(2048, (seq + 1) * 4), seed=seed)
+    return g, walk, data, NodeDataPipeline
+
+
+def phase13_dense(dev, wt) -> dict:
+    """(b) minitron-8b at full width (d_model 4096, vocab 256000, 32/8 heads,
+    d_ff 16384), depth cut to ``P13_DENSE_LAYERS``, float32: every leaf's
+    gradient present and nonzero, 10 steps of ``make_train_step`` (AdamW,
+    online estimator), and the same step with ``use_kernels=True`` raising
+    the kernels' guard without training."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.models.base import param_tree
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim.base import leaves
+    from repro_torch.walk_sgd.llm_trainer import init_walk_state, make_train_step
+
+    full = get_arch("minitron-8b")
+    cfg = dataclasses.replace(full, num_layers=P13_DENSE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, torch.float32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    params = param_tree(model)
+    n_params = sum(x.numel() for x in leaves(params))
+    g, walk, data, Pipe = _walk_and_data(cfg, dev)
+    pipe = Pipe(data, 2, 128, seed=0)
+    state = init_walk_state(g.n, np.ones(g.n, np.float32), device=dev,
+                            online=True)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.next_batch(0).items()}
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, leaves(params))
+    norms = [float(x.norm()) for x in grads]
+    del grads, loss
+    opt = optim.adamw(3e-4)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt, walk)
+    counts_zero(wt)
+    losses, times = [], []
+    for t in range(10):
+        t0 = time.perf_counter()
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 pipe.next_batch(int(state["node"])).items()}
+        params, opt_state, state, m = step(params, opt_state, state, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = counts_read(wt)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the same step on the kernel path: the guard raises before any update
+    before = [x.clone() for x in leaves(params)[:3]]
+    model.cfg = dataclasses.replace(cfg, use_kernels=True)
+    raised = ""
+    try:
+        step(params, opt_state, state, batch)
+    except RuntimeError as e:
+        raised = str(e)
+    model.cfg = cfg
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, leaves(params)[:3]))
+    ms = float(np.median(times[2:]))
+    log(f"  (b) minitron-8b full width, depth cut 32 -> {P13_DENSE_LAYERS} "
+        f"layers ({n_params / 1e9:.3f} B parameters) float32, batch 2x128: "
+        f"{len(norms)} gradient leaves, smallest norm {min(norms):.4g}; 10 "
+        f"steps, losses {losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.2f} ms/step "
+        f"(host clock, median of steps 3-10); peak {peak:.2f} GB; "
+        f"use_kernels=True: {'raised' if raised else 'did NOT raise'} "
+        f"({raised[:60]}...), weights unchanged {unchanged}; launches "
+        f"{launches}")
+    gates: dict = {}
+    gate(gates, "(b) losses finite", bool(np.isfinite(losses).all()))
+    gate(gates, "(b) every gradient leaf nonzero", min(norms) > 0
+         and all(np.isfinite(norms)))
+    gate(gates, "(b) use_kernels under grad raises the guard",
+         "no backward" in raised and unchanged)
+    gate(gates, "(b) one sparse launch a step",
+         launches["walk_transition_sparse"] == 10)
+    del model, params, opt_state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms_per_step": ms, "peak_gb": peak,
+            "params": n_params, "launches": launches, "gates": gates,
+            "grad_norm_min": min(norms)}
+
+
+def phase13_fleet(dev, wt) -> dict:
+    """(c) ``make_multi_walk_step`` on mamba2-370m at full width, its depth
+    cut to ``P13_FLEET_LAYERS``, W=4, ``avg_every=5``, 20 steps (AdamW,
+    batch 4 x 128 a walker): all W models equal bit for bit after every
+    averaging step and different between them; one sparse launch a fleet
+    step."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.models.base import param_tree
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim.base import leaves
+    from repro_torch.walk_sgd.multi_walk import (init_multi_walk_state,
+                                                 make_multi_walk_step,
+                                                 stack_params)
+
+    w, avg_every, steps = (P13_FLEET[k] for k in ("walkers", "avg_every", "steps"))
+    full = get_arch("mamba2-370m")
+    cfg = dataclasses.replace(full, num_layers=P13_FLEET_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, torch.float32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    tree = param_tree(model)
+    opt = optim.adamw(3e-4)
+    params_w = stack_params(tree, w)
+    opt_w = stack_params(opt.init(tree), w)
+    g, walk, data, Pipe = _walk_and_data(cfg, dev, online=False)
+    pipes = [Pipe(data, 4, 128, seed=i) for i in range(w)]
+    walk_w = init_multi_walk_state(g.n, w, np.ones(g.n, np.float32), seed=0,
+                                   device=dev)
+    step = make_multi_walk_step(model, opt, walk, avg_every=avg_every)
+    counts_zero(wt)
+    times, equal_after, losses = [], [], []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        nodes = walk_w["node"].tolist()
+        bs = [p.next_batch(v) for p, v in zip(pipes, nodes)]
+        batches = {k: torch.as_tensor(np.stack([b[k] for b in bs]), device=dev)
+                   for k in ("tokens", "labels")}
+        params_w, opt_w, walk_w, m = step(params_w, opt_w, walk_w, batches, t)
+        losses.append(m["loss"].tolist())
+        times.append((time.perf_counter() - t0) * 1e3)
+        same = all(all(torch.equal(x[0], x[i]) for i in range(1, w))
+                   for x in leaves(params_w))
+        equal_after.append(same)
+    launches = counts_read(wt)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = [(t + 1) % avg_every == 0 for t in range(steps)]
+    ms = float(np.median(times[2:]))
+    log(f"  (c) fleet, mamba2-370m full width, depth cut {full.num_layers} -> "
+        f"{cfg.num_layers} layers (the phase's time aim), W={w}, avg_every="
+        f"{avg_every}, {steps} steps of 4x128 a walker: models equal after steps "
+        f"{[t for t, s in enumerate(equal_after) if s]} (averaging steps "
+        f"{[t for t, s in enumerate(want) if s]}); walker losses at the end "
+        f"{[round(x, 4) for x in losses[-1]]}; {ms:.2f} ms/fleet step (host "
+        f"clock, median of steps 3-{steps}); peak {peak:.2f} GB; launches "
+        f"{launches}")
+    gates: dict = {}
+    gate(gates, "(c) equal exactly after every average, different between",
+         equal_after == want)
+    gate(gates, "(c) losses finite", bool(np.isfinite(losses).all()))
+    gate(gates, "(c) one sparse launch a fleet step",
+         launches["walk_transition_sparse"] == steps)
+    del model, tree, params_w, opt_w
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "peak_gb": peak, "launches": launches,
+            "gates": gates, "equal_after": equal_after}
+
+
+class AdvanceLog:
+    """While open, ``WalkContext.advance`` records, per call, the walk's
+    node, the block it took and the Lipschitz vector its Eq.-7 row reads."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.walk_sgd import llm_trainer
+
+        self.saved, calls = llm_trainer.WalkContext.advance, self.calls
+        orig = self.saved
+
+        def advance(ctx, state, uniforms=None):
+            if uniforms is None:
+                uniforms = ctx._block(state["rng"], state.get("p_j", ctx.p_j))
+            calls.append((int(state["node"]), uniforms.cpu().numpy().copy(),
+                          state["lipschitz"].cpu().numpy().copy()))
+            return orig(ctx, state, uniforms)
+
+        llm_trainer.WalkContext.advance = advance
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.walk_sgd import llm_trainer
+
+        llm_trainer.WalkContext.advance = self.saved
+        return False
+
+
+def eq7_margin(graph, lips, node, u_mh) -> float:
+    """The smallest gap ``|cdf_j - u*total| / total`` of node's live Eq.-7
+    row (float64)."""
+    deg = np.asarray(graph.degrees)
+    nb = np.asarray(graph.neighbors)[node][:deg[node]]
+    move = np.array([0.0 if v == node else
+                     min(1.0 / deg[node], lips[v] / (deg[v] * lips[node]))
+                     for v in nb], np.float64)
+    move[nb == node] = 1.0 - move.sum()
+    cdf = np.cumsum(move)
+    return float(np.min(np.abs(cdf - u_mh * cdf[-1])) / cdf[-1])
+
+
+def phase13_card_vs_cpu(dev, wt) -> dict:
+    """(d) reduced qwen2.5-32b and reduced mamba2-370m, the same weights
+    (built on the CPU from seed 0) and fingerprint projections on both
+    devices, ``P13_CPU_STEPS`` steps of ``run_training``: the card draws its
+    blocks, the CPU takes them injected.  ``uniform``: nodes and hops bit
+    for bit, losses at ``P13_LOSS_RTOL`` per step.  ``mhlj`` (online): nodes
+    equal up to the first pick within a near-tie of the live Eq.-7 row
+    (its step and margin printed)."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.engine import draw_uniforms
+    from repro_torch.launch import train
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim.base import leaves
+    from repro_torch.models.base import param_tree
+
+    out, gates = {}, {}
+    steps = P13_CPU_STEPS
+    for arch in ("qwen2.5-32b", "mamba2-370m"):
+        cfg = reduced(get_arch(arch))
+        base = build_model(cfg, torch.float32, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+        init = interop.reference_params_of(base)
+        pgen = torch.Generator().manual_seed(0)
+        proj = [torch.randn(x.shape, generator=pgen)
+                for x in leaves(param_tree(base))]
+        for method in ("uniform", "mhlj"):
+            kw = dict(graph_kind="watts_strogatz", n_silos=16, method=method,
+                      steps=steps, batch_size=2, seq_len=64, log_every=0,
+                      seed=0, init_params=init)
+            p_j = 0.1 if method == "mhlj" else 0.0
+            gen = torch.Generator(dev).manual_seed(0)  # the walk's, as run_training seeds it
+            blocks = torch.stack([draw_uniforms(1, 3, p_j, gen, dev)
+                                  for _ in range(steps)]).cpu()
+            counts_zero(wt)
+            with AdvanceLog() as card_log:
+                card = train.run_training(
+                    cfg, device=dev, projections=[x.to(dev) for x in proj], **kw)
+            launches = counts_read(wt)
+            cpu = train.run_training(cfg, device="cpu", projections=proj,
+                                     uniforms=blocks.numpy(), **kw)
+            nc, np_ = card["update_nodes"], cpu["update_nodes"]
+            differ = np.nonzero(nc != np_)[0]
+            k = int(differ[0]) if differ.size else steps
+            rel = np.abs(card["losses"][:k] - cpu["losses"][:k]) / np.abs(cpu["losses"][:k])
+            tag = f"{arch}/{method}"
+            rec = {"launches": launches, "equal_steps": k,
+                   "loss_max_rel": float(rel.max()),
+                   "hops_equal": card["transitions_per_update"]
+                   == cpu["transitions_per_update"]}
+            if k < steps:
+                node, u, lips = card_log.calls[k - 1]
+                rec["margin"] = eq7_margin(train.GRAPHS["watts_strogatz"](16, 0),
+                                           lips, node, float(u[0, 1]))
+            out[tag] = rec
+            log(f"  (d) {tag} reduced, {steps} steps card vs CPU (card-drawn "
+                f"blocks, shared projections): nodes equal for {k} of {steps}"
+                + (f" (then a pick at margin {rec['margin']:.3g} of the live "
+                   f"Eq.-7 row)" if k < steps else "")
+                + f"; transitions/update {card['transitions_per_update']:.3f} "
+                f"vs {cpu['transitions_per_update']:.3f}; loss max rel diff "
+                f"{rec['loss_max_rel']:.3g}; launches {launches}")
+            gate(gates, f"(d) {tag} one sparse launch a step",
+                 launches["walk_transition_sparse"] == steps)
+            gate(gates, f"(d) {tag} losses at {P13_LOSS_RTOL}",
+                 rec["loss_max_rel"] <= P13_LOSS_RTOL)
+            if method == "uniform":
+                gate(gates, f"(d) {tag} nodes and hops bit for bit",
+                     k == steps and rec["hops_equal"])
+            else:
+                gate(gates, f"(d) {tag} nodes equal up to a near-tie",
+                     k == steps or rec["margin"] < 1e-4)
+    out["gates"] = gates
+    return out
+
+
+def phase13_resume(dev, wt) -> dict:
+    """(e) reduced mamba2-370m, ``P13_RESUME`` steps with a checkpoint every
+    20, killed at the top of step 21 and resumed, under
+    ``torch.use_deterministic_algorithms(True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: losses, nodes, parameters,
+    optimizer state and walk state equal the uninterrupted run bit for bit.
+    ms/step with and without the deterministic mode."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train
+    from repro_torch.utils.checkpoint import flatten_with_paths
+
+    class Killed(Exception):
+        pass
+
+    steps, every = P13_RESUME["steps"], P13_RESUME["every"]
+    cfg = reduced(get_arch("mamba2-370m"))
+    kw = dict(graph_kind="watts_strogatz", n_silos=16, method="mhlj",
+              steps=steps, batch_size=4, seq_len=128, log_every=0, seed=5,
+              device=dev)
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    train.run_training(cfg, **kw)
+    torch.cuda.synchronize()
+    free_ms = (time.perf_counter() - t0) * 1e3 / steps
+    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="p13_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        full = train.run_training(cfg, **kw)
+        torch.cuda.synchronize()
+        det_ms = (time.perf_counter() - t0) * 1e3 / steps
+        seen = [0]
+
+        def kill_after(name):
+            if name == "step":
+                if seen[0] == every:
+                    raise Killed
+                seen[0] += 1
+
+        try:
+            train.run_training(cfg, **kw, checkpoint_dir=root,
+                               checkpoint_every=every, on_phase=kill_after)
+            killed = False
+        except Killed:
+            killed = True
+        resumed = train.run_training(cfg, **kw, checkpoint_dir=root,
+                                     checkpoint_every=every, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counts_read(wt)
+
+    def same(a, b):
+        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+        return list(fa) == list(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+    checks = {
+        "losses": np.array_equal(resumed["losses"], full["losses"][every:]),
+        "nodes": np.array_equal(resumed["update_nodes"],
+                                full["update_nodes"][every:]),
+        "params": same(resumed["params"], full["params"]),
+        "opt_state": same(resumed["opt_state"], full["opt_state"]),
+        "walk_state": same(resumed["walk_state"], full["walk_state"]),
+    }
+    log(f"  (e) reduced mamba2-370m, {steps} steps (4x128), checkpoint every "
+        f"{every}, killed at the top of step {every + 1}: {killed}; resumed == "
+        f"uninterrupted: {checks}; ms/step {free_ms:.3f} without, "
+        f"{det_ms:.3f} with deterministic algorithms (host clock, whole "
+        f"run); launches {launches}")
+    gates: dict = {}
+    gate(gates, f"(e) killed after the step-{every} checkpoint", killed)
+    gate(gates, "(e) resume bit for bit", all(checks.values()))
+    gate(gates, "(e) one sparse launch a step",
+         launches["walk_transition_sparse"] == 3 * steps)
+    return {"launches": launches, "gates": gates, "checks": checks,
+            "ms_per_step": free_ms, "deterministic_ms_per_step": det_ms}
+
+
+def phase_llm_training(dev, smi) -> dict:
+    """Phase 13: walk-orchestrated LLM training on the card."""
+    from repro_torch.kernels.walk_transition import kernel as wt
+
+    torch.cuda.empty_cache()
+    log(f"phase 13 (LLM training): {smi}; aim {PHASE13_AIM_S:.0f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier phases")
+    out: dict = {}
+    marks = [time.perf_counter()]
+    for part, fn in (("main", phase13_main), ("dense", phase13_dense),
+                     ("fleet", phase13_fleet), ("card_vs_cpu", phase13_card_vs_cpu),
+                     ("resume", phase13_resume)):
+        out[part] = fn(dev, wt)
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+    out["part_s"] = dict(zip("abcde", np.diff(marks).tolist()))
+    log("  phase 13 parts: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in out["part_s"].items()))
+    failed = [k for part in out.values() if isinstance(part, dict)
+              for k, ok in part.get("gates", {}).items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 13: {failed}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4127,6 +4684,13 @@ def main() -> int:
     log(f"phase 12 walk-routed serving: {dt:.2f} s (aim {PHASE12_AIM_S:.0f} s)")
     report["phases"]["routed_serving"] = {"s": dt, **p12}
 
+    # -- phase 13: walk-orchestrated LLM training ------------------------------
+    t0 = time.perf_counter()
+    p13 = phase_llm_training(dev, smi)
+    dt = time.perf_counter() - t0
+    log(f"phase 13 LLM training: {dt:.2f} s (aim {PHASE13_AIM_S:.0f} s)")
+    report["phases"]["llm_training"] = {"s": dt, **p13}
+
     def entry(name, source, replaces, launches, err):
         tm = p4["timing"][name]
         return {
@@ -4274,6 +4838,24 @@ def main() -> int:
     if not next(k for k in kernels
                 if k["name"] == "walk_transition_ragged").get("launches_phase12"):
         raise AssertionError("phase 12 launched walk_transition_ragged no time")
+    # phase 13's paths (one sparse launch a train step, one a fleet step),
+    # each counted from 0 just before it and read just after
+    p13_paths = {"train_main": [p13["main"]["launches"]],
+                 "dense_steps": [p13["dense"]["launches"]],
+                 "fleet": [p13["fleet"]["launches"]],
+                 "card_vs_cpu": [v["launches"] for k, v in
+                                 p13["card_vs_cpu"].items() if k != "gates"],
+                 "resume": [p13["resume"]["launches"]]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p13_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase13"] = by_path
+            k["launches"] += sum(by_path.values())
+    if not next(k for k in kernels
+                if k["name"] == "walk_transition_sparse").get("launches_phase13"):
+        raise AssertionError("phase 13 launched walk_transition_sparse no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

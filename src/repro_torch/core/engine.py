@@ -155,19 +155,25 @@ def p_is_rows_block(
     self_ids: torch.Tensor,  # (rows,) owning node id per row
     deg_v: torch.Tensor,  # (rows,) true degree per row
     degrees: torch.Tensor,  # (n,) full degree vector (neighbor lookups)
-    lipschitz: torch.Tensor,  # (n,) float32
+    lipschitz: torch.Tensor,  # (n,) float32, or (rows, n): one per row
 ) -> torch.Tensor:
     """Eq.-7 rows in float32 on a padded neighbor block (live rows).
 
     P(v,u) = min{1/deg(v), L_u / (deg(u) L_v)} for true neighbors u != v;
     leftover mass goes to the self slot, pads carry exactly 0.  The
     leftover is ``1 - Σ move`` with the sum taken by :func:`row_cdf`, so a
-    row's bits do not depend on the block's width or on the device.
+    row's bits do not depend on the block's width or on the device.  A
+    ``(rows, n)`` ``lipschitz`` gives each row its own vector (walkers
+    that each carry their own estimates).
     """
     deg_vf = deg_v.to(torch.float32)[:, None]
     deg_u = degrees[nbrs].to(torch.float32)
-    l_v = lipschitz[self_ids][:, None]
-    l_u = lipschitz[nbrs]
+    if lipschitz.ndim == 2:
+        l_v = lipschitz.gather(1, self_ids.long()[:, None])
+        l_u = lipschitz.gather(1, nbrs.long())
+    else:
+        l_v = lipschitz[self_ids][:, None]
+        l_u = lipschitz[nbrs]
     move = torch.minimum(1.0 / deg_vf, l_u / (deg_u * l_v))
     cols = torch.arange(nbrs.shape[1], device=nbrs.device)
     is_pad = cols[None, :] >= deg_v[:, None]
@@ -1170,7 +1176,9 @@ class WalkEngine:
         already holds the jump flag — or ``generator``, from which the
         block is drawn with the flag ``u < p_j`` (``p_j`` defaults to the
         engine's).  ``lipschitz`` gives live Eq.-7 rows to an engine
-        without precomputed rows.  Returns ``(next_nodes, hops)``, both
+        without precomputed rows; on the sparse layout a ``(W, n)``
+        ``lipschitz`` gives each walk its own vector.  Returns
+        ``(next_nodes, hops)``, both
         (W,) int32; with ``with_aux`` also ``{"compact_overflow": 0-d
         bool tensor}`` on the engine's device, True when this step's
         compacted bucketed dispatch overflowed a capacity and took the
@@ -1228,6 +1236,14 @@ class WalkEngine:
             lipschitz = torch.as_tensor(
                 lipschitz, dtype=torch.float32, device=self.device
             )
+            if lipschitz.ndim == 2 and (
+                    self.layout != "sparse"
+                    or tuple(lipschitz.shape) != (nodes.shape[0], self.n)):
+                raise ValueError(
+                    "per-walk lipschitz (W, n) rows are taken by the sparse "
+                    f"layout only, at (W, n) = ({nodes.shape[0]}, {self.n}); "
+                    f"got {tuple(lipschitz.shape)} on {self.layout}"
+                )
         overflow = None
         if self.layout == "ragged":
             nxt, hops = walk_transition_ragged(
@@ -1347,6 +1363,14 @@ class WalkEngine:
             lipschitz = torch.as_tensor(
                 lipschitz, dtype=torch.float32, device=self.device
             )
+            if lipschitz.ndim == 2 and (
+                    self.layout != "sparse"
+                    or tuple(lipschitz.shape) != (nodes.shape[0], self.n)):
+                raise ValueError(
+                    "per-walk lipschitz (W, n) rows are taken by the sparse "
+                    f"layout only, at (W, n) = ({nodes.shape[0]}, {self.n}); "
+                    f"got {tuple(lipschitz.shape)} on {self.layout}"
+                )
 
         def body(carry):
             t, v = carry

@@ -1,3 +1,5 @@
+from repro_torch.data.lm_data import NodeTokenData, make_node_token_shards
+from repro_torch.data.pipeline import NodeDataPipeline
 from repro_torch.data.synthetic import (
     RegressionData,
     make_heterogeneous_regression,
@@ -5,6 +7,9 @@ from repro_torch.data.synthetic import (
 )
 
 __all__ = [
+    "NodeTokenData",
+    "make_node_token_shards",
+    "NodeDataPipeline",
     "RegressionData",
     "make_heterogeneous_regression",
     "make_homogeneous_regression",

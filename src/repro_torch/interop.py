@@ -13,7 +13,9 @@ requested device:
   — a ``FaultModel`` and a ``FaultState`` from the numpy leaves of the
   reference's (the ``extras`` a reference checkpoint carries);
 * :func:`model_from_reference_params` — a language model from the JAX
-  package's params pytree, so both packages run on the same weights.
+  package's params pytree, so both packages run on the same weights;
+  :func:`reference_params_of` is its inverse (a port model's weights as
+  that pytree, e.g. to start runs on two devices from one model).
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from repro_torch.core.faults import FaultModel, FaultState
 from repro_torch.walk_sgd.fleet import WalkFleet
 
 __all__ = ["from_reference_state", "fault_model_from_reference",
-           "fault_state_from_reference", "model_from_reference_params"]
+           "fault_state_from_reference", "model_from_reference_params",
+           "reference_params_of"]
 
 
 def from_reference_state(
@@ -194,9 +197,10 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:
     """A numpy array as a tensor of the same dtype; numpy's bfloat16 (from
-    ml_dtypes, which JAX arrays convert to) is carried bit for bit."""
+    ml_dtypes, which JAX arrays convert to, or the two-byte records a
+    checkpoint stores) is carried bit for bit."""
     a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
 
@@ -249,3 +253,20 @@ def model_from_reference_params(cfg, params, *, device: Union[str, torch.device]
                 )
             dst.copy_(t)
     return model
+
+
+def reference_params_of(model) -> dict:
+    """The port model's weights as the JAX package's params pytree: nested
+    dicts of numpy arrays, the per-layer leaves stacked ``(L, ...)`` (the
+    inverse of :func:`model_from_reference_params`)."""
+    from repro_torch.models.base import param_tree
+    from repro_torch.utils.checkpoint import flatten_with_paths
+
+    out: dict = {}
+    for path, arr in flatten_with_paths(param_tree(model)).items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return out

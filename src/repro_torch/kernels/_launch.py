@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["P", "I", "F", "COUNTED", "counted", "launch", "device_of",
-           "check", "stream"]
+           "check", "forward_only", "stream"]
 
 # ctypes argument types: a pointer or the stream, an int, a float
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -73,6 +73,19 @@ def check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Raise when gradients are recorded through a kernel: no CUDA kernel of
+    the port has a backward (nor has the JAX package's Pallas kernel, whose
+    ``jax.grad`` fails), so a differentiable input would silently lose its
+    gradient.  Training runs the plain layers (``cfg.use_kernels=False``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            "grad; train with cfg.use_kernels=False (the plain layers), or "
+            "call it under torch.no_grad()"
+        )
 
 
 def stream(device: torch.device) -> int:

@@ -19,7 +19,8 @@ Two routes, chosen by dtype (:func:`route_of`):
   TF32's 10-bit mantissa).
 
 For CUDA tensors :func:`mha` launches the route's kernel or raises (head_dim
-64 or 128, contiguous inputs); for CPU tensors it runs
+64 or 128, contiguous inputs; an input that requires grad while gradients
+are recorded: the kernels have no backward); for CPU tensors it runs
 :func:`~repro_torch.kernels.flash_attention.ref.mha_ref`.  ``mha.launches``
 counts kernel launches, ``mha.launches_by_route`` the same per route.
 """
@@ -27,7 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import I, P, check, device_of, launch, stream
+from repro_torch.kernels._launch import (
+    I, P, check, device_of, forward_only, launch, stream,
+)
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
 __all__ = ["mha", "route_of", "HEAD_DIMS", "ROUTES"]
@@ -61,6 +64,7 @@ def mha(
     device = device_of(q, k, v)
     if device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window)
+    forward_only("flash attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check(name, t, tuple(ROUTES), 4)
     if not q.dtype == k.dtype == v.dtype:

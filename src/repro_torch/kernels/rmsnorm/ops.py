@@ -5,7 +5,8 @@
 float32 or bfloat16, a ``(D,)`` scale of any floating dtype, cast to
 float32 before the launch (as the reference casts it).  For CUDA tensors it
 launches one of the source's three kernels, chosen by :func:`kernel_for`
-from the shape, or raises; for CPU tensors it runs
+from the shape, or raises (also when an input requires grad while
+gradients are recorded: the kernel has no backward); for CPU tensors it runs
 :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`.  Its ``launches``
 attribute counts kernel launches, ``launches_by_kernel`` the same per
 kernel.  :func:`rmsnorm` takes the model layout ``(..., D)``.  As in the
@@ -16,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import F, I, P, check, device_of, launch, stream
+from repro_torch.kernels._launch import (
+    F, I, P, check, device_of, forward_only, launch, stream,
+)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 __all__ = ["rmsnorm", "rmsnorm_fused", "kernel_for", "KERNELS"]
@@ -46,6 +49,7 @@ def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) ->
     device = device_of(x, scale)
     if device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
+    forward_only("rmsnorm_fused", x, scale)
     check("x", x, DTYPES, 2)
     if scale.is_floating_point():  # as the reference and the CPU leg do
         scale = scale.to(torch.float32)

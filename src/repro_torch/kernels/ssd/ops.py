@@ -18,8 +18,9 @@ Two routes, chosen by :func:`route_of` before any launch:
   walking its chunks in order; head_dim <= 64, d_state <= 128 and a
   multiple of 16).
 
-For CUDA tensors :func:`ssd_scan` launches the route's kernels or raises;
-for CPU tensors it runs :func:`~repro_torch.kernels.ssd.ref.ssd_scan_ref`.
+For CUDA tensors :func:`ssd_scan` launches the route's kernels or raises
+(also when an input requires grad while gradients are recorded: the
+kernels have no backward); for CPU tensors it runs :func:`~repro_torch.kernels.ssd.ref.ssd_scan_ref`.
 ``ssd_scan.launches`` counts calls that launched (one per call, whatever
 the route launches inside), ``ssd_scan.launches_by_route`` the same per
 route.
@@ -34,7 +35,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._launch import I, P, check, device_of, launch, stream
+from repro_torch.kernels._launch import (
+    I, P, check, device_of, forward_only, launch, stream,
+)
 from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
 
 __all__ = ["ssd", "ssd_scan", "ssd_oracle", "route_of", "ROUTES",
@@ -73,6 +76,7 @@ def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
     device = device_of(xs, da, dt, bs, cs)
     if device.type == "cpu":
         return ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)
+    forward_only("ssd_scan", xs, da, dt, bs, cs)
     check("xs", xs, DTYPES, 4)
     check("da", da, torch.float32, 3)
     check("dt", dt, torch.float32, 3)
@@ -134,6 +138,8 @@ def ssd(xs, dt, a, bs, cs, chunk: int = 128):
     """Model layout: xs (B, L, H, P), dt (B, L, H) post-softplus, a (H,)
     negative decay rates, bs/cs (B, L, G, N).  Returns ``(y (B, L, H, P)
     float32, None)``, as ``layers.mamba2.ssd_chunked`` does."""
+    if device_of(xs, dt, a, bs, cs).type == "cuda":
+        forward_only("ssd_scan", xs, dt, a, bs, cs)
     l = xs.shape[1]
     xs_k, da_k, dt_k, bs_k, cs_k = _head_major(xs, dt, a, bs, cs)
     pad = (-l) % chunk

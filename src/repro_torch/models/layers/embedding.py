@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model_utils import normal
+from repro_torch.models.model_utils import grad_dtype_guard, normal
 
 __all__ = ["embedding_init", "embed", "unembed_logits", "chunked_softmax_xent"]
 
@@ -38,6 +38,7 @@ def chunked_softmax_xent(
     num_chunks: int = 8,
 ) -> torch.Tensor:
     """Mean token cross-entropy over unmasked positions, looped over S chunks."""
+    x = grad_dtype_guard(x)
     b, s, d = x.shape
     if s % num_chunks != 0:
         num_chunks = 1

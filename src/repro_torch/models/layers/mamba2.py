@@ -78,10 +78,10 @@ def mamba_init(dims: MambaDims, dtype, device, generator) -> dict:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d. x: (B, L, C); w: (K, C)."""
-    k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
-    out = sum(xp[:, i : i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
-    return out + b[None, None, :]
+    k, l = w.shape[0], x.shape[1]
+    out = F.conv1d(x.transpose(1, 2), w.t().unsqueeze(1), b, padding=k - 1,
+                   groups=w.shape[1])
+    return out[..., :l].transpose(1, 2)
 
 
 def _split_proj(params, x, dims: MambaDims):
@@ -100,6 +100,18 @@ def _split_conv_out(conv_out, dims: MambaDims):
     return xs, bs, cs
 
 
+def _prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sums along ``dim`` as one float64 product with a
+    triangle of ones, rounded to ``x``'s dtype: deterministic and the same
+    bits on every device, where ``torch.cumsum`` on CUDA is neither (it
+    refuses to run under ``torch.use_deterministic_algorithms``); one
+    launch, where a scan over the chunk would take one a column."""
+    n = x.shape[dim]
+    upper = torch.ones((n, n), dtype=torch.float64, device=x.device).triu()
+    out = torch.matmul(x.movedim(dim, -1).double(), upper)
+    return out.to(x.dtype).movedim(-1, dim)
+
+
 def ssd_chunked(
     xs: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H)  post-softplus, float32
@@ -109,7 +121,11 @@ def ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # (B, H, N, P) initial state
 ) -> tuple:
-    """Chunked SSD; returns (y (B,L,H,P), final_state (B,H,N,P)), float32."""
+    """Chunked SSD; returns (y (B,L,H,P), final_state (B,H,N,P)), float32.
+
+    Heads are laid out as (G, H/G) with head h in group h // (H/G), so B
+    and C broadcast over a group's heads instead of being repeated, and
+    every contraction is one batched matmul."""
     b, l, h, p = xs.shape
     g, n = bs.shape[2], bs.shape[3]
     pad = (-l) % chunk
@@ -122,41 +138,45 @@ def ssd_chunked(
     nc, q = lp // chunk, chunk
     rep = h // g
 
-    xs = xs.reshape(b, nc, q, h, p).float()
-    dt = dt.reshape(b, nc, q, h)
-    bs = bs.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
-    cs = cs.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
+    # (B, NC, G, rep, Q, ...) for the heads, (B, NC, G, 1, Q, N) for B and C
+    x_c = xs.reshape(b, nc, q, g, rep, p).permute(0, 1, 3, 4, 2, 5).float()
+    dt_c = dt.reshape(b, nc, q, g, rep).permute(0, 1, 3, 4, 2)
+    b_c = bs.reshape(b, nc, q, g, 1, n).permute(0, 1, 3, 4, 2, 5).float()
+    c_c = cs.reshape(b, nc, q, g, 1, n).permute(0, 1, 3, 4, 2, 5).float()
 
-    da = dt * a[None, None, None, :]  # (B,NC,Q,H) log-decay increments (<= 0)
-    cum = torch.cumsum(da, dim=2)  # inclusive within chunk
+    da = dt_c * a.reshape(g, rep, 1)  # log-decay increments (<= 0)
+    cum = _prefix_sum(da, dim=-1)  # inclusive within chunk
 
     # intra-chunk: att[i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i
-    scores = torch.einsum("bcihn,bcjhn->bchij", cs, bs)
-    cum_t = cum.permute(0, 1, 3, 2)  # (B,NC,H,Q)
-    decay = torch.exp(cum_t[..., :, None] - cum_t[..., None, :])
+    scores = c_c @ b_c.transpose(-1, -2)  # (B,NC,G,1,Q,Q)
     mask = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
-    att = torch.where(mask, scores * decay, 0.0)
-    att = att * dt.permute(0, 1, 3, 2)[:, :, :, None, :]  # times dt_j
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", att, xs)
+    # exp of the masked (j > i) exponents, which are positive and may
+    # overflow, is never taken: an inf there would give the backward pass
+    # 0 * inf = nan; the kept entries are the same bits either way
+    decay = torch.exp(torch.where(
+        mask, cum[..., :, None] - cum[..., None, :], float("-inf")))
+    att = torch.where(mask, scores * decay, 0.0) * dt_c[..., None, :]
+    y_intra = att @ x_c  # (B,NC,G,rep,Q,P)
 
     # chunk summary states: S_k = sum_j exp(cum_Q - cum_j) dt_j B_j x_j^T
-    tail = torch.exp(cum[:, :, -1:, :] - cum) * dt  # (B,NC,Q,H)
-    s_k = torch.einsum("bcjh,bcjhn,bcjhp->bchnp", tail, bs, xs)
+    tail = torch.exp(cum[..., -1:] - cum) * dt_c  # (B,NC,G,rep,Q)
+    s_k = (b_c * tail[..., None]).transpose(-1, -2) @ x_c  # (..., N, P)
 
     # inter-chunk recurrence, sequential over chunks
-    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,NC,H)
-    h_state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=xs.device)
-               if h0 is None else h0.float())
+    chunk_decay = torch.exp(cum[..., -1])  # (B,NC,G,rep)
+    h_state = (torch.zeros((b, g, rep, n, p), dtype=torch.float32,
+                           device=xs.device)
+               if h0 is None else h0.float().reshape(b, g, rep, n, p))
     h_enter = []
     for c in range(nc):
         h_enter.append(h_state)  # the state entering chunk c
-        h_state = chunk_decay[:, c, :, None, None] * h_state + s_k[:, c]
-    h_enter = torch.stack(h_enter, dim=1)  # (B,NC,H,N,P)
+        h_state = chunk_decay[:, c, ..., None, None] * h_state + s_k[:, c]
+    h_enter = torch.stack(h_enter, dim=1)  # (B,NC,G,rep,N,P)
 
     # inter-chunk contribution: y_i += C_i exp(cum_i) H_enter
-    y_inter = torch.einsum("bcihn,bcih,bchnp->bcihp", cs, torch.exp(cum), h_enter)
-    y = (y_intra + y_inter).reshape(b, lp, h, p)[:, :l]
-    return y, h_state
+    y_inter = (c_c * torch.exp(cum)[..., None]) @ h_enter
+    y = (y_intra + y_inter).permute(0, 1, 4, 2, 3, 5).reshape(b, lp, h, p)
+    return y[:, :l], h_state.reshape(b, h, n, p)
 
 
 def ssd_reference(xs, dt, a, bs, cs, h0=None) -> tuple:

@@ -13,7 +13,7 @@ from repro_torch.models.base import Model
 from repro_torch.models.layers import embedding as emb_mod
 from repro_torch.models.layers import mamba2 as mamba_mod
 from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
-from repro_torch.models.model_utils import ParamGroup
+from repro_torch.models.model_utils import ParamGroup, scan_layers
 
 __all__ = ["MambaLM", "build_mamba_model", "mamba_dims_from_cfg"]
 
@@ -52,18 +52,20 @@ class MambaLM(Model):
     def _trunk(self, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         x = emb_mod.embed(self.embedding, batch["tokens"])
-        for lp in self.layers:
-            x = x + mamba_mod.mamba_apply(
+
+        def body(lp, x):
+            return x + mamba_mod.mamba_apply(
                 lp["mixer"], rmsnorm(lp["ln"], x, cfg.norm_eps), self.mdims,
                 use_kernel=cfg.use_kernels,
             )
+
+        x = scan_layers(body, self.layers, x, remat=cfg.remat)
         return rmsnorm(self.ln_f, x, cfg.norm_eps)
 
     @torch.no_grad()
     def apply(self, batch: dict) -> torch.Tensor:
         return self._trunk(batch)
 
-    @torch.no_grad()
     def loss(self, batch: dict) -> tuple:
         x = self._trunk(batch)
         ce = emb_mod.chunked_softmax_xent(

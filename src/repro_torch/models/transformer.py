@@ -16,7 +16,7 @@ from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import embedding as emb_mod
 from repro_torch.models.layers import mlp as mlp_mod
 from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
-from repro_torch.models.model_utils import ParamGroup
+from repro_torch.models.model_utils import ParamGroup, scan_layers
 
 __all__ = ["DenseLM", "build_dense_model"]
 
@@ -65,20 +65,21 @@ class DenseLM(Model):
         mode = "prefix" if cfg.is_prefix_lm else "causal"
         prefix_len = cfg.num_prefix_tokens if cfg.is_prefix_lm else 0
 
-        for lp in self.layers:
+        def body(lp, x):
             x = x + attn_mod.attention_full(
                 lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), self.dims,
                 mode=mode, window=cfg.sliding_window, prefix_len=prefix_len,
                 use_flash=cfg.use_kernels,
             )
-            x = x + mlp_mod.swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+            return x + mlp_mod.swiglu(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+        x = scan_layers(body, self.layers, x, remat=cfg.remat)
         return rmsnorm(self.ln_f, x, cfg.norm_eps)
 
     @torch.no_grad()
     def apply(self, batch: dict) -> torch.Tensor:
         return self._trunk(batch)
 
-    @torch.no_grad()
     def loss(self, batch: dict) -> tuple:
         x = self._trunk(batch)
         ce = emb_mod.chunked_softmax_xent(

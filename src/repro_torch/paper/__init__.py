@@ -16,7 +16,9 @@ Beside the figures, three sweeps with the same ``run`` signature:
 ``law_sweep`` (every chain law on the trap-prone families),
 ``fault_sweep`` (training and walk-routed serving under node faults,
 rescue on and off) and ``serve_throughput`` (walk-routed serving under
-every routing law).
+every routing law); and ``llm_walk_throughput`` (``run(quick=False, *,
+device="cuda")``: walk-orchestrated LLM training steps/s per method, the
+sampler on both backends, serving).
 """
 from repro_torch.paper import (
     fault_sweep,
@@ -25,6 +27,7 @@ from repro_torch.paper import (
     fig5_sparse_graphs,
     fig6_annealing,
     law_sweep,
+    llm_walk_throughput,
     serve_throughput,
     theorem1_remark1,
 )
@@ -45,6 +48,7 @@ __all__ = [
     "fig5_sparse_graphs",
     "fig6_annealing",
     "law_sweep",
+    "llm_walk_throughput",
     "serve_throughput",
     "theorem1_remark1",
 ]

@@ -6,11 +6,14 @@ from repro_torch.walk_sgd.comm_model import (
 from repro_torch.walk_sgd.fleet import (
     WalkFleet,
     fleet_average,
+    init_fleet_walk_state,
     load_fleet_checkpoint,
+    make_fleet_step,
     migrate_walk_nodes,
     run_fleet,
     sample_initial_nodes,
     save_fleet_checkpoint,
+    stack_params,
 )
 from repro_torch.walk_sgd.graph_learning import (
     DadaResult,
@@ -31,11 +34,14 @@ __all__ = [
     "fleet_averaging_traffic",
     "WalkFleet",
     "fleet_average",
+    "init_fleet_walk_state",
     "load_fleet_checkpoint",
+    "make_fleet_step",
     "migrate_walk_nodes",
     "run_fleet",
     "sample_initial_nodes",
     "save_fleet_checkpoint",
+    "stack_params",
     "DadaResult",
     "personalize_models",
     "run_dada",

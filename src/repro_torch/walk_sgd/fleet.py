@@ -19,6 +19,12 @@ it stopped, bit for bit.
 Dynamic graphs: :func:`migrate_walk_nodes` / :meth:`WalkFleet.migrate`
 carry the walks across an edge churn (``WalkEngine.apply_churn``).
 
+The LLM path: :func:`make_fleet_step` trains W walkers' language models,
+held as per-leaf ``(W, ...)`` storage (:func:`stack_params`), one
+walker's update after another, then advances all W walks in ONE batched
+:meth:`WalkFleet.advance` and averages every ``avg_every`` steps;
+:func:`init_fleet_walk_state` seeds its walk states.
+
 The multi-device mesh is not ported yet.
 """
 from __future__ import annotations
@@ -43,6 +49,9 @@ __all__ = [
     "migrate_walk_nodes",
     "fleet_average",
     "run_fleet",
+    "make_fleet_step",
+    "init_fleet_walk_state",
+    "stack_params",
     "save_fleet_checkpoint",
     "load_fleet_checkpoint",
 ]
@@ -134,13 +143,11 @@ def migrate_walk_nodes(
     return new_nodes, displaced
 
 
-def fleet_average(
-    xs: torch.Tensor,
-    do_avg: Optional[torch.Tensor] = None,
-    live: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+def fleet_average(xs, do_avg=None, live: Optional[torch.Tensor] = None):
     """Cross-walker model average, re-broadcast to all W walkers.
 
+    ``xs`` is a (W, ...) tensor, or a pytree dict of them (the LLM fleet's
+    stacked models, :func:`stack_params`), averaged leaf by leaf.
     ``do_avg=None`` averages unconditionally; a 0-d device bool makes the
     average conditional (the ``(t + 1) % avg_every == 0`` gate of the
     fleet loop), selected on the device: the mean where ``do_avg``, else
@@ -148,6 +155,10 @@ def fleet_average(
     faulted loop): ``sum(xs · live) / max(Σ live, 1)``, given to the live
     walkers only, the others keeping their models.
     """
+    if isinstance(xs, dict):
+        from repro_torch.optim.base import tree_map
+
+        return tree_map(lambda x: fleet_average(x, do_avg, live), xs)
     if live is None:
         mean = xs.mean(dim=0, keepdim=True).expand_as(xs)
         return mean.clone() if do_avg is None else torch.where(do_avg, mean, xs)
@@ -604,3 +615,108 @@ def run_fleet(
         hops.T.contiguous(),
         final,
     )
+
+
+# ---------------------------------------------------------------------------
+# The fleet step of the LLM path: the W walkers' updates, one batched walk
+# advance and the periodic average.
+# ---------------------------------------------------------------------------
+
+
+def _map_state(fn, obj):
+    """``fn`` over every tensor of a NamedTuple / tuple / dict nest."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_state(fn, v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_map_state(fn, v) for v in obj))
+    if isinstance(obj, tuple):
+        return tuple(_map_state(fn, v) for v in obj)
+    raise TypeError(f"cannot map over {type(obj).__name__}")
+
+
+def stack_params(params, num_walks: int):
+    """W independent copies of ``params`` (a parameter pytree, or an
+    optimizer state): every tensor ``x`` becomes a contiguous ``(W, *x.shape)``
+    tensor, walker ``w``'s copy at ``[w]``."""
+    return _map_state(
+        lambda x: x.detach().unsqueeze(0).repeat(
+            (num_walks,) + (1,) * x.ndim), params)
+
+
+def make_fleet_step(model, optimizer, walk, avg_every: int = 0, *,
+                    projections=None) -> Callable:
+    """``(params_w, opt_w, walk_w, batches_w, step_idx, uniforms=None) ->
+    (params_w, opt_w, walk_w, metrics)``, the W-walker fleet step.
+
+    ``params_w``/``opt_w`` come from :func:`stack_params` (walker ``w`` at
+    ``[w]`` of every tensor) and are updated in place (an average returns
+    new parameter tensors); ``walk_w`` from
+    :func:`init_fleet_walk_state`; ``batches_w`` holds one batch per walker
+    (a leading walk axis).  Each walker takes the single-walker train step
+    (``llm_trainer.make_train_step``, walk advance off) on its own views,
+    one after another; then all W walks advance in ONE batched transition
+    (``walk.advance_batched``: one sparse launch, ``uniforms`` an injected
+    ``(W, 3 + r)`` block), and with ``avg_every > 0`` the models are
+    averaged when ``(step_idx + 1) % avg_every == 0``.  ``metrics`` are
+    stacked over walkers.
+    """
+    from repro_torch.walk_sgd.llm_trainer import make_train_step
+
+    single = make_train_step(model, optimizer, walk, advance_walk=False,
+                             projections=projections)
+
+    def fleet_step(params_w, opt_w, walk_w, batches_w, step_idx,
+                   uniforms=None):
+        num_walks = int(walk_w["node"].shape[0])
+        states, metrics = [], []
+        for w in range(num_walks):
+            params = _map_state(
+                lambda x: x[w].detach().requires_grad_(True), params_w)
+            opt = _map_state(lambda x: x[w], opt_w)
+            state = {k: v[w] for k, v in walk_w.items() if k != "rng"}
+            batch = {k: v[w] for k, v in batches_w.items()}
+            _, _, state, m = single(params, opt, state, batch)
+            states.append(state)
+            metrics.append(m)
+        walk_w = {**{k: torch.stack([s[k] for s in states])
+                     for k in states[0]}, "rng": walk_w["rng"]}
+        walk_w = walk.advance_batched(walk_w, uniforms=uniforms)
+        if avg_every > 0 and (int(step_idx) + 1) % avg_every == 0:
+            params_w = fleet_average(params_w)
+        metrics = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+        return params_w, opt_w, walk_w, metrics
+
+    return fleet_step
+
+
+def init_fleet_walk_state(
+    n_nodes: int,
+    num_walks: int,
+    lipschitz: Optional[np.ndarray] = None,
+    v0s: Optional[Sequence[int]] = None,
+    seed: int = 0,
+    online: bool = False,
+    *,
+    device="cuda",
+) -> dict:
+    """Stacked LLM walk states for a W-walker fleet.
+
+    Start nodes come from :func:`sample_initial_nodes` (the regression
+    fleet's seeding); walker ``i``'s generator is seeded ``seed * 1009 +
+    i``, the reference's per-walker key seed.  Every tensor carries a
+    leading walker axis; ``"rng"`` is the tuple of the W generators.
+    """
+    from repro_torch.walk_sgd.llm_trainer import init_walk_state
+
+    v0s = sample_initial_nodes(n_nodes, num_walks, seed=seed, v0s=v0s)
+    states = [
+        init_walk_state(n_nodes, lipschitz, v0=int(v), seed=seed * 1009 + i,
+                        online=online, device=device)
+        for i, v in enumerate(v0s)
+    ]
+    out = {k: torch.stack([s[k] for s in states])
+           for k in states[0] if k != "rng"}
+    out["rng"] = tuple(s["rng"] for s in states)
+    return out

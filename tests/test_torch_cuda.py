@@ -1345,3 +1345,155 @@ def test_routed_main_on_the_card(dev, capsys):
                        "32", "--ticks", "60", "--drain", "20",
                        "--crash-rate", "0.02", "--recovery-rate", "0.1"]) == 0
     assert "completed: 0" not in capsys.readouterr().out
+
+
+# -- training: the kernels' grad guard, the fleet step, the resume -----------------
+
+
+def _grad_inputs(dev, which):
+    """A kernel's inputs on the card, one of them requiring grad."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    if which == "flash":
+        q, k, v = rand(1, 64, 4, 64), rand(1, 64, 2, 64), rand(1, 64, 2, 64)
+        return fa_ops.mha, (q.requires_grad_(), k, v), {"causal": True}
+    if which == "ssd":
+        xs, dt = rand(1, 64, 4, 32), rand(1, 64, 4).abs() * 0.1
+        a, bs, cs = -rand(4).abs(), rand(1, 64, 1, 16), rand(1, 64, 1, 16)
+        return ssd_ops.ssd, (xs.requires_grad_(), dt, a, bs, cs), {"chunk": 32}
+    x, scale = rand(8, 256), torch.ones(256, device=dev)
+    return rms_ops.rmsnorm, (x, scale.requires_grad_()), {}
+
+
+@pytest.mark.parametrize("which", ["flash", "ssd", "rmsnorm"])
+def test_kernels_raise_under_grad(dev, which):
+    """No CUDA kernel has a backward: with gradients recorded and an input
+    that requires grad, ``mha``, ``ssd`` and ``ops.rmsnorm`` raise and
+    launch nothing; under ``no_grad`` the same call launches."""
+    fn, args, kw = _grad_inputs(dev, which)
+    counted = {"flash": fa_ops.mha, "ssd": ssd_ops.ssd_scan,
+               "rmsnorm": rms_ops.rmsnorm_fused}[which]
+    before = counted.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args, **kw)
+    assert counted.launches == before
+    with torch.no_grad():
+        fn(*args, **kw)
+    assert counted.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "mamba2-370m"])
+def test_use_kernels_training_raises(dev, arch):
+    """``use_kernels=True`` under grad raises (the reference's ``jax.grad``
+    through its kernels fails); the plain layers train."""
+    cfg = reduced(get_arch(arch))
+    model = build_model(cfg, torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=dev)
+    batch = {"tokens": tokens, "labels": tokens}
+    model.cfg = dataclasses.replace(cfg, use_kernels=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.loss(batch)
+    model.cfg = cfg
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_fleet_step_on_the_card_equals_the_cpu(dev):
+    """Three LLM fleet steps (reduced mamba2-370m in float32, W=3, AdamW,
+    averaging every 2) on the card and on the CPU from the same weights
+    and blocks: the walks bit for bit, one sparse launch a fleet step,
+    losses and parameters at 1e-4."""
+    from repro_torch import optim as topt
+    from repro_torch.core.graphs import ring
+    from repro_torch.models.base import param_tree
+    from repro_torch.optim.base import leaves
+    from repro_torch.walk_sgd import fleet as tfleet
+    from repro_torch.walk_sgd import llm_trainer as tllm
+
+    cfg = reduced(get_arch("mamba2-370m"))
+    base = build_model(cfg, torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    blocks = teng.draw_uniforms(9, 3, 0.3, gen, torch.device("cpu"))
+    tokens = torch.randint(0, cfg.vocab_size, (3, 3, 2, 32), generator=gen)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg, torch.float32, device=d)
+        model.load_state_dict(base.state_dict())
+        walk = tllm.WalkContext.from_graph(ring(8), MHLJParams(0.3, 0.5, 3),
+                                           device=d)
+        opt = topt.adamw(1e-3)
+        tree = param_tree(model)
+        pw = tfleet.stack_params(tree, 3)
+        ow = tfleet.stack_params(opt.init(tree), 3)
+        ws = tfleet.init_fleet_walk_state(8, 3, seed=1, device=d)
+        step = tfleet.make_fleet_step(model, opt, walk, avg_every=2)
+        losses, nodes = [], []
+        for t in range(3):
+            before = wt.walk_transition_sparse.launches
+            batch = {"tokens": tokens[t].to(d), "labels": tokens[t].to(d)}
+            pw, ow, ws, m = step(pw, ow, ws, batch, t,
+                                 uniforms=blocks[3 * t:3 * t + 3].to(d))
+            if d.type == "cuda":
+                assert wt.walk_transition_sparse.launches == before + 1
+            losses.append(m["loss"].cpu())
+            nodes.append(ws["node"].cpu())
+        runs[d.type] = (losses, nodes, [x.cpu() for x in leaves(pw)])
+    (lc, nc, pc), (lp, np_, pp) = runs["cuda"], runs["cpu"]
+    for a, b in zip(nc, np_):
+        assert torch.equal(a, b)
+    for a, b in zip(lc, lp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for a, b in zip(pc, pp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_deterministic_resume_on_the_card(dev, tmp_path, monkeypatch):
+    """Under ``torch.use_deterministic_algorithms(True)`` (the embedding's
+    and the cross-entropy gather's backward otherwise accumulate with
+    atomics) a run killed after its step-6 checkpoint and resumed equals
+    the uninterrupted run bit for bit."""
+    from repro_torch.launch import train as ttrain
+
+    class Killed(Exception):
+        pass
+
+    def killer(at):
+        seen = [0]
+
+        def on_phase(name):
+            if name == "step":
+                if seen[0] == at:
+                    raise Killed
+                seen[0] += 1
+        return on_phase
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = reduced(get_arch("mamba2-370m"))
+    kw = dict(graph_kind="ring", n_silos=8, method="mhlj", steps=12,
+              batch_size=2, seq_len=32, lr=1e-3, log_every=0, seed=9,
+              device=dev)
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = ttrain.run_training(cfg, **kw)
+        root = str(tmp_path / "ck")
+        with pytest.raises(Killed):
+            ttrain.run_training(cfg, **kw, checkpoint_dir=root,
+                                checkpoint_every=6, on_phase=killer(6))
+        resumed = ttrain.run_training(cfg, **kw, checkpoint_dir=root,
+                                      checkpoint_every=6, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(old)
+    assert np.array_equal(resumed["update_nodes"], full["update_nodes"][6:])
+    assert np.array_equal(resumed["losses"], full["losses"][6:])
+    from repro_torch.optim.base import leaves
+    for a, b in zip(leaves(resumed["params"]), leaves(full["params"])):
+        assert torch.equal(a, b)
+    assert torch.equal(resumed["walk_state"]["lipschitz"],
+                       full["walk_state"]["lipschitz"])
+    assert torch.equal(resumed["walk_state"]["rng"].get_state(),
+                       full["walk_state"]["rng"].get_state())

@@ -1,0 +1,552 @@
+"""Port parity: walk-orchestrated LLM training (``repro_torch.walk_sgd.
+llm_trainer``, the fleet's LLM step, ``launch.train.run_training``) and the
+token-shard pipeline against the JAX package.
+
+Weights are the reference's own init, carried by
+``interop.model_from_reference_params``; the walk takes the reference's
+uniform blocks, drawn as its ``advance`` draws them (``split(rng)``, then
+a ``(1, 3 + r)`` block from the second key with slot 0 replaced by the
+jump flag ``u < p_j``), and the fingerprint takes the reference's
+projections (``fold_in(PRNGKey(0), i)`` for the i-th stacked leaf, split
+per layer).  Everything runs in float32 on the CPU.
+
+Tolerances: the loss at rtol 1e-5, every gradient leaf at rtol 1e-4 /
+atol 1e-4 of the leaf's largest entry (float32 reductions in another
+order), ``w`` at rtol 1e-6, the
+Lipschitz EMA leaves at rtol 1e-4 after one step and 1e-2 after a revisit
+(the secant divides by the difference of two nearby fingerprints, which
+cancels); the updated parameters at rtol 1e-5 /
+atol 1e-3·lr where ``|g| > 1e-5·max|g|``: Adam's first step is
+``-lr·g/(|g|+eps)``, about ``-lr·sign(g)``, so an entry within rounding of 0
+may flip, and one at ``|g| ~ 1e-7`` moves by ``lr·(1 - eps/|g|)``, which
+carries the gradient's relative error (up to 1e-2 where it cancels) times
+``eps/|g|``; the entries left out are counted (under 0.5%).  Over several
+steps (the fleet) the parameters are held at rtol 1e-4 / atol 1e-3·lr
+with the share of entries beyond it reported and bounded (1e-4), each
+within 2·lr a step (a flipped Adam step).  Walk positions, hop
+and update counts are equal.  With the online estimator the nodes of a
+run are equal up to the first pick within a near-tie of the live Eq.-7
+row (the EMA's last bits differ between XLA and torch): the test reports
+that step and its margin.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import optim as jopt
+from repro.configs import get_arch as jget_arch, reduced as jreduced
+from repro.core import graphs as jg
+from repro.core.transition import MHLJParams as JParams
+from repro.data import lm_data as jlm
+from repro.data import pipeline as jpipe
+from repro.launch import train as jtrain
+from repro.models.factory import build_model as jbuild
+from repro.utils.checkpoint import flatten_with_paths as jflat
+from repro.walk_sgd import fleet as jfleet
+from repro.walk_sgd import llm_trainer as jllm
+from repro_torch import interop
+from repro_torch import optim as topt
+from repro_torch.configs import get_arch, reduced
+from repro_torch.core import graphs as tg
+from repro_torch.core.levy import remark1_bound
+from repro_torch.core.transition import MHLJParams
+from repro_torch.data import lm_data as tlm
+from repro_torch.data import pipeline as tpipe
+from repro_torch.launch import train as ttrain
+from repro_torch.models.base import param_tree
+from repro_torch.models.factory import build_model
+from repro_torch.optim.base import leaves
+from repro_torch.utils.checkpoint import flatten_with_paths as tflat
+from repro_torch.walk_sgd import fleet as tfleet
+from repro_torch.walk_sgd import llm_trainer as tllm
+from repro_torch.walk_sgd import multi_walk as tmulti
+
+P_J, P_D, R = 0.3, 0.5, 3
+LR = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+# -- the reference's draws ----------------------------------------------------
+
+
+def ref_block(rng_key, p_j, r=R):
+    """The block ``advance`` draws from a walk state's ``rng``: ``(new key,
+    (1, 3 + r) block)``."""
+    key, key_step = jax.random.split(rng_key)
+    u = jax.random.uniform(key_step, (1, 3 + r), jnp.float32)
+    u = u.at[:, 0].set((u[:, 0] < jnp.float32(p_j)).astype(jnp.float32))
+    return key, np.array(u)
+
+
+def ref_run_blocks(seed, p_j_sched, r=R):
+    """``run_training``'s blocks: the walk's ``rng`` is ``PRNGKey(seed)``,
+    advanced once per step."""
+    key, out = jax.random.PRNGKey(seed), []
+    for p_j in p_j_sched:
+        key, u = ref_block(key, p_j, r)
+        out.append(u)
+    return np.stack(out)
+
+
+def ref_projections(params, seed=0):
+    """The reference fingerprint's projections (``param_fingerprint``: leaf
+    i's from ``fold_in(PRNGKey(seed), i)``), split per layer in the port's
+    leaf order."""
+    flat = jflat(params)[0]
+
+    @jax.jit
+    def draw():
+        base = jax.random.PRNGKey(seed)
+        return [jax.random.normal(jax.random.fold_in(base, i), leaf.shape,
+                                  jnp.float32)
+                for i, leaf in enumerate(flat.values())]
+
+    out = []
+    for path, r in zip(flat, draw()):
+        r = np.asarray(r)
+        if path.startswith("layers/"):
+            out.extend(torch.from_numpy(np.array(x)) for x in r)
+        else:
+            out.append(torch.from_numpy(np.array(r)))
+    return out
+
+
+# -- models -------------------------------------------------------------------
+
+REF = {}
+
+
+def ref_model(arch, dtype=jnp.float32, seed=0):
+    """Reference config, model and numpy params (reduced), built once."""
+    key = (arch, jnp.dtype(dtype).name, seed)
+    if key not in REF:
+        jcfg = jreduced(jget_arch(arch))
+        jm = jbuild(jcfg, dtype=dtype)
+        params = jax.tree_util.tree_map(np.asarray,
+                                        jm.init(jax.random.PRNGKey(seed)))
+        REF[key] = (jcfg, jm, params)
+    return REF[key]
+
+
+def port_model(arch, params):
+    return interop.model_from_reference_params(reduced(get_arch(arch)), params,
+                                               device="cpu")
+
+
+def batch_for(cfg, seed=1, b=2, s=32):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.is_prefix_lm:
+        out["prefix_embeddings"] = rng.normal(
+            size=(b, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def port_layout(port_tree):
+    """A port pytree in the reference's checkpoint layout (stacked leaves)."""
+    return tflat(port_tree)
+
+
+def close_tree(port, ref, rtol, atol, mask=None, what="", scaled=False):
+    """Leaf by leaf; ``scaled`` makes ``atol`` a fraction of the leaf's
+    largest magnitude (a gradient entry that cancels to ~0 is held at its
+    leaf's scale)."""
+    tp, tr = port_layout(port), jflat(ref)[0]
+    assert list(tp) == list(tr), what
+    for k, r in tr.items():
+        r = np.asarray(r)
+        keep = np.ones(r.shape, bool) if mask is None else mask[k]
+        tol = atol * float(np.abs(r).max()) if scaled else atol
+        np.testing.assert_allclose(tp[k][keep], r[keep], rtol=rtol, atol=tol,
+                                   err_msg=f"{what} {k}")
+
+
+def walk_states(n, lips, v0, seed):
+    """The same online walk state in both packages, its node already
+    visited, so the step takes the secant branch."""
+    ref = jllm.init_walk_state(n, lips, v0=v0, seed=seed, online=True)
+    ref["visited"] = ref["visited"].at[v0].set(True)
+    ref["last_grad_norm"] = ref["last_grad_norm"].at[v0].set(0.25)
+    ref["last_param_fp"] = ref["last_param_fp"].at[v0].set(-0.5)
+    ref["p_j"] = jnp.float32(P_J)
+    port = tllm.init_walk_state(n, lips, v0=v0, seed=seed, online=True,
+                                device="cpu")
+    for k in ("visited", "last_grad_norm", "last_param_fp"):
+        port[k] = torch.from_numpy(np.array(ref[k]))
+    port["p_j"] = torch.tensor(P_J, dtype=torch.float32)
+    return ref, port
+
+
+# -- one train step -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "paligemma-3b", "mamba2-370m"])
+def test_train_step_matches_reference(arch):
+    """Dense (qkv bias), vlm (prefix LM) and ssm: one step of
+    ``make_train_step`` with AdamW and the online estimator, on the
+    reference's block and projections: the loss, every gradient leaf, ``w``,
+    the updated parameters and the walk state."""
+    jcfg, jm, params = ref_model(arch)
+    tm = port_model(arch, params)
+    n = 8
+    lips = np.exp(np.random.default_rng(3).normal(size=n)).astype(np.float32)
+    ws_ref, ws_port = walk_states(n, lips, v0=2, seed=4)
+    walk_ref = jllm.WalkContext.from_graph(jg.ring(n), JParams(P_J, P_D, R),
+                                           online_lipschitz=True)
+    walk_port = tllm.WalkContext.from_graph(tg.ring(n), MHLJParams(P_J, P_D, R),
+                                            online_lipschitz=True, device="cpu")
+    batch = batch_for(jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    # gradients, before the step moves the port's weights
+    (l_ref, _), g_ref = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, params), jbatch)
+    tree = param_tree(tm)
+    l_port, _ = tm.loss(tbatch)
+    g_port = torch.autograd.grad(l_port, leaves(tree))
+    from repro_torch.optim.base import unflatten
+    close_tree(unflatten(tree, g_port), g_ref, 1e-4, 1e-4, scaled=True,
+               what=f"{arch} grads")
+    np.testing.assert_allclose(float(l_port.detach()), float(l_ref), rtol=1e-5)
+
+    step_ref = jax.jit(jllm.make_train_step(jm, jopt.adamw(LR), walk_ref))
+    opt_ref = jopt.adamw(LR).init(jax.tree_util.tree_map(jnp.asarray, params))
+    p1, _, ws1, m_ref = step_ref(jax.tree_util.tree_map(jnp.asarray, params),
+                                 opt_ref, ws_ref, jbatch)
+    _, u = ref_block(ws_ref["rng"], P_J)
+    opt = topt.adamw(LR)
+    step = tllm.make_train_step(tm, opt, walk_port,
+                                projections=ref_projections(params))
+    _, _, ws2, m = step(tree, opt.init(tree), ws_port, tbatch,
+                        uniforms=torch.from_numpy(u))
+    np.testing.assert_allclose(float(m["loss"]), float(m_ref["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m["weight"]), float(m_ref["weight"]),
+                               rtol=1e-6)
+    g_max = max(float(np.abs(x).max()) for x in jflat(g_ref)[0].values())
+    mask = {k: np.abs(np.asarray(x)) > 1e-5 * g_max
+            for k, x in jflat(g_ref)[0].items()}
+    left_out = sum(int((~x).sum()) for x in mask.values())
+    total = sum(x.size for x in mask.values())
+    print(f"{arch}: {left_out} of {total} gradient entries near zero")
+    assert left_out < 5e-3 * total, f"{left_out} near-zero gradient entries"
+    close_tree(tree, p1, 1e-5, 1e-3 * LR, mask=mask, what=f"{arch} params")
+    for k in ("node", "hops", "updates", "visited"):
+        np.testing.assert_array_equal(ws2[k].numpy(), np.asarray(ws1[k]), k)
+    for k in ("lipschitz", "last_grad_norm", "last_param_fp"):
+        np.testing.assert_allclose(ws2[k].numpy(), np.asarray(ws1[k]),
+                                   rtol=1e-4, err_msg=k)
+    assert not np.array_equal(ws2["lipschitz"].numpy(), lips)  # secant taken
+
+
+# -- run_training on the reference's blocks --------------------------------------
+
+RUN_KW = dict(graph_kind="ring", n_silos=8, steps=10, batch_size=2, seq_len=32,
+              lr=1e-3, log_every=0, seed=3)
+RUNS = {}
+
+
+def ref_run(method):
+    if method not in RUNS:
+        jcfg, _, _ = ref_model("qwen2.5-32b", seed=RUN_KW["seed"])
+        RUNS[method] = jtrain.run_training(jcfg, method=method, **RUN_KW)
+    return RUNS[method]
+
+
+def near_tie_margin(graph, lips, node, u_mh):
+    """The smallest gap ``|cdf_j − u·total| / total`` over node's live Eq.-7
+    row (float64 from ``lips``)."""
+    deg = np.asarray(graph.degrees)
+    nb = np.asarray(graph.neighbors)[node][:deg[node]]
+    move = np.array([0.0 if u == node else
+                     min(1.0 / deg[node], lips[u] / (deg[u] * lips[node]))
+                     for u in nb])
+    move[nb == node] = 1.0 - move.sum()
+    cdf = np.cumsum(move)
+    return float(np.min(np.abs(cdf - u_mh * cdf[-1])) / cdf[-1])
+
+
+@pytest.mark.parametrize("method", ["uniform", "mhlj"])
+def test_run_training_matches_reference(method):
+    """10 steps of ``run_training`` on the reference's weights, blocks and
+    projections: under ``uniform`` (static L) the update nodes are equal bit
+    for bit; under ``mhlj`` with the online estimator they are equal up to
+    the first pick within a near-tie of the live Eq.-7 row (margin below
+    1e-5; none on these draws); losses at rtol 1e-4."""
+    ref = ref_run(method)
+    _, _, params = ref_model("qwen2.5-32b", seed=RUN_KW["seed"])
+    p_j = 0.1 if method == "mhlj" else 0.0
+    blocks = ref_run_blocks(RUN_KW["seed"], [p_j] * RUN_KW["steps"])
+    res = ttrain.run_training(
+        reduced(get_arch("qwen2.5-32b")), method=method, device="cpu",
+        init_params=params, uniforms=blocks,
+        projections=ref_projections(params), **RUN_KW)
+    nodes, nodes_ref = res["update_nodes"], ref["update_nodes"]
+    differ = np.nonzero(nodes != nodes_ref)[0]
+    if method == "uniform" or differ.size == 0:
+        np.testing.assert_array_equal(nodes, nodes_ref)
+        upto = len(nodes)
+    else:
+        # step k-1 moved the walks apart: its pick sat at a near-tie
+        k = int(differ[0])
+        margin = near_tie_margin(jg.ring(8), res["final_lipschitz"],
+                                 int(nodes[k - 1]), float(blocks[k - 1, 0, 1]))
+        print(f"mhlj: nodes equal for {k} steps, then a near-tie of margin "
+              f"{margin:.3g}")
+        assert margin < 1e-5, (k, margin)
+        upto = k
+    np.testing.assert_allclose(res["losses"][:upto], ref["losses"][:upto],
+                               rtol=1e-4)
+    np.testing.assert_array_equal(res["final_lipschitz"] != 1.0,
+                                  ref["final_lipschitz"] != 1.0)
+    # the secant's denominator is a difference of two nearby fingerprints,
+    # which cancels: the estimates agree to ~1e-3, not to float32's 1e-7
+    np.testing.assert_allclose(res["final_lipschitz"], ref["final_lipschitz"],
+                               rtol=1e-2)
+    assert res["transitions_per_update"] == ref["transitions_per_update"]
+
+
+# -- the fleet step ----------------------------------------------------------------
+
+
+def _fleet_layout(params_w):
+    """Port fleet params (pieces of shape (W, ...)) as the reference's
+    (W, L, ...) stacked leaves."""
+    out = {}
+    for path, leaf in params_w.items():
+        out[path] = (torch.stack(leaf, dim=1) if isinstance(leaf, tuple)
+                     else leaf).numpy()
+    return out
+
+
+def test_fleet_step_with_averaging_matches_reference():
+    """Three ``make_fleet_step`` steps, W=3 walkers, ``avg_every=2``, AdamW
+    and the online estimator, on the reference's per-walker blocks: the
+    models after each step (equal across walkers right after the average),
+    the walks bit for bit."""
+    arch, w_count, n = "mamba2-370m", 3, 8
+    jcfg, jm, params = ref_model(arch)
+    tm = port_model(arch, params)
+    walk_ref = jllm.WalkContext.from_graph(jg.ring(n), JParams(P_J, P_D, R),
+                                           online_lipschitz=True)
+    walk_port = tllm.WalkContext.from_graph(tg.ring(n), MHLJParams(P_J, P_D, R),
+                                            online_lipschitz=True, device="cpu")
+    ws_ref = jfleet.init_fleet_walk_state(n, w_count, seed=2, online=True)
+    ws_port = tfleet.init_fleet_walk_state(n, w_count, seed=2, online=True,
+                                           device="cpu")
+    np.testing.assert_array_equal(ws_port["node"].numpy(),
+                                  np.asarray(ws_ref["node"]))
+    pw_ref = jax.tree_util.tree_map(
+        lambda p: jnp.broadcast_to(jnp.asarray(p)[None], (w_count,) + p.shape),
+        params)
+    opt_ref = jax.vmap(jopt.adamw(LR).init)(pw_ref)
+    step_ref = jax.jit(jfleet.make_fleet_step(jm, jopt.adamw(LR), walk_ref,
+                                              avg_every=2))
+    opt = topt.adamw(LR)
+    tree = param_tree(tm)
+    pw = tmulti.stack_params(tree, w_count)
+    ow = tmulti.stack_params(opt.init(tree), w_count)
+    step = tfleet.make_fleet_step(tm, opt, walk_port, avg_every=2,
+                                  projections=ref_projections(params))
+    for t in range(3):
+        batch = {k: np.stack([batch_for(jcfg, seed=10 * t + i)[k]
+                              for i in range(w_count)])
+                 for k in ("tokens", "labels")}
+        keys = ws_ref["rng"]
+        u = np.concatenate([ref_block(keys[i], P_J)[1] for i in range(w_count)])
+        pw_ref, opt_ref, ws_ref, m_ref = step_ref(
+            pw_ref, opt_ref, ws_ref, {k: jnp.asarray(v) for k, v in batch.items()},
+            jnp.asarray(t))
+        pw, ow, ws_port, m = step(
+            pw, ow, ws_port, {k: torch.from_numpy(v) for k, v in batch.items()},
+            t, uniforms=torch.from_numpy(u))
+        np.testing.assert_allclose(m["loss"].numpy(), np.asarray(m_ref["loss"]),
+                                   rtol=1e-5)
+        for k in ("node", "hops", "updates", "visited"):
+            np.testing.assert_array_equal(ws_port[k].numpy(),
+                                          np.asarray(ws_ref[k]), k)
+        # a revisit's secant divides by a difference of nearby fingerprints
+        np.testing.assert_allclose(ws_port["lipschitz"].numpy(),
+                                   np.asarray(ws_ref["lipschitz"]), rtol=1e-2)
+        got, want = _fleet_layout(pw), jflat(pw_ref)[0]
+        beyond = total = 0
+        for k, x in want.items():
+            x = np.asarray(x)
+            diff = np.abs(got[k] - x)
+            beyond += int((diff > 1e-3 * LR + 1e-4 * np.abs(x)).sum())
+            total += x.size
+            assert float(diff.max()) <= 2 * LR * (t + 1), (t, k)
+            same = all(np.array_equal(got[k][0], got[k][i])
+                       for i in range(1, w_count))
+            assert same == (t == 1), (t, k)  # equal right after the average
+        print(f"fleet step {t}: {beyond} of {total} parameters beyond "
+              "rtol 1e-4 / atol 1e-3·lr")
+        assert beyond <= 1e-4 * total, (t, beyond)
+    # the unconditional average: every walker the mean, and idempotent
+    avg = tmulti.average_params(pw)
+    for a, b, again in zip(leaves(avg), leaves(pw),
+                           leaves(tmulti.average_params(avg))):
+        torch.testing.assert_close(a[0], b.mean(dim=0), rtol=0, atol=0)
+        assert all(torch.equal(a[0], a[i]) for i in range(1, w_count))
+        torch.testing.assert_close(again, a, rtol=0, atol=1e-7)
+
+
+def test_fleet_generator_draws_and_one_batched_advance(monkeypatch):
+    """Without injected blocks each walker draws from its own generator
+    (seeded ``seed * 1009 + i``) and the W walks advance in ONE engine
+    step with per-walker Eq.-7 rows."""
+    from repro_torch.core import engine as teng
+
+    walk = tllm.WalkContext.from_graph(tg.ring(8), MHLJParams(P_J, P_D, R),
+                                       device="cpu")
+    states = tfleet.init_fleet_walk_state(8, 3, seed=1, device="cpu")
+    states["lipschitz"] = torch.rand((3, 8), generator=torch.Generator()
+                                     .manual_seed(0)) + 0.5
+    calls = []
+    orig = teng.WalkEngine.step
+    monkeypatch.setattr(teng.WalkEngine, "step",
+                        lambda self, *a, **k: calls.append(1) or orig(self, *a, **k))
+    out = walk.advance_batched(states)
+    assert len(calls) == 1 and out["node"].shape == (3,)
+    # each walker's block is its own generator's first draw, and its row
+    # is its own lipschitz vector's
+    blocks = [teng.draw_uniforms(1, R, P_J, torch.Generator().manual_seed(
+        1 * 1009 + i), torch.device("cpu")) for i in range(3)]
+    for i in range(3):
+        one = walk.advance({"node": states["node"][i],
+                            "lipschitz": states["lipschitz"][i],
+                            "hops": states["hops"][i],
+                            "updates": states["updates"][i]},
+                           uniforms=blocks[i])
+        assert int(one["node"]) == int(out["node"][i])
+
+
+# -- the token shards and the pipeline ---------------------------------------------
+
+
+def test_node_token_shards_and_pipeline_bit_for_bit():
+    ref = jlm.make_node_token_shards(12, 300, shard_len=512, p_hard=0.2, seed=4)
+    port = tlm.make_node_token_shards(12, 300, shard_len=512, p_hard=0.2, seed=4)
+    np.testing.assert_array_equal(port.tokens, ref.tokens)
+    np.testing.assert_array_equal(port.hard_mask, ref.hard_mask)
+    assert port.n == ref.n and port.vocab_size == ref.vocab_size
+    pr = jpipe.NodeDataPipeline(ref, 3, 16, seed=7)
+    pp = tpipe.NodeDataPipeline(port, 3, 16, seed=7)
+    for node in (0, 5, 5, 11, 2):
+        a, b = pr.next_batch(node), pp.next_batch(node)
+        assert pr._counter == pp._counter
+        for k in ("tokens", "labels"):
+            assert b[k].dtype == np.int32
+            np.testing.assert_array_equal(b[k], a[k])
+
+
+# -- remat and the gradient dtype guard -------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-370m"])
+def test_remat_modes_give_equal_gradients(arch):
+    """``full``, ``dots`` and ``none`` differ in what the backward pass
+    recomputes, not in what it computes: equal gradients bit for bit."""
+    jcfg, _, params = ref_model(arch)
+    tm = port_model(arch, params)
+    batch = {k: torch.from_numpy(v) for k, v in batch_for(jcfg).items()}
+    grads = {}
+    for mode in ("full", "dots", "none"):
+        tm.cfg = dataclasses.replace(tm.cfg, remat=mode)
+        loss, _ = tm.loss(batch)
+        grads[mode] = torch.autograd.grad(loss, list(tm.parameters()))
+    for mode in ("dots", "none"):
+        for a, b in zip(grads["full"], grads[mode]):
+            assert torch.equal(a, b), mode
+    tm.cfg = dataclasses.replace(tm.cfg, remat="sometimes")
+    with pytest.raises(ValueError):
+        tm.loss(batch)
+
+
+def test_grad_dtype_guard_gives_the_reference_gradient_dtypes():
+    """bf16 weights (float32 norm scales and SSM leaves): every gradient
+    leaf has the reference's dtype."""
+    arch = "mamba2-370m"
+    jcfg, jm, params = ref_model(arch, dtype=jnp.bfloat16)
+    tm = port_model(arch, params)
+    batch = batch_for(jcfg)
+    g_ref = jax.grad(lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in
+                                           batch.items()})[0])(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    tree = param_tree(tm)
+    loss, _ = tm.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    from repro_torch.optim.base import unflatten
+    g = unflatten(tree, torch.autograd.grad(loss, leaves(tree)))
+    ref_dtypes = {k: np.asarray(v).dtype.name for k, v in jflat(g_ref)[0].items()}
+    port_dtypes = {k: "bfloat16" if isinstance(v, tuple) and
+                   v[0].dtype == torch.bfloat16 or
+                   getattr(v, "dtype", None) == torch.bfloat16 else "float32"
+                   for k, v in g.items()}
+    assert port_dtypes == ref_dtypes
+    # the guard itself: identity forward, the gradient in the primal's dtype
+    from repro_torch.models.model_utils import grad_dtype_guard
+    x = torch.ones(3, dtype=torch.bfloat16, requires_grad=True)
+    y = grad_dtype_guard(x)
+    assert torch.equal(y, x)
+    (gx,) = torch.autograd.grad((y.float() * 1.5).sum(), x)
+    assert gx.dtype == torch.bfloat16
+
+
+def test_plain_attention_and_ssd_gradients_flow():
+    """With ``use_kernels=True`` the CPU path runs each kernel's plain
+    version, which stays differentiable: every attention and SSD weight
+    gets a gradient."""
+    for arch, names in (("qwen2.5-32b", ("attn.wq", "attn.wk", "attn.wv")),
+                        ("mamba2-370m", ("mixer.a_log", "mixer.dt_bias",
+                                         "mixer.in_proj"))):
+        cfg = dataclasses.replace(reduced(get_arch(arch)), use_kernels=True)
+        tm = build_model(cfg, torch.float32, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in batch_for(cfg).items()}
+        loss, _ = tm.loss(batch)
+        named = dict(tm.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        for name in names:
+            for i in range(cfg.num_layers):
+                assert float(grads[f"layers.{i}.{name}"].norm()) > 0, name
+
+
+# -- the port's own system checks (tests/test_system.py) ---------------------------
+
+
+def test_train_loss_decreases_and_lipschitz_spreads():
+    res = ttrain.run_training(
+        reduced(get_arch("qwen2.5-32b")), graph_kind="ring", n_silos=8,
+        method="mhlj", steps=80, batch_size=2, seq_len=32, lr=1e-3,
+        log_every=0, seed=0, device="cpu")
+    assert np.isfinite(res["losses"]).all()
+    assert res["losses"][-20:].mean() < res["losses"][:10].mean() - 0.3
+    assert np.unique(res["final_lipschitz"]).size > 1
+
+
+def test_train_remark1_accounting():
+    p_j, p_d, r = 0.3, 0.5, 3
+    res = ttrain.run_training(
+        reduced(get_arch("qwen2.5-32b")), graph_kind="ring", n_silos=8,
+        method="mhlj", steps=120, batch_size=1, seq_len=16, p_j=p_j, p_d=p_d,
+        r=r, log_every=0, seed=1, device="cpu")
+    assert 1.0 <= res["transitions_per_update"] <= remark1_bound(p_j, p_d, r) + 0.2
+
+
+def test_main_parses_the_reference_flags(capsys):
+    rc = ttrain.main(["--arch", "mamba2-370m", "--scale", "smoke", "--steps",
+                      "3", "--batch", "1", "--seq", "16", "--graph", "expander",
+                      "--method", "importance", "--device", "cpu"])
+    assert rc == 0
+    assert '"transitions_per_update"' in capsys.readouterr().out

@@ -56,6 +56,8 @@ def _t(tree):
 
 
 def _close(port, ref, **tol):
+    if isinstance(port, torch.Tensor):
+        port = port.detach()  # loss runs under grad
     np.testing.assert_allclose(np.asarray(port, np.float32),
                                np.asarray(ref, np.float32), **(tol or TOL))
 
