@@ -75,8 +75,9 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    through the padding, its float32 route (``cuda_core_f32``) on the same
    inputs upcast, each route's error against the float64 result, both
    routes timed (share of the bound, the bytes the bf16 design moves, its
-   three launches apart under the profiler) and ``ops._head_major``'s
-   copies apart — with device times, bounds, the
+   three launches apart under the profiler; the bound counts B and C at
+   their groups), ``ops._head_major``'s copies apart and the scan with
+   them — with device times, bounds, the
    plain version's time and SDPA's; 7. prefill
    (``apply``, minitron B=1x4096, mamba2 B=4x4096) with
    ``use_kernels=True``: launches (one kernel per layer; minitron's 32 on
@@ -202,6 +203,35 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    for bit, ``mhlj`` nodes up to a near-tie (printed), losses at 1e-3;
    (e) a kill after a step-20 checkpoint and a resume, bit for bit under
    ``torch.use_deterministic_algorithms(True)``, ms/step with and without.
+14. the MoE, hybrid and audio families (aim ``PHASE14_AIM_S``), random
+   weights from seed 0 in bf16, each model freed before the next: (a)
+   jamba-1.5-large-398b at full width cut to one period (8 layers: 7
+   mamba, 1 attention, 4 MoE, 4 SwiGLU) and 8 of its 16 experts (4 if 8
+   run out of memory; top-2 kept): ``ssd_scan`` on layer 0's inputs (B=1,
+   L=4096, H=256, P=64, N=128, G=8, chunk 256; ``mma_bf16``) against its
+   plain version, both routes against float64, device time, bound share
+   (B and C counted at their 8 groups), ``ops._head_major``'s 32-fold
+   group repeat timed, and the scan with it; prefill
+   B=1x4096 on both paths (7 ``mma_bf16`` launches, no flash launch;
+   tokens/s, peak memory, relative Frobenius error, the MoE dropped
+   fraction and expert load); ``ServeEngine`` on the 8 requests; (b)
+   deepseek-moe-16b at full width and depth: prefill B=1x4096 (no kernel,
+   both paths the same bits) and serving; (c) whisper-tiny at full size:
+   ``apply`` on B=4 x (1500 frames, 448 tokens), ``init_cache`` with
+   frames equal to ``precompute_cross_kv`` of the encoder's output,
+   serving; (d) reduced olmoe, deepseek-moe-16b, jamba (also on its kernel
+   path) and whisper in float32, card against CPU on the same weights:
+   ``apply``, ``loss`` with ``moe_aux``, 20 decode steps at 2e-4, greedy
+   tokens up to a near-tie and the decode up to a token routed otherwise
+   at a near-tie of the router, every router call before it within 2e-4;
+   routing near-ties counted and printed apart (they excuse nothing); (e)
+   ``launch.train.main`` on olmoe-1b-7b at full width cut to 4 layers, 10
+   steps of 2 x 128 in float32 (ms/step by phase, peak memory, ``moe_aux``
+   in every step's metrics, one sparse launch a step); reduced jamba and
+   deepseek-moe-16b 20 steps card against CPU (nodes equal, losses at
+   1e-3); the reduced olmoe fleet step (W=4, averaging every 2); reduced
+   olmoe killed after a step-10 checkpoint and resumed bit for bit under
+   deterministic algorithms.
 
 Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
 of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
@@ -1381,12 +1411,13 @@ def flash_bound(b, s, t, n, kh, h, elt, causal, window) -> tuple:
     return nbytes, 4.0 * h * live * b * n
 
 
-def ssd_bound(b, h, l, p, n, q, elt) -> tuple:
-    """``(bytes, ops)`` of one SSD scan: x, B, C (as passed, group-expanded)
-    and the float32 da, dt read once, y (float32) written once; per chunk
-    the lower-triangular C.B^T and att @ x, the state term and the state
+def ssd_bound(b, h, l, p, n, q, elt, g) -> tuple:
+    """``(bytes, ops)`` of one SSD scan: x, B and C at their ``g`` groups
+    (what the function needs, not the kernel's head-expanded copies) and
+    the float32 da, dt read once, y (float32) written once; per chunk the
+    lower-triangular C.B^T and att @ x, the state term and the state
     update."""
-    nbytes = b * h * l * ((p + 2 * n) * elt + 2 * 4 + p * 4)
+    nbytes = b * l * (h * (p * elt + 2 * 4 + p * 4) + 2 * g * n * elt)
     pairs = q * (q + 1) / 2
     per_chunk = pairs * 2 * (n + p) + 2 * (2 * q * n * p)
     return nbytes, per_chunk * (l // q) * b * h
@@ -1476,6 +1507,27 @@ def ssd_mma_bytes(b, h, l, p, n, q) -> float:
     return pass1 + pass2 + pass3
 
 
+def ssd_inputs(model, lp, tokens) -> tuple:
+    """The SSD scan's inputs ``(xs, dt, a, bs, cs)`` in the model layout for
+    mamba layer ``lp`` (a ``{"ln", "mixer"}`` group) on ``tokens``' embeddings,
+    as ``mamba_apply`` computes them."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import mamba2 as mamba_mod
+    from repro_torch.models.layers.norms import rmsnorm
+
+    dims = model.mdims
+    with torch.no_grad():
+        x = rmsnorm(lp["ln"], model.embedding["table"][tokens], model.cfg.norm_eps)
+        _, conv_in, dt_raw = mamba_mod._split_proj(lp["mixer"], x, dims)
+        conv = F.silu(mamba_mod._causal_conv(conv_in, lp["mixer"]["conv_w"],
+                                             lp["mixer"]["conv_b"]))
+        xs, bs, cs = mamba_mod._split_conv_out(conv, dims)
+        dt = F.softplus(dt_raw.float() + lp["mixer"]["dt_bias"])
+        a = -torch.exp(lp["mixer"]["a_log"])
+    return xs, dt, a, bs, cs
+
+
 def phase_ssd(model, cfg, dev, gen) -> dict:
     """``ssd_scan`` on mamba2-370m's layer 0 (B=4, L=4096, H=32, P=64,
     N=128, chunk 256): the bf16 route (``mma_bf16``) against its plain
@@ -1486,24 +1538,13 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
     version's and max |y|.  Device times of both routes with the share of the bound,
     the bytes the bf16 route's design moves, and ``ops._head_major``'s
     copies timed apart."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
-    from repro_torch.models.layers import mamba2 as mamba_mod
-    from repro_torch.models.layers.norms import rmsnorm
 
     b, l = 4, 4096
     tokens = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device=dev)
-    lp, dims = model.layers[0], model.mdims
-    with torch.no_grad():
-        x = rmsnorm(lp["ln"], model.embedding["table"][tokens], cfg.norm_eps)
-        _, conv_in, dt_raw = mamba_mod._split_proj(lp["mixer"], x, dims)
-        conv = F.silu(mamba_mod._causal_conv(conv_in, lp["mixer"]["conv_w"],
-                                             lp["mixer"]["conv_b"]))
-        xs, bs, cs = mamba_mod._split_conv_out(conv, dims)
-        dt = F.softplus(dt_raw.float() + lp["mixer"]["dt_bias"])
-        a = -torch.exp(lp["mixer"]["a_log"])
+    dims = model.mdims
+    xs, dt, a, bs, cs = ssd_inputs(model, model.layers[0], tokens)
     args = ssd_ops._head_major(xs, dt, a, bs, cs)
     args32 = tuple(t.float() for t in args)
     chunk = dims.chunk
@@ -1551,15 +1592,20 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
         f"(rows < 4000: {err64['plain_l4000']:.3e})")
     plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
     head_major = device_time_ms(lambda i: ssd_ops._head_major(xs, dt, a, bs, cs), 10)
+    path = device_time_ms(lambda i: ssd_ops.ssd_scan(
+        *ssd_ops._head_major(xs, dt, a, bs, cs), chunk=chunk), 20)
+    g = dims.num_groups
+    nbytes, ops = ssd_bound(b, h, l, p, n, chunk, 2, g)
     log(f"  ops._head_major (layout change, group repeat of B and C): "
-        f"{head_major[0]:.4f} ms on the device")
-    nbytes, ops = ssd_bound(b, h, l, p, n, chunk, 2)
+        f"{head_major[0]:.4f} ms on the device; with the mma_bf16 scan "
+        f"{path[0]:.4f} ms ({bound(nbytes, ops, BF16_OPS_PER_S)[0] / path[0]:.1%} "
+        f"of the bound)")
     design = ssd_mma_bytes(b, h, l, p, n, chunk)
     routes = {}
     for route, t, peak, iters in (("mma_bf16", args, BF16_OPS_PER_S, 20),
                                   ("cuda_core_f32", args32, FP32_OPS_PER_S, 3)):
         ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*t, chunk=chunk), iters)
-        rb = ssd_bound(b, h, l, p, n, chunk, t[0].element_size())[0]
+        rb = ssd_bound(b, h, l, p, n, chunk, t[0].element_size(), g)[0]
         b_ms, b_by = bound(rb, ops, peak)
         routes[route] = {"ms": ms[0], "plain_ms": plain[0], "library_ms": None,
                          "bound_ms": b_ms, "bound_by": b_by, "bytes": rb,
@@ -1588,6 +1634,7 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
         + f"; idle share {prof['idle_share']}")
     return {**main, "max_abs_err": max(errs["mma_bf16"]), "bytes": nbytes,
             "ops": ops, "design_bytes": design, "head_major_ms": head_major[0],
+            "path_ms": path[0],
             "passes_ms": passes, "max_abs_err_vs_f64": err64, "max_abs_y": top,
             "routes": routes}
 
@@ -1634,10 +1681,20 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def mamba_layers(model) -> int:
+    """The model's mamba mixers: one ``ssd_scan`` each on the kernel path."""
+    if model.cfg.family == "ssm":
+        return model.cfg.num_layers
+    if model.cfg.family == "hybrid":
+        return model.counts["mamba"] * len(model.periods)
+    return 0
+
+
 def both_paths(model, cfg, tokens) -> dict:
     """``apply`` with ``use_kernels=True`` (launches counted from 0; one
-    kernel per layer and nothing else, or raise) and with the einsum path
-    on the same weights, each timed with its peak memory."""
+    kernel per dense attention or mamba layer and nothing else, or raise)
+    and with the einsum path on the same weights, each timed with its peak
+    memory."""
     import dataclasses
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1646,9 +1703,9 @@ def both_paths(model, cfg, tokens) -> dict:
 
     counters = {"flash_attention": fa_ops.mha, "ssd_scan": ssd_ops.ssd_scan,
                 "rmsnorm_fused": rms_ops.rmsnorm_fused}
+    n_mamba = mamba_layers(model)
     expect = {"flash_attention": cfg.num_layers if cfg.family == "dense" else 0,
-              "ssd_scan": cfg.num_layers if cfg.family == "ssm" else 0,
-              "rmsnorm_fused": 0}
+              "ssd_scan": n_mamba, "rmsnorm_fused": 0}
     # the flash and SSD routes the model's dtype (and SSD shape) take, once
     # per layer
     dtype = model.embedding["table"].dtype
@@ -1656,10 +1713,9 @@ def both_paths(model, cfg, tokens) -> dict:
     expect_routes = {r: expect["flash_attention"] if r == route else 0
                      for r in fa_ops.mha.launches_by_route}
     expect_ssd = dict.fromkeys(ssd_ops.ROUTES, 0)
-    if cfg.family == "ssm":
+    if n_mamba:
         d = model.mdims
-        expect_ssd[ssd_ops.route_of(dtype, d.head_dim, d.d_state, d.chunk)] = (
-            cfg.num_layers)
+        expect_ssd[ssd_ops.route_of(dtype, d.head_dim, d.d_state, d.chunk)] = n_mamba
     out = {}
     for path, use_kernels in (("kernel", True), ("einsum", False)):
         model.cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
@@ -1917,12 +1973,12 @@ def phase_llm(dev) -> dict:
 # -- phase 9: the paper on the card ----------------------------------------------
 
 PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
-SCRIPT_AIM_S = 840.0 + 90.0  # the whole script's aim, phase 13's included
+SCRIPT_AIM_S = 840.0 + 90.0 + 60.0  # the whole script's aim, phases 13-14's included
 # the seconds phases 10-12 took after phase 9 on an H100 at 700 W (phase 10
 # ~254 plus its serving leg's ~17, phase 11 ~35, phase 12 ~101; PERF.md
-# section 5) and phase 13's aim (PHASE13_AIM_S): phase 9 aims at what is
-# left of SCRIPT_AIM_S, never above PAPER_BUDGET_S
-LATER_PHASES_S = 407.0 + 90.0
+# section 5) and phases 13's and 14's aims (PHASE13_AIM_S, PHASE14_AIM_S):
+# phase 9 aims at what is left of SCRIPT_AIM_S, never above PAPER_BUDGET_S
+LATER_PHASES_S = 407.0 + 90.0 + 60.0
 PHASE10_AIM_S = 240.0  # phase 10's aim: the script within ~12 min
 LAWS_AIM_S = 110.0  # of which the law sweep's 21 runs (T cut past it)
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
@@ -4134,6 +4190,15 @@ def phase13_resume(dev, wt) -> dict:
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: losses, nodes, parameters,
     optimizer state and walk state equal the uninterrupted run bit for bit.
     ms/step with and without the deterministic mode."""
+    return resume_check(dev, wt, "mamba2-370m", P13_RESUME["steps"],
+                        P13_RESUME["every"], "(e)")
+
+
+def resume_check(dev, wt, arch: str, steps: int, every: int, tag: str) -> dict:
+    """Reduced ``arch``, ``steps`` steps of 4 x 128 (MHLJ, online) with a
+    checkpoint every ``every``, killed at the top of step ``every + 1`` and
+    resumed, under deterministic algorithms: bit for bit against the
+    uninterrupted run (also run under them), and ms/step without them."""
     import shutil
     import tempfile
 
@@ -4144,8 +4209,7 @@ def phase13_resume(dev, wt) -> dict:
     class Killed(Exception):
         pass
 
-    steps, every = P13_RESUME["steps"], P13_RESUME["every"]
-    cfg = reduced(get_arch("mamba2-370m"))
+    cfg = reduced(get_arch(arch))
     kw = dict(graph_kind="watts_strogatz", n_silos=16, method="mhlj",
               steps=steps, batch_size=4, seq_len=128, log_every=0, seed=5,
               device=dev)
@@ -4158,7 +4222,7 @@ def phase13_resume(dev, wt) -> dict:
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix="p13_ckpt_", dir=os.path.join(ROOT, "build"))
+    root = tempfile.mkdtemp(prefix="resume_ckpt_", dir=os.path.join(ROOT, "build"))
     try:
         t0 = time.perf_counter()
         full = train.run_training(cfg, **kw)
@@ -4201,15 +4265,15 @@ def phase13_resume(dev, wt) -> dict:
         "opt_state": same(resumed["opt_state"], full["opt_state"]),
         "walk_state": same(resumed["walk_state"], full["walk_state"]),
     }
-    log(f"  (e) reduced mamba2-370m, {steps} steps (4x128), checkpoint every "
+    log(f"  {tag} reduced {arch}, {steps} steps (4x128), checkpoint every "
         f"{every}, killed at the top of step {every + 1}: {killed}; resumed == "
         f"uninterrupted: {checks}; ms/step {free_ms:.3f} without, "
         f"{det_ms:.3f} with deterministic algorithms (host clock, whole "
         f"run); launches {launches}")
     gates: dict = {}
-    gate(gates, f"(e) killed after the step-{every} checkpoint", killed)
-    gate(gates, "(e) resume bit for bit", all(checks.values()))
-    gate(gates, "(e) one sparse launch a step",
+    gate(gates, f"{tag} killed after the step-{every} checkpoint", killed)
+    gate(gates, f"{tag} resume bit for bit", all(checks.values()))
+    gate(gates, f"{tag} one sparse launch a step",
          launches["walk_transition_sparse"] == 3 * steps)
     return {"launches": launches, "gates": gates, "checks": checks,
             "ms_per_step": free_ms, "deterministic_ms_per_step": det_ms}
@@ -4237,6 +4301,683 @@ def phase_llm_training(dev, smi) -> dict:
               for k, ok in part.get("gates", {}).items() if not ok]
     if failed:
         raise AssertionError(f"phase 13: {failed}")
+    return out
+
+
+# -- phase 14: the MoE, hybrid and audio families ------------------------------------
+
+PHASE14_AIM_S = 60.0  # phase 14's aim
+JAMBA = "jamba-1.5-large-398b"
+# (a) jamba's cuts: one period (72 -> 8 layers), 16 -> 8 experts (the 16
+# experts of one period alone are ~77 GB in bf16); 4 if 8 do not fit
+P14_JAMBA_EXPERTS = (8, 4)
+P14_PREFILL = (1, 4096)  # (a), (b): B x S
+P14_WHISPER = (4, 448)  # (c): B x decoder tokens, on 1500 frames
+P14_TOL = 2e-4  # (d): card against CPU, atol = rtol
+P14_DECODE = 20  # (d): decode steps through a 16-slot cache
+P14_CARD_CPU = ("olmoe-1b-7b", "deepseek-moe-16b", JAMBA, "whisper-tiny")
+P14_TRAIN_ARGV = ["--arch", "olmoe-1b-7b", "--scale", "full", "--graph",
+                  "watts_strogatz", "--silos", "16", "--method", "mhlj",
+                  "--steps", "10", "--batch", "2", "--seq", "128", "--device",
+                  "cuda"]
+# (e) olmoe-1b-7b's depth cut: 16 -> 4 layers (weights, gradients and AdamW
+# state in float32: ~28 GB at 4 layers, ~109 GB at 16)
+P14_TRAIN_LAYERS = 4
+P14_CPU_STEPS = 20  # (e): reduced jamba and deepseek, card against CPU
+P14_FLEET = dict(walkers=4, avg_every=2, steps=4)  # (e): reduced olmoe
+P14_RESUME = dict(steps=20, every=10)  # (e): reduced olmoe
+
+
+class MoEAudit:
+    """While open, every ``moe_apply`` call's aux and every router call's
+    probabilities are recorded (the layer runs unchanged)."""
+
+    def __init__(self):
+        self.aux: list = []
+        self.probs: list = []
+
+    def __enter__(self):
+        from repro_torch.models.layers import moe as moe_mod
+
+        self.saved = (moe_mod.moe_apply, moe_mod.moe_route)
+        apply, route = self.saved
+        aux, probs = self.aux, self.probs
+
+        def recorded_apply(params, x, dims):
+            out, a = apply(params, x, dims)
+            aux.append({k: v.detach() for k, v in a.items()})
+            return out, a
+
+        def recorded_route(params, x, dims):
+            out = route(params, x, dims)
+            probs.append((out[0].detach(), dims.experts_per_token))
+            return out
+
+        moe_mod.moe_apply, moe_mod.moe_route = recorded_apply, recorded_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.layers import moe as moe_mod
+
+        moe_mod.moe_apply, moe_mod.moe_route = self.saved
+        return False
+
+
+
+def moe_summary(aux: list) -> dict:
+    """The dropped fraction (mean, and each MoE layer's) and the mean
+    expert load over recorded MoE calls."""
+    if not aux:
+        return {"dropped_frac": None, "dropped_by_layer": None, "expert_load": None}
+    drops = torch.stack([a["moe_dropped_frac"] for a in aux])
+    load = torch.stack([a["moe_expert_load"] for a in aux]).mean(0)
+    return {"dropped_frac": float(drops.mean()),
+            "dropped_by_layer": [round(float(x), 4) for x in drops],
+            "expert_load": [round(float(x), 4) for x in load]}
+
+
+def routing_changed(probs_a: list, probs_b: list) -> float:
+    """The share of (MoE layer, token) whose selected experts differ between
+    two runs' paired router calls."""
+    changed = total = 0
+    for (pa, k), (pb, _) in zip(probs_a, probs_b):
+        ia = torch.sort(pa, dim=-1, descending=True, stable=True).indices[..., :k]
+        ib = torch.sort(pb, dim=-1, descending=True, stable=True).indices[..., :k]
+        changed += int((ia != ib).any(-1).sum())
+        total += ia[..., 0].numel()
+    return changed / max(total, 1)
+
+
+def jamba_ssd(model, cfg, dev, gen) -> dict:
+    """``ssd_scan`` on jamba's layer 0 (period 0, mamba sublayer 0): B=1,
+    L=4096, H=256, P=64, N=128, G=8, chunk 256, bf16 (the ``mma_bf16``
+    route) against its plain version, both routes (float32: the inputs
+    upcast) held to the float64 result (no more than twice the plain
+    version's error), device times with the share of the bound (B and C
+    counted at their 8 groups), ``ops._head_major``'s copies (a 32-fold
+    group repeat of B and C here) timed apart, and the scan with them (the
+    path from the model's layout) with its share of the same bound."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    b, l = P14_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device=dev)
+    dims = model.mdims
+    xs, dt, a, bs, cs = ssd_inputs(model, model.periods[0]["mamba"][0], tokens)
+    args = ssd_ops._head_major(xs, dt, a, bs, cs)
+    chunk, h, p, n = dims.chunk, dims.num_heads, dims.head_dim, dims.d_state
+    where = (f"at jamba's layer 0, B={b} L={l} H={h} P={p} N={n} "
+             f"G={dims.num_groups} chunk {chunk}")
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
+    plain_y = ssd_scan_ref(*args, chunk=chunk)
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    err = hold("ssd_scan", y, plain_y, torch.bfloat16, where + " bf16")
+    args32 = tuple(t.float() for t in args)
+    y32 = ssd_ops.ssd_scan(*args32, chunk=chunk)
+    went = {r: ssd_ops.ssd_scan.launches_by_route[r] - before[r] for r in before}
+    if went != {"mma_bf16": 1, "cuda_core_f32": 1}:
+        raise AssertionError(f"ssd_scan took the routes {went} at jamba's shape")
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+    top = float(exact.abs().max())
+    err64 = {name: float((t.double() - exact).abs().max())
+             for name, t in (("mma_bf16", y), ("cuda_core_f32", y32),
+                             ("plain", plain_y))}
+    del exact, y32, args32
+    for route in ("mma_bf16", "cuda_core_f32"):
+        if not err64[route] <= 2 * err64["plain"]:
+            raise AssertionError(f"ssd_scan {route} against float64 {where}: {err64}")
+    log(f"  ssd_scan max abs err against the float64 result {where} (max |y| "
+        f"{top:.3e}): mma_bf16 {err64['mma_bf16']:.3e}, cuda_core_f32 (inputs "
+        f"upcast) {err64['cuda_core_f32']:.3e}, plain version {err64['plain']:.3e}")
+    plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
+    head_major = device_time_ms(lambda i: ssd_ops._head_major(xs, dt, a, bs, cs), 10)
+    ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 20)
+    path = device_time_ms(lambda i: ssd_ops.ssd_scan(
+        *ssd_ops._head_major(xs, dt, a, bs, cs), chunk=chunk), 20)
+    nbytes, ops = ssd_bound(b, h, l, p, n, chunk, 2, dims.num_groups)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    repeat_bytes = 2 * b * h * l * n * 2  # B and C written head-major
+    log(f"  ssd_scan mma_bf16 {where}: {ms[0]:.4f} ms/launch on the device "
+        f"({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by {b_by}; "
+        f"{nbytes:.4e} B with B and C at their {dims.num_groups} groups, "
+        f"{ops:.4e} flop), plain {plain[0]:.4f} ms; ops._head_major "
+        f"{head_major[0]:.4f} ms ({repeat_bytes / 1e6:.0f} MB of repeated B and C, "
+        f"{h // dims.num_groups}-fold); the two together {path[0]:.4f} ms "
+        f"({b_ms / path[0]:.1%} of the bound)")
+    return {"ms": ms[0], "plain_ms": plain[0], "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms[0],
+            "max_abs_err": err, "max_abs_err_vs_f64": err64, "max_abs_y": top,
+            "head_major_ms": head_major[0], "path_ms": path[0],
+            "path_bound_share": b_ms / path[0], "bytes": nbytes, "ops": ops,
+            "shape": {"b": b, "l": l, "h": h, "p": p, "n": n,
+                      "g": dims.num_groups, "chunk": chunk}}
+
+
+def prefill14(model, cfg, dev, gen) -> dict:
+    """Prefill at ``P14_PREFILL`` in bf16 on both paths (``both_paths``,
+    after a warm call): tokens/s, peak memory, the relative Frobenius error
+    of the kernel path against the einsum path, and the MoE layers'
+    dropped fraction and expert load on the kernel path."""
+    import dataclasses
+
+    b, s = P14_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    model.cfg = dataclasses.replace(cfg, use_kernels=True)
+    model.apply({"tokens": tokens})  # warm
+    with MoEAudit() as audit:
+        runs = both_paths(model, cfg, tokens)
+    half = len(audit.probs) // 2  # the kernel path's calls, then the einsum path's
+    rel = rel_err(runs["kernel"]["h"], runs["einsum"]["h"])
+    k, e = runs["kernel"], runs["einsum"]
+    out = {"batch": b, "seq": s, "tokens_per_s": b * s / k["s"],
+           "einsum_tokens_per_s": b * s / e["s"], "kernel_s": k["s"],
+           "einsum_s": e["s"], "peak_gb": k["peak_bytes"] / 1e9,
+           "einsum_peak_gb": e["peak_bytes"] / 1e9, "rel_kernel_vs_einsum": rel,
+           "launches": k["launches"], "routes": k["routes"],
+           "ssd_routes": k["ssd_routes"],
+           "routing_changed": routing_changed(audit.probs[:half], audit.probs[half:]),
+           **moe_summary(audit.aux[:half])}
+    log(f"  prefill {cfg.name} B={b} S={s} bf16: kernel path {k['s']:.4f} s "
+        f"({out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gb']:.2f} GB), "
+        f"einsum path {e['s']:.4f} s ({out['einsum_tokens_per_s']:.1f} tokens/s, "
+        f"peak {out['einsum_peak_gb']:.2f} GB); relative Frobenius error kernel "
+        f"vs einsum {rel:.4e}; launches {k['launches']}, SSD routes "
+        f"{k['ssd_routes']}; MoE dropped fraction {out['dropped_frac']} (by "
+        f"layer {out['dropped_by_layer']}), expert load {out['expert_load']}; "
+        f"tokens routed differently by the two paths {out['routing_changed']:.4%}")
+    return out
+
+
+def build14(cfg, dev, dtype=torch.bfloat16):
+    """``cfg``'s model from seed 0 on the card: the model, its parameter
+    count and build seconds."""
+    from repro_torch.models.factory import build_model
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dtype, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    return model, n, time.perf_counter() - t0
+
+
+def phase14_jamba(dev, smi) -> dict:
+    """(a) jamba-1.5-large-398b at full width, one period, its experts cut
+    (``P14_JAMBA_EXPERTS``): ``ssd_scan`` on layer 0's inputs, the prefill
+    on both paths (7 ``mma_bf16`` launches, no flash launch: the reference's
+    hybrid attention is einsum), then ``ServeEngine`` on the 8 requests."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch(JAMBA)
+    gates: dict = {}
+    for experts in P14_JAMBA_EXPERTS:
+        cfg = dataclasses.replace(full, num_layers=full.attn_period,
+                                  num_experts=experts)
+        try:
+            model, n, t_build = build14(cfg, dev)
+            c = model.counts
+            log(f"  (a) {JAMBA}, {smi}: cuts: layers {full.num_layers} -> "
+                f"{cfg.num_layers} (one period: {c['mamba']} mamba, 1 attention, "
+                f"{c['moe']} MoE, {c['mlp']} SwiGLU), experts {full.num_experts} "
+                f"-> {experts} (top-{cfg.experts_per_token} kept); width uncut "
+                f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+                f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, SSD "
+                f"{cfg.ssm_heads} heads, P={cfg.ssm_head_dim}, N={cfg.ssm_state}, "
+                f"{cfg.ssm_groups} groups); {n} parameters, {n * 2 / 1e9:.2f} GB "
+                f"in bf16, built in {t_build:.2f} s")
+            gen = torch.Generator(device=dev).manual_seed(0)
+            kernel = jamba_ssd(model, cfg, dev, gen)
+            pre = prefill14(model, cfg, dev, gen)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            model = None
+            torch.cuda.empty_cache()
+            if experts == P14_JAMBA_EXPERTS[-1]:
+                raise
+            log(f"  (a) {JAMBA} with {experts} experts ran out of device "
+                f"memory ({str(e)[:120]}); cutting to the next count")
+    gate(gates, "(a) 7 mma_bf16 ssd_scan launches, no other kernel",
+         pre["ssd_routes"] == {"mma_bf16": 7, "cuda_core_f32": 0}
+         and pre["launches"] == {"flash_attention": 0, "ssd_scan": 7,
+                                 "rmsnorm_fused": 0})
+    srv = serve(model, cfg, dev)
+    del model
+    torch.cuda.empty_cache()
+    return {"experts": cfg.num_experts, "params": n, "build_s": t_build,
+            "kernel": kernel, "prefill": pre, "serve": srv, "gates": gates}
+
+
+def phase14_deepseek(dev, smi) -> dict:
+    """(b) deepseek-moe-16b at full width and depth: the prefill (both paths
+    must give the same bits: ``use_kernels`` changes nothing on the MoE
+    family, whose attention is einsum in the reference) and serving."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("deepseek-moe-16b")
+    model, n, t_build = build14(cfg, dev)
+    log(f"  (b) deepseek-moe-16b full ({cfg.num_layers} layers, the first "
+        f"dense, {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+        f"{cfg.num_shared_experts} shared), {smi}: {n} parameters, "
+        f"{n * 2 / 1e9:.2f} GB in bf16, built in {t_build:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pre = prefill14(model, cfg, dev, gen)
+    gates: dict = {}
+    gate(gates, "(b) no kernel launched, use_kernels changes no bit",
+         pre["rel_kernel_vs_einsum"] == 0.0 and not any(pre["launches"].values()))
+    srv = serve(model, cfg, dev)
+    del model
+    torch.cuda.empty_cache()
+    return {"params": n, "build_s": t_build, "prefill": pre, "serve": srv,
+            "gates": gates}
+
+
+def phase14_whisper(dev, smi) -> dict:
+    """(c) whisper-tiny at full size: ``apply`` on B=4 x (1500 frames, 448
+    tokens) (tokens/s over the decoder tokens), ``init_cache`` with frames
+    equal to ``precompute_cross_kv`` on the encoder's output, serving."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import attention as attn_mod
+
+    cfg = get_arch("whisper-tiny")
+    model, n, t_build = build14(cfg, dev)
+    b, s = P14_WHISPER
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=dev),
+             "frames": torch.randn((b, cfg.encoder_len, cfg.d_model),
+                                   generator=gen, device=dev)}
+    model.apply(batch)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = model.apply(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cache = model.init_cache(b, 256, frames=batch["frames"])
+    with torch.no_grad():
+        memory = model.encode(batch["frames"])
+        same = all(torch.equal(kv["k"], want["k"]) and torch.equal(kv["v"], want["v"])
+                   for layer, kv in zip(model.decoder, cache["cross"])
+                   for want in [attn_mod.precompute_cross_kv(layer["cross_attn"],
+                                                             memory, model.dims)])
+    log(f"  (c) whisper-tiny full ({cfg.num_encoder_layers}+{cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.encoder_len} frames), {smi}: {n} "
+        f"parameters; apply B={b} x ({cfg.encoder_len} frames, {s} tokens) bf16 "
+        f"{dt:.4f} s ({b * s / dt:.1f} decoder tokens/s, {b * cfg.encoder_len / dt:.1f} "
+        f"frames/s), peak {peak:.3f} GB; init_cache cross K/V == "
+        f"precompute_cross_kv(encode(frames)): {same}")
+    gates: dict = {}
+    gate(gates, "(c) apply finite, (B, S, D)", bool(torch.isfinite(h).all())
+         and tuple(h.shape) == (b, s, cfg.d_model))
+    gate(gates, "(c) init_cache's cross K/V", same)
+    srv = serve(model, cfg, dev)
+    del model, cache, memory
+    torch.cuda.empty_cache()
+    return {"params": n, "apply_s": dt, "tokens_per_s": b * s / dt,
+            "peak_gb": peak, "serve": srv, "gates": gates}
+
+
+def routing_near_ties(cpu_probs, card_probs) -> tuple:
+    """Tokens whose k-th and (k+1)-th router probabilities (the CPU's) lie
+    closer than the card's largest difference from the CPU's, over paired
+    router calls; and that difference.  Printed apart: they excuse
+    nothing."""
+    ties, diff = 0, 0.0
+    for (pc, k), (pg, _) in zip(cpu_probs, card_probs):
+        d = float((pc - pg.cpu()).abs().max())
+        diff = max(diff, d)
+        top = torch.sort(pc.reshape(-1, pc.shape[-1]), dim=-1,
+                         descending=True).values
+        ties += int(((top[:, k - 1] - top[:, k]) <= d).sum())
+    return ties, diff
+
+
+def routing_split(cpu_probs, card_probs, marks: list, where: str):
+    """The first decode step (its router calls ``marks[t]:marks[t + 1]``)
+    at which the card selects other experts than the CPU for a token, which
+    must be a near-tie of the CPU's router probabilities (the k-th and
+    (k+1)-th within 2 * (P14_TOL + P14_TOL * p_k)), or None."""
+    for step in range(len(marks) - 1):
+        calls = zip(cpu_probs[marks[step]:marks[step + 1]],
+                    card_probs[marks[step]:marks[step + 1]])
+        for (pc, k), (pg, _) in calls:
+            pc, pg = pc.reshape(-1, pc.shape[-1]), pg.cpu().reshape(-1, pc.shape[-1])
+            top = torch.sort(pc, dim=-1, descending=True, stable=True)
+            picked = torch.sort(pg, dim=-1, descending=True, stable=True).indices
+            rows = torch.nonzero((top.indices[:, :k].sort(-1).values
+                                  != picked[:, :k].sort(-1).values).any(-1)).flatten()
+            for row in rows.tolist():
+                pk = float(top.values[row, k - 1])
+                gap = pk - float(top.values[row, k])
+                if gap >= 2 * (P14_TOL + P14_TOL * pk):
+                    raise AssertionError(f"{where}: card routes a token to other "
+                                         f"experts at decode step {step} with a CPU "
+                                         f"gap {gap}")
+            if rows.numel():
+                return step
+    return None
+
+
+def close14(a, b) -> bool:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return bool(((a - b).abs() <= P14_TOL + P14_TOL * b.abs()).all())
+
+
+def phase14_card_vs_cpu(dev) -> dict:
+    """(d) reduced olmoe, deepseek-moe-16b, jamba and whisper in float32 on
+    the same weights (built on the CPU from seed 0): ``apply``, ``loss``
+    with its aux and ``P14_DECODE`` decode steps through a 16-slot cache at
+    ``P14_TOL``; greedy tokens equal up to a near-tie of the CPU's logits,
+    and the decode compared up to the first step that routes a token to
+    other experts at a near-tie of the CPU's router probabilities
+    (``routing_split``); every router call before it within ``P14_TOL`` of
+    the CPU's.  Routing near-ties (the k-th and (k+1)-th router
+    probabilities closer than the card's difference) are counted and
+    printed apart; they excuse nothing.  jamba also on its kernel path
+    (``cuda_core_f32`` on the card, the plain version on the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.factory import build_model
+
+    out, gates = {}, {}
+    for arch in P14_CARD_CPU:
+        cfg = reduced(get_arch(arch))
+        cpu_model = build_model(cfg, torch.float32, device="cpu")
+        card_model = build_model(cfg, torch.float32, device=dev)
+        card_model.load_state_dict(cpu_model.state_dict())
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+        res, audits, marks = {}, {}, {}
+        for name, m in (("cpu", cpu_model), ("card", card_model)):
+            b = {k: v.to(m.device) for k, v in batch.items()}
+            paths = [False, True] if cfg.family == "hybrid" else [False]
+            with MoEAudit() as audit:
+                h = {}
+                for uk in paths:
+                    m.cfg = dataclasses.replace(cfg, use_kernels=uk)
+                    h[uk] = m.apply(b)
+                m.cfg = cfg
+                loss, aux = m.loss(b)
+                frames = b.get("frames")
+                cache = (m.init_cache(2, 16, frames=frames) if frames is not None
+                         else m.init_cache(2, 16))
+                logits, marks[name] = [], []
+                for pos in range(P14_DECODE):
+                    marks[name].append(len(audit.probs))
+                    lg, cache = m.decode_step(b["tokens"][:, pos:pos + 1], cache, pos)
+                    logits.append(lg.cpu())
+                marks[name].append(len(audit.probs))
+            res[name] = {"h": h, "loss": loss, "aux": aux, "logits": logits}
+            audits[name] = audit.probs
+        if marks["cpu"] != marks["card"]:
+            raise AssertionError(f"reduced {arch}: router calls {marks}")
+        c, g = res["cpu"], res["card"]
+        rsplit = routing_split(audits["cpu"], audits["card"], marks["cpu"],
+                               f"reduced {arch}")
+        upto = P14_DECODE if rsplit is None else rsplit
+        calls = marks["cpu"][upto]  # the router calls before the routing split
+        ties, rdiff = routing_near_ties(audits["cpu"][:calls], audits["card"][:calls])
+        split, ldiff = near_tie_split(c["logits"][:upto], g["logits"][:upto],
+                                      f"reduced {arch}")
+        stop = upto if split is None else split
+        ok = {f"apply{'_kernels' if uk else ''}": close14(g["h"][uk], c["h"][uk])
+              for uk in c["h"]}
+        ok["loss"] = close14(g["loss"], c["loss"])
+        ok.update({f"aux {k}": close14(g["aux"][k], c["aux"][k]) for k in c["aux"]})
+        ok["decode"] = all(close14(a, b) for a, b in
+                           zip(g["logits"][:stop], c["logits"][:stop]))
+        ok["router"] = rdiff <= P14_TOL
+        rec = {"close": ok, "routing_near_ties": ties, "routing_max_diff": rdiff,
+               "routing_split_step": rsplit, "token_split_step": split,
+               "max_logit_diff": ldiff, "aux_keys": sorted(c["aux"])}
+        out[arch] = rec
+        log(f"  (d) reduced {arch} float32 card vs CPU (atol = rtol = "
+            f"{P14_TOL}): {ok}; greedy tokens "
+            f"{'equal on all ' + str(upto) + ' steps' if split is None else f'equal until a near-tie at step {split}'}"
+            f"{'' if rsplit is None else f' (decode compared up to a routing near-tie at step {rsplit})'}"
+            f" (max logit diff {ldiff:.3e}); routing near-ties {ties} (card vs CPU "
+            f"router probabilities within {rdiff:.3e}); aux {sorted(c['aux'])}")
+        gate(gates, f"(d) {arch} card == CPU at {P14_TOL}", all(ok.values()))
+        if cfg.num_experts:
+            gate(gates, f"(d) {arch} loss carries moe_aux", "moe_aux" in c["aux"])
+        del cpu_model, card_model
+    torch.cuda.empty_cache()
+    out["gates"] = gates
+    return out
+
+
+class DepthCut:
+    """While open, ``launch.train``'s ``get_arch(arch)`` gives the config at
+    ``layers`` layers (the CLI's ``--scale full`` at a cut depth)."""
+
+    def __init__(self, arch: str, layers: int):
+        self.arch, self.layers = arch, layers
+
+    def __enter__(self):
+        import dataclasses
+
+        from repro_torch.launch import train
+
+        self.saved = train.get_arch
+        orig, arch, layers = self.saved, self.arch, self.layers
+        train.get_arch = lambda name: (dataclasses.replace(orig(name), num_layers=layers)
+                                       if name == arch else orig(name))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+
+        train.get_arch = self.saved
+        return False
+
+
+class StepMetrics:
+    """While open, ``launch.train``'s train steps record their metrics."""
+
+    def __init__(self):
+        self.metrics: list = []
+
+    def __enter__(self):
+        from repro_torch.launch import train
+
+        self.saved = train.make_train_step
+        orig, rec = self.saved, self.metrics
+
+        def make(*args, **kw):
+            step = orig(*args, **kw)
+
+            def recorded(*a, **k):
+                out = step(*a, **k)
+                rec.append({key: float(v) for key, v in out[3].items()})
+                return out
+
+            return recorded
+
+        train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+
+        train.make_train_step = self.saved
+        return False
+
+
+def phase14_train_main(dev, wt, smi) -> dict:
+    """(e) ``launch.train.main(P14_TRAIN_ARGV)``: olmoe-1b-7b at full width,
+    depth cut to ``P14_TRAIN_LAYERS``, float32, 10 steps of 2 x 128, MHLJ
+    online: ms/step split by phase, peak memory; finite losses, ``moe_aux``
+    in every step's metrics, one sparse launch a step."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    counts_zero(wt)
+    buf = io.StringIO()
+    with TrainAudit() as audit, StepMetrics() as sm, \
+            DepthCut("olmoe-1b-7b", P14_TRAIN_LAYERS), contextlib.redirect_stdout(buf):
+        rc = train.main(P14_TRAIN_ARGV)
+    launches = counts_read(wt)
+    (run,) = audit.runs
+    losses = run["res"]["losses"]
+    steps, batch, seq = 10, 2, 128
+    ms_step = sum(run["split"].values())
+    aux = [m.get("moe_aux") for m in sm.metrics]
+    log(f"  (e) train main, olmoe-1b-7b full width (d_model 2048, 64 experts "
+        f"top-8, vocab 50304), depth cut 16 -> {P14_TRAIN_LAYERS}, float32, "
+        f"{smi}, {steps} steps of {batch}x{seq}: exit {rc}; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; moe_aux {aux[0]} -> {aux[-1]}; "
+        f"ms/step {ms_step:.3f} (median by CUDA events: {fmt_phases(run['split'])}); "
+        f"{run['res']['steps_per_sec'] * batch * seq:.1f} tokens/s; peak "
+        f"{run['peak_gb']:.2f} GB; launches {launches}")
+    gates: dict = {}
+    gate(gates, "(e) train main exit 0", rc == 0)
+    gate(gates, "(e) train main losses finite", bool(np.isfinite(losses).all()))
+    gate(gates, "(e) moe_aux in every step's metrics",
+         len(aux) == steps and all(a is not None and np.isfinite(a) for a in aux))
+    gate(gates, "(e) one sparse launch a step",
+         launches["walk_transition_sparse"] == steps)
+    return {"rc": rc, "launches": launches, "gates": gates,
+            "losses": losses.tolist(), "moe_aux": aux, "split_ms": run["split"],
+            "ms_per_step": ms_step, "tokens_per_sec":
+            run["res"]["steps_per_sec"] * batch * seq, "peak_gb": run["peak_gb"]}
+
+
+def phase14_train_card_vs_cpu(dev, wt) -> dict:
+    """(e) reduced jamba and deepseek-moe-16b, ``P14_CPU_STEPS`` steps of
+    ``run_training`` (``uniform``: static L) on the same weights: the card
+    draws its blocks, the CPU takes them injected; nodes equal, losses
+    within ``P13_LOSS_RTOL``."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.engine import draw_uniforms
+    from repro_torch.launch import train
+    from repro_torch.models.factory import build_model
+
+    out, gates, steps = {}, {}, P14_CPU_STEPS
+    for arch in (JAMBA, "deepseek-moe-16b"):
+        cfg = reduced(get_arch(arch))
+        base = build_model(cfg, torch.float32, device="cpu")
+        kw = dict(graph_kind="watts_strogatz", n_silos=16, method="uniform",
+                  steps=steps, batch_size=2, seq_len=64, log_every=0, seed=0,
+                  init_params=interop.reference_params_of(base))
+        gen = torch.Generator(dev).manual_seed(0)  # the walk's, as run_training seeds it
+        blocks = torch.stack([draw_uniforms(1, 3, 0.0, gen, dev)
+                              for _ in range(steps)]).cpu()
+        counts_zero(wt)
+        t0 = time.perf_counter()
+        card = train.run_training(cfg, device=dev, **kw)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = counts_read(wt)
+        cpu = train.run_training(cfg, device="cpu", uniforms=blocks.numpy(), **kw)
+        nodes_equal = np.array_equal(card["update_nodes"], cpu["update_nodes"])
+        rel = float((np.abs(card["losses"] - cpu["losses"])
+                     / np.abs(cpu["losses"])).max())
+        out[arch] = {"launches": launches, "nodes_equal": nodes_equal,
+                     "loss_max_rel": rel, "card_ms_per_step": card_ms}
+        log(f"  (e) reduced {arch}, {steps} steps card vs CPU (card-drawn "
+            f"blocks): nodes equal {nodes_equal}; loss max rel diff {rel:.3g}; "
+            f"card {card_ms:.2f} ms/step (host clock, whole run); launches "
+            f"{launches}")
+        gate(gates, f"(e) {arch} nodes equal, losses at {P13_LOSS_RTOL}",
+             nodes_equal and rel <= P13_LOSS_RTOL)
+        gate(gates, f"(e) {arch} one sparse launch a step",
+             launches["walk_transition_sparse"] == steps)
+    out["gates"] = gates
+    return out
+
+
+def phase14_fleet(dev, wt) -> dict:
+    """(e) reduced olmoe, the fleet step (W=4, ``avg_every``=2): the W models
+    equal bit for bit after each averaging step and different between;
+    ``moe_aux`` in the metrics; one sparse launch a fleet step."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.base import param_tree
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim.base import leaves
+    from repro_torch.walk_sgd.multi_walk import (init_multi_walk_state,
+                                                 make_multi_walk_step,
+                                                 stack_params)
+
+    w, avg_every, steps = (P14_FLEET[k] for k in ("walkers", "avg_every", "steps"))
+    cfg = reduced(get_arch("olmoe-1b-7b"))
+    model = build_model(cfg, torch.float32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    tree = param_tree(model)
+    opt = optim.adamw(3e-4)
+    params_w, opt_w = stack_params(tree, w), stack_params(opt.init(tree), w)
+    g, walk, data, Pipe = _walk_and_data(cfg, dev, online=False)
+    pipes = [Pipe(data, 2, 64, seed=i) for i in range(w)]
+    walk_w = init_multi_walk_state(g.n, w, np.ones(g.n, np.float32), seed=0,
+                                   device=dev)
+    step = make_multi_walk_step(model, opt, walk, avg_every=avg_every)
+    counts_zero(wt)
+    equal_after, aux = [], []
+    for t in range(steps):
+        bs = [p.next_batch(v) for p, v in zip(pipes, walk_w["node"].tolist())]
+        batches = {k: torch.as_tensor(np.stack([b[k] for b in bs]), device=dev)
+                   for k in ("tokens", "labels")}
+        params_w, opt_w, walk_w, m = step(params_w, opt_w, walk_w, batches, t)
+        aux.append(m["moe_aux"].tolist())
+        equal_after.append(all(all(torch.equal(x[0], x[i]) for i in range(1, w))
+                               for x in leaves(params_w)))
+    launches = counts_read(wt)
+    want = [(t + 1) % avg_every == 0 for t in range(steps)]
+    log(f"  (e) fleet, reduced olmoe, W={w}, avg_every={avg_every}, {steps} steps: "
+        f"models equal after steps {[t for t, s in enumerate(equal_after) if s]} "
+        f"(averaging steps {[t for t, s in enumerate(want) if s]}); moe_aux at "
+        f"the end {[round(x, 4) for x in aux[-1]]}; launches {launches}")
+    gates: dict = {}
+    gate(gates, "(e) fleet equal exactly after every average, different between",
+         equal_after == want)
+    gate(gates, "(e) fleet one sparse launch a step",
+         launches["walk_transition_sparse"] == steps)
+    del model, tree, params_w, opt_w
+    return {"launches": launches, "gates": gates, "equal_after": equal_after,
+            "moe_aux": aux}
+
+
+def phase_families(dev, smi) -> dict:
+    """Phase 14: the MoE, hybrid and audio families on the card."""
+    from repro_torch.kernels.walk_transition import kernel as wt
+
+    torch.cuda.empty_cache()
+    log(f"phase 14 (MoE, hybrid, audio): {smi}; aim {PHASE14_AIM_S:.0f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held by earlier phases")
+    out: dict = {}
+    marks = [time.perf_counter()]
+    for part, fn in (("jamba", lambda: phase14_jamba(dev, smi)),
+                     ("deepseek", lambda: phase14_deepseek(dev, smi)),
+                     ("whisper", lambda: phase14_whisper(dev, smi)),
+                     ("card_vs_cpu", lambda: phase14_card_vs_cpu(dev)),
+                     ("train_main", lambda: phase14_train_main(dev, wt, smi)),
+                     ("train_card_vs_cpu", lambda: phase14_train_card_vs_cpu(dev, wt)),
+                     ("fleet", lambda: phase14_fleet(dev, wt)),
+                     ("resume", lambda: resume_check(
+                         dev, wt, "olmoe-1b-7b", P14_RESUME["steps"],
+                         P14_RESUME["every"], "(e)"))):
+        out[part] = fn()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+    out["part_s"] = dict(zip(list(out), np.diff(marks).tolist()))
+    log("  phase 14 parts: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["part_s"].items()))
+    failed = [k for part in out.values() if isinstance(part, dict)
+              for k, ok in part.get("gates", {}).items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14: {failed}")
     return out
 
 
@@ -4856,6 +5597,41 @@ def main() -> int:
     if not next(k for k in kernels
                 if k["name"] == "walk_transition_sparse").get("launches_phase13"):
         raise AssertionError("phase 13 launched walk_transition_sparse no time")
+    # -- phase 14: the MoE, hybrid and audio families ----------------------
+    t0 = time.perf_counter()
+    p14 = phase_families(dev, smi)
+    dt = time.perf_counter() - t0
+    log(f"phase 14 MoE, hybrid, audio: {dt:.2f} s (aim {PHASE14_AIM_S:.0f} s)")
+    report["phases"]["families"] = {"s": dt, **p14}
+    # phase 14's paths: jamba's prefill (one ssd_scan a mamba sublayer) and
+    # the training steps (one sparse launch a step), each counted from 0
+    # just before it and read just after
+    ssd["launches_phase14"] = {
+        "jamba_prefill": p14["jamba"]["prefill"]["launches"]["ssd_scan"]}
+    ssd["launches"] += ssd["launches_phase14"]["jamba_prefill"]
+    ssd["routes"]["mma_bf16"]["launches"] += ssd["launches_phase14"]["jamba_prefill"]
+    ssd["jamba"] = {k: p14["jamba"]["kernel"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "shape",
+        "head_major_ms", "path_ms", "path_bound_share")}
+    ssd["max_abs_err"] = max(ssd["max_abs_err"], p14["jamba"]["kernel"]["max_abs_err"])
+    p14_paths = {"train_main": [p14["train_main"]["launches"]],
+                 "train_card_vs_cpu": [v["launches"] for k, v in
+                                       p14["train_card_vs_cpu"].items()
+                                       if k != "gates"],
+                 "fleet": [p14["fleet"]["launches"]],
+                 "resume": [p14["resume"]["launches"]]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p14_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase14"] = {**k.get("launches_phase14", {}), **by_path}
+            k["launches"] += sum(by_path.values())
+    if not ssd["launches_phase14"]["jamba_prefill"]:
+        raise AssertionError("phase 14 launched ssd_scan no time")
+    if not next(k for k in kernels
+                if k["name"] == "walk_transition_sparse").get("launches_phase14"):
+        raise AssertionError("phase 14 launched walk_transition_sparse no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -186,13 +186,18 @@ def fault_state_from_reference(
 
 
 def _flatten(tree, prefix: str = "") -> dict:
-    """``{"a.b.c": leaf}`` of a nested dict of arrays."""
+    """``{"a/0/b": leaf}`` of nested dicts and lists of arrays (the
+    reference's key paths)."""
     if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}."))
-        return out
-    return {prefix[:-1]: tree}
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}/"))
+    return out
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:
@@ -208,57 +213,52 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
 def model_from_reference_params(cfg, params, *, device: Union[str, torch.device] = "cuda"):
     """The port's model for ``cfg`` holding the JAX package's ``params``.
 
-    ``params`` is the reference model's params pytree (nested dicts of
-    numpy arrays, or arrays numpy can read).  Its ``layers`` leaves carry
-    the leading ``(num_layers,)`` axis of the reference's stacked init;
-    leaf ``layers.attn.wq`` becomes ``layers.{i}.attn.wq`` of the port.
-    The model dtype is the embedding table's; every leaf keeps its dtype
-    (the norm scales, ``a_log``, ``d_skip`` and ``dt_bias`` are float32).
-    Raises ``ValueError`` on a missing, extra, mis-shaped or mis-typed leaf.
+    ``params`` is the reference model's params pytree (nested dicts and
+    lists of numpy arrays, or arrays numpy can read), carried leaf by leaf
+    in the port's :func:`~repro_torch.models.base.param_tree` structure: a
+    stacked leaf (``layers/attn/wq`` of shape ``(L, ...)``; the hybrid's
+    ``periods/mamba/mixer/in_proj`` of shape ``(P, 7, ...)``) fills the
+    per-layer tensors it stacks, a list entry (``dense_layers/0/...``) its
+    layer's.  The model dtype is the embedding table's; every leaf keeps
+    its dtype (the norm scales, the router, ``a_log``, ``d_skip`` and
+    ``dt_bias`` are float32).  Raises ``ValueError`` on a missing, extra,
+    mis-shaped or mis-typed leaf.
     """
+    from repro_torch.models.base import leaf_shape, param_tree
     from repro_torch.models.factory import build_model
+    from repro_torch.optim.base import leaves
 
     flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
-    if "embedding.table" not in flat:
-        raise ValueError("params has no embedding.table leaf")
-    dtype = _to_torch(flat["embedding.table"][:1]).dtype
-    device = torch.device(device)
-    model = build_model(cfg, dtype, device=device)
-    expected = model.state_dict()
-    carried = {}
-    for key, arr in flat.items():
-        if key.startswith("layers."):
-            if arr.ndim == 0 or arr.shape[0] != cfg.num_layers:
-                raise ValueError(
-                    f"leaf {key} of shape {arr.shape} lacks the leading "
-                    f"({cfg.num_layers},) layer axis"
-                )
-            for i in range(cfg.num_layers):
-                carried[f"layers.{i}.{key[len('layers.'):]}"] = arr[i]
-        else:
-            carried[key] = arr
-    missing = sorted(set(expected) - set(carried))
-    extra = sorted(set(carried) - set(expected))
+    if "embedding/table" not in flat:
+        raise ValueError("params has no embedding/table leaf")
+    dtype = _to_torch(flat["embedding/table"][:1]).dtype
+    model = build_model(cfg, dtype, device=torch.device(device))
+    tree = param_tree(model)
+    missing = sorted(set(tree) - set(flat))
+    extra = sorted(set(flat) - set(tree))
     if missing or extra:
         raise ValueError(f"params do not match {cfg.name}: missing {missing}, "
                          f"extra {extra}")
     with torch.no_grad():
-        for key, arr in carried.items():
-            t = _to_torch(arr)
-            dst = expected[key]
-            if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
+        for path, leaf in tree.items():
+            t = _to_torch(flat[path])
+            want = leaf_shape(leaf)
+            dsts = leaves({path: leaf})
+            if tuple(t.shape) != want or t.dtype != dsts[0].dtype:
                 raise ValueError(
-                    f"leaf {key}: {tuple(t.shape)} {t.dtype}, the port holds "
-                    f"{tuple(dst.shape)} {dst.dtype}"
+                    f"leaf {path}: {tuple(t.shape)} {t.dtype}, the port holds "
+                    f"{want} {dsts[0].dtype}"
                 )
-            dst.copy_(t)
+            for dst, src in zip(dsts, t.reshape(-1, *dsts[0].shape)):
+                dst.copy_(src)
     return model
 
 
 def reference_params_of(model) -> dict:
     """The port model's weights as the JAX package's params pytree: nested
-    dicts of numpy arrays, the per-layer leaves stacked ``(L, ...)`` (the
-    inverse of :func:`model_from_reference_params`)."""
+    dicts of numpy arrays, the per-layer leaves stacked ``(L, ...)`` (or
+    ``(P, n, ...)``), a list where the reference has one
+    (``dense_layers``); the inverse of :func:`model_from_reference_params`."""
     from repro_torch.models.base import param_tree
     from repro_torch.utils.checkpoint import flatten_with_paths
 
@@ -269,4 +269,13 @@ def reference_params_of(model) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = arr
-    return out
+
+    def listed(node):  # dicts keyed 0..n-1 are the reference's lists
+        if not isinstance(node, dict):
+            return node
+        node = {k: listed(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listed(out)

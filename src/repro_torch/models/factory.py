@@ -7,18 +7,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.base import Model
+from repro_torch.models.encdec import build_encdec_model
+from repro_torch.models.hybrid import build_hybrid_model
 from repro_torch.models.mamba_model import build_mamba_model
+from repro_torch.models.moe_transformer import build_moe_model
 from repro_torch.models.transformer import build_dense_model
 
 __all__ = ["build_model"]
-
-# families the port does not build yet, and the ROADMAP item that brings them
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 10 (models/moe_transformer.py, layers/moe.py)",
-    "hybrid": "ROADMAP Queue 1 item 10 (models/hybrid.py)",
-    "audio": "ROADMAP Queue 1 item 10 (models/encdec.py, cross-attention, "
-             "gelu_mlp, layernorm)",
-}
 
 
 def build_model(
@@ -33,12 +28,9 @@ def build_model(
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    if cfg.family in ("dense", "vlm"):
-        return build_dense_model(cfg, dtype, device=device, generator=generator)
-    if cfg.family == "ssm":
-        return build_mamba_model(cfg, dtype, device=device, generator=generator)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet: {_NOT_PORTED[cfg.family]}"
-        )
+    builders = {"dense": build_dense_model, "vlm": build_dense_model,
+                "moe": build_moe_model, "ssm": build_mamba_model,
+                "hybrid": build_hybrid_model, "audio": build_encdec_model}
+    if cfg.family in builders:
+        return builders[cfg.family](cfg, dtype, device=device, generator=generator)
     raise ValueError(f"unknown family {cfg.family!r}")

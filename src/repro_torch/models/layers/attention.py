@@ -1,5 +1,6 @@
 """Multi-head attention: GQA/MQA, RoPE, causal/prefix/bidirectional/sliding
-masks, and a ring-buffer KV cache for decode.
+masks, a ring-buffer KV cache for decode, and the encoder-decoder's
+cross-attention.
 
 The full-sequence path is einsum attention in PyTorch; with ``use_flash``
 and a causal or bidirectional mask it goes through the hand-written CUDA
@@ -24,6 +25,9 @@ __all__ = [
     "attention_full",
     "attention_decode",
     "init_kv_cache",
+    "cross_attn_init",
+    "precompute_cross_kv",
+    "cross_attention",
 ]
 
 NEG_INF = -1e30
@@ -213,3 +217,36 @@ def attention_decode(
     out = _grouped_out(probs, v, dims)  # (B,1,N,h)
     y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder -> encoder memory); einsum attention, as
+# in the JAX package, which has no kernel for it
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(dims: AttnDims, dtype, device, generator) -> dict:
+    return attn_init(dims, dtype, device, generator)
+
+
+def precompute_cross_kv(params, memory: torch.Tensor, dims: AttnDims) -> dict:
+    """Encoder memory (B, T, D) -> ``{"k", "v"}`` (B, T, K, h), once per
+    request (no RoPE on the cross path)."""
+    k = torch.einsum("btd,dkh->btkh", memory, params["wk"])
+    v = torch.einsum("btd,dkh->btkh", memory, params["wv"])
+    if dims.qkv_bias:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return {"k": k, "v": v}
+
+
+def cross_attention(params, x: torch.Tensor, memory_kv: dict,
+                    dims: AttnDims) -> torch.Tensor:
+    """Decoder states (B, S, D) attending over every key of ``memory_kv``."""
+    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
+    if dims.qkv_bias:
+        q = q + params["bq"]
+    scores = _grouped_scores(q, memory_kv["k"], dims) * (dims.head_dim**-0.5)
+    probs = torch.softmax(scores, dim=-1)
+    out = _grouped_out(probs, memory_kv["v"], dims)
+    return torch.einsum("bsnh,nhd->bsd", out, params["wo"])

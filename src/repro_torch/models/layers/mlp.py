@@ -1,4 +1,4 @@
-"""Feed-forward block: SwiGLU (llama family)."""
+"""Feed-forward blocks: SwiGLU (llama family) and GELU (whisper)."""
 from __future__ import annotations
 
 import torch
@@ -6,7 +6,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.model_utils import normal
 
-__all__ = ["swiglu_init", "swiglu"]
+__all__ = ["swiglu_init", "swiglu", "gelu_mlp_init", "gelu_mlp"]
 
 
 def swiglu_init(d_model: int, d_ff: int, dtype, device, generator) -> dict:
@@ -23,3 +23,18 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     up = x @ params["w_up"]
     hidden = F.silu(gate) * up
     return hidden @ params["w_down"]
+
+
+def gelu_mlp_init(d_model: int, d_ff: int, dtype, device, generator) -> dict:
+    return {
+        "w_in": normal((d_model, d_ff), d_model**-0.5, dtype, device, generator),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_out": normal((d_ff, d_model), d_ff**-0.5, dtype, device, generator),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation, so this is too."""
+    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
+    return h @ params["w_out"] + params["b_out"]

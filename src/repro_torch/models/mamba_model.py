@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.base import Model
+from repro_torch.models.base import Model, Stack
 from repro_torch.models.layers import embedding as emb_mod
 from repro_torch.models.layers import mamba2 as mamba_mod
 from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
@@ -40,7 +40,7 @@ class MambaLM(Model):
         gen = dict(dtype=dtype, device=device, generator=generator)
         self.embedding = ParamGroup(
             **emb_mod.embedding_init(cfg.vocab_size, cfg.d_model, **gen))
-        self.layers = nn.ModuleList(
+        self.layers = Stack(
             nn.ModuleDict({
                 "ln": ParamGroup(**rmsnorm_init(cfg.d_model, device)),
                 "mixer": ParamGroup(**mamba_mod.mamba_init(self.mdims, **gen)),

@@ -4,7 +4,7 @@ guard.
 
 The JAX package stacks each leaf over layers and scans them with
 ``lax.scan``; the port keeps one parameter group per layer in an
-``nn.ModuleList`` and loops over it (:func:`scan_layers`).  The loop reads
+``models.base.Stack`` and loops over it (:func:`scan_layers`).  The loop reads
 each layer's tensors at call time and hands them to the layer body as
 arguments, so a checkpointed layer recomputes with the tensors it ran
 with, also under ``torch.func.functional_call``.
@@ -19,19 +19,25 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 __all__ = ["ParamGroup", "normal", "grad_dtype_guard", "remat_wrap",
-           "scan_layers", "layer_params"]
+           "scan_layers", "scan_layers_aux", "layer_params"]
 
 
 class ParamGroup(nn.Module):
     """Named tensors as trainable parameters, read like the JAX package's
-    parameter dicts (``group["wq"]``)."""
+    parameter dicts (``group["wq"]``); a nested dict (the MoE layer's
+    ``"shared"`` experts) becomes a child group."""
 
-    def __init__(self, **tensors: torch.Tensor):
+    def __init__(self, **tensors):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t))
+            if isinstance(t, dict):
+                self.add_module(name, ParamGroup(**t))
+            else:
+                self.register_parameter(name, nn.Parameter(t))
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def __getitem__(self, name: str):
+        if name in self._modules:
+            return self._modules[name]
         return self._parameters[name]
 
 
@@ -94,17 +100,39 @@ def remat_wrap(fn: Callable, mode: str) -> Callable:
     raise ValueError(f"unknown remat mode {mode!r}")
 
 
-def layer_params(layer: nn.ModuleDict) -> dict:
-    """The layer's tensors now, as nested dicts (``{"attn": {"wq": ...}}``)."""
-    return {name: dict(group._parameters) for name, group in layer.items()}
+def layer_params(layer: nn.Module):
+    """The layer's tensors now, as the JAX package's nested dicts
+    (``{"attn": {"wq": ...}}``); a ``ModuleList`` (a stack inside the
+    layer, the hybrid's period) is a list of them."""
+    if isinstance(layer, nn.ModuleList):
+        return [layer_params(m) for m in layer]
+    if isinstance(layer, ParamGroup):
+        return {**layer._parameters,
+                **{name: layer_params(m) for name, m in layer._modules.items()}}
+    return {name: layer_params(m) for name, m in layer.items()}
 
 
 def scan_layers(body: Callable, layers: nn.ModuleList, x: torch.Tensor,
-                remat: str = "full") -> torch.Tensor:
+                remat: str = "full", *, guard: bool = True) -> torch.Tensor:
     """``x -> body(layer_params, x)`` over the layers, each layer's input
-    behind :func:`grad_dtype_guard` and the body under ``remat`` while
-    gradients are recorded (without them there is nothing to checkpoint)."""
+    behind :func:`grad_dtype_guard` (unless ``guard=False``: the JAX
+    package's MoE, hybrid and decoder stacks scan without it) and the body
+    under ``remat`` while gradients are recorded (without them there is
+    nothing to checkpoint)."""
     fn = remat_wrap(body, remat) if torch.is_grad_enabled() else body
     for layer in layers:
-        x = fn(layer_params(layer), grad_dtype_guard(x))
+        x = fn(layer_params(layer), grad_dtype_guard(x) if guard else x)
     return x
+
+
+def scan_layers_aux(body: Callable, layers: nn.ModuleList, x: torch.Tensor,
+                    remat: str = "full") -> tuple:
+    """Like :func:`scan_layers` for a body returning ``(x, aux scalar)``,
+    without the guard (the JAX package's MoE and hybrid stacks scan
+    without it); returns ``(x, mean of the layers' aux)``."""
+    auxs = []
+    fn = remat_wrap(body, remat) if torch.is_grad_enabled() else body
+    for layer in layers:
+        x, aux = fn(layer_params(layer), x)
+        auxs.append(aux)
+    return x, torch.stack(auxs).mean()

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.base import Model
+from repro_torch.models.base import Model, Stack
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import embedding as emb_mod
 from repro_torch.models.layers import mlp as mlp_mod
@@ -44,7 +44,7 @@ class DenseLM(Model):
         gen = dict(dtype=dtype, device=device, generator=generator)
         self.embedding = ParamGroup(
             **emb_mod.embedding_init(cfg.vocab_size, cfg.d_model, **gen))
-        self.layers = nn.ModuleList(
+        self.layers = Stack(
             nn.ModuleDict({
                 "ln1": ParamGroup(**rmsnorm_init(cfg.d_model, device)),
                 "attn": ParamGroup(**attn_mod.attn_init(self.dims, **gen)),

@@ -1,9 +1,10 @@
 """Adafactor (factored second moments), the memory-lean optimizer.
 
 It factors whole leaves of the reference's pytree: a per-layer leaf is the
-stacked ``(L, ...)`` tensor, so a stacked norm scale ``(L, D)`` is
-factored (its column statistic is a mean over the layer axis) and the
-update's RMS clip is taken over all L layers of a leaf.  The state holds
+stacked ``(L, ...)`` tensor (a stack in a stack, the hybrid's, the
+``(P, n, ...)`` one), so a stacked norm scale ``(L, D)`` is factored (its
+column statistic is a mean over the layer axis) and the update's RMS clip
+is taken over all layers of a leaf.  The state holds
 the reference's leaves and shapes.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.base import leaf_shape
+from repro_torch.models.base import leaf_shape, stack_leaf, unstack_like
 from repro_torch.optim.base import GradientTransformation, leaves, zeros_count
 from repro_torch.optim.sgd import ScalarOrSchedule, _lr_at
 
@@ -28,10 +29,6 @@ class AdafactorState(NamedTuple):
 
 def _factored(shape) -> bool:
     return len(shape) >= 2
-
-
-def _stacked(leaf) -> torch.Tensor:
-    return torch.stack(leaf) if isinstance(leaf, tuple) else leaf
 
 
 def adafactor(
@@ -64,7 +61,7 @@ def adafactor(
         beta = 1.0 - torch.pow(state.count.to(torch.float32), -decay)
         updates = {}
         for path, leaf in grads.items():
-            g = _stacked(leaf).float()
+            g = stack_leaf(leaf).float()
             g2 = torch.square(g) + eps
             r, c, f = state.row[path], state.col[path], state.full[path]
             if _factored(g.shape):
@@ -79,7 +76,7 @@ def adafactor(
             rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             upd = -lr * u
-            updates[path] = upd.unbind(0) if isinstance(leaf, tuple) else upd
+            updates[path] = unstack_like(upd, leaf)
         return updates, state
 
     return GradientTransformation(init, update)

@@ -11,7 +11,7 @@ produce the final negative-lr-scaled step).
 (``repro_torch.models.base.param_tree``): a dict ``{path: leaf}`` in the
 reference's leaf order, where a leaf is a tensor or, for a per-layer leaf,
 the tuple of its L layer tensors (the reference's stacked ``(L, ...)``
-leaf).  Elementwise transformations and global sums do not see that
+leaf; the hybrid's stacks in stacks are tuples of such tuples).  Elementwise transformations and global sums do not see that
 structure; adafactor, which factors whole leaves, does.
 
 ``update`` runs under ``torch.no_grad`` and changes ``state``'s tensors in
@@ -37,20 +37,31 @@ Params = dict
 Updates = dict
 
 
+def _flat(leaf) -> list:
+    if isinstance(leaf, tuple):
+        return [t for piece in leaf for t in _flat(piece)]
+    return [leaf]
+
+
 def leaves(tree: dict) -> list:
-    """Every tensor of ``tree`` in leaf order, a per-layer leaf's L tensors
-    in layer order."""
+    """Every tensor of ``tree`` in leaf order, a per-layer leaf's tensors
+    in layer order (a stack in a stack: row-major)."""
     out = []
     for leaf in tree.values():
-        out.extend(leaf if isinstance(leaf, tuple) else (leaf,))
+        out.extend(_flat(leaf))
     return out
 
 
 def unflatten(like: dict, flat) -> dict:
     """``flat`` (tensors in :func:`leaves` order) in ``like``'s structure."""
     it = iter(flat)
-    out = {path: tuple(next(it) for _ in leaf) if isinstance(leaf, tuple)
-           else next(it) for path, leaf in like.items()}
+
+    def build(leaf):
+        if isinstance(leaf, tuple):
+            return tuple(build(piece) for piece in leaf)
+        return next(it)
+
+    out = {path: build(leaf) for path, leaf in like.items()}
     if next(it, None) is not None:
         raise ValueError("more tensors than the tree has leaves")
     return out

@@ -13,7 +13,8 @@ Key paths are the reference's: dict keys and NamedTuple field names, tuple
 indices, joined by ``/`` (``mu/layers/attn/wq``, ``inner/1/count``).
 Inside a dict a tuple of tensors is a per-layer leaf
 (``repro_torch.models.base``) and is stored as the reference's stacked
-``(L, ...)`` array.  bfloat16 tensors are stored as the reference stores
+``(L, ...)`` array, a tuple of such tuples (the hybrid's stacks in
+stacks) as its ``(P, n, ...)`` array.  bfloat16 tensors are stored as the reference stores
 them (two-byte ``|V2`` records).  A ``torch.Generator`` (the walk's
 ``"rng"``) is stored as its ``get_state()`` bytes, a tuple of them (a
 fleet's) as one ``(W, state)`` array; a reference checkpoint's ``rng`` is a
@@ -73,9 +74,31 @@ def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def _stacked_leaf(value) -> bool:
+    """A tuple of tensors or generators, or a tuple of such tuples (a stack
+    in a stack, the hybrid's ``(P, n, ...)`` leaves)."""
     return (isinstance(value, tuple) and not _is_named(value) and len(value)
-            > 0 and all(isinstance(v, (torch.Tensor, torch.Generator))
-                        for v in value))
+            > 0 and (all(isinstance(v, (torch.Tensor, torch.Generator))
+                         for v in value)
+                     or all(_stacked_leaf(v) for v in value)))
+
+
+def _stack(value) -> np.ndarray:
+    if isinstance(value, tuple):
+        return np.stack([_stack(v) for v in value])
+    if isinstance(value, torch.Generator):
+        return value.get_state().numpy()
+    return _to_numpy(value)
+
+
+def _unstack(arr: np.ndarray, like, path: str):
+    if isinstance(like, tuple):
+        if arr.shape[0] != len(like):
+            raise ValueError(f"{path}: {arr.shape[0]} stacked entries, "
+                             f"expected {len(like)}")
+        return tuple(_unstack(a, x, path) for a, x in zip(arr, like))
+    if isinstance(like, torch.Generator):
+        return _generator_like(arr, like)
+    return _to_torch(arr, like)
 
 
 def flatten_with_paths(tree: Any) -> dict:
@@ -95,9 +118,7 @@ def flatten_with_paths(tree: Any) -> dict:
         elif isinstance(obj, dict):
             for k, v in obj.items():
                 if _stacked_leaf(v):
-                    put(_join(path, k), np.stack([
-                        x.get_state().numpy() if isinstance(x, torch.Generator)
-                        else _to_numpy(x) for x in v]))
+                    put(_join(path, k), _stack(v))
                 else:
                     visit(v, _join(path, k))
         elif _is_named(obj):
@@ -145,13 +166,7 @@ def unflatten_from_paths(like: Any, flat: dict) -> Any:
             for k, v in obj.items():
                 p = _join(path, k)
                 if _stacked_leaf(v):
-                    arr = get(p)
-                    if arr.shape[0] != len(v):
-                        raise ValueError(f"{p}: {arr.shape[0]} stacked "
-                                         f"entries, expected {len(v)}")
-                    out[k] = tuple(
-                        _generator_like(a, x) if isinstance(x, torch.Generator)
-                        else _to_torch(a, x) for a, x in zip(arr, v))
+                    out[k] = _unstack(get(p), v, p)
                 else:
                     out[k] = build(v, p)
             return out

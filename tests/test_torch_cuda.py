@@ -1247,10 +1247,12 @@ def test_rmsnorm_kernel_takes_a_bf16_scale(dev, d):
 
 
 @pytest.mark.parametrize("arch,counter", [("minitron-8b", "flash"),
-                                          ("mamba2-370m", "ssd")])
+                                          ("mamba2-370m", "ssd"),
+                                          ("jamba-1.5-large-398b", "ssd")])
 def test_reduced_model_kernel_path_matches_einsum_path(dev, arch, counter):
-    """float32 on the card: ``use_kernels`` launches one kernel per layer
-    and agrees with the einsum path at 2e-4."""
+    """float32 on the card: ``use_kernels`` launches one kernel per
+    attention or mamba layer (the hybrid's 7 mamba sublayers a period) and
+    agrees with the einsum path at 2e-4."""
     cfg = reduced(get_arch(arch))
     gen = torch.Generator(device=dev).manual_seed(0)
     model = build_model(cfg, torch.float32, device=dev, generator=gen)
@@ -1260,8 +1262,84 @@ def test_reduced_model_kernel_path_matches_einsum_path(dev, arch, counter):
     c = fa_ops.mha if counter == "flash" else ssd_ops.ssd_scan
     before = c.launches
     out = model.apply({"tokens": tokens})
-    assert c.launches == before + cfg.num_layers
+    layers = (model.counts["mamba"] * len(model.periods)
+              if cfg.family == "hybrid" else cfg.num_layers)
+    assert c.launches == before + layers
     torch.testing.assert_close(out, ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared,cf", [(0, 1.25), (2, 0.25)])
+def test_moe_layer_card_equals_cpu(dev, shared, cf, dtype):
+    """``moe_apply`` on the card against the CPU on the same weights and
+    inputs: the same experts, the output at 2e-4 (float32) or bf16's 2e-2,
+    the aux entries; and the router's float32 product stays exact (TF32
+    off inside it) when TF32 is on outside, where the expert products do
+    take TF32."""
+    from repro_torch.models.layers import moe as tmoe
+
+    dims = tmoe.MoEDims(64, 8, 2, 32, num_shared_experts=shared,
+                        capacity_factor=cf)
+    gen = torch.Generator().manual_seed(0)
+    params = tmoe.moe_init(dims, dtype, "cpu", gen)
+    x = torch.randn((2, 48, 64), generator=gen).to(dtype)
+    on_card = {k: (v.to(dev) if torch.is_tensor(v) else
+                   {kk: vv.to(dev) for kk, vv in v.items()})
+               for k, v in params.items()}
+    card = tmoe.moe_apply(on_card, x.to(dev), dims)
+    cpu = tmoe.moe_apply(params, x, dims)
+    probs, _, idx = tmoe.moe_route(params, x, dims)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(card[0].cpu().float(), cpu[0].float(), atol=tol,
+                               rtol=tol)
+    for k in cpu[1]:
+        torch.testing.assert_close(card[1][k].cpu(), cpu[1][k], atol=2e-4, rtol=2e-4)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        probs_tf32, _, idx_tf32 = tmoe.moe_route(on_card, x.to(dev), dims)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert torch.equal(idx_tf32.cpu(), idx)
+    torch.testing.assert_close(probs_tf32.cpu(), probs, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b", "whisper-tiny"])
+def test_new_families_card_equal_cpu(dev, arch):
+    """Reduced, float32, the same weights: ``apply``, ``loss`` with its aux
+    and 20 decode steps through a 16-slot cache on the card against the
+    CPU at 2e-4."""
+    cfg = reduced(get_arch(arch))
+    cpu_model = build_model(cfg, torch.float32, device="cpu")
+    card_model = build_model(cfg, torch.float32, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_len, cfg.d_model),
+                                      generator=gen)
+    out = {}
+    for m in (cpu_model, card_model):
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        loss, aux = m.loss(b)
+        cache = m.init_cache(2, 16)
+        logits = []
+        for pos in range(20):
+            lg, cache = m.decode_step(b["tokens"][:, pos:pos + 1], cache, pos)
+            logits.append(lg.cpu())
+        out[m.device.type] = (m.apply(b).cpu(), loss.detach().cpu(),
+                              {k: v.detach().cpu() for k, v in aux.items()}, logits)
+    (hc, lc, ac, gc), (hg, lg_, ag, gg) = out["cpu"], out["cuda"]
+    close = functools.partial(torch.testing.assert_close, atol=2e-4, rtol=2e-4)
+    close(hg, hc)
+    close(lg_, lc)
+    assert set(ag) == set(ac) and ("moe_aux" in ac) == bool(cfg.num_experts)
+    for k in ac:
+        close(ag[k], ac[k])
+    for a, b in zip(gg, gc):
+        close(a, b)
 
 
 # -- walk-routed serving on the card ----------------------------------------------
@@ -1402,11 +1480,12 @@ def test_use_kernels_training_raises(dev, arch):
     assert all(torch.isfinite(g).all() for g in grads)
 
 
-def test_fleet_step_on_the_card_equals_the_cpu(dev):
-    """Three LLM fleet steps (reduced mamba2-370m in float32, W=3, AdamW,
-    averaging every 2) on the card and on the CPU from the same weights
-    and blocks: the walks bit for bit, one sparse launch a fleet step,
-    losses and parameters at 1e-4."""
+@pytest.mark.parametrize("arch", ["mamba2-370m", "olmoe-1b-7b"])
+def test_fleet_step_on_the_card_equals_the_cpu(dev, arch):
+    """Three LLM fleet steps (reduced, float32, W=3, AdamW, averaging every
+    2) on the card and on the CPU from the same weights and blocks: the
+    walks bit for bit, one sparse launch a fleet step, losses and
+    parameters at 1e-4."""
     from repro_torch import optim as topt
     from repro_torch.core.graphs import ring
     from repro_torch.models.base import param_tree
@@ -1414,7 +1493,7 @@ def test_fleet_step_on_the_card_equals_the_cpu(dev):
     from repro_torch.walk_sgd import fleet as tfleet
     from repro_torch.walk_sgd import llm_trainer as tllm
 
-    cfg = reduced(get_arch("mamba2-370m"))
+    cfg = reduced(get_arch(arch))
     base = build_model(cfg, torch.float32, device="cpu")
     gen = torch.Generator().manual_seed(3)
     blocks = teng.draw_uniforms(9, 3, 0.3, gen, torch.device("cpu"))
@@ -1451,11 +1530,14 @@ def test_fleet_step_on_the_card_equals_the_cpu(dev):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
-def test_deterministic_resume_on_the_card(dev, tmp_path, monkeypatch):
+@pytest.mark.parametrize("arch", ["mamba2-370m", "olmoe-1b-7b",
+                                  "jamba-1.5-large-398b"])
+def test_deterministic_resume_on_the_card(dev, tmp_path, monkeypatch, arch):
     """Under ``torch.use_deterministic_algorithms(True)`` (the embedding's
     and the cross-entropy gather's backward otherwise accumulate with
-    atomics) a run killed after its step-6 checkpoint and resumed equals
-    the uninterrupted run bit for bit."""
+    atomics; the MoE's dispatch and combine must run there too) a run
+    killed after its step-6 checkpoint and resumed equals the
+    uninterrupted run bit for bit."""
     from repro_torch.launch import train as ttrain
 
     class Killed(Exception):
@@ -1472,7 +1554,7 @@ def test_deterministic_resume_on_the_card(dev, tmp_path, monkeypatch):
         return on_phase
 
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    cfg = reduced(get_arch("mamba2-370m"))
+    cfg = reduced(get_arch(arch))
     kw = dict(graph_kind="ring", n_silos=8, method="mhlj", steps=12,
               batch_size=2, seq_len=32, lr=1e-3, log_every=0, seed=9,
               device=dev)

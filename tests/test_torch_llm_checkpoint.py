@@ -48,8 +48,7 @@ def _state(arch="qwen2.5-32b", n=8):
     params = param_tree(model)
     opt = topt.chain(topt.clip_by_global_norm(1.0), topt.adamw(1e-3))
     opt_state = opt.init(params)
-    grads = {k: tuple(torch.randn_like(x) for x in v) if isinstance(v, tuple)
-             else torch.randn_like(v) for k, v in params.items()}
+    grads = topt.base.tree_map(torch.randn_like, params)
     updates, opt_state = opt.update(grads, opt_state, params)
     topt.apply_updates(params, updates)
     walk = tllm.init_walk_state(n, np.arange(1, n + 1), v0=3, seed=5,
@@ -99,6 +98,28 @@ def test_port_checkpoint_round_trip(tmp_path):
         tckpt.load_pytree(str(tmp_path / "bf.npz"), {"w": torch.zeros(4, 3)})
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-1.5-large-398b"])
+def test_port_checkpoint_round_trip_of_the_new_trees(tmp_path, arch):
+    """A list entry (``dense_layers/0/...``) and the hybrid's stacks in
+    stacks come back bit for bit in their tuple structure, the optimizer
+    state too; a checkpoint of another structure is refused."""
+    root = str(tmp_path / "ck")
+    cfg, params, opt_state, walk = _state(arch)
+    tckpt.save_checkpoint(root, 2, params, opt_state, walk)
+    _, like_p, like_o, like_w = _state(arch)
+    out = tckpt.load_checkpoint(root, like_p, like_o, like_w)
+    _equal(out["params"], params)
+    _equal(out["opt_state"], opt_state)
+    if cfg.family == "hybrid":
+        leaf = out["params"]["periods/mamba/mixer/in_proj"]
+        assert isinstance(leaf[0], tuple) and len(leaf[0]) == 7
+    else:
+        assert isinstance(out["params"]["dense_layers/0/mlp/w_up"], torch.Tensor)
+    _, other, _, _ = _state("olmoe-1b-7b")
+    with pytest.raises((KeyError, ValueError)):  # a missing key, a stack's length
+        tckpt.load_checkpoint(root, other)
+
+
 def test_checkpoint_retention_and_incomplete_steps(tmp_path):
     root = str(tmp_path / "ck")
     tree = {"x": torch.arange(3.0)}
@@ -112,23 +133,28 @@ def test_checkpoint_retention_and_incomplete_steps(tmp_path):
     assert tckpt.latest_step(root) == 5
 
 
-def test_layout_is_the_references(tmp_path):
-    """The same model, AdamW state and walk state written by each package:
-    the same files, keys, shapes and dtypes; each package loads the other's
-    params and optimizer state."""
-    jcfg = jreduced(jget_arch("mamba2-370m"))
+@pytest.mark.parametrize("arch,opt", [
+    ("mamba2-370m", "adamw"), ("deepseek-moe-16b", "adamw"),
+    ("jamba-1.5-large-398b", "adafactor"), ("whisper-tiny", "adamw")])
+def test_layout_is_the_references(tmp_path, arch, opt):
+    """The same model, optimizer state (jamba's config names adafactor) and
+    walk state written by each package: the same files, keys, shapes and
+    dtypes (the MoE's ``dense_layers/0/...`` list entries, the hybrid's
+    ``(P, n, ...)`` leaves, the encoder-decoder's trees); each package loads
+    the other's params and optimizer state."""
+    jcfg = jreduced(jget_arch(arch))
     jparams = jbuild(jcfg, dtype=jnp.float32).init(jax.random.PRNGKey(0))
-    jopt_state = jopt.adamw(1e-3).init(jparams)
+    jopt_state = getattr(jopt, opt)(1e-3).init(jparams)
     jwalk = jllm.init_walk_state(8, None, online=True)
     jwalk["p_j"] = jnp.float32(0.0)
     jckpt.save_checkpoint(str(tmp_path / "ref"), 3, jparams, jopt_state, jwalk)
 
     from repro_torch import interop
     tm = interop.model_from_reference_params(
-        reduced(get_arch("mamba2-370m")),
+        reduced(get_arch(arch)),
         jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     params = param_tree(tm)
-    opt_state = topt.adamw(1e-3).init(params)
+    opt_state = getattr(topt, opt)(1e-3).init(params)
     walk = tllm.init_walk_state(8, None, online=True, device="cpu")
     walk["p_j"] = torch.tensor(0.0)
     tckpt.save_checkpoint(str(tmp_path / "port"), 3, params, opt_state, walk)
@@ -196,12 +222,14 @@ def test_resume_is_bitwise(tmp_path):
                        full["walk_state"]["rng"].get_state())
 
 
-def test_reference_checkpoint_resumes_in_the_port(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
+def test_reference_checkpoint_resumes_in_the_port(tmp_path, arch):
     """The reference trains 5 steps and checkpoints; the port resumes from
     that checkpoint (its PRNG key kept as data) on the blocks drawn from
     the saved key and runs steps 5..9 as the reference's uninterrupted
-    10-step run does."""
-    jcfg = jreduced(jget_arch("qwen2.5-32b"))
+    10-step run does (the MoE and hybrid trees too)."""
+    jcfg = jreduced(jget_arch(arch))
     kw = dict(graph_kind="ring", n_silos=8, method="uniform", batch_size=2,
               seq_len=16, lr=1e-3, log_every=0, seed=4)
     root = str(tmp_path / "ref")
@@ -213,7 +241,7 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
     blocks = np.zeros((10, 1, 6), np.float32)
     for t in range(5, 10):
         key, blocks[t] = ref_block(key, 0.0)
-    res = ttrain.run_training(reduced(get_arch("qwen2.5-32b")), steps=10,
+    res = ttrain.run_training(reduced(get_arch(arch)), steps=10,
                               checkpoint_dir=root, resume=True, device="cpu",
                               uniforms=blocks, **kw)
     np.testing.assert_array_equal(res["update_nodes"], full["update_nodes"][5:])

@@ -20,9 +20,13 @@ atol 1e-3·lr where ``|g| > 1e-5·max|g|``: Adam's first step is
 ``-lr·g/(|g|+eps)``, about ``-lr·sign(g)``, so an entry within rounding of 0
 may flip, and one at ``|g| ~ 1e-7`` moves by ``lr·(1 - eps/|g|)``, which
 carries the gradient's relative error (up to 1e-2 where it cancels) times
-``eps/|g|``; the entries left out are counted (under 0.5%).  Over several
+``eps/|g|``; the entries left out are counted (under 0.5%; the hybrid's
+under 10%: its SSM input projections take gradients ~1e-4 of the largest
+leaf's) and held within 2·lr (a flipped step).  Over several
 steps (the fleet) the parameters are held at rtol 1e-4 / atol 1e-3·lr
-with the share of entries beyond it reported and bounded (1e-4), each
+with the share of entries beyond it reported and bounded (1e-4; the
+hybrid's 5e-3: Adam divides its small gradients' relative error, up to
+1e-2, into steps that differ by up to ~0.03·lr), each
 within 2·lr a step (a flipped Adam step).  Walk positions, hop
 and update counts are equal.  With the online estimator the nodes of a
 run are equal up to the first pick within a near-tie of the live Eq.-7
@@ -57,7 +61,7 @@ from repro_torch.core.transition import MHLJParams
 from repro_torch.data import lm_data as tlm
 from repro_torch.data import pipeline as tpipe
 from repro_torch.launch import train as ttrain
-from repro_torch.models.base import param_tree
+from repro_torch.models.base import param_tree, stack_axes, stack_leaf, stack_paths
 from repro_torch.models.factory import build_model
 from repro_torch.optim.base import leaves
 from repro_torch.utils.checkpoint import flatten_with_paths as tflat
@@ -99,10 +103,10 @@ def ref_run_blocks(seed, p_j_sched, r=R):
     return np.stack(out)
 
 
-def ref_projections(params, seed=0):
+def ref_projections(params, stacks, seed=0):
     """The reference fingerprint's projections (``param_fingerprint``: leaf
     i's from ``fold_in(PRNGKey(seed), i)``), split per layer in the port's
-    leaf order."""
+    leaf order (``stacks``: the port model's ``stack_paths``)."""
     flat = jflat(params)[0]
 
     @jax.jit
@@ -115,10 +119,9 @@ def ref_projections(params, seed=0):
     out = []
     for path, r in zip(flat, draw()):
         r = np.asarray(r)
-        if path.startswith("layers/"):
-            out.extend(torch.from_numpy(np.array(x)) for x in r)
-        else:
-            out.append(torch.from_numpy(np.array(r)))
+        depth = len(stack_axes(path, stacks))
+        out.extend(torch.from_numpy(np.array(x))
+                   for x in r.reshape((-1,) + r.shape[depth:]))
     return out
 
 
@@ -192,12 +195,16 @@ def walk_states(n, lips, v0, seed):
 # -- one train step -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "paligemma-3b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "paligemma-3b", "mamba2-370m",
+                                  "olmoe-1b-7b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
 def test_train_step_matches_reference(arch):
-    """Dense (qkv bias), vlm (prefix LM) and ssm: one step of
+    """Dense (qkv bias), vlm (prefix LM), ssm, moe (with and without a
+    leading dense layer and shared experts) and hybrid: one step of
     ``make_train_step`` with AdamW and the online estimator, on the
-    reference's block and projections: the loss, every gradient leaf, ``w``,
-    the updated parameters and the walk state."""
+    reference's block and projections: the loss (and the MoE aux the
+    metrics carry), every gradient leaf, ``w``, the updated parameters and
+    the walk state."""
     jcfg, jm, params = ref_model(arch)
     tm = port_model(arch, params)
     n = 8
@@ -229,20 +236,30 @@ def test_train_step_matches_reference(arch):
     _, u = ref_block(ws_ref["rng"], P_J)
     opt = topt.adamw(LR)
     step = tllm.make_train_step(tm, opt, walk_port,
-                                projections=ref_projections(params))
+                                projections=ref_projections(params, stack_paths(tm)))
     _, _, ws2, m = step(tree, opt.init(tree), ws_port, tbatch,
                         uniforms=torch.from_numpy(u))
     np.testing.assert_allclose(float(m["loss"]), float(m_ref["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(m["weight"]), float(m_ref["weight"]),
                                rtol=1e-6)
+    assert set(m) == set(m_ref)
+    if jcfg.num_experts:
+        np.testing.assert_allclose(float(m["moe_aux"]), float(m_ref["moe_aux"]),
+                                   rtol=1e-5)
     g_max = max(float(np.abs(x).max()) for x in jflat(g_ref)[0].values())
     mask = {k: np.abs(np.asarray(x)) > 1e-5 * g_max
             for k, x in jflat(g_ref)[0].items()}
     left_out = sum(int((~x).sum()) for x in mask.values())
     total = sum(x.size for x in mask.values())
     print(f"{arch}: {left_out} of {total} gradient entries near zero")
-    assert left_out < 5e-3 * total, f"{left_out} near-zero gradient entries"
+    # the hybrid's SSM input projections (the B and C columns) take
+    # gradients ~1e-4 of the largest leaf's: 9% of its entries sit below
+    # the mask's line; every left-out entry is still held to a flipped step
+    share = 0.1 if jcfg.family == "hybrid" else 5e-3
+    assert left_out < share * total, f"{left_out} near-zero gradient entries"
     close_tree(tree, p1, 1e-5, 1e-3 * LR, mask=mask, what=f"{arch} params")
+    flipped = {k: ~m for k, m in mask.items()}
+    close_tree(tree, p1, 0, 2 * LR, mask=flipped, what=f"{arch} left-out params")
     for k in ("node", "hops", "updates", "visited"):
         np.testing.assert_array_equal(ws2[k].numpy(), np.asarray(ws1[k]), k)
     for k in ("lipschitz", "last_grad_norm", "last_param_fp"):
@@ -292,7 +309,8 @@ def test_run_training_matches_reference(method):
     res = ttrain.run_training(
         reduced(get_arch("qwen2.5-32b")), method=method, device="cpu",
         init_params=params, uniforms=blocks,
-        projections=ref_projections(params), **RUN_KW)
+        projections=ref_projections(
+            params, stack_paths(port_model("qwen2.5-32b", params))), **RUN_KW)
     nodes, nodes_ref = res["update_nodes"], ref["update_nodes"]
     differ = np.nonzero(nodes != nodes_ref)[0]
     if method == "uniform" or differ.size == 0:
@@ -321,22 +339,21 @@ def test_run_training_matches_reference(method):
 # -- the fleet step ----------------------------------------------------------------
 
 
-def _fleet_layout(params_w):
+def _fleet_layout(params_w, stacks):
     """Port fleet params (pieces of shape (W, ...)) as the reference's
-    (W, L, ...) stacked leaves."""
-    out = {}
-    for path, leaf in params_w.items():
-        out[path] = (torch.stack(leaf, dim=1) if isinstance(leaf, tuple)
-                     else leaf).numpy()
-    return out
+    (W, L, ...) (or (W, P, n, ...)) stacked leaves."""
+    return {path: stack_leaf(leaf).movedim(len(stack_axes(path, stacks)), 0).numpy()
+            for path, leaf in params_w.items()}
 
 
-def test_fleet_step_with_averaging_matches_reference():
+@pytest.mark.parametrize("arch", ["mamba2-370m", "olmoe-1b-7b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
+def test_fleet_step_with_averaging_matches_reference(arch):
     """Three ``make_fleet_step`` steps, W=3 walkers, ``avg_every=2``, AdamW
     and the online estimator, on the reference's per-walker blocks: the
     models after each step (equal across walkers right after the average),
-    the walks bit for bit."""
-    arch, w_count, n = "mamba2-370m", 3, 8
+    the metrics (the MoE aux too), the walks bit for bit."""
+    w_count, n = 3, 8
     jcfg, jm, params = ref_model(arch)
     tm = port_model(arch, params)
     walk_ref = jllm.WalkContext.from_graph(jg.ring(n), JParams(P_J, P_D, R),
@@ -359,7 +376,7 @@ def test_fleet_step_with_averaging_matches_reference():
     pw = tmulti.stack_params(tree, w_count)
     ow = tmulti.stack_params(opt.init(tree), w_count)
     step = tfleet.make_fleet_step(tm, opt, walk_port, avg_every=2,
-                                  projections=ref_projections(params))
+                                  projections=ref_projections(params, stack_paths(tm)))
     for t in range(3):
         batch = {k: np.stack([batch_for(jcfg, seed=10 * t + i)[k]
                               for i in range(w_count)])
@@ -374,13 +391,17 @@ def test_fleet_step_with_averaging_matches_reference():
             t, uniforms=torch.from_numpy(u))
         np.testing.assert_allclose(m["loss"].numpy(), np.asarray(m_ref["loss"]),
                                    rtol=1e-5)
+        assert set(m) == set(m_ref)
+        if jcfg.num_experts:
+            np.testing.assert_allclose(m["moe_aux"].numpy(),
+                                       np.asarray(m_ref["moe_aux"]), rtol=1e-5)
         for k in ("node", "hops", "updates", "visited"):
             np.testing.assert_array_equal(ws_port[k].numpy(),
                                           np.asarray(ws_ref[k]), k)
         # a revisit's secant divides by a difference of nearby fingerprints
         np.testing.assert_allclose(ws_port["lipschitz"].numpy(),
                                    np.asarray(ws_ref["lipschitz"]), rtol=1e-2)
-        got, want = _fleet_layout(pw), jflat(pw_ref)[0]
+        got, want = _fleet_layout(pw, stack_paths(tm)), jflat(pw_ref)[0]
         beyond = total = 0
         for k, x in want.items():
             x = np.asarray(x)
@@ -393,7 +414,8 @@ def test_fleet_step_with_averaging_matches_reference():
             assert same == (t == 1), (t, k)  # equal right after the average
         print(f"fleet step {t}: {beyond} of {total} parameters beyond "
               "rtol 1e-4 / atol 1e-3·lr")
-        assert beyond <= 1e-4 * total, (t, beyond)
+        assert beyond <= (5e-3 if jcfg.family == "hybrid" else 1e-4) * total, (
+            t, beyond)
     # the unconditional average: every walker the mean, and idempotent
     avg = tmulti.average_params(pw)
     for a, b, again in zip(leaves(avg), leaves(pw),

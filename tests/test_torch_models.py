@@ -27,6 +27,7 @@ from repro.models.layers import norms as jnorms
 from repro.models.layers import rotary as jrot
 from repro_torch import configs as tconfigs
 from repro_torch import interop
+from repro_torch.models.base import leaf_shape, param_tree
 from repro_torch.models.factory import build_model
 from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import embedding as temb
@@ -34,6 +35,7 @@ from repro_torch.models.layers import mamba2 as tmamba
 from repro_torch.models.layers import mlp as tmlp
 from repro_torch.models.layers import norms as tnorms
 from repro_torch.models.layers import rotary as trot
+from repro_torch.optim.base import leaves
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -82,10 +84,53 @@ def test_config_registry_and_reduced_match_reference():
         tconfigs.get_arch("gpt-5")
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-1.5-large-398b", "whisper-tiny"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tconfigs.reduced(tconfigs.get_arch(arch)), device="cpu")
+def _ref_paths(params) -> dict:
+    """``{"a/0/b": (shape, dtype name)}`` in ``jax.tree_util`` order."""
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+            (tuple(np.shape(v)), np.asarray(v).dtype.name)
+            for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+
+
+@pytest.mark.parametrize("arch", list(jconfigs.ARCHITECTURES))
+def test_build_model_builds_every_architecture(arch):
+    """Every family builds (reduced, bf16, CPU) with the reference's
+    parameter paths, order, shapes and dtypes (the float32 norm scales,
+    router and SSM leaves); the reference's weights carry into it and back
+    bit for bit."""
+    jparams = _np(jbuild(jconfigs.reduced(jconfigs.get_arch(arch)),
+                         dtype=jnp.bfloat16).init(jax.random.PRNGKey(0)))
+    ref = _ref_paths(jparams)
+    tcfg = tconfigs.reduced(tconfigs.get_arch(arch))
+    own = param_tree(build_model(tcfg, torch.bfloat16, device="cpu"))
+    assert list(own) == list(ref)
+    assert {k: (leaf_shape(v), str(leaves({k: v})[0].dtype).split(".")[1])
+            for k, v in own.items()} == ref
+    tm = interop.model_from_reference_params(tcfg, jparams, device="cpu")
+    back = interop.reference_params_of(tm)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(jparams)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jparams)):
+        # bfloat16 comes back as the checkpoints' two-byte records
+        assert a.dtype == b.dtype or (a.dtype == np.dtype("V2")
+                                      and b.dtype.name == "bfloat16")
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+@pytest.mark.parametrize("arch", list(jconfigs.ARCHITECTURES))
+def test_input_specs_match_reference(arch):
+    """The dry-run stand-ins of every input shape, for training and decode:
+    names, shapes and dtypes (audio's include ``frames``, the vlm's
+    ``prefix_embeddings``, in the model dtype)."""
+    jm = jbuild(jconfigs.get_arch(arch), dtype=jnp.bfloat16)
+    tm = build_model(tconfigs.reduced(tconfigs.get_arch(arch)), torch.bfloat16,
+                     device="cpu")
+    tm.cfg = tconfigs.get_arch(arch)
+    for shape in jconfigs.INPUT_SHAPES:
+        tshape = tconfigs.get_shape(shape.name)
+        for for_decode in (False, True):
+            ref = {k: (tuple(v.shape), jnp.dtype(v.dtype).name)
+                   for k, v in jm.input_specs(shape, for_decode=for_decode).items()}
+            port = {k: (s, str(d).split(".")[1])
+                    for k, (s, d) in tm.input_specs(tshape, for_decode=for_decode).items()}
+            assert port == ref, (shape.name, for_decode)
 
 
 # -- layers -------------------------------------------------------------------
@@ -322,3 +367,42 @@ def test_weight_carry_raises_on_a_wrong_leaf():
         with pytest.raises(ValueError):
             interop.model_from_reference_params(tcfg, edited(fn), device="cpu")
     interop.model_from_reference_params(tcfg, good, device="cpu")  # still fine
+
+
+def _edit(tree, path, fn):
+    """A copy of the numpy pytree ``tree`` with ``fn(parent, key)`` applied
+    at ``path`` (``a/0/b``)."""
+    tree = jax.tree_util.tree_map(lambda a: a, tree)
+    *parents, key = path.split("/")
+    node = tree
+    for p in parents:
+        node = node[int(p)] if isinstance(node, list) else node[p]
+    fn(node, key)
+    return tree
+
+
+@pytest.mark.parametrize("arch,stacked,listed", [
+    ("deepseek-moe-16b", "moe_layers/moe/w_up", "dense_layers/0/mlp/w_up"),
+    ("jamba-1.5-large-398b", "periods/mamba/mixer/in_proj", "periods/attn/attn/wq"),
+    ("whisper-tiny", "decoder/cross_attn/wk", "dec_pos"),
+])
+def test_weight_carry_refuses_a_wrong_leaf_in_every_tree(arch, stacked, listed):
+    """A list entry (``dense_layers/0``), a stack in a stack (the hybrid's
+    ``(P, 7, ...)``) and the encoder-decoder's trees: a missing, extra,
+    mis-shaped (also a lost stack axis) or mis-typed leaf is refused."""
+    jparams = _np(jbuild(jconfigs.reduced(jconfigs.get_arch(arch)),
+                         dtype=jnp.float32).init(jax.random.PRNGKey(0)))
+    tcfg = tconfigs.reduced(tconfigs.get_arch(arch))
+    cases = {
+        "missing": (listed, lambda node, k: node.pop(k)),
+        "extra": (stacked, lambda node, k: node.__setitem__(k + "_x", node[k])),
+        "shape": (stacked, lambda node, k: node.__setitem__(k, node[k][..., :-1])),
+        "stack axis": (stacked, lambda node, k: node.__setitem__(k, node[k][0])),
+        "dtype": (listed, lambda node, k: node.__setitem__(
+            k, node[k].astype(np.float16))),
+    }
+    for what, (path, fn) in cases.items():
+        with pytest.raises(ValueError):
+            interop.model_from_reference_params(tcfg, _edit(jparams, path, fn),
+                                                device="cpu")
+    interop.model_from_reference_params(tcfg, jparams, device="cpu")  # still fine

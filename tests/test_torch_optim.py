@@ -17,6 +17,9 @@ within rounding of 0 may flip by 2·lr: step-1 updates are compared where
 ``|g| > 1e-6·max|g|`` and the rest is counted (3 of 966,112 entries on
 these draws; the test requires fewer than 10).
 """
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +31,9 @@ from repro.configs import get_arch as jget_arch, reduced as jreduced
 from repro.models.factory import build_model as jbuild
 from repro.utils.checkpoint import flatten_with_paths as jflat
 from repro_torch import optim as topt
-from repro_torch.models.base import tree_of
+from repro_torch.configs import get_arch as tget_arch, reduced as treduced
+from repro_torch.models.base import leaf_shape, stack_axes, stack_paths, tree_of
+from repro_torch.models.factory import build_model as tbuild
 from repro_torch.utils.checkpoint import flatten_with_paths as tflat
 
 STEPS = 4
@@ -56,18 +61,27 @@ def case():
     return params, grads
 
 
-def _port_tree(ref_tree):
-    """The reference's nested dict of stacked arrays -> the port's tree."""
+@functools.lru_cache
+def _stacks(arch, **replace):
+    """The stack paths of the port's reduced ``arch``."""
+    cfg = dataclasses.replace(treduced(tget_arch(arch)), **replace)
+    return stack_paths(tbuild(cfg, torch.float32, device="cpu"))
+
+
+def _port_tree(ref_tree, arch="mamba2-370m", **replace):
+    """The reference's nested dict of stacked arrays (of the reduced
+    ``arch``) -> the port's tree (a stacked leaf split per layer; the
+    hybrid's ``periods/mamba/...`` per period and per sublayer)."""
+    stacks = _stacks(arch, **replace)
     named = {}
     for path, arr in jflat(ref_tree)[0].items():
-        parts = path.split("/")
-        if parts[0] == "layers":
-            for i in range(arr.shape[0]):
-                named[".".join(["layers", str(i)] + parts[1:])] = \
-                    torch.from_numpy(np.array(arr[i]))
-        else:
-            named[".".join(parts)] = torch.from_numpy(np.array(arr))
-    return tree_of(named)
+        parts, axes = path.split("/"), stack_axes(path, stacks)
+        for idx in np.ndindex(*arr.shape[:len(axes)]):
+            names = list(parts)
+            for pos, i in reversed(list(zip(axes, idx))):
+                names.insert(pos + 1, str(i))
+            named[".".join(names)] = torch.from_numpy(np.array(arr[idx]))
+    return tree_of(named, stacks)
 
 
 def _same(port, ref, rtol, atol=1e-9, where=""):
@@ -164,6 +178,40 @@ def test_adafactor_factors_stacked_leaves(case):
     solo = topt.adafactor(LR)
     u0, _ = solo.update(g0, solo.init({"scale": (pt[ln][0],)}), None)
     assert not torch.allclose(u0["scale"][0], ut[ln][0])
+
+
+ARCH = "jamba-1.5-large-398b"
+
+
+def test_adafactor_on_the_hybrids_nested_leaves_matches_reference():
+    """Two periods of the reduced jamba (the config's optimizer): its
+    ``(P, n, ...)`` leaves are factored whole, as the reference's, over
+    STEPS steps: updates, state and parameters."""
+    cfg = dataclasses.replace(jreduced(jget_arch(ARCH)), num_layers=16)
+    assert cfg.optimizer == "adafactor"
+    params = jax.tree_util.tree_map(
+        np.asarray, jbuild(cfg, dtype=jnp.float32).init(jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(6)
+    grads = [jax.tree_util.tree_map(
+        lambda p: (rng.normal(size=p.shape) * 0.1).astype(np.float32), params)
+        for _ in range(STEPS)]
+    jt, tt = jopt.adafactor(LR), topt.adafactor(LR)
+    pj = jax.tree_util.tree_map(jnp.asarray, params)
+    pt = _port_tree(params, ARCH, num_layers=16)
+    leaf = "periods/mamba/mixer/in_proj"
+    assert isinstance(pt[leaf][0], tuple) and leaf_shape(pt[leaf])[:2] == (2, 7)
+    sj, st = jt.init(pj), tt.init(pt)
+    j_update = jax.jit(jt.update)
+    assert st.row[leaf].shape == leaf_shape(pt[leaf])[:-1]
+    _same(st, sj, 0.0, 0.0, where="init")
+    for step, g in enumerate(grads):
+        uj, sj = j_update(jax.tree_util.tree_map(jnp.asarray, g), sj, pj)
+        ut, st = tt.update(_port_tree(g, ARCH, num_layers=16), st, pt)
+        _same(ut, uj, 1e-5, atol=1e-5 * LR, where=f"step {step} updates")
+        _same(st, sj, 1e-5, where=f"step {step} state")
+        pj = jopt.base.apply_updates(pj, uj)
+        topt.apply_updates(pt, ut)
+        _same(pt, pj, 1e-5, atol=1e-5 * LR, where=f"step {step} params")
 
 
 def test_global_norm_and_clip_match_reference(case):
