@@ -141,7 +141,7 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    ``results/BENCH_faults.json``'s, the rescue-off ratio above the
    rescue-on one at 5% on both families gated, its serving leg audited
    for phase 12; (e) Fig. 6's
-   ``annealed_vs_const`` on four more card streams (reported);
+   ``annealed_vs_const`` on two more card streams (reported);
 11. dynamic graphs (aim ``PHASE11_AIM_S``): (a) the reference's churn
    sweep at its full tier (``benchmarks/large_graph_walk.py``
    ``_churn_sweep``: BA(100k,3) ragged, Lipschitz ``exp(N(0,1))`` from
@@ -232,6 +232,28 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    1e-3); the reduced olmoe fleet step (W=4, averaging every 2); reduced
    olmoe killed after a step-10 checkpoint and resumed bit for bit under
    deterministic algorithms.
+15. the walker fleet across ranks (aim ``PHASE15_AIM_S``): this process
+   joins a one-rank NCCL group (``tcp://localhost``, a free port) and
+   builds ``make_walker_mesh()``; (a) phase 3's trainer through
+   ``run_rw_sgd_multi(mesh=)`` (captured, the all-reduces in the CUDA
+   graphs) against its loop with ``mesh=None`` from the same generator
+   state: every field bit for bit, phase 3's walks' digest, 500 ragged
+   launches each, both loops' replayed ms/step, the NCCL kernels of a
+   profiled window and one eager all-reduce's time; (b) the fleet section
+   of the reference's ``benchmarks/large_graph_walk.py`` at ``full``: the
+   ragged engine on BA(100k,3) at W = 2048 and 8192 for 200 steps
+   (aggregate walk-steps/s, ``sharded``, walks equal to the unsharded
+   engine's), then ring(128) at T = 20,000, W = 1, 2, 4, 8, averaging
+   every 50 (excess over the floor, hops/update); (c) two NCCL ranks on
+   the card, once (NCCL's answer printed), then P = 2 and 4 spawned
+   processes on the card over gloo: (a)'s loop for 200 steps plain and
+   under Markov faults, and 2049 walkers (replicated), against the same
+   runs unsharded in this process (walks and fault state bit for bit,
+   floats at the reference's all-reduce tolerances), each rank's ragged
+   launches, a gloo all-reduce's time; (d) ``paper.multi_walk`` at full
+   through (a)'s mesh, gated ``excess_w8 < excess_w1``; (e) in the P = 2
+   group, the LLM fleet step of reduced olmoe and mamba2 (W = 4, averaging
+   every 2) against the unsharded step on the card.
 
 Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
 of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
@@ -260,11 +282,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, the
-# float32 rate outside the tensor cores and the dense bf16 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+from repro_torch.launch.mesh import HW  # noqa: E402  (after the path)
+
+# H100 SXM published peaks (NVIDIA data sheet, repro_torch.launch.mesh.HW):
+# HBM bandwidth, the float32 rate outside the tensor cores and the dense
+# bf16 tensor-core rate.
+HBM_BYTES_PER_S = HW.HBM_BW
+FP32_OPS_PER_S = HW.PEAK_FLOPS_FP32
+BF16_OPS_PER_S = HW.PEAK_FLOPS_BF16
 SECTOR = 32
 # the walks' digests of phase 2's engine, phase 3's trainer and phase 4's
 # sparse engine, as the uncaptured loops of earlier commits logged them:
@@ -1973,14 +1998,18 @@ def phase_llm(dev) -> dict:
 # -- phase 9: the paper on the card ----------------------------------------------
 
 PAPER_BUDGET_S = 300.0  # phase 9's aim, so the whole script stays ~10 min
-SCRIPT_AIM_S = 840.0 + 90.0 + 60.0  # the whole script's aim, phases 13-14's included
+# the whole script's aim, phases 13-15's included (phase 15 takes ~150 s,
+# not its 60 s aim: the script then ends near 1,010 s)
+SCRIPT_AIM_S = 840.0 + 90.0 + 60.0 + 55.0
 # the seconds phases 10-12 took after phase 9 on an H100 at 700 W (phase 10
-# ~254 plus its serving leg's ~17, phase 11 ~35, phase 12 ~101; PERF.md
-# section 5) and phases 13's and 14's aims (PHASE13_AIM_S, PHASE14_AIM_S):
-# phase 9 aims at what is left of SCRIPT_AIM_S, never above PAPER_BUDGET_S
-LATER_PHASES_S = 407.0 + 90.0 + 60.0
-PHASE10_AIM_S = 240.0  # phase 10's aim: the script within ~12 min
-LAWS_AIM_S = 110.0  # of which the law sweep's 21 runs (T cut past it)
+# ~200 with the law sweep's aim at 50 s and two Fig. 6 streams, plus its
+# serving leg's ~17, phase 11 ~35, phase 12 ~101; PERF.md section 5),
+# phases 13's and 14's aims (PHASE13_AIM_S, PHASE14_AIM_S) and phase 15's
+# ~150: phase 9 aims at what is left of SCRIPT_AIM_S, never above
+# PAPER_BUDGET_S
+LATER_PHASES_S = 353.0 + 90.0 + 60.0 + 150.0
+PHASE10_AIM_S = 180.0  # phase 10's aim: the script within ~17 min
+LAWS_AIM_S = 50.0  # of which the law sweep's 21 runs (T cut past it)
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
 PAPER_SPAWN_S = 20.0  # a worker process's start (the side-by-side plan)
 PAPER_WORKERS = 8  # the side-by-side plan's worker processes
@@ -2351,7 +2380,7 @@ LAWS_MIN_T = 15_000  # the reference's quick T, the floor of any cut
 LAWS_REPLAYED = (("ba", "heterogeneity"),)  # card-drawn, replayed on the CPU
 # the main path's trainer of phase 3 (large_graph_walk's): BA(n, m) ragged
 FAULT_GRAPH, FAULT_STEPS, FAULT_WALKS, FAULT_AVG = (100_000, 3), 500, 2048, 50
-FIG6_SEEDS = (1, 2, 3, 4)  # Fig. 6's stream seeds beyond phase 9's
+FIG6_SEEDS = (1, 2)  # Fig. 6's stream seeds beyond phase 9's
 
 
 def counts_zero(wt) -> None:
@@ -4981,6 +5010,614 @@ def phase_families(dev, smi) -> dict:
     return out
 
 
+# -- phase 15: the walker fleet across ranks ------------------------------------
+
+PHASE15_AIM_S = 60.0  # phase 15's aim
+P15_GRAPH = (100_000, 3)  # (a), (b): BA(n, m), phase 3's graph
+P15_TRAIN = dict(walkers=2048, avg_every=50, steps=500)  # (a): phase 3's trainer
+P15_SWEEP_WALKS, P15_SWEEP_STEPS = (2048, 8192), 200  # (b): the fleet rows, full
+P15_CONV = dict(steps=20_000, walkers=(1, 2, 4, 8), avg_every=50)  # (b)
+P15_RANKS = (2, 4)  # (c): processes on the one card, over gloo
+P15_RANK_STEPS, P15_ODD_STEPS = 200, 50  # (c): the trainer's loop, W + 1 walkers
+P15_FAULTS = dict(crash_rate=0.05, recovery_rate=0.02, patience=2,
+                  rescue=True)  # (c): phase 10's Markov faults
+P15_LLM = dict(archs=("olmoe-1b-7b", "mamba2-370m"), walkers=4, avg_every=2,
+               steps=4, lr=1e-3)  # (e)
+P15_JOIN_S, P15_PROBE_S = 240.0, 60.0  # a spawn group's limit; the NCCL probe's
+P15_COLLECTIVES = 200  # all-reduces of a (dim,) vector timed on each backend
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(fn, world: int, args: tuple, limit: float, *,
+                fail: bool = True) -> bool:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes, joined
+    within ``limit`` seconds.  A rank that raises raises here; on expiry
+    the ranks are killed and this raises, or with ``fail=False`` returns
+    False."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(fn, args=(world, *args), nprocs=world,
+                              join=False, start_method="spawn")
+    deadline = time.monotonic() + limit
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            for p in ctx.processes:
+                p.join(10)
+            if fail:
+                raise AssertionError(f"{world} ranks did not finish in "
+                                     f"{limit:.0f} s")
+            return False
+    return True
+
+
+def mesh_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` of every rank of the walker mesh, concatenated (``x`` itself
+    without a mesh)."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        return x
+    group = mesh.get_group("data")
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def collective_ms(mesh, dev, dim: int) -> float:
+    """Milliseconds of one all-reduce of a ``(dim,)`` float32 vector on the
+    card along the walker mesh, eager, averaged over P15_COLLECTIVES (host
+    clock around a synchronised run: gloo stages through the host)."""
+    import torch.distributed as dist
+
+    group = mesh.get_group("data")
+    x = torch.ones(dim, device=dev)
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P15_COLLECTIVES):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / P15_COLLECTIVES
+
+
+def p15_runs(inp: dict, dev, mesh, wt) -> tuple:
+    """(c)'s runs of (a)'s trainer loop from its inputs (``inp``: the
+    engine's CSR state and CDF, the data, gamma, the p_J schedule):
+    plain and under Markov faults for P15_RANK_STEPS, and W + 1 walkers
+    (which no rank count of (c) divides) for P15_ODD_STEPS; each fleet
+    seeded 0, each generator 15.  Returns the whole fleet's outputs
+    (numpy) and each run's seconds, ragged launches and capture."""
+    from repro_torch import interop
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.models import regression as treg
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    engine, _, _ = interop.from_reference_state(
+        indptr=inp["indptr"], indices=inp["indices"], degrees=inp["degrees"],
+        edge_cdf=inp["edge_cdf"], max_degree=int(inp["max_degree"]),
+        cdf_width=int(inp["max_degree"]), p_d=float(inp["p_d"]),
+        r=int(inp["r"]), device=dev)
+    feats, targs, weights, sched = (torch.as_tensor(inp[k], device=dev) for k in
+                                    ("features", "targets", "weights", "sched"))
+    w = P15_TRAIN["walkers"]
+    out, info = {}, {}
+    for name, walks, steps, faults in (
+            ("plain", w, P15_RANK_STEPS, None),
+            ("faulted", w, P15_RANK_STEPS, FaultModel(**P15_FAULTS)),
+            ("odd", w + 1, P15_ODD_STEPS, None)):
+        fleet = tfleet.WalkFleet.create(engine, walks, seed=0,
+                                        avg_every=P15_TRAIN["avg_every"])
+        counts_zero(wt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ScanLog() as sl:
+            res = tfleet.run_fleet(
+                torch.zeros(walks, feats.shape[1], device=dev), feats, targs,
+                weights, fleet, steps, float(inp["gamma"]), sched[:steps],
+                True, treg.linear_grad, faults=faults, mesh=mesh,
+                generator=torch.Generator(device=dev).manual_seed(15))
+            torch.cuda.synchronize()
+        stats = sl.stats[0]
+        info[name] = {"s": time.perf_counter() - t0, "steps": steps,
+                      "launches": counts_read(wt)["walk_transition_ragged"],
+                      "captured": stats.captured,
+                      "uncaptured_by": stats.uncaptured_by,
+                      "sharded": mesh is not None and tfleet.shard_fleet(
+                          fleet, mesh).mesh is not None}
+        for k, v in zip(("x_final", "mse", "avg_mse", "nodes", "hops"), res):
+            out[f"{name}/{k}"] = v.cpu().numpy()
+        out[f"{name}/final_nodes"] = res[5]["nodes"].cpu().numpy()
+        if faults is not None:
+            fs = res[5]["fault_state"]
+            for k, v in (("live", fs.live), ("blocked_state", fs.blocked),
+                         ("rescued", res[5]["rescued"]),
+                         ("blocked", res[5]["blocked"])):
+                out[f"{name}/{k}"] = v.cpu().numpy()
+    return out, info
+
+
+def p15_llm(dev, mesh, wt) -> tuple:
+    """(e): the LLM fleet step, P15_LLM's reduced archs in float32 (seed 0),
+    W walkers on a ring(8) with the online estimator, AdamW, averaging
+    every ``avg_every`` steps, the same batches; under ``mesh`` the ranks
+    split the walkers.  Returns each arch's walks per step and final
+    parameters (the whole fleet's, numpy), seconds and sparse launches."""
+    from repro_torch import optim as topt
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.graphs import ring
+    from repro_torch.core.transition import MHLJParams
+    from repro_torch.models.base import param_tree, stack_leaf
+    from repro_torch.models.factory import build_model
+    from repro_torch.walk_sgd import fleet as tfleet
+    from repro_torch.walk_sgd import llm_trainer as tllm
+
+    w, steps = P15_LLM["walkers"], P15_LLM["steps"]
+    out, info = {}, {}
+    for arch in P15_LLM["archs"]:
+        cfg = reduced(get_arch(arch))
+        model = build_model(cfg, torch.float32, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+        tree = param_tree(model)
+        walk = tllm.WalkContext.from_graph(ring(8), MHLJParams(0.3, 0.5, 3),
+                                           online_lipschitz=True, device=dev)
+        opt = topt.adamw(P15_LLM["lr"])
+        pw, ow = tfleet.stack_params(tree, w), tfleet.stack_params(
+            opt.init(tree), w)
+        if mesh is not None:
+            pw, ow = (tfleet.shard_walker_batch(x, w, mesh) for x in (pw, ow))
+        ws = tfleet.init_fleet_walk_state(8, w, seed=2, online=True,
+                                          device=dev, mesh=mesh)
+        step = tfleet.make_fleet_step(model, opt, walk, P15_LLM["avg_every"],
+                                      mesh=mesh)
+        rng = np.random.default_rng(5)
+        counts_zero(wt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes = []
+        for t in range(steps):
+            batch = {k: torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (w, 2, 32)).astype(np.int32), device=dev)
+                for k in ("tokens", "labels")}
+            pw, ow, ws, _ = step(pw, ow, ws, batch, t)
+            nodes.append(mesh_gather(ws["node"], mesh))
+        torch.cuda.synchronize()
+        info[arch] = {"s": time.perf_counter() - t0,
+                      "launches": counts_read(wt)["walk_transition_sparse"]}
+        out[f"{arch}/nodes"] = torch.stack(nodes).cpu().numpy()
+        for path, leaf in pw.items():
+            x = stack_leaf(leaf)
+            if isinstance(leaf, tuple):  # (L, W, ...) -> (W, L, ...)
+                x = x.movedim(1, 0)
+            out[f"{arch}/params/{path}"] = mesh_gather(x, mesh).cpu().numpy()
+        del model, tree, pw, ow
+    return out, info
+
+
+def rank15(rank: int, world: int, workdir: str, with_llm: bool) -> None:
+    """One rank of phase 15 (c) and (e): a gloo walker mesh of ``world``
+    processes, all on the one card.  Rank 0 writes the whole fleet's
+    outputs; every rank writes its own counts, times and collective cost."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.launch.mesh import make_walker_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rv{world}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_walker_mesh()
+        with np.load(os.path.join(workdir, "inputs.npz")) as z:
+            inp = dict(z)
+        out, info = p15_runs(inp, dev, mesh, wt)
+        if with_llm:
+            llm, info["llm"] = p15_llm(dev, mesh, wt)
+            out.update({f"llm/{k}": v for k, v in llm.items()})
+        info["collective_ms"] = collective_ms(mesh, dev, inp["features"].shape[1])
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"out{world}.npz"), **out)
+        with open(os.path.join(workdir, f"info{world}-{rank}.json"), "w") as fh:
+            json.dump(info, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_probe(rank: int, world: int, workdir: str) -> None:
+    """Two NCCL ranks on the one card: one all-reduce; writes what NCCL said."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{workdir}/rv-nccl", world_size=world,
+            rank=rank, device_id=torch.device("cuda", 0))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        msg = f"no error: the all-reduce gave {x.item()}"
+    except Exception as err:  # noqa: BLE001  (the probe reports any refusal)
+        msg = f"{type(err).__name__}: {err}"
+    with open(os.path.join(workdir, f"nccl{rank}.txt"), "w") as fh:
+        fh.write(msg)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def close_floats(got: dict, want: dict, prefix: str) -> bool:
+    """The reference's sharded-fleet tolerances (``tests/test_fleet.py``):
+    ``mse``/``avg_mse`` at rtol 1e-5, ``x_final`` at rtol 1e-4 / atol 1e-6."""
+    return (np.allclose(got[f"{prefix}/mse"], want[f"{prefix}/mse"], rtol=1e-5,
+                        atol=0)
+            and np.allclose(got[f"{prefix}/avg_mse"], want[f"{prefix}/avg_mse"],
+                            rtol=1e-5, atol=0)
+            and np.allclose(got[f"{prefix}/x_final"], want[f"{prefix}/x_final"],
+                            rtol=1e-4, atol=1e-6))
+
+
+def same_walks(got: dict, want: dict, prefix: str, keys=("nodes", "hops",
+                                                         "final_nodes")) -> bool:
+    return all(np.array_equal(got[f"{prefix}/{k}"], want[f"{prefix}/{k}"])
+               for k in keys)
+
+
+def phase15_mesh_trainer(dev, wt, ttrain, mesh, params, gates) -> dict:
+    """(a) phase 3's trainer through ``run_rw_sgd_multi(mesh=)`` on the
+    one-rank NCCL mesh, captured with its collectives, against the same loop
+    with ``mesh=None`` from the same generator state: every field bit for
+    bit; the walks' digest is phase 3's; both loops' replayed ms/step; a
+    profiled window's NCCL kernels.  Returns the inputs (c) replays."""
+    from repro_torch.core.graphs import barabasi_albert
+    from repro_torch.data import make_heterogeneous_regression
+
+    g = barabasi_albert(*P15_GRAPH, seed=0, layout="ragged")
+    data = make_heterogeneous_regression(g.n, dim=6, sigma_high_sq=100.0,
+                                         p_high=0.03, seed=7, x_star_scale=3.0)
+    gamma = float(0.3 / data.lipschitz.mean())
+    w, steps = P15_TRAIN["walkers"], P15_TRAIN["steps"]
+    counts_zero(wt)
+    res, seen = timed_training(ttrain, "mhlj", g, data, gamma, steps, w,
+                               mhlj_params=params,
+                               avg_every=P15_TRAIN["avg_every"], seed=0,
+                               device=dev, mesh=mesh)
+    launches = counts_read(wt)
+    stats = seen["scan"]
+    args = list(seen["args"])
+    kw = {k: v for k, v in seen["kwargs"].items() if k != "mesh"}
+    gen = torch.Generator(device=dev)
+    gen.set_state(seen["gen_state"])
+    counts_zero(wt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ScanLog() as sl:
+        plain = ttrain.run_fleet(*args, **dict(kw, generator=gen))
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_launches = counts_read(wt)
+    got = {"x_final": res.x_final, "mse": res.mse, "avg_mse": res.avg_mse,
+           "update_nodes": res.update_nodes, "transitions": res.transitions}
+    equal = all(np.array_equal(got[k], t.cpu().numpy()) for k, t in zip(
+        ("x_final", "mse", "avg_mse", "update_nodes", "transitions"), plain))
+    mesh_loop = scan_summary(stats, seen["loop_s"])
+    plain_loop = scan_summary(sl.stats[0], plain_s)
+
+    def mesh_window():
+        g2 = torch.Generator(device=dev)
+        g2.set_state(seen["gen_state"])
+        ttrain.run_fleet(*args[:5], PROFILE_STEPS, *args[6:7],
+                         args[7][:PROFILE_STEPS], *args[8:],
+                         **dict(seen["kwargs"], generator=g2))
+
+    prof = profile_window(mesh_window, "nccl", after="scan.capture")
+    nccl_events = {k: v for k, v in prof.get("device_launches_by_name",
+                                             {}).items() if "nccl" in k}
+    trainer_digest = digest(res.update_nodes, res.transitions)
+    nccl_ms = collective_ms(mesh, dev, data.dim)
+    # the fleet's mean is sum / W on both paths; Tensor.mean, for the record
+    gm = torch.Generator(device=dev).manual_seed(0)
+    mean_bits = {}
+    for walks in (2, 3, 7, 2048, 2049):
+        x = torch.randn(walks, data.dim, generator=gm, device=dev) * 10
+        mean_bits[walks] = torch.equal(x.mean(0), x.sum(0) / walks)
+    log(f"  (a) trainer mhlj BA{P15_GRAPH} W={w} T={steps} on the one-rank NCCL "
+        f"mesh: {launches['walk_transition_ragged']} ragged launches, "
+        f"captured {stats.captured}, replayed {mesh_loop['replayed_ms_per_step']:.5f} "
+        f"ms/step (K={stats.chunk} x {stats.replays} + {stats.tail}); "
+        f"mesh=None {plain_launches['walk_transition_ragged']} launches, "
+        f"captured {sl.stats[0].captured}, replayed "
+        f"{plain_loop['replayed_ms_per_step']:.5f} ms/step; every field bit "
+        f"for bit: {equal}; walks' digest {trainer_digest}")
+    log(f"  (a) profiled {PROFILE_STEPS}-step mesh loop after its capture: "
+        f"idle share {prof['idle_share']}, NCCL device events {nccl_events} "
+        f"(the gathers at the end: a one-rank all-reduce in place launches "
+        f"nothing); one eager NCCL all-reduce of ({data.dim},) float32 "
+        f"{nccl_ms:.5f} ms; Tensor.mean == sum / W on the card at (W, "
+        f"{data.dim}): {mean_bits}")
+    gate(gates, "(a) mesh trainer == mesh=None, every field bit for bit", equal)
+    gate(gates, "(a) mesh loop captured with its collectives", stats.captured)
+    gate(gates, "(a) 500 ragged launches each",
+         launches["walk_transition_ragged"] == steps
+         == plain_launches["walk_transition_ragged"])
+    gate(gates, "(a) the walks are phase 3's",
+         trainer_digest == WALK_DIGESTS["trainer"])
+    e = seen["fleet"].engine
+    inputs = {"indptr": e.indptr.cpu().numpy(), "indices": e.indices.cpu().numpy(),
+              "degrees": e.degrees.cpu().numpy(),
+              "edge_cdf": e.edge_cdf.cpu().numpy(), "max_degree": e.max_degree,
+              "p_d": e.p_d, "r": e.r, "gamma": args[6],
+              "features": args[1].cpu().numpy(), "targets": args[2].cpu().numpy(),
+              "weights": args[3].cpu().numpy(), "sched": args[7].cpu().numpy()}
+    return {"launches": launches, "plain_launches": plain_launches,
+            "loop": mesh_loop, "plain_loop": plain_loop, "equal": equal,
+            "captured": stats.captured, "profile": prof,
+            "nccl_events": nccl_events, "mean_equals_sum_over_w": mean_bits,
+            "nccl_allreduce_ms": nccl_ms, "walks_digest": trainer_digest,
+            "inputs": inputs}
+
+
+def phase15_sweep(dev, wt, ttrain, mesh, params, gates) -> dict:
+    """(b) the fleet section of ``benchmarks/large_graph_walk.py`` at
+    ``full`` under the mesh: the ragged engine on BA(100k,3) (lipschitz
+    seeded 11) at W in P15_SWEEP_WALKS for P15_SWEEP_STEPS steps, aggregate
+    walk-steps/s and the ``sharded`` flag (the walks equal the unsharded
+    engine's); then ring(128)'s convergence against W, averaging every 50:
+    the final ``avg_mse`` over the least-squares floor and hops/update."""
+    from repro_torch.core.engine import WalkEngine
+    from repro_torch.core.graphs import barabasi_albert, ring
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.walk_sgd import fleet as tfleet
+
+    g = barabasi_albert(*P15_GRAPH, seed=0, layout="csr")
+    rng = np.random.default_rng(11)
+    lips = np.exp(rng.normal(0.0, 1.0, g.n)).astype(np.float32)
+    engine = WalkEngine.from_graph(g, params, lipschitz=lips, layout="ragged",
+                                   device=dev)
+    rows = {}
+    for w in P15_SWEEP_WALKS:
+        v0s = torch.as_tensor(rng.integers(0, g.n, w).astype(np.int32),
+                              device=dev)
+        fleet = tfleet.shard_fleet(
+            tfleet.WalkFleet(engine=engine, nodes=v0s, num_walks=w), mesh)
+        e = fleet.engine
+        e.run(fleet.nodes, P15_SWEEP_STEPS,
+              generator=torch.Generator(device=dev).manual_seed(3))  # warm
+        counts_zero(wt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes, _ = e.run(fleet.nodes, P15_SWEEP_STEPS,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts_read(wt)["walk_transition_ragged"]
+        unsharded, _ = engine.run(v0s, P15_SWEEP_STEPS,
+                                  generator=torch.Generator(device=dev).manual_seed(4))
+        same = torch.equal(fleet.all_nodes(), v0s) and torch.equal(
+            mesh_gather(nodes, fleet.mesh), unsharded)
+        rows[w] = {"num_walkers": w, "sharded": fleet.mesh is not None,
+                   "aggregate_walk_steps_per_sec": w * P15_SWEEP_STEPS / dt,
+                   "launches": launches, "equal_unsharded": same}
+        log(f"  (b) fleet row W={w}: sharded {rows[w]['sharded']}, "
+            f"{rows[w]['aggregate_walk_steps_per_sec']:.4e} aggregate "
+            f"walk-steps/s ({dt * 1e3 / P15_SWEEP_STEPS:.5f} ms/step), "
+            f"{launches} ragged launches, walks == unsharded {same}")
+        gate(gates, f"(b) fleet row W={w} walks == unsharded, "
+             f"{P15_SWEEP_STEPS} launches", same and launches == P15_SWEEP_STEPS)
+    n = 128
+    data = make_heterogeneous_regression(n, dim=6, sigma_high_sq=100.0,
+                                         p_high=0.03, seed=7, x_star_scale=3.0)
+    gamma = float(0.3 / data.lipschitz.mean())
+    floor = float(data.mse(data.optimum()))
+    conv = {}
+    for w in P15_CONV["walkers"]:
+        counts_zero(wt)
+        t0 = time.perf_counter()
+        res = ttrain.run_rw_sgd_multi(
+            "mhlj", ring(n), data, gamma, P15_CONV["steps"], w,
+            mhlj_params=params, seed=0, avg_every=P15_CONV["avg_every"],
+            mesh=mesh, device=dev)
+        conv[w] = {"num_walkers": w, "avg_every": P15_CONV["avg_every"],
+                   "final_avg_mse": float(res.avg_mse[-1]),
+                   "excess_over_floor": float(res.avg_mse[-1]) - floor,
+                   "transitions_per_update": res.transitions_per_update,
+                   "s": time.perf_counter() - t0,
+                   "launches": counts_read(wt)["walk_transition_sparse"]}
+        log(f"  (b) convergence ring(128) W={w} T={P15_CONV['steps']}: excess "
+            f"{conv[w]['excess_over_floor']:.6g} over floor {floor:.6g}, "
+            f"hops/update {conv[w]['transitions_per_update']:.4f} "
+            f"({conv[w]['s']:.2f} s, {conv[w]['launches']} sparse launches)")
+        gate(gates, f"(b) convergence W={w} one sparse launch a step",
+             conv[w]["launches"] == P15_CONV["steps"])
+    return {"rows": rows, "convergence": conv, "ls_floor_mse": floor}
+
+
+def phase15_ranks(dev, wt, inputs: dict, gates) -> dict:
+    """(c) P15_RANKS processes on the one card over gloo (CUDA tensors
+    staged through the host): (a)'s trainer loop for P15_RANK_STEPS steps,
+    plain and under Markov faults, and W + 1 walkers (replicated), each
+    against the same run unsharded (captured) in this process: walks and
+    the fault state bit for bit, floats at the reference's tolerances,
+    every field of the replicated fleet bit for bit; each rank's ragged
+    launches; one gloo all-reduce's cost.  First, NCCL with two ranks on
+    the card, once.  (e) rides the P = 2 group (:func:`phase15_llm_check`)."""
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="phase15-", dir=os.path.join(ROOT, "build"))
+    np.savez(os.path.join(workdir, "inputs.npz"), **inputs)
+    t0 = time.perf_counter()
+    finished = spawn_ranks(nccl_probe, 2, (workdir,), P15_PROBE_S, fail=False)
+    said = []
+    for rank in range(2):
+        path = os.path.join(workdir, f"nccl{rank}.txt")
+        said.append(open(path).read() if os.path.exists(path) else "nothing")
+    probe = {"finished": finished, "said": said, "s": time.perf_counter() - t0}
+    log(f"  (c) NCCL, two ranks on one card ({probe['s']:.2f} s, "
+        f"{'exited' if finished else f'killed after {P15_PROBE_S:.0f} s'}): "
+        f"rank 0: {said[0][:400]}")
+    ref, ref_info = p15_runs(inputs, dev, None, wt)
+    for name, i in ref_info.items():
+        log(f"  (c) unsharded {name} on the card: {i['s']:.2f} s, "
+            f"{i['launches']} ragged launches, captured {i['captured']}")
+    llm_ref, llm_ref_info = p15_llm(dev, None, wt)
+    out = {"probe": probe, "reference": ref_info, "llm_reference": llm_ref_info}
+    for world in P15_RANKS:
+        t0 = time.perf_counter()
+        spawn_ranks(rank15, world, (workdir, world == 2), P15_JOIN_S)
+        wall = time.perf_counter() - t0
+        with np.load(os.path.join(workdir, f"out{world}.npz")) as z:
+            got = dict(z)
+        infos = []
+        for rank in range(world):
+            with open(os.path.join(workdir, f"info{world}-{rank}.json")) as fh:
+                infos.append(json.load(fh))
+        row = {"wall_s": wall, "ranks": infos}
+        for name in ("plain", "faulted"):
+            walks = same_walks(got, ref, name)
+            floats = close_floats(got, ref, name)
+            if name == "faulted":
+                walks = walks and all(np.array_equal(
+                    got[f"faulted/{k}"], ref[f"faulted/{k}"]) for k in
+                    ("live", "blocked_state", "rescued", "blocked"))
+            gate(gates, f"(c) P={world} {name}: walks bit for bit", walks)
+            gate(gates, f"(c) P={world} {name}: floats within the all-reduce "
+                 "tolerances", floats)
+        odd = all(np.array_equal(got[k], ref[k]) for k in ref
+                  if k.startswith("odd/"))
+        gate(gates, f"(c) P={world} W={P15_TRAIN['walkers'] + 1}: replicated, "
+             "every field bit for bit", odd and not any(
+                 i["odd"]["sharded"] for i in infos))
+        per_rank = [{k: i[k]["launches"] for k in ("plain", "faulted", "odd")}
+                    for i in infos]
+        gate(gates, f"(c) P={world} every rank launched the ragged kernel "
+             "each step", all(c == {"plain": P15_RANK_STEPS,
+                                   "faulted": P15_RANK_STEPS,
+                                   "odd": P15_ODD_STEPS} for c in per_rank))
+        gate(gates, f"(c) P={world} gloo loops uncaptured, with the reason",
+             all(not i[k]["captured"] and i[k]["uncaptured_by"]
+                 for i in infos for k in ("plain", "faulted")))
+        ms = [i["plain"]["s"] * 1e3 / P15_RANK_STEPS for i in infos]
+        coll = [i["collective_ms"] for i in infos]
+        log(f"  (c) P={world} gloo ranks on the card ({wall:.2f} s with the "
+            f"spawn): ragged launches per rank {per_rank}; plain loop "
+            f"{max(ms):.4f} ms/step (slowest rank, uncaptured, host-bound) "
+            f"against {ref_info['plain']['s'] * 1e3 / P15_RANK_STEPS:.4f} "
+            f"unsharded captured; one gloo all-reduce of "
+            f"({inputs['features'].shape[1]},) float32 {max(coll):.4f} ms")
+        if world == 2:
+            row["llm"] = phase15_llm_check(got, llm_ref, infos, gates)
+        out[f"P{world}"] = row
+    return out
+
+
+def phase15_llm_check(got: dict, ref: dict, infos: list, gates) -> dict:
+    """(e) the P = 2 group's LLM fleet steps against the unsharded steps on
+    the card: walks equal, parameters within ``test_torch_llm_train``'s
+    fleet bound (rtol 1e-4 / atol 1e-3·lr, at most 1e-4 of the entries
+    beyond, each within 2·lr a step)."""
+    lr, steps = P15_LLM["lr"], P15_LLM["steps"]
+    out = {}
+    for arch in P15_LLM["archs"]:
+        nodes = np.array_equal(got[f"llm/{arch}/nodes"], ref[f"{arch}/nodes"])
+        beyond = total = 0
+        worst = 0.0
+        for k, x in ref.items():
+            if not k.startswith(f"{arch}/params/"):
+                continue
+            diff = np.abs(got[f"llm/{k}"] - x)
+            beyond += int((diff > 1e-3 * lr + 1e-4 * np.abs(x)).sum())
+            total += x.size
+            worst = max(worst, float(diff.max()))
+        launches = [i["llm"][arch]["launches"] for i in infos]
+        out[arch] = {"nodes_equal": nodes, "beyond": beyond, "total": total,
+                     "max_abs_diff": worst, "launches_per_rank": launches,
+                     "s": max(i["llm"][arch]["s"] for i in infos)}
+        log(f"  (e) {arch} fleet step, 2 gloo ranks, W={P15_LLM['walkers']}, "
+            f"{steps} steps: walks equal {nodes}; {beyond} of {total} "
+            f"parameters beyond rtol 1e-4 / atol 1e-3·lr (max |diff| "
+            f"{worst:.3g}); sparse launches per rank {launches}; "
+            f"{out[arch]['s']:.2f} s")
+        gate(gates, f"(e) {arch}: walks equal, parameters within the bound, "
+             "one sparse launch a step per rank",
+             nodes and beyond <= 1e-4 * total and worst <= 2 * lr * steps
+             and launches == [steps, steps])
+    return out
+
+
+def phase15_multi_walk(dev, wt, mesh, gates) -> dict:
+    """(d) ``repro_torch.paper.multi_walk`` at full through the mesh."""
+    from repro_torch.paper import multi_walk
+
+    counts_zero(wt)
+    t0 = time.perf_counter()
+    res = multi_walk.run(device=dev, mesh=mesh)
+    dt = time.perf_counter() - t0
+    launches = counts_read(wt)["walk_transition_sparse"]
+    d = res["derived"]
+    runs = len(multi_walk.WALKERS) * res["reps"]
+    log(f"  (d) multi_walk full ({runs} runs of T={res['T']}, mesh devices "
+        f"{res['mesh_devices']}): variance_reduction_w8 "
+        f"{d['variance_reduction_w8']:.6g} (excess w1 {d['excess_w1']:.6g}, "
+        f"w8 {d['excess_w8']:.6g}), aggregate walk-steps/s at W=8 "
+        f"{d['aggregate_walk_steps_per_sec_w8']:.4e}; {launches} sparse "
+        f"launches; {dt:.2f} s")
+    gate(gates, "(d) excess_w8 < excess_w1", d["excess_w8"] < d["excess_w1"])
+    gate(gates, "(d) one sparse launch a step", launches == runs * res["T"])
+    return {**res, "s": dt, "launches": launches}
+
+
+def phase_fleet_mesh(dev, smi, ttrain, params) -> dict:
+    """Phase 15: the multi-device walker fleet, on the one card: a one-rank
+    NCCL mesh for (a), (b) and (d), gloo ranks for (c) and (e)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.launch.mesh import make_walker_mesh
+
+    torch.cuda.empty_cache()
+    log(f"phase 15 (the walker fleet across ranks): {smi}; aim "
+        f"{PHASE15_AIM_S:.0f} s")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    gates: dict = {}
+    out: dict = {}
+    marks = [time.perf_counter()]
+    try:
+        mesh = make_walker_mesh()
+        out["mesh_trainer"] = phase15_mesh_trainer(dev, wt, ttrain, mesh, params,
+                                                   gates)
+        marks.append(time.perf_counter())
+        out["sweep"] = phase15_sweep(dev, wt, ttrain, mesh, params, gates)
+        marks.append(time.perf_counter())
+        out["ranks"] = phase15_ranks(dev, wt, out["mesh_trainer"].pop("inputs"),
+                                     gates)
+        marks.append(time.perf_counter())
+        out["multi_walk"] = phase15_multi_walk(dev, wt, mesh, gates)
+        marks.append(time.perf_counter())
+    finally:
+        dist.destroy_process_group()
+    out["part_s"] = dict(zip(("mesh_trainer", "sweep", "ranks", "multi_walk"),
+                             np.diff(marks).tolist()))
+    log("  phase 15 parts: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["part_s"].items()))
+    out["gates"] = gates
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15: {failed}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -5632,6 +6269,39 @@ def main() -> int:
     if not next(k for k in kernels
                 if k["name"] == "walk_transition_sparse").get("launches_phase14"):
         raise AssertionError("phase 14 launched walk_transition_sparse no time")
+    # -- phase 15: the walker fleet across ranks -----------------------------
+    t0 = time.perf_counter()
+    p15 = phase_fleet_mesh(dev, smi, ttrain, params)
+    dt = time.perf_counter() - t0
+    log(f"phase 15 walker fleet across ranks: {dt:.2f} s (aim "
+        f"{PHASE15_AIM_S:.0f} s)")
+    report["phases"]["fleet_mesh"] = {"s": dt, **p15}
+    # phase 15's paths, each counted from 0 just before it and read just
+    # after; the gloo ranks' counts are each process's own
+    ranks = [r for world in P15_RANKS for r in p15["ranks"][f"P{world}"]["ranks"]]
+    p15_paths = {
+        "mesh_trainer": [p15["mesh_trainer"]["launches"]],
+        "fleet_rows": [{"walk_transition_ragged": r["launches"]}
+                       for r in p15["sweep"]["rows"].values()],
+        "convergence": [{"walk_transition_sparse": c["launches"]}
+                        for c in p15["sweep"]["convergence"].values()],
+        "gloo_ranks": [{"walk_transition_ragged": r[k]["launches"]}
+                       for r in ranks for k in ("plain", "faulted", "odd")],
+        "gloo_llm_fleet": [{"walk_transition_sparse": n}
+                           for a in p15["ranks"]["P2"]["llm"].values()
+                           for n in a["launches_per_rank"]],
+        "multi_walk": [{"walk_transition_sparse": p15["multi_walk"]["launches"]}]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p15_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase15"] = by_path
+            k["launches"] += sum(by_path.values())
+    for name in ("walk_transition_sparse", "walk_transition_ragged"):
+        if not next(k for k in kernels if k["name"] == name).get(
+                "launches_phase15"):
+            raise AssertionError(f"phase 15 launched {name} no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -89,6 +89,7 @@ __all__ = [
     "levy_jump_batched",
     "combine_mh_jump",
     "draw_uniforms",
+    "WalkerShard",
     "WalkEngine",
 ]
 
@@ -633,6 +634,32 @@ def draw_uniforms(
 
 
 
+@dataclasses.dataclass(frozen=True)
+class WalkerShard:
+    """The rows ``[lo, hi)`` of a ``num_walks``-walker batch: the walks
+    one rank of a walker mesh holds (``repro_torch.walk_sgd.fleet``)."""
+
+    num_walks: int
+    lo: int
+    hi: int
+
+    def __post_init__(self):
+        if not 0 <= self.lo < self.hi <= self.num_walks:
+            raise ValueError(f"rows [{self.lo}, {self.hi}) of a "
+                             f"{self.num_walks}-walker batch")
+
+    @property
+    def size(self) -> int:
+        return self.hi - self.lo
+
+    def rows(self, block: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of a whole ``(num_walks, ...)`` block."""
+        if block.shape[0] != self.num_walks:
+            raise ValueError(f"a sharded engine takes whole ({self.num_walks}"
+                             f", ...) blocks, got {tuple(block.shape)}")
+        return block[self.lo:self.hi]
+
+
 def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
 
@@ -683,6 +710,8 @@ class WalkEngine:
     #   in checkpoints and checked; the port's CDF bits do not depend on it
     # -- dynamic graphs --------------------------------------------------------
     graph_version: int = 0  # bumped by apply_churn
+    # -- the walker mesh: this rank's rows of the fleet's walks ----------------
+    walker_sharding: Optional[WalkerShard] = None
     # device copies of host constants, made once (a step copies nothing)
     _consts: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False
@@ -1148,6 +1177,21 @@ class WalkEngine:
         full = self._bucketed_mh_full(nodes, u_mh, lipschitz, live=overflow)
         return torch.where(overflow, full, compacted), overflow
 
+    # -- the walker mesh ------------------------------------------------------
+
+    def with_walker_sharding(self, shard: Optional[WalkerShard]) -> "WalkEngine":
+        """This engine holding rows ``[shard.lo, shard.hi)`` of a
+        ``shard.num_walks``-walker batch (None: the whole batch).
+
+        :meth:`step` and :meth:`run` then take this rank's walks and draw
+        the WHOLE ``(W, 3 + r)`` block from the generator (the ``(W,)``
+        rescue uniforms too), keeping its rows: every rank's generator
+        stays in step with the unsharded run's, so the sharded walks equal
+        the unsharded walks bit for bit.  Injected blocks are given whole
+        and sliced the same way.  The reference's
+        ``WalkEngine.with_walker_sharding``."""
+        return dataclasses.replace(self, walker_sharding=shard)
+
     # -- the transition -----------------------------------------------------
 
     def _check_block(self, uniforms: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -1198,6 +1242,11 @@ class WalkEngine:
         model the rescue takes ``rescue_uniforms`` (W,) beside an injected
         block, or draws them from ``generator`` after the block.  Edge
         faults need the ragged layout.
+
+        On a sharded engine (:meth:`with_walker_sharding`) ``nodes`` (and
+        the fault state's ``blocked``) are this rank's walks, while the
+        block and the rescue uniforms, drawn or injected, are the whole
+        batch's; the step keeps this rank's rows.
         """
         from repro_torch.kernels.walk_transition.kernel import (
             walk_transition,
@@ -1220,7 +1269,12 @@ class WalkEngine:
             nodes = nodes[None]
         if nodes.ndim != 1:
             raise ValueError(f"nodes must be (W,) or 0-d, got {tuple(nodes.shape)}")
-        shape = (nodes.shape[0], num_uniforms(self.r))
+        shard = None if squeeze else self.walker_sharding
+        if shard is not None and nodes.shape[0] != shard.size:
+            raise ValueError(f"the engine holds walks [{shard.lo}, {shard.hi})"
+                             f" of {shard.num_walks}; got {nodes.shape[0]}")
+        w_block = nodes.shape[0] if shard is None else shard.num_walks
+        shape = (w_block, num_uniforms(self.r))
         if uniforms is not None:
             if squeeze and uniforms.ndim == 1:
                 uniforms = uniforms[None]
@@ -1232,6 +1286,8 @@ class WalkEngine:
             )
         else:
             raise ValueError("pass uniforms= (injected block) or generator=")
+        if shard is not None:
+            u = shard.rows(u)
         if lipschitz is not None:
             lipschitz = torch.as_tensor(
                 lipschitz, dtype=torch.float32, device=self.device
@@ -1278,13 +1334,20 @@ class WalkEngine:
         if faults is not None:
             # the masking follows the dispatch, the same on every layout
             fmodel, fstate = faults
+            if rescue_uniforms is not None:
+                rescue_uniforms = torch.as_tensor(rescue_uniforms).reshape(-1)
+            elif shard is not None and fmodel.rescue and uniforms is None:
+                # the whole (W,) draw, as the unsharded step draws it
+                rescue_uniforms = torch.rand((w_block,), generator=generator,
+                                             device=self.device)
+            if shard is not None and rescue_uniforms is not None:
+                rescue_uniforms = shard.rows(rescue_uniforms)
             nxt, hops, blocked, was_blocked, rescued = faults_mod.apply_liveness(
                 nodes, nxt, hops, fstate.blocked.reshape(-1),
                 fmodel.live_mask(fstate),
                 patience=fmodel.patience, rescue=fmodel.rescue,
                 rescue_hops=self.r,
-                uniforms=None if rescue_uniforms is None
-                else torch.as_tensor(rescue_uniforms).reshape(-1),
+                uniforms=rescue_uniforms,
                 generator=None if uniforms is not None else generator,
                 edge_live=fmodel.edge_live_mask(fstate),
                 indptr=self.indptr, indices=self.indices,
@@ -1352,9 +1415,11 @@ class WalkEngine:
             if uniforms is not None and uniforms.ndim == 2:
                 uniforms = uniforms[:, None]
         w = v.shape[0]
+        shard = None if squeeze else self.walker_sharding
         if uniforms is not None:
+            w_block = w if shard is None else shard.num_walks
             uniforms = self._check_block(
-                uniforms, (num_steps, w, num_uniforms(self.r))
+                uniforms, (num_steps, w_block, num_uniforms(self.r))
             )
         elif generator is None:
             raise ValueError("pass uniforms= (injected blocks) or generator=")
@@ -1365,10 +1430,10 @@ class WalkEngine:
             )
             if lipschitz.ndim == 2 and (
                     self.layout != "sparse"
-                    or tuple(lipschitz.shape) != (nodes.shape[0], self.n)):
+                    or tuple(lipschitz.shape) != (w, self.n)):
                 raise ValueError(
                     "per-walk lipschitz (W, n) rows are taken by the sparse "
-                    f"layout only, at (W, n) = ({nodes.shape[0]}, {self.n}); "
+                    f"layout only, at (W, n) = ({w}, {self.n}); "
                     f"got {tuple(lipschitz.shape)} on {self.layout}"
                 )
 

@@ -58,11 +58,14 @@ MAX_CHUNK = 8
 class ScanStats:
     """What one :func:`scan` call did: ``chunk`` steps a graph (0 when
     uncaptured), its ``replays``, the uncaptured ``tail``, the host
-    seconds of the capture and instantiation (``capture_s``), and CUDA
-    events around the replays and the tail (:meth:`replay_ms`)."""
+    seconds of the capture and instantiation (``capture_s``), CUDA
+    events around the replays and the tail (:meth:`replay_ms`), and why
+    a loop on the card ran uncaptured when its caller said so
+    (``uncaptured_by``, e.g. a gloo walker mesh)."""
 
     steps: int
     captured: bool
+    uncaptured_by: Optional[str] = None
     chunk: int = 0
     replays: int = 0
     tail: int = 0
@@ -123,6 +126,7 @@ def scan(
     capture: Optional[bool] = None,
     chunk: Optional[int] = None,
     generators: Sequence[torch.Generator] = (),
+    uncaptured_by: Optional[str] = None,
 ) -> tuple:
     """Run ``step`` ``num_steps`` times from ``carry``.
 
@@ -131,7 +135,9 @@ def scan(
     outputs shaped and typed like ``out_like``.  ``capture`` (default:
     on CUDA tensors) captures the loop in CUDA graphs of ``chunk`` steps
     (default :func:`plan`'s); ``generators`` are the CUDA generators the
-    step draws from.  The inputs are not modified.  Returns ``(outputs,
+    step draws from; ``uncaptured_by`` is the caller's reason for
+    ``capture=False``, kept in the stats.  The inputs are not modified.
+    Returns ``(outputs,
     final carry, stats)``: each output stacked ``(num_steps, ...)``, and
     a :class:`ScanStats`.
     """
@@ -148,7 +154,8 @@ def scan(
     if not capture or num_steps == 0:
         for _ in range(num_steps):
             _advance(step, state, bufs)
-        return bufs, state, ScanStats(steps=num_steps, captured=False)
+        return bufs, state, ScanStats(steps=num_steps, captured=False,
+                                      uncaptured_by=uncaptured_by)
 
     from repro_torch.kernels._launch import COUNTED
 

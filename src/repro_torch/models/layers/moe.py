@@ -115,8 +115,9 @@ def moe_apply(params, x: torch.Tensor, dims: MoEDims) -> tuple:
     rows = slot[..., None].expand(b, s * k, d)
 
     # dispatch; the expert-parallel layout constraints of the JAX package
-    # (no-ops without a mesh) belong to the multi-device port, ROADMAP
-    # Queue 1 item 9
+    # (no-ops without a mesh) constrain a model's own tensors, which only
+    # a sharded model's weights give meaning: they come with the port of
+    # the dry-run tooling; the walker mesh shards walkers, not weights
     x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
     buf = x.new_zeros((b, e * cap + 1, d)).scatter(1, rows, x_rep)
     expert_in = buf[:, : e * cap].reshape(b, e, cap, d)

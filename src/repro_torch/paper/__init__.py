@@ -16,9 +16,10 @@ Beside the figures, three sweeps with the same ``run`` signature:
 ``law_sweep`` (every chain law on the trap-prone families),
 ``fault_sweep`` (training and walk-routed serving under node faults,
 rescue on and off) and ``serve_throughput`` (walk-routed serving under
-every routing law); and ``llm_walk_throughput`` (``run(quick=False, *,
-device="cuda")``: walk-orchestrated LLM training steps/s per method, the
-sampler on both backends, serving).
+every routing law); ``multi_walk`` (W averaged walks against one, its
+walkers sharded over ``mesh=``); and ``llm_walk_throughput``
+(``run(quick=False, *, device="cuda")``: walk-orchestrated LLM training
+steps/s per method, the sampler on both backends, serving).
 """
 from repro_torch.paper import (
     fault_sweep,
@@ -28,6 +29,7 @@ from repro_torch.paper import (
     fig6_annealing,
     law_sweep,
     llm_walk_throughput,
+    multi_walk,
     serve_throughput,
     theorem1_remark1,
 )
@@ -49,6 +51,7 @@ __all__ = [
     "fig6_annealing",
     "law_sweep",
     "llm_walk_throughput",
+    "multi_walk",
     "serve_throughput",
     "theorem1_remark1",
 ]

@@ -25,7 +25,20 @@ walker's update after another, then advances all W walks in ONE batched
 :meth:`WalkFleet.advance` and averages every ``avg_every`` steps;
 :func:`init_fleet_walk_state` seeds its walk states.
 
-The multi-device mesh is not ported yet.
+Across ranks: under a walker mesh (``repro_torch.launch.mesh.
+make_walker_mesh``, one process a device) each rank holds W/P of the
+walks and their models (:func:`shard_fleet`, :func:`shard_walker_batch`,
+by ``repro_torch.sharding.rules``' walker axis), and keeps the whole
+graph; its engine draws the whole ``(W, 3 + r)`` block from the shared
+generator stream and keeps its rows, so the walks equal the unsharded
+run's bit for bit.  The average is an all-reduce of each rank's partial
+sum (:func:`fleet_average`), the one formula the unsharded fleet uses
+too, so a one-rank mesh gives the unsharded bits.  When W does not
+divide the rank count every rank holds every walk and no collective
+runs.  ``run_fleet(mesh=)`` also all-reduces the per-step mean model for
+``avg_mse`` and gathers the ``(W, ...)`` outputs at the end.  On NCCL the
+loop stays captured in CUDA graphs, collectives included; gloo's
+collectives cannot be captured, so a gloo mesh runs it uncaptured.
 """
 from __future__ import annotations
 
@@ -37,11 +50,19 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import scan as scan_mod
-from repro_torch.core.engine import WalkEngine, num_uniforms
+from repro_torch.core.engine import WalkEngine, WalkerShard, num_uniforms
 from repro_torch.core.faults import FaultModel, FaultState
+from repro_torch.launch.mesh import mesh_sizes
 from repro_torch.models import regression as reg
+from repro_torch.sharding.rules import (
+    PROFILES,
+    fleet_specs,
+    resolve_walker_axis,
+    walker_batch_specs,
+)
 
 __all__ = [
     "WalkFleet",
@@ -49,6 +70,8 @@ __all__ = [
     "migrate_walk_nodes",
     "fleet_average",
     "run_fleet",
+    "shard_fleet",
+    "shard_walker_batch",
     "make_fleet_step",
     "init_fleet_walk_state",
     "stack_params",
@@ -143,40 +166,94 @@ def migrate_walk_nodes(
     return new_nodes, displaced
 
 
-def fleet_average(xs, do_avg=None, live: Optional[torch.Tensor] = None):
+def _walker_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over its leading walker axis, all-reduced over
+    ``group`` (each rank's partial sum) when one is given."""
+    s = x.sum(dim=0, keepdim=True)
+    if group is not None:
+        dist.all_reduce(s, group=group)
+    return s
+
+
+def fleet_average(xs, do_avg=None, live: Optional[torch.Tensor] = None, *,
+                  group=None, num_walks: Optional[int] = None):
     """Cross-walker model average, re-broadcast to all W walkers.
 
     ``xs`` is a (W, ...) tensor, or a pytree dict of them (the LLM fleet's
-    stacked models, :func:`stack_params`), averaged leaf by leaf.
-    ``do_avg=None`` averages unconditionally; a 0-d device bool makes the
-    average conditional (the ``(t + 1) % avg_every == 0`` gate of the
-    fleet loop), selected on the device: the mean where ``do_avg``, else
-    ``xs``.  ``live``, a (W,) bool, restricts it to the live walkers (the
-    faulted loop): ``sum(xs · live) / max(Σ live, 1)``, given to the live
-    walkers only, the others keeping their models.
+    stacked models, :func:`stack_params`), averaged leaf by leaf: the sum
+    over walkers divided by W, the one formula of the sharded and the
+    unsharded fleet (it gave ``Tensor.mean``'s bits on the CPU and, at
+    (W, 6), on an H100).  ``do_avg=None`` averages
+    unconditionally; a 0-d device bool makes the average conditional (the
+    ``(t + 1) % avg_every == 0`` gate of the fleet loop), selected on the
+    device: the mean where ``do_avg``, else ``xs``.  ``live``, a (W,)
+    bool, restricts it to the live walkers (the faulted loop):
+    ``sum(xs · live) / max(Σ live, 1)``, given to the live walkers only,
+    the others keeping their models.
+
+    Under a walker mesh ``xs`` holds this rank's walkers, ``group`` is the
+    mesh's process group and ``num_walks`` the whole fleet's W: the sum
+    (and under faults the live count, in the same buffer) is all-reduced
+    over the ranks' partial sums.
     """
     if isinstance(xs, dict):
         from repro_torch.optim.base import tree_map
 
-        return tree_map(lambda x: fleet_average(x, do_avg, live), xs)
+        return tree_map(lambda x: fleet_average(
+            x, do_avg, live, group=group, num_walks=num_walks), xs)
     if live is None:
-        mean = xs.mean(dim=0, keepdim=True).expand_as(xs)
+        w = xs.shape[0] if num_walks is None else num_walks
+        mean = (_walker_sum(xs, group) / w).expand_as(xs)
         return mean.clone() if do_avg is None else torch.where(do_avg, mean, xs)
     w_live = live.to(xs.dtype)[:, None]
-    mean = (xs * w_live).sum(dim=0, keepdim=True) / torch.clamp(
-        w_live.sum(), min=1.0)
+    total = (xs * w_live).sum(dim=0, keepdim=True)
+    count = w_live.sum()
+    if group is not None:
+        packed = torch.cat([total.reshape(-1), count.reshape(1)])
+        dist.all_reduce(packed, group=group)
+        total, count = packed[:-1].view_as(total), packed[-1]
+    mean = total / torch.clamp(count, min=1.0)
     take = live[:, None] if do_avg is None else do_avg & live[:, None]
     return torch.where(take, mean.expand_as(xs), xs)
 
 
+def _walker_rows(num_walks: int, mesh) -> Optional[WalkerShard]:
+    """This rank's rows of a ``num_walks`` batch on ``mesh``, or None when
+    W does not divide the walker axis (every rank holds every walk)."""
+    spec = resolve_walker_axis(num_walks, mesh)
+    if spec is None:
+        return None
+    axis = spec[0]
+    per = num_walks // mesh_sizes(mesh)[axis]
+    rank = mesh.get_local_rank(axis)
+    return WalkerShard(num_walks, rank * per, (rank + 1) * per)
+
+
+def _walker_group(mesh):
+    """The process group of the walker mesh axis."""
+    return mesh.get_group(PROFILES["fleet"]["walker"])
+
+
+def _gather_walkers(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` (this rank's walkers on dim 0), concatenated in
+    rank order: the whole fleet's."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class WalkFleet:
-    """W parallel walkers riding one batched engine."""
+    """W parallel walkers riding one batched engine (this rank's share of
+    them on a walker mesh, :func:`shard_fleet`)."""
 
     engine: WalkEngine
     nodes: torch.Tensor  # (W,) int32 walk positions on the engine's device
-    num_walks: int = 1
+    num_walks: int = 1  # W, the whole fleet's, also when sharded
     avg_every: int = 0  # 0 = never average
+    # the walker mesh of a sharded fleet (shard_fleet): ``nodes`` are then
+    # this rank's walks, the engine's walker_sharding says which
+    mesh: Optional[object] = None
 
     @classmethod
     def create(
@@ -204,13 +281,26 @@ class WalkFleet:
         0-d."""
         was_scalar = self.nodes.ndim == 0
         new_nodes, displaced = migrate_walk_nodes(
-            self.nodes.cpu().numpy(), engine.degrees.cpu().numpy(), seed=seed
+            self.all_nodes().cpu().numpy(), engine.degrees.cpu().numpy(),
+            seed=seed,
         )
         nodes = torch.as_tensor(
             new_nodes[0] if was_scalar else new_nodes, dtype=torch.int32,
             device=engine.device,
         )
+        shard = self.engine.walker_sharding
+        if shard is not None:  # the rule is the whole fleet's; keep our rows
+            nodes = shard.rows(nodes)
+            engine = engine.with_walker_sharding(shard)
         return dataclasses.replace(self, engine=engine, nodes=nodes), displaced
+
+    def all_nodes(self) -> torch.Tensor:
+        """The whole fleet's walk positions: ``nodes``, gathered over the
+        walker mesh when the fleet is sharded (a collective: every rank
+        calls it)."""
+        if self.mesh is None:
+            return self.nodes
+        return _gather_walkers(self.nodes, _walker_group(self.mesh))
 
     def advance(
         self,
@@ -222,11 +312,12 @@ class WalkFleet:
         faults=None,
         rescue_uniforms: Optional[torch.Tensor] = None,
     ):
-        """ONE batched MHLJ transition for all W walkers.
+        """ONE batched MHLJ transition for all W walkers (this rank's, on
+        a sharded fleet).
 
         The block is an injected ``(W, 3 + r)`` ``uniforms`` (slot 0 = jump
         flag) or drawn from ``generator`` at ``p_j``, in place of the
-        reference's key.  Returns ``(advanced_fleet, hops)``; ``hops`` is
+        reference's key; a sharded fleet takes and draws the whole W's.  Returns ``(advanced_fleet, hops)``; ``hops`` is
         the Remark-1 physical transition count per walker.  With
         ``faults=(FaultModel, FaultState)`` the transition is
         liveness-masked (:meth:`WalkEngine.step`; ``rescue_uniforms`` (W,)
@@ -254,8 +345,10 @@ class WalkFleet:
         of the reference as a numpy array (tuples stay tuples; ``p_j`` a
         float), the engine's statics in ``engine_meta`` (its sticky
         ``cdf_width`` and its ``graph_version`` among them) and the fleet's
-        at the top level.  The port has no mesh: ``walker_sharding`` is
-        None."""
+        at the top level.  A sharded fleet's walk positions are gathered
+        (a collective: every rank calls it), and ``walker_sharding`` is
+        None, as the reference writes it: placement is not state, and
+        :func:`shard_fleet` places a restored fleet again."""
         e = self.engine
         data = {}
         for f in _ENGINE_DATA_FIELDS:
@@ -272,7 +365,7 @@ class WalkFleet:
             "version": CHECKPOINT_VERSION,
             "num_walks": self.num_walks,
             "avg_every": self.avg_every,
-            "nodes": self.nodes.cpu().numpy(),
+            "nodes": self.all_nodes().cpu().numpy(),
             "engine_data": data,
             "engine_meta": meta,
         }
@@ -287,9 +380,11 @@ class WalkFleet:
         differ in its last bits and would not resume bitwise.  The
         reference's JAX-only statics (``backend``, ``block_w``,
         ``interpret``) are ignored.  A churned engine keeps its
-        ``graph_version`` and ``cdf_width``.  Refused, with the reason:
-        another checkpoint version, a sharded fleet (``walker_sharding``;
-        the port has no mesh), and fields the port does not know.
+        ``graph_version`` and ``cdf_width``.  The fleet is unsharded
+        (:func:`shard_fleet` places it on a mesh).  Refused, with the
+        reason: another checkpoint version, a ``walker_sharding`` that is
+        not None (a checkpoint holds no placement), and fields the port
+        does not know.
         """
         from repro_torch import interop
 
@@ -304,8 +399,9 @@ class WalkFleet:
             raise ValueError(f"checkpoint fields the port does not know: "
                              f"{unknown}")
         if meta.get("walker_sharding") is not None:
-            raise ValueError("the checkpoint holds a sharded fleet; the port "
-                             "has no multi-device fleet yet")
+            raise ValueError("the checkpoint records a sharded placement "
+                             "(walker_sharding); a checkpoint holds the whole "
+                             "fleet unplaced: place it again with shard_fleet")
         data = ckpt["engine_data"]
         p_j = data.get("p_j")
         state = {f: data.get(f) for f in _ENGINE_DATA_FIELDS if f != "p_j"}
@@ -436,6 +532,63 @@ def load_fleet_checkpoint(path: str, *, device="cuda"):
     return fleet, meta["step"], extras
 
 
+def _place(x, spec: tuple, shard: Optional[WalkerShard]):
+    """One walker-batch leaf under its walker spec: this rank's rows of a
+    ``(W, ...)`` tensor or a tuple of W per-walker objects, or ``x``
+    itself when the spec replicates it."""
+    if not spec or shard is None:
+        return x
+    return shard.rows(x) if isinstance(x, torch.Tensor) else x[shard.lo:shard.hi]
+
+
+def shard_fleet(fleet: WalkFleet, mesh) -> WalkFleet:
+    """Place a fleet on ``mesh``: this rank's walks, the whole engine.
+
+    By ``repro_torch.sharding.rules.fleet_specs`` the walk ``nodes`` ride
+    the walker axis and every engine tensor is replicated.  The fleet
+    keeps this rank's rows ``[lo, hi)`` of its ``nodes`` and ``mesh``, and
+    its engine is told the rows (:meth:`WalkEngine.with_walker_sharding`),
+    so each step draws and slices the whole block.  When W does not divide
+    the walker axis the fleet comes back whole (every rank holds every
+    walk) and unsharded: nothing of it runs a collective.  A fleet already
+    on ``mesh`` comes back as it is.
+    """
+    if fleet.mesh is not None:
+        if fleet.mesh is not mesh:
+            raise ValueError("the fleet is sharded over another mesh")
+        return fleet
+    shard = _walker_rows(fleet.num_walks, mesh)
+    if shard is None:
+        return fleet
+    nodes = _place(fleet.nodes, fleet_specs(fleet, mesh)["nodes"], shard)
+    return dataclasses.replace(
+        fleet, nodes=nodes, mesh=mesh,
+        engine=fleet.engine.with_walker_sharding(shard))
+
+
+def shard_walker_batch(tree, num_walks: int, mesh):
+    """This rank's part of a walker-stacked tree (stacked params, optimizer
+    state and walk states on the LLM path, ``x0s`` on the regression path)
+    by ``repro_torch.sharding.rules.walker_batch_specs``: each leaf with a
+    leading W dim, or a tuple of W generators, keeps this rank's rows;
+    every leaf stays whole when W does not divide the walker axis."""
+    specs = walker_batch_specs(tree, num_walks, mesh)
+    shard = _walker_rows(num_walks, mesh)
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, list):
+            return [place(v, sp) for v, sp in zip(x, spec)]
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(place(v, sp) for v, sp in zip(x, spec)))
+        if isinstance(x, tuple) and x and isinstance(x[0], (torch.Tensor, tuple)):
+            return tuple(place(v, sp) for v, sp in zip(x, spec))
+        return _place(x, spec, shard)
+
+    return place(tree, specs)
+
+
 def _window(name, block, shape, device) -> torch.Tensor:
     """An injected per-step block, checked against ``shape``."""
     if block is None:
@@ -466,6 +619,7 @@ def run_fleet(
     start_step: int = 0,
     total_steps: Optional[int] = None,
     capture: Optional[bool] = None,
+    mesh=None,
 ):
     """Train the fleet for ``num_steps`` steps.
 
@@ -498,6 +652,22 @@ def run_fleet(
     that window's blocks and ``p_j_sched``, and, drawing from a generator,
     the generator in the state the first run left it.
 
+    ``mesh`` (``repro_torch.launch.mesh.make_walker_mesh``; every rank
+    calls with the same arguments) shards the walks and ``x0s`` over the
+    walker axis (:func:`shard_fleet`, :func:`shard_walker_batch`; the
+    fleet may come sharded already) and keeps the graph, the data and
+    ``p_j_sched`` whole on every rank.  Each rank steps its walks, drawing
+    the whole blocks as the unsharded run draws them (injected blocks are
+    the whole fleet's too); the average is an all-reduce along the walker
+    axis, and ``avg_mse`` takes one more a step, of the ``(dim,)`` sum of
+    the models.  Every rank returns the whole fleet's outputs (gathered at
+    the end).  The walks equal the unsharded run's bit for bit; the
+    floats differ by the all-reduce's order of summation, and not at all
+    on one rank.  On NCCL the loop is captured with its collectives; on
+    gloo ``capture=None`` runs it uncaptured (``ScanStats.uncaptured_by``
+    says why) and ``capture=True`` raises.  W that does not divide the
+    walker axis runs whole on every rank, without a collective.
+
     Returns ``(x_final (W, dim), mse (W, T+1), avg_mse (T+1,),
     update_nodes (W, T), hops (W, T), final)``; ``final`` holds the walk
     positions after the last step (``"nodes"``) and, under faults, the
@@ -512,10 +682,26 @@ def run_fleet(
             f"window [{start_step}, {start_step + num_steps}) exceeds "
             f"total_steps={total}"
         )
+    if mesh is not None:
+        fleet = shard_fleet(fleet, mesh)
+        x0s = shard_walker_batch(x0s, fleet.num_walks, mesh)
     engine = fleet.engine
     device = engine.device
     w = fleet.num_walks
+    w_local = int(fleet.nodes.shape[0])
     n = engine.n
+    shard = engine.walker_sharding
+    group = None if fleet.mesh is None else _walker_group(fleet.mesh)
+    uncaptured_by = None
+    if group is not None and dist.get_backend(group) != "nccl":
+        if capture:
+            raise ValueError(
+                f"capture=True under a {dist.get_backend(group)} walker mesh: "
+                "only NCCL collectives can be captured in CUDA graphs")
+        if device.type == "cuda":
+            capture = False
+            uncaptured_by = (f"{dist.get_backend(group)} collectives cannot "
+                             "be captured")
     if uniforms is not None:
         uniforms = _window("uniforms", uniforms,
                            (num_steps, w, num_uniforms(engine.r)), device)
@@ -524,8 +710,11 @@ def run_fleet(
     if faults is not None:
         faults = faults.to(device)
         if fault_state is None:
-            fault_state = faults.init_state(n, w, start=start_step,
+            fault_state = faults.init_state(n, w_local, start=start_step,
                                             device=device)
+        elif shard is not None and fault_state.blocked.shape[0] == w:
+            fault_state = dataclasses.replace(
+                fault_state, blocked=shard.rows(fault_state.blocked))
         if uniforms is not None:
             if faults.markov:
                 fault_uniforms = _window("fault_uniforms", fault_uniforms,
@@ -534,7 +723,7 @@ def run_fleet(
                 rescue_uniforms = _window("rescue_uniforms", rescue_uniforms,
                                           (num_steps, w), device)
     avg_every = fleet.avg_every
-    ones = torch.ones(w, device=device)
+    ones = torch.ones(w_local, device=device)
 
     def row_of(block, row):
         return None if block is None else block.index_select(0, row)[0]
@@ -547,7 +736,8 @@ def run_fleet(
             xs_new = torch.where(alive_w[:, None], xs_new, xs)
         if avg_every > 0:  # dead walkers neither give nor take
             xs_new = fleet_average(
-                xs_new, (t + start_step + 1) % avg_every == 0, alive_w)
+                xs_new, (t + start_step + 1) % avg_every == 0, alive_w,
+                group=group, num_walks=w)
         return xs_new
 
     def draw(row):
@@ -556,8 +746,9 @@ def run_fleet(
         return dict(generator=generator, p_j=p_j_sched.index_select(0, row))
 
     def objectives(xs_new):
+        mean = _walker_sum(xs_new, group)[0] / w
         return (reg.mse_objective(xs_new, features, targets),
-                reg.mse_objective(xs_new.mean(dim=0), features, targets))
+                reg.mse_objective(mean, features, targets))
 
     def step(carry):
         t, xs, vs = carry
@@ -600,19 +791,34 @@ def run_fleet(
         step if faults is None else faulted_step, carry, num_steps,
         out_like, capture=capture,
         generators=() if generator is None else (generator,),
+        uncaptured_by=uncaptured_by,
     )
     mses, avg_mses, nodes, hops = outs[:4]
-    final = {"nodes": final_carry[2], "fault_state": None, "rescued": None,
+    by_walker = [final_carry[1], torch.cat([mse0[None], mses]).T,
+                 nodes.T, hops.T, final_carry[2]]
+    if faults is not None:
+        by_walker.append(final_carry[4])
+    if group is not None:  # every rank returns the whole fleet's
+        by_walker = [_gather_walkers(x, group) for x in by_walker]
+    x_final, mse, nodes, hops, final_nodes = (
+        x.contiguous() for x in by_walker[:5])
+    final = {"nodes": final_nodes, "fault_state": None, "rescued": None,
              "blocked": None}
     if faults is not None:
-        final.update(fault_state=FaultState(*final_carry[3:]),
-                     rescued=outs[4], blocked=outs[5])
+        rescued, blocked = outs[4], outs[5]
+        if group is not None:
+            counts = torch.stack([rescued, blocked])
+            dist.all_reduce(counts, group=group)
+            rescued, blocked = counts[0], counts[1]
+        live, _, ft = final_carry[3:]
+        final.update(fault_state=FaultState(live, by_walker[5], ft),
+                     rescued=rescued, blocked=blocked)
     return (
-        final_carry[1],
-        torch.cat([mse0[None], mses]).T.contiguous(),
+        x_final,
+        mse,
         torch.cat([avg0[None], avg_mses]),
-        nodes.T.contiguous(),
-        hops.T.contiguous(),
+        nodes,
+        hops,
         final,
     )
 
@@ -646,7 +852,7 @@ def stack_params(params, num_walks: int):
 
 
 def make_fleet_step(model, optimizer, walk, avg_every: int = 0, *,
-                    projections=None) -> Callable:
+                    projections=None, mesh=None) -> Callable:
     """``(params_w, opt_w, walk_w, batches_w, step_idx, uniforms=None) ->
     (params_w, opt_w, walk_w, metrics)``, the W-walker fleet step.
 
@@ -661,6 +867,16 @@ def make_fleet_step(model, optimizer, walk, avg_every: int = 0, *,
     ``(W, 3 + r)`` block), and with ``avg_every > 0`` the models are
     averaged when ``(step_idx + 1) % avg_every == 0``.  ``metrics`` are
     stacked over walkers.
+
+    Under a walker ``mesh`` (every rank calls the step) each rank holds
+    W/P walkers: ``params_w``, ``opt_w`` and ``walk_w`` are its part
+    (:func:`shard_walker_batch`, ``init_fleet_walk_state(mesh=)``), while
+    ``batches_w`` and ``uniforms`` are the whole fleet's and the step keeps
+    the rank's rows.  Each walker draws from its own generator, so the
+    walks equal the unsharded step's; the average is an all-reduce per
+    leaf along the walker axis, and ``metrics`` are the rank's walkers'.
+    When W does not divide the axis every rank runs every walker and no
+    collective runs.
     """
     from repro_torch.walk_sgd.llm_trainer import make_train_step
 
@@ -670,6 +886,15 @@ def make_fleet_step(model, optimizer, walk, avg_every: int = 0, *,
     def fleet_step(params_w, opt_w, walk_w, batches_w, step_idx,
                    uniforms=None):
         num_walks = int(walk_w["node"].shape[0])
+        total = int(next(iter(batches_w.values())).shape[0])
+        shard = None if mesh is None else _walker_rows(total, mesh)
+        if shard is not None:
+            if num_walks != shard.size:
+                raise ValueError(f"this rank holds walkers [{shard.lo}, "
+                                 f"{shard.hi}) of {total}; got {num_walks}")
+            batches_w = {k: shard.rows(v) for k, v in batches_w.items()}
+            if uniforms is not None:
+                uniforms = shard.rows(uniforms)
         states, metrics = [], []
         for w in range(num_walks):
             params = _map_state(
@@ -684,7 +909,9 @@ def make_fleet_step(model, optimizer, walk, avg_every: int = 0, *,
                      for k in states[0]}, "rng": walk_w["rng"]}
         walk_w = walk.advance_batched(walk_w, uniforms=uniforms)
         if avg_every > 0 and (int(step_idx) + 1) % avg_every == 0:
-            params_w = fleet_average(params_w)
+            params_w = fleet_average(
+                params_w, group=None if shard is None else _walker_group(mesh),
+                num_walks=total)
         metrics = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
         return params_w, opt_w, walk_w, metrics
 
@@ -700,6 +927,7 @@ def init_fleet_walk_state(
     online: bool = False,
     *,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Stacked LLM walk states for a W-walker fleet.
 
@@ -707,6 +935,8 @@ def init_fleet_walk_state(
     fleet's seeding); walker ``i``'s generator is seeded ``seed * 1009 +
     i``, the reference's per-walker key seed.  Every tensor carries a
     leading walker axis; ``"rng"`` is the tuple of the W generators.
+    Under a walker ``mesh`` the rank's walkers only
+    (:func:`shard_walker_batch`), each seeded by its index in the fleet.
     """
     from repro_torch.walk_sgd.llm_trainer import init_walk_state
 
@@ -719,4 +949,4 @@ def init_fleet_walk_state(
     out = {k: torch.stack([s[k] for s in states])
            for k in states[0] if k != "rng"}
     out["rng"] = tuple(s["rng"] for s in states)
-    return out
+    return out if mesh is None else shard_walker_batch(out, num_walks, mesh)

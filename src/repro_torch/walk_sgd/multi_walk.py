@@ -45,12 +45,13 @@ def init_multi_walk_state(
     seed: int = 0,
     *,
     device="cuda",
+    mesh=None,
 ):
     """Stacked walk states with distinct start nodes and generators
-    (``fleet.init_fleet_walk_state``)."""
+    (``fleet.init_fleet_walk_state``; under ``mesh`` the rank's walkers)."""
     return init_fleet_walk_state(
         n_nodes, num_walks, lipschitz=lipschitz, v0s=v0s, seed=seed,
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
@@ -65,7 +66,10 @@ def make_multi_walk_step(
     optimizer: GradientTransformation,
     walk: WalkContext,
     avg_every: int = 0,
+    *,
+    mesh=None,
 ) -> Callable:
     """``(params_w, opt_w, walk_w, batches_w, step_idx) -> updated``: the
-    fleet step (``fleet.make_fleet_step``)."""
-    return make_fleet_step(model, optimizer, walk, avg_every)
+    fleet step (``fleet.make_fleet_step``, under ``mesh`` sharded over its
+    walker axis)."""
+    return make_fleet_step(model, optimizer, walk, avg_every, mesh=mesh)

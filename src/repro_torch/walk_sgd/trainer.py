@@ -213,7 +213,7 @@ def _build_engine(graph, p_d, r, row_probs, engine_kwargs, device):
 def _train(
     method, graph, data, gamma, num_steps, num_walks, *, mhlj_params,
     p_j_schedule, loss, x0, v0s, avg_every, seed, engine, engine_kwargs,
-    law_kwargs, uniforms, device, generator=None, capture=None,
+    law_kwargs, uniforms, device, generator=None, capture=None, mesh=None,
 ):
     """One training run through :func:`run_fleet`; returns its outputs.
     Without ``uniforms`` the walks draw from ``generator``, by default a
@@ -261,8 +261,9 @@ def _train(
         _GRADS[loss],
         uniforms=uniforms,
         generator=generator,
-        # only when asked: callers that wrap run_fleet set capture themselves
+        # only when asked: callers that wrap run_fleet set them themselves
         **({} if capture is None else {"capture": capture}),
+        **({} if mesh is None else {"mesh": mesh}),
     )
 
 
@@ -331,6 +332,7 @@ def run_rw_sgd_multi(
     law_kwargs: Optional[dict] = None,
     uniforms: Optional[torch.Tensor] = None,
     device: Union[str, torch.device] = "cuda",
+    mesh=None,
 ) -> MultiRWSGDResult:
     """W parallel RW-SGD trainings sharing one batched engine transition.
 
@@ -339,13 +341,20 @@ def run_rw_sgd_multi(
     every that many updates.  ``uniforms`` injects a ``(T, W, 3 + r)``
     block, ``engine`` a pre-built engine and ``engine_kwargs`` engine
     options, and ``law_kwargs`` the law, as in :func:`run_rw_sgd`.
+
+    ``mesh`` (``repro_torch.launch.mesh.make_walker_mesh``; every rank
+    calls with the same arguments) shards the walks and their models over
+    the walker axis, the graph replicated on every rank, the average an
+    all-reduce (``fleet.run_fleet(mesh=)``); each rank returns the whole
+    result.  The walks equal ``mesh=None``'s bit for bit, and on one rank
+    every field does.
     """
     xs, mses, avg_mses, nodes, hops, _ = _train(
         method, graph, data, gamma, num_steps, num_walks,
         mhlj_params=mhlj_params, p_j_schedule=p_j_schedule, loss=loss, x0=x0,
         v0s=v0s, avg_every=avg_every, seed=seed, engine=engine,
         engine_kwargs=engine_kwargs, law_kwargs=law_kwargs, uniforms=uniforms,
-        device=device,
+        device=device, mesh=mesh,
     )
     return MultiRWSGDResult(
         mse=mses.cpu().numpy(),

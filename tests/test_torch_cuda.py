@@ -560,6 +560,83 @@ def test_captured_trainer_equals_uncaptured(monkeypatch):
     assert captured.avg_mse[-1] < captured.avg_mse[0]
 
 
+def test_one_rank_nccl_mesh_trainer_equals_unsharded(dev):
+    """``run_rw_sgd_multi(mesh=)`` on a one-rank NCCL walker mesh: the loop
+    is captured with its all-reduces in the CUDA graphs, and every field
+    equals ``mesh=None``'s bit for bit (under faults too: ``run_fleet``)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.data import make_heterogeneous_regression
+    from repro_torch.launch.mesh import make_walker_mesh
+    from repro_torch.models import regression as treg
+    from repro_torch.walk_sgd import fleet as tfleet
+    from repro_torch.walk_sgd import run_rw_sgd_multi
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_walker_mesh()
+        g = barabasi_albert(2_000, 3, seed=0, layout="ragged")
+        data = make_heterogeneous_regression(g.n, dim=6, sigma_high_sq=100.0,
+                                             p_high=0.03, seed=7,
+                                             x_star_scale=3.0)
+        kw = dict(mhlj_params=MHLJParams(0.1, 0.5, 3), avg_every=5, seed=0,
+                  device=dev)
+        gamma = float(0.3 / data.lipschitz.mean())
+        stats = []
+        scan = tscan.scan
+
+        def recording(*a, **k):
+            out = scan(*a, **k)
+            stats.append(out[2])
+            return out
+
+        tscan.scan = recording
+        try:
+            sharded = run_rw_sgd_multi("mhlj", g, data, gamma, 101, 64,
+                                       mesh=mesh, **kw)
+        finally:
+            tscan.scan = scan
+        assert stats[0].captured
+        plain = run_rw_sgd_multi("mhlj", g, data, gamma, 101, 64, **kw)
+        for name in ("update_nodes", "transitions", "mse", "avg_mse",
+                     "x_final"):
+            np.testing.assert_array_equal(getattr(sharded, name),
+                                          getattr(plain, name), err_msg=name)
+        fleet = tfleet.WalkFleet.create(
+            teng.WalkEngine.from_graph(
+                g, MHLJParams(0.1, 0.5, 3),
+                row_probs=mh_importance_rows_ragged(g, data.lipschitz),
+                device=dev), 64, avg_every=5)
+        args = (torch.as_tensor(np.asarray(data.features, np.float32),
+                                device=dev),
+                torch.as_tensor(np.asarray(data.targets, np.float32),
+                                device=dev),
+                torch.as_tensor((data.lipschitz.mean() / data.lipschitz)
+                                .astype(np.float32), device=dev),
+                fleet, 101, gamma,
+                torch.full((101,), 0.1, device=dev), True, treg.linear_grad)
+        fm = FaultModel(crash_rate=0.05, recovery_rate=0.2, patience=2)
+        runs = [tfleet.run_fleet(torch.zeros(64, 6, device=dev), *args,
+                                 faults=fm, mesh=m,
+                                 generator=torch.Generator(dev).manual_seed(3))
+                for m in (mesh, None)]
+        for a, b in zip(runs[0][:5], runs[1][:5]):
+            assert torch.equal(a, b)
+        assert bool(torch.isfinite(runs[0][0]).all())
+        assert torch.equal(runs[0][5]["fault_state"].blocked,
+                           runs[1][5]["fault_state"].blocked)
+    finally:
+        dist.destroy_process_group()
+
+
 def _faulted_case(dev, n=2_000, w=64):
     """A ragged BA(n,3) fleet under Markov faults, the 10 top hubs killed
     for 30 ticks and an edge window over the cut ``id < n/2``."""
