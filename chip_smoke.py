@@ -141,7 +141,7 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    ``results/BENCH_faults.json``'s, the rescue-off ratio above the
    rescue-on one at 5% on both families gated, its serving leg audited
    for phase 12; (e) Fig. 6's
-   ``annealed_vs_const`` on two more card streams (reported);
+   ``annealed_vs_const`` on one more card stream (reported);
 11. dynamic graphs (aim ``PHASE11_AIM_S``): (a) the reference's churn
    sweep at its full tier (``benchmarks/large_graph_walk.py``
    ``_churn_sweep``: BA(100k,3) ragged, Lipschitz ``exp(N(0,1))`` from
@@ -180,15 +180,15 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    the card run fed the same streams injected, and those streams on the
    CPU give the same visits, arrival log, request records and fault
    totals, and the same greedy tokens up to a near-tie (phase 8's rule);
-   (c) ``paper.serve_throughput`` at its full tier (six laws, BA(100k,3),
-   W=512, 1500 + 500 ticks): every law completes, conserves and sheds
+   (c) ``paper.serve_throughput`` at its quick tier (six laws, BA(20k,3),
+   W=128, 400 + 150 ticks): every law completes, conserves and sheds
    once, every derived key is there; (d) the fault sweep's serving leg,
    run inside phase 10 (d): every replayed leg offered the recorded
    trace, conservation, no rescue with it off;
 13. walk-orchestrated LLM training (aim ``PHASE13_AIM_S``), float32, the
    plain layers (the kernels have no backward; under grad they raise): (a)
    ``launch.train.main`` through its own parser on mamba2-370m at full
-   width and depth, WS(16,4,0.1), MHLJ with the online estimator, 60 steps
+   width and depth, WS(16,4,0.1), MHLJ with the online estimator, 40 steps
    of 4 x 128: exit 0, finite losses that drop, Remark 1, a spread of L_v,
    one ``walk_transition_sparse`` launch a step; ms/step split by CUDA
    events into host / forward+backward / optimizer / fingerprint / advance,
@@ -250,10 +250,28 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    under Markov faults, and 2049 walkers (replicated), against the same
    runs unsharded in this process (walks and fault state bit for bit,
    floats at the reference's all-reduce tolerances), each rank's ragged
-   launches, a gloo all-reduce's time; (d) ``paper.multi_walk`` at full
-   through (a)'s mesh, gated ``excess_w8 < excess_w1``; (e) in the P = 2
+   launches, a gloo all-reduce's time; (d) ``paper.multi_walk`` at T =
+   10,000 through (a)'s mesh, gated ``excess_w8 < excess_w1``; (e) in the P = 2
    group, the LLM fleet step of reduced olmoe and mamba2 (W = 4, averaging
    every 2) against the unsharded step on the card.
+16. the dry-run and roofline tooling (aim ``PHASE16_AIM_S``): (a)
+   minitron-8b and mamba2-370m at full width, bf16, ``use_kernels=True``,
+   prefill at 1 x 4096: ``launch.dryrun.lower_case`` plans each on a
+   (1, 1) fake mesh (in the CPU process of (b)), then the same prefill
+   runs on the card; gated: the plan's argument bytes equal the measured
+   bytes of the parameters and
+   batch, the FLOPs and bytes ``utils.op_cost`` counts on the kernel path
+   equal the plain path's (the priced regions), the card's peak over its
+   baseline within ``P16_PEAK_BOUNDS`` of the plan's argument + temp
+   bytes; printed: the measured prefill time against the counted
+   roofline bound; (b) the plan of minitron-8b and mamba2-370m x the four
+   input shapes on the 16x16 mesh, all [OK] with the three roofline terms
+   (a CPU process, ``python3 chip_smoke.py --phase16-plans``, started
+   before phase 1 at one thread and the lowest priority, its output under
+   ``build/phase16-*``); (c) the five ``examples/torch`` scripts on
+   the card at the sizes of ``P16_EXAMPLES``, each one's headline line
+   printed; its launches counted from 0 just before (a)'s kernel path and
+   (c), and read just after.
 
 Kernel times by CUDA events come from :func:`device_time_ms`: each chunk
 of timed calls waits behind ``csrc/stream_hold.cu``, a one-thread kernel
@@ -283,6 +301,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.launch.mesh import HW  # noqa: E402  (after the path)
+from repro_torch.utils.kernel_bounds import (  # noqa: E402
+    bound, bound_dense, bound_for_step, bound_sparse, chain_loads,
+    flash_bound, rmsnorm_bound, ssd_bound, ssd_mma_bytes,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, repro_torch.launch.mesh.HW):
 # HBM bandwidth, the float32 rate outside the tensor cores and the dense
@@ -290,7 +312,6 @@ from repro_torch.launch.mesh import HW  # noqa: E402  (after the path)
 HBM_BYTES_PER_S = HW.HBM_BW
 FP32_OPS_PER_S = HW.PEAK_FLOPS_FP32
 BF16_OPS_PER_S = HW.PEAK_FLOPS_BF16
-SECTOR = 32
 # the walks' digests of phase 2's engine, phase 3's trainer and phase 4's
 # sparse engine, as the uncaptured loops of earlier commits logged them:
 # the captured loops draw the same streams, so a run that differs fails
@@ -316,14 +337,6 @@ def check_digest(name: str, value: str) -> str:
         raise AssertionError(f"the {name} walks' digest {value} is not "
                              f"{WALK_DIGESTS[name]}")
     return value
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
-    """``(bound ms, "bytes" or "operations")``: the larger of the bytes over
-    HBM bandwidth and the operations over the peak rate."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
 # the stream hold of device_time_ms: its timeout, and the most launches a
@@ -597,74 +610,6 @@ def compare_with_plain(nxt_k, hops_k, nxt_p, hops_p, u, where: str) -> dict:
             "d_differs": int(d_diff.sum()), "max_abs_err": err}
 
 
-def bound_for_step(nodes, indptr, degrees, indices, edge_cdf, u, r, p_d,
-                   max_degree):
-    """``(bytes, ops)`` the fused step needs on these inputs.
-
-    A walk whose flag is 0 reads its row pointer, degree, row total, the
-    probes of the plain version's binary search and one neighbor id (the
-    kernel's search reads more entries of the segment, a few sectors
-    apart); a jumping walk reads degree, row pointer and neighbor id for
-    each of its d hops.  Scattered loads count one 32-byte sector
-    each, deduplicated per array; the node vector and the uniform block
-    are read once and the two outputs written once.  Operations are a
-    count of the scalar arithmetic per probe, per hop and per walk.
-    """
-    from repro_torch.core.engine import U_DIST, U_HOP0, U_JUMP, U_MH, search_iters
-    from repro_torch.core.levy import trunc_geom_icdf
-
-    w = nodes.numel()
-    jump = u[:, U_JUMP] > 0.5
-    v = nodes.long()
-    sec = {"indptr": [], "degrees": [], "cdf": [], "indices": []}
-    ops = 0
-    # MH walks
-    vm = v[~jump]
-    start = indptr[vm].long()
-    deg = degrees[vm].long()
-    sec["indptr"].append(vm)
-    sec["degrees"].append(vm)
-    sec["cdf"].append(start + deg - 1)
-    t = u[~jump, U_MH] * edge_cdf[start + deg - 1]
-    lo, hi = torch.zeros_like(deg), deg.clone()
-    for _ in range(search_iters(max_degree)):
-        active = lo < hi
-        mid = (lo + hi) // 2
-        addr = start + torch.minimum(mid, deg - 1)
-        sec["cdf"].append(addr[active])
-        ops += 6 * int(active.sum())
-        pred = active & (edge_cdf[addr] < t)
-        lo = torch.where(pred, mid + 1, lo)
-        hi = torch.where(active & ~pred, mid, hi)
-    sec["indices"].append(start + torch.minimum(lo, deg - 1))
-    ops += 8 * vm.numel()
-    # jumping walks
-    uj = u[jump]
-    d = trunc_geom_icdf(uj[:, U_DIST], p_d, r).long()
-    vc = v[jump]
-    ops += 30 * vc.numel()  # log1p, divide, ceil, clamp
-    for j in range(r):
-        live = j < d
-        vl = vc[live]
-        dg = degrees[vl].long()
-        ip = indptr[vl].long()
-        sec["degrees"].append(vl)
-        sec["indptr"].append(vl)
-        hop = torch.minimum(
-            (uj[live, U_HOP0 + j] * dg.float()).long(), dg - 1
-        )
-        sec["indices"].append(ip + hop)
-        ops += 6 * vl.numel()
-        vc = vc.clone()
-        vc[live] = indices[ip + hop].long()
-    nbytes = 0
-    for addrs in sec.values():
-        cat = torch.cat([a.reshape(-1) for a in addrs])
-        nbytes += SECTOR * int(torch.unique(cat * 4 // SECTOR).numel())
-    nbytes += w * 4 + u.numel() * 4 + 2 * w * 4
-    return nbytes, ops
-
-
 HOP_SLOPE_R = (1, 2, 4, 8, 16)
 
 
@@ -682,23 +627,6 @@ def events_and_cupti(fn, iters: int, symbol: str) -> dict:
 def fmt_ms(t: dict) -> str:
     cupti = "not measured" if t["cupti_ms"] is None else f"{t['cupti_ms']:.5f}"
     return f"{t['events_ms']:.5f} ms by events, {cupti} by CUPTI"
-
-
-def chain_loads(u, p_d: float, r: int) -> int:
-    """The longest dependent chain of loads the fused step forces on the
-    block ``u``, whatever the design: an MH walk 4 (node; row pointer and
-    degree; its CDF segment, read at once; the neighbor id), a jump of d
-    hops 1 + 2d (node; then per hop degree and row pointer, then the
-    neighbor id)."""
-    from repro_torch.core.engine import U_DIST, U_JUMP
-    from repro_torch.core.levy import trunc_geom_icdf
-
-    jump = u[:, U_JUMP] > 0.5
-    longest = 4 if bool((~jump).any()) else 0
-    if bool(jump.any()):
-        d = trunc_geom_icdf(u[jump, U_DIST], p_d, r)
-        longest = max(longest, 1 + 2 * int(d.max()))
-    return longest
 
 
 def ragged_call(wt, nodes, kargs, u, p_d, r, max_degree):
@@ -823,85 +751,6 @@ KERNEL_OF_LAYOUT = {"sparse": "walk_transition_sparse",
 KERNEL_SYMBOL = {"walk_transition_sparse": "walk_transition_sparse_kernel",
                  "walk_transition": "walk_transition_dense_kernel",
                  "walk_transition_ragged": "walk_transition_ragged_kernel"}
-
-
-def sectors(addr_bytes: torch.Tensor) -> int:
-    """Distinct 32-byte sectors among byte addresses."""
-    return int(torch.unique(addr_bytes // SECTOR).numel()) if addr_bytes.numel() else 0
-
-
-def bound_sparse(rows, u_mh) -> tuple:
-    """``(bytes, ops, chain)`` the tile inversion needs on these inputs:
-    every row entry once (the total needs them all), one neighbor-id sector
-    per walk, the uniforms in and the picks out; operations: an add per
-    nonzero entry for the total, and an add and a compare per nonzero entry
-    up to the pick; ``chain``: the most nonzero entries in one row, the
-    longest dependent add chain of the launch."""
-    from repro_torch.core.engine import row_cdf
-
-    w, width = rows.shape
-    cdf = row_cdf(rows)
-    idx = (cdf < (u_mh * cdf[:, -1])[:, None]).sum(dim=1).clamp(max=width - 1)
-    nz = rows != 0
-    cols = torch.arange(width, device=rows.device)
-    upto = int((nz & (cols[None, :] <= idx[:, None])).sum())
-    nbytes = w * width * 4 + w * SECTOR + w * 4 + w * 4
-    ops = int(nz.sum()) + 2 * upto + w
-    return nbytes, ops, int(nz.sum(dim=1).max()) if w else 0
-
-
-def bound_dense(nodes, row_probs, neighbors, degrees, u, r, p_d) -> tuple:
-    """``(bytes, ops, chain, hop_chain)`` the dense fused step needs on
-    these inputs: an MH walk reads its degree, the first deg(v) entries of
-    its row and one neighbor id; a jumping walk a degree and a neighbor id
-    per hop.  Scattered reads count whole 32-byte sectors, deduplicated per
-    table; the node vector and the uniforms are read once and both outputs
-    written once.  ``chain``: the most nonzero entries among the entries an
-    MH walk reads (its dependent adds); ``hop_chain``: the most dependent
-    loads of a jumping walk (2 per hop)."""
-    from repro_torch.core.engine import U_DIST, U_HOP0, U_JUMP, U_MH, row_cdf
-    from repro_torch.core.levy import trunc_geom_icdf
-
-    max_deg = neighbors.shape[1]
-    jump = u[:, U_JUMP] > 0.5
-    v = nodes.long()
-    vm = v[~jump]
-    deg = degrees[vm].long()
-    start = vm * max_deg
-    # row sectors: [start, start + deg) in float32 words
-    rep = torch.repeat_interleave(torch.arange(vm.numel(), device=v.device), deg)
-    offs = torch.arange(rep.numel(), device=v.device) - torch.repeat_interleave(
-        torch.cumsum(deg, 0) - deg, deg)
-    row_words = start[rep] + offs
-    rows_m = row_probs[vm]
-    cdf = row_cdf(rows_m)
-    idx = (cdf < (u[~jump, U_MH] * cdf[:, -1])[:, None]).sum(dim=1)
-    cols = torch.arange(max_deg, device=v.device)
-    nz = (rows_m != 0) & (cols[None, :] < deg[:, None])
-    chain = int(nz.sum(dim=1).max()) if vm.numel() else 0
-    nbr_words = [start + torch.minimum(idx, deg - 1)]
-    deg_words = [vm]
-    ops = int(nz.sum()) + 2 * int((nz & (cols[None, :] <= idx[:, None])).sum())
-    ops += vm.numel()
-    uj = u[jump]
-    d = trunc_geom_icdf(uj[:, U_DIST], p_d, r).long()
-    hop_chain = 2 * int(d.max()) if d.numel() else 0
-    vc = v[jump]
-    ops += 30 * vc.numel()
-    for j in range(r):
-        live = j < d
-        vl = vc[live]
-        dg = degrees[vl].long()
-        hop = torch.minimum((uj[live, U_HOP0 + j] * dg.float()).long(), dg - 1)
-        deg_words.append(vl)
-        nbr_words.append(vl * max_deg + hop)
-        ops += 6 * vl.numel()
-        vc = vc.clone()
-        vc[live] = neighbors[vl, hop].long()
-    nbytes = (sectors(row_words * 4) + sectors(torch.cat(nbr_words) * 4)
-              + sectors(torch.cat(deg_words) * 4)) * SECTOR
-    nbytes += nodes.numel() * 4 + u.numel() * 4 + 2 * nodes.numel() * 4
-    return nbytes, ops, chain, hop_chain
 
 
 def phase_layouts(dev, params) -> dict:
@@ -1423,31 +1272,6 @@ def hold(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
     return err
 
 
-def flash_bound(b, s, t, n, kh, h, elt, causal, window) -> tuple:
-    """``(bytes, ops)`` of one attention call: q, k, v read once and the
-    output written once; 4h flops (q.k and p.v) per live (row, col) pair."""
-    rows = torch.arange(s, dtype=torch.float64)
-    if causal:
-        lo = (rows - window + 1).clamp(min=0) if window > 0 else torch.zeros(s, dtype=torch.float64)
-        live = float(((rows.clamp(max=t - 1) + 1) - lo).clamp(min=0).sum())
-    else:
-        live = float(s) * t
-    nbytes = (2 * b * s * n * h + 2 * b * t * kh * h) * elt
-    return nbytes, 4.0 * h * live * b * n
-
-
-def ssd_bound(b, h, l, p, n, q, elt, g) -> tuple:
-    """``(bytes, ops)`` of one SSD scan: x, B and C at their ``g`` groups
-    (what the function needs, not the kernel's head-expanded copies) and
-    the float32 da, dt read once, y (float32) written once; per chunk the
-    lower-triangular C.B^T and att @ x, the state term and the state
-    update."""
-    nbytes = b * l * (h * (p * elt + 2 * 4 + p * 4) + 2 * g * n * elt)
-    pairs = q * (q + 1) / 2
-    per_chunk = pairs * 2 * (n + p) + 2 * (2 * q * n * p)
-    return nbytes, per_chunk * (l // q) * b * h
-
-
 def phase_flash(model, cfg, dev, gen) -> dict:
     """``flash_attention`` against its plain version: the bf16 route
     (``wgmma_bf16``) on minitron-8b's layer 0 q/k/v (B=1, S=4096, N=32,
@@ -1517,19 +1341,6 @@ def phase_flash(model, cfg, dev, gen) -> dict:
     main = routes["wgmma_bf16"]
     return {**main, "max_abs_err": max(max(e) for e in errs.values()),
             "bytes": nbytes, "ops": ops, "routes": routes}
-
-
-def ssd_mma_bytes(b, h, l, p, n, q) -> float:
-    """Bytes the three passes of ``csrc/ssd_scan_mma.cu`` move, each tensor
-    once per pass that touches it: pass 1 reads B, x, da and dt and writes
-    every chunk's (N, P) float32 state and decay; pass 2 reads and writes
-    the states; pass 3 reads C, B, x, da, dt and the states and writes y."""
-    rows, chunks = b * h * l, b * h * (l // q)
-    states = chunks * n * p * 4
-    pass1 = rows * ((n + p) * 2 + 8) + states + chunks * 4
-    pass2 = 2 * states + chunks * 4
-    pass3 = rows * ((2 * n + p) * 2 + 8 + p * 4) + states
-    return pass1 + pass2 + pass3
 
 
 def ssd_inputs(model, lp, tokens) -> tuple:
@@ -1688,8 +1499,8 @@ def phase_rmsnorm(dev, gen) -> dict:
             w = scale.to(dtype)
             lib = device_time_ms(lambda i: torch.nn.functional.rms_norm(
                 x, (d,), weight=w, eps=1e-6), 20)
-            nbytes = 2 * rows * d * x.element_size() + d * 4
-            b_ms, b_by = bound(nbytes, 4.0 * rows * d, FP32_OPS_PER_S)
+            nbytes, rms_ops_n = rmsnorm_bound(rows, d, x.element_size())
+            b_ms, b_by = bound(nbytes, rms_ops_n, FP32_OPS_PER_S)
             key = f"{rows}x{d}_{str(dtype).split('.')[-1]}"
             out[key] = {"ms": ms[0], "plain_ms": plain[0], "library_ms": lib[0],
                         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -2004,12 +1815,13 @@ SCRIPT_AIM_S = 840.0 + 90.0 + 60.0 + 55.0
 # the seconds phases 10-12 took after phase 9 on an H100 at 700 W (phase 10
 # ~200 with the law sweep's aim at 50 s and two Fig. 6 streams, plus its
 # serving leg's ~17, phase 11 ~35, phase 12 ~101; PERF.md section 5),
-# phases 13's and 14's aims (PHASE13_AIM_S, PHASE14_AIM_S) and phase 15's
-# ~150: phase 9 aims at what is left of SCRIPT_AIM_S, never above
-# PAPER_BUDGET_S
-LATER_PHASES_S = 353.0 + 90.0 + 60.0 + 150.0
+# phases 13's and 14's aims (PHASE13_AIM_S, PHASE14_AIM_S), phase 15's
+# ~150 and phase 16's ~60: phase 9 aims at what is left of SCRIPT_AIM_S,
+# never above PAPER_BUDGET_S (nor below its T floor, where it already is)
+LATER_PHASES_S = 353.0 + 90.0 + 60.0 + 150.0 + 60.0
 PHASE10_AIM_S = 180.0  # phase 10's aim: the script within ~17 min
-LAWS_AIM_S = 50.0  # of which the law sweep's 21 runs (T cut past it)
+LAWS_AIM_S = 40.0  # of which the law sweep's 21 runs (T cut past it; 50
+# until phase 16 came)
 PAPER_HOST_S = 10.0  # the host's chain analysis (Theorem 1, Fig. 6 gaps)
 PAPER_SPAWN_S = 20.0  # a worker process's start (the side-by-side plan)
 PAPER_WORKERS = 8  # the side-by-side plan's worker processes
@@ -2380,7 +2192,8 @@ LAWS_MIN_T = 15_000  # the reference's quick T, the floor of any cut
 LAWS_REPLAYED = (("ba", "heterogeneity"),)  # card-drawn, replayed on the CPU
 # the main path's trainer of phase 3 (large_graph_walk's): BA(n, m) ragged
 FAULT_GRAPH, FAULT_STEPS, FAULT_WALKS, FAULT_AVG = (100_000, 3), 500, 2048, 50
-FIG6_SEEDS = (1, 2)  # Fig. 6's stream seeds beyond phase 9's
+FIG6_SEEDS = (1,)  # Fig. 6's stream seeds beyond phase 9's (two until
+# phase 16 came)
 
 
 def counts_zero(wt) -> None:
@@ -3682,9 +3495,13 @@ def phase12_card_vs_cpu(dev, wt) -> dict:
     return out
 
 
+P12_SERVE_SCALE = "quick"  # (c)'s tier ("full" until phase 16 came)
+
+
 def phase12_serve_throughput(dev, wt) -> dict:
-    """(c) ``paper.serve_throughput.run(scale="full")``: BA(100k,3) ragged,
-    W=512, 1500 + 500 ticks, the six laws, reduced mamba2-370m.  Gates: each
+    """(c) ``paper.serve_throughput.run(scale=P12_SERVE_SCALE)``: the
+    ``quick`` tier, BA(20k,3) ragged, W=128, 400 + 150 ticks (``full``:
+    BA(100k,3), W=512, 1500 + 500), the six laws, reduced mamba2-370m.  Gates: each
     law completes requests, conserves them and sheds each once; every
     derived key is there; one ragged launch a tick.  The magnitudes are
     reported, as in the reference."""
@@ -3695,10 +3512,10 @@ def phase12_serve_throughput(dev, wt) -> dict:
     counts_zero(wt)
     t0 = time.perf_counter()
     with ServeAudit(st) as audit:
-        res = st.run(scale="full", device=dev)
+        res = st.run(scale=P12_SERVE_SCALE, device=dev)
     wall = time.perf_counter() - t0
     launches = counts_read(wt)
-    p = st.SCALES["full"]
+    p = st.SCALES[P12_SERVE_SCALE]
     ticks = p["ticks"] + p["drain"]
     laws = [law[0] for law in st.LAWS]
     gates: dict = {}
@@ -3721,7 +3538,7 @@ def phase12_serve_throughput(dev, wt) -> dict:
          and len(audit.audits) == len(laws))
     gate(gates, "(c) one ragged launch a tick",
          launches["walk_transition_ragged"] == len(laws) * ticks)
-    log(f"  (c) serve_throughput full: {wall:.2f} s, launches {launches}")
+    log(f"  (c) serve_throughput {P12_SERVE_SCALE}: {wall:.2f} s, launches {launches}")
     return {"wall_s": wall, "launches": launches, "gates": gates,
             "derived": res["derived"], "route_setup_s": res["route_setup_s"],
             "laws": {law: {"metrics": a["metrics"], "wall_s": a["wall_s"],
@@ -3792,7 +3609,8 @@ def phase_routed_serving(dev, smi, p10: dict) -> dict:
 PHASE13_AIM_S = 90.0  # phase 13's aim
 TRAIN_ARGV = ["--arch", "mamba2-370m", "--scale", "full", "--graph",
               "watts_strogatz", "--silos", "16", "--method", "mhlj", "--steps",
-              "60", "--batch", "4", "--seq", "128", "--device", "cuda"]
+              "40", "--batch", "4", "--seq", "128", "--device", "cuda"]
+# (60 steps until phase 16 came)
 P13_DENSE_LAYERS = 2  # minitron-8b's depth cut in (b): 32 -> 2
 P13_FLEET = dict(walkers=4, avg_every=5, steps=20)
 # (c)'s depth cut: mamba2-370m's 48 layers -> 8, for the phase's time aim
@@ -3877,7 +3695,7 @@ class TrainAudit:
 def phase13_main(dev, wt) -> dict:
     """(a) ``launch.train.main(TRAIN_ARGV)``: mamba2-370m at full width and
     depth (48 layers, d_model 1024, vocab 50280) in float32, WS(16,4,0.1),
-    MHLJ with the online estimator, 60 steps of batch 4 x 128."""
+    MHLJ with the online estimator, 40 steps of batch 4 x 128."""
     import contextlib
     import io
 
@@ -3892,7 +3710,8 @@ def phase13_main(dev, wt) -> dict:
     (run,) = audit.runs
     res = run["res"]
     losses = res["losses"]
-    steps, batch, seq = 60, 4, 128
+    steps, batch, seq = (int(TRAIN_ARGV[TRAIN_ARGV.index(f) + 1])
+                         for f in ("--steps", "--batch", "--seq"))
     ms_step = sum(v for k, v in run["split"].items())
     bound = remark1_bound(0.1, 0.5, 3)
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
@@ -5554,18 +5373,22 @@ def phase15_llm_check(got: dict, ref: dict, infos: list, gates) -> dict:
     return out
 
 
+P15_MULTI_WALK_T = 10_000  # (d)'s T (the full tier's 20,000 until phase 16)
+
+
 def phase15_multi_walk(dev, wt, mesh, gates) -> dict:
-    """(d) ``repro_torch.paper.multi_walk`` at full through the mesh."""
+    """(d) ``repro_torch.paper.multi_walk`` at the full tier's repetitions
+    and walkers, T = ``P15_MULTI_WALK_T``, through the mesh."""
     from repro_torch.paper import multi_walk
 
     counts_zero(wt)
     t0 = time.perf_counter()
-    res = multi_walk.run(device=dev, mesh=mesh)
+    res = multi_walk.run(device=dev, mesh=mesh, num_steps=P15_MULTI_WALK_T)
     dt = time.perf_counter() - t0
     launches = counts_read(wt)["walk_transition_sparse"]
     d = res["derived"]
     runs = len(multi_walk.WALKERS) * res["reps"]
-    log(f"  (d) multi_walk full ({runs} runs of T={res['T']}, mesh devices "
+    log(f"  (d) multi_walk ({runs} runs of T={res['T']}, mesh devices "
         f"{res['mesh_devices']}): variance_reduction_w8 "
         f"{d['variance_reduction_w8']:.6g} (excess w1 {d['excess_w1']:.6g}, "
         f"w8 {d['excess_w8']:.6g}), aggregate walk-steps/s at W=8 "
@@ -5621,6 +5444,245 @@ def phase_fleet_mesh(dev, smi, ttrain, params) -> dict:
 T_START = time.perf_counter()
 
 
+# -- phase 16: the dry-run and roofline tooling ------------------------------
+
+PHASE16_AIM_S = 90.0  # phase 16's aim; (b) runs in a subprocess from the start
+P16_ARCHS = ("minitron-8b", "mamba2-370m")
+P16_SEQ = 4096
+# the card's peak allocation over its baseline, as a fraction of the plan's
+# argument + temp bytes (PERF.md's prediction, written before the run)
+P16_PEAK_BOUNDS = (0.95, 1.20)
+# each example's arguments on the card, and the line of its output printed
+P16_EXAMPLES = {
+    "quickstart": ((), "Remark 1:"),
+    "entrapment_demo": (("--small",), "occupancy of top node"),
+    "annealing_error_gap": (("--small",), "annealed 0.3->0"),
+    "llm_decentralized": (("--small",), "mhlj     loss"),
+    "serve_demo": (("--small",), "mhlj "),
+}
+P16_DRYRUN = None  # the (b) subprocess
+
+
+def start_phase16_dryrun() -> None:
+    """Start phase 16's plans in a CPU process (they need no card, and run
+    beside phases 1-15): (a)'s (1, 1) plan of each of ``P16_ARCHS`` and
+    (b)'s plan of each x the four input shapes on the 16x16 mesh, under
+    ``build/phase16-*``."""
+    import atexit
+
+    global P16_DRYRUN
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name in ("phase16-dryrun.jsonl", "phase16-plans.json"):
+        if os.path.exists(os.path.join(ROOT, "build", name)):
+            os.remove(os.path.join(ROOT, "build", name))
+    # one thread at the lowest priority: the host's cores are the card
+    # phases' first
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.path.join(ROOT, "src")}
+    log_fh = open(os.path.join(ROOT, "build", "phase16-dryrun.log"), "w")
+    P16_DRYRUN = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase16-plans"],
+        cwd=ROOT, env=env, stdout=log_fh, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.nice(19))
+    atexit.register(lambda: P16_DRYRUN.poll() is None and P16_DRYRUN.kill())
+
+
+def phase16_plans() -> int:
+    """The body of the CPU process :func:`start_phase16_dryrun` starts."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    shape = ShapeConfig(f"prefill_{P16_SEQ}", P16_SEQ, 1, "prefill")
+    plans = {}
+    for arch in P16_ARCHS:
+        t0 = time.perf_counter()
+        _, cost, info = dryrun.lower_case(arch, shape, False,
+                                          extra={"use_kernels": True},
+                                          mesh=make_smoke_mesh())
+        plans[arch] = {"s": time.perf_counter() - t0, "flops": cost.flops,
+                       "bytes": cost.bytes, "memory": info["memory"],
+                       "collectives": info["collectives"]["num_ops"]}
+        print(f"plan {arch} 1x{P16_SEQ} on (1, 1): {plans[arch]}", flush=True)
+    with open(os.path.join(ROOT, "build", "phase16-plans.json"), "w") as fh:
+        json.dump(plans, fh)
+    return dryrun.main(["--arch", ",".join(P16_ARCHS), "--shape", "all",
+                        "--mesh", "single", "--out",
+                        os.path.join(ROOT, "build", "phase16-dryrun.jsonl")])
+
+
+def plan_vs_card(arch: str, plan: dict, dev) -> dict:
+    """Phase 16 (a) for one architecture: ``plan`` (the (1, 1) plan from
+    :func:`phase16_plans`) against the same prefill on the card (seed-0
+    weights), on the kernel path and the plain path, each counted by
+    ``op_cost``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.factory import build_model
+    from repro_torch.utils.op_cost import count_ops
+
+    mem = plan["memory"]
+    plan_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    if plan["collectives"]:
+        raise AssertionError(f"{arch}: the (1, 1) plan issued "
+                             f"{plan['collectives']} collectives")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_arch(arch), use_kernels=True)
+    model = build_model(cfg, torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, P16_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens.clone()}
+    measured_args = sum(p.numel() * p.element_size() for p in model.parameters())
+    measured_args += sum(t.numel() * t.element_size() for t in batch.values())
+    if measured_args != mem["argument_size_in_bytes"]:
+        raise AssertionError(
+            f"{arch}: the plan's argument bytes {mem['argument_size_in_bytes']} "
+            f"are not the card's {measured_args}")
+    prefill = dryrun.make_prefill_step(model)
+
+    def step(b):
+        with torch.no_grad():  # the plan's weights record no autograd
+            return prefill(b)
+
+    step(batch)  # warm: cuBLAS and the kernels' libraries
+    torch.cuda.synchronize()
+    fa_ops.mha.launches, ssd_ops.ssd_scan.launches = 0, 0
+    torch.cuda.reset_peak_memory_stats()
+    with count_ops() as kernel_count:
+        logits_k = step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"flash_attention": fa_ops.mha.launches,
+                "ssd_scan": ssd_ops.ssd_scan.launches}
+    model.cfg = dataclasses.replace(cfg, use_kernels=False)
+    with count_ops() as plain_count:
+        logits_p = step(batch)
+    model.cfg = cfg
+    k, p = kernel_count.cost, plain_count.cost
+    if (k.flops, k.bytes) != (p.flops, p.bytes):
+        raise AssertionError(f"{arch}: the kernel path counts {k.flops:.6e} "
+                             f"FLOPs / {k.bytes:.6e} B, the plain path "
+                             f"{p.flops:.6e} / {p.bytes:.6e}")
+    if not (torch.isfinite(logits_k).all() and logits_k.shape == (1, cfg.vocab_size)):
+        raise AssertionError(f"{arch}: the prefill's logits are not finite "
+                             f"(1, {cfg.vocab_size})")
+    rel = float((logits_k - logits_p).norm() / logits_p.norm())
+    ratio = peak / plan_peak
+    lo, hi = P16_PEAK_BOUNDS
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{arch}: the card's peak {peak} B is {ratio:.4f}x "
+                             f"the plan's {plan_peak} B, outside {P16_PEAK_BOUNDS}")
+    times = []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        step(batch)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    ms = sorted(times)[len(times) // 2]
+    bound_ms, bound_by = bound(k.bytes, k.flops, BF16_OPS_PER_S)
+    log(f"  {arch} prefill 1x{P16_SEQ} bf16 kernels: plan ({plan['s']:.1f} s on "
+        f"the host) args {mem['argument_size_in_bytes']} B == card "
+        f"{measured_args} B; plan peak {plan_peak} B (temp "
+        f"{mem['temp_size_in_bytes']} B), card peak over baseline {peak} B "
+        f"({ratio:.4f}x the plan, gate {P16_PEAK_BOUNDS}); counted kernel path "
+        f"{k.flops:.6e} FLOPs {k.bytes:.6e} B == plain path; plan "
+        f"{plan['flops']:.6e} FLOPs {plan['bytes']:.6e} B; logits kernel vs plain "
+        f"relative error {rel:.3e}; launches {launches}; {ms:.3f} ms a prefill "
+        f"(CUDA events, median of 5, host gaps included) against its counted "
+        f"bound {bound_ms:.3f} ms by {bound_by}: {bound_ms / ms:.1%}")
+    del model, batch, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return {"plan_s": plan["s"], "plan_flops": plan["flops"],
+            "plan_bytes": plan["bytes"],
+            "argument_bytes": measured_args, "plan_temp_bytes": mem["temp_size_in_bytes"],
+            "plan_peak_bytes": plan_peak, "card_peak_bytes": peak,
+            "peak_ratio": ratio, "flops": k.flops, "bytes": k.bytes,
+            "logits_rel_err": rel, "launches": launches, "ms": ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms}
+
+
+def run_example(name: str, argv, device: str = "cuda") -> tuple:
+    """``examples/torch/<name>.py``'s ``main`` on ``device``, its standard
+    output captured: ``(result, output)``."""
+    import contextlib
+    import importlib.util
+    import io
+
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = module.main(["--device", device, *argv])
+    return result, buf.getvalue()
+
+
+def phase_tooling(dev, smi) -> dict:
+    """Phase 16: (a) the plan against the card, (b) the 16x16 plans, (c)
+    the examples.  Returns each part's numbers and each path's launches."""
+    from repro_torch.kernels.walk_transition import kernel as wt
+    from repro_torch.launch.roofline import analyze_record
+
+    out = {"plans": {}, "examples": {}}
+    t0 = time.perf_counter()
+    rc = P16_DRYRUN.wait(timeout=600)  # started before phase 1
+    waited = time.perf_counter() - t0
+    log(f"  the plans' CPU process: waited {waited:.1f} s for it here, exit {rc}")
+    with open(os.path.join(ROOT, "build", "phase16-plans.json")) as fh:
+        plans = json.load(fh)
+    # (a) each (1, 1) plan against the card
+    for arch in P16_ARCHS:
+        out["plans"][arch] = plan_vs_card(arch, plans[arch], dev)
+    # (b) the 16x16 plans
+    with open(os.path.join(ROOT, "build", "phase16-dryrun.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    ok = [r for r in recs if r.get("status") == "ok"]
+    if rc != 0 or len(ok) != 4 * len(P16_ARCHS):
+        raise AssertionError(f"phase 16 (b): the dry run exited {rc} with "
+                             f"{len(ok)}/{4 * len(P16_ARCHS)} cases [OK]: "
+                             + "; ".join(r.get("error", "") for r in recs
+                                         if r.get("status") != "ok"))
+    out["dryrun"] = {"waited_s": waited, "cases": {}}
+    for r in ok:
+        a = analyze_record(r)
+        out["dryrun"]["cases"][f"{r['arch']} x {r['shape']}"] = {
+            **{k: a[k] for k in ("compute_s", "memory_s", "collective_s",
+                                 "dominant", "useful_ratio")},
+            "trace_s": r["compile_seconds"],
+            "argument_bytes": r["memory"]["argument_size_in_bytes"],
+            "temp_bytes": r["memory"]["temp_size_in_bytes"]}
+        log(f"  [OK]   {r['arch']} x {r['shape']} x 16x16: compute "
+            f"{a['compute_s']:.4g} s, memory {a['memory_s']:.4g} s, collective "
+            f"{a['collective_s']:.4g} s ({a['dominant']}), useful "
+            f"{a['useful_ratio']:.2f}, traced in {r['compile_seconds']:.1f} s "
+            f"on the host")
+    # (c) the examples, launches counted from 0
+    counts_zero(wt)
+    for name, (argv, headline) in P16_EXAMPLES.items():
+        t0 = time.perf_counter()
+        _, text = run_example(name, argv, dev.type)
+        dt = time.perf_counter() - t0
+        lines = [ln for ln in text.splitlines() if headline in ln]
+        if not lines:
+            raise AssertionError(f"example {name}: no line with {headline!r}")
+        out["examples"][name] = {"s": dt, "argv": list(argv),
+                                 "headline": lines[-1].strip()}
+        log(f"  example {name} {' '.join(argv)} ({dt:.1f} s): {lines[-1].strip()}")
+    out["examples_launches"] = counts_read(wt)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5654,6 +5716,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     report: dict = {"card": smi, "phases": {}}
+    start_phase16_dryrun()
 
     # -- build ------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -6302,6 +6365,29 @@ def main() -> int:
         if not next(k for k in kernels if k["name"] == name).get(
                 "launches_phase15"):
             raise AssertionError(f"phase 15 launched {name} no time")
+    # -- phase 16: the dry-run and roofline tooling ------------------------
+    t0 = time.perf_counter()
+    p16 = phase_tooling(dev, smi)
+    dt = time.perf_counter() - t0
+    log(f"phase 16 dry run, roofline and examples: {dt:.2f} s (aim "
+        f"{PHASE16_AIM_S:.0f} s)")
+    report["phases"]["tooling"] = {"s": dt, **p16}
+    # phase 16's paths, each counted from 0 just before it and read just
+    # after: (a)'s kernel-path prefills and (c)'s examples
+    p16_paths = {"plan_vs_card": [v["launches"] for v in p16["plans"].values()],
+                 "examples": [p16["examples_launches"]]}
+    for k in kernels:
+        by_path = {path: sum(c.get(k["name"], 0) for c in counts)
+                   for path, counts in p16_paths.items()}
+        by_path = {path: n for path, n in by_path.items() if n}
+        if by_path:
+            k["launches_phase16"] = by_path
+            k["launches"] += sum(by_path.values())
+    for name in ("flash_attention", "ssd_scan", "walk_transition_sparse",
+                 "walk_transition_ragged"):
+        if not next(k for k in kernels if k["name"] == name).get(
+                "launches_phase16"):
+            raise AssertionError(f"phase 16 launched {name} no time")
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -6318,4 +6404,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase16-plans"]:  # the CPU process of phase 16
+        sys.exit(phase16_plans())
     sys.exit(main())

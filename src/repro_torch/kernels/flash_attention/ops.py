@@ -32,6 +32,8 @@ from repro_torch.kernels._launch import (
     I, P, check, device_of, forward_only, launch, stream,
 )
 from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.utils.kernel_bounds import flash_bound
+from repro_torch.utils.op_cost import priced
 
 __all__ = ["mha", "route_of", "HEAD_DIMS", "ROUTES"]
 
@@ -61,6 +63,16 @@ def mha(
     window: int = 0,
 ) -> torch.Tensor:
     """Attention output (B, S, N, h) in q's dtype."""
+    b, s, n, h = q.shape
+    return priced(
+        "flash_attention",
+        lambda: flash_bound(b, s, k.shape[1], n, k.shape[2], h,
+                            q.element_size(), causal, window if causal else 0),
+        lambda: _mha(q, k, v, causal, window),
+        lambda: torch.empty(q.shape, dtype=q.dtype, device=q.device), q, k, v)
+
+
+def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
     device = device_of(q, k, v)
     if device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window)

@@ -21,6 +21,8 @@ from repro_torch.kernels._launch import (
     F, I, P, check, device_of, forward_only, launch, stream,
 )
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.utils.kernel_bounds import rmsnorm_bound
+from repro_torch.utils.op_cost import priced
 
 __all__ = ["rmsnorm", "rmsnorm_fused", "kernel_for", "KERNELS"]
 
@@ -46,6 +48,14 @@ def kernel_for(d: int, dtype: torch.dtype, aligned: bool = True) -> str:
 
 def rmsnorm_fused(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of each row of ``x`` (R, D); returns (R, D) in ``x``'s dtype."""
+    return priced(
+        "rmsnorm_fused",
+        lambda: rmsnorm_bound(x.shape[0], x.shape[-1], x.element_size()),
+        lambda: _rmsnorm_fused(x, scale, eps),
+        lambda: torch.empty_like(x), x, scale)
+
+
+def _rmsnorm_fused(x, scale, eps: float) -> torch.Tensor:
     device = device_of(x, scale)
     if device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)

@@ -39,6 +39,8 @@ from repro_torch.kernels._launch import (
     I, P, check, device_of, forward_only, launch, stream,
 )
 from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
+from repro_torch.utils.kernel_bounds import ssd_bound
+from repro_torch.utils.op_cost import priced
 
 __all__ = ["ssd", "ssd_scan", "ssd_oracle", "route_of", "ROUTES",
            "MAX_STATE", "MAX_HEAD_DIM"]
@@ -73,6 +75,17 @@ def route_of(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
 
 def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
     """y (B, H, L, P) float32 of the chunked SSD, head-major inputs."""
+    b, h, l, p = xs.shape
+    return priced(
+        "ssd_scan",
+        lambda: ssd_bound(b, h, l, p, bs.shape[-1], chunk, xs.element_size(),
+                          bs.shape[1]),
+        lambda: _ssd_scan(xs, da, dt, bs, cs, chunk),
+        lambda: torch.empty(xs.shape, dtype=torch.float32, device=xs.device),
+        xs, da, dt, bs, cs)
+
+
+def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
     device = device_of(xs, da, dt, bs, cs)
     if device.type == "cpu":
         return ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)

@@ -42,6 +42,8 @@ from repro_torch.kernels.walk_transition.ref import (
     walk_transition_ref,
     walk_transition_sparse_ref,
 )
+from repro_torch.utils.kernel_bounds import walk_step_work
+from repro_torch.utils.op_cost import priced
 
 __all__ = [
     "walk_transition",
@@ -113,6 +115,16 @@ def walk_transition_ragged(
     (``engine.search_iters``); the kernel, a group of
     :data:`RAGGED_GROUP` lanes a walk, searches each segment in rounds of
     that many probes and needs no bound."""
+    return priced(
+        "walk_transition_ragged",
+        lambda: walk_step_work(nodes.shape[0], max_degree, r),
+        lambda: _ragged(nodes, indptr, degrees, indices, edge_cdf, uniforms,
+                        p_d=p_d, r=r, max_degree=max_degree),
+        lambda: (torch.empty_like(nodes), torch.empty_like(nodes)), nodes)
+
+
+def _ragged(nodes, indptr, degrees, indices, edge_cdf, uniforms, *, p_d, r,
+            max_degree) -> tuple:
     device = _device(nodes, indptr, degrees, indices, edge_cdf, uniforms)
     if device.type == "cpu":
         return walk_transition_ragged_ref(
@@ -163,6 +175,15 @@ def walk_transition_sparse(
     Where the device flag ``live`` is False the kernel reads no tile and
     every pick is 0 (the gated branch of a captured dispatch).  Returns
     ``v_mh`` (W,) int32."""
+    return priced(
+        "walk_transition_sparse",
+        lambda: walk_step_work(rows.shape[0], rows.shape[1], 0),
+        lambda: _sparse(rows, neigh_rows, u_mh, live),
+        lambda: torch.empty(rows.shape[0], dtype=torch.int32,
+                            device=rows.device), rows)
+
+
+def _sparse(rows, neigh_rows, u_mh, live) -> torch.Tensor:
     tensors = (rows, neigh_rows, u_mh) + (() if live is None else (live,))
     device = _device(*tensors)
     if device.type == "cpu":
@@ -255,6 +276,16 @@ def walk_transition(
     table, the combine.  Rows must be non-negative with exactly-zero pads
     (the padded-row convention).  Returns ``(next_nodes, hops)``, both
     (W,) int32."""
+    return priced(
+        "walk_transition",
+        lambda: walk_step_work(nodes.shape[0], neighbors.shape[1], r),
+        lambda: _dense(nodes, row_probs, neighbors, degrees, uniforms,
+                       p_d=p_d, r=r),
+        lambda: (torch.empty_like(nodes), torch.empty_like(nodes)), nodes)
+
+
+def _dense(nodes, row_probs, neighbors, degrees, uniforms, *, p_d,
+           r) -> tuple:
     device = _device(nodes, row_probs, neighbors, degrees, uniforms)
     if device.type == "cpu":
         return walk_transition_ref(

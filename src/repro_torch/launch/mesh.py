@@ -19,7 +19,9 @@ imported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 
 import torch
 
@@ -28,6 +30,7 @@ __all__ = [
     "make_production_mesh",
     "make_smoke_mesh",
     "make_walker_mesh",
+    "fake_device_mesh",
     "mesh_sizes",
     "HW",
 ]
@@ -49,8 +52,8 @@ class AbstractMesh:
 def mesh_sizes(mesh) -> dict:
     """``{axis name: size}`` of a ``DeviceMesh`` or an :class:`AbstractMesh`."""
     names = getattr(mesh, "mesh_dim_names", None)
-    if names is not None:  # a torch DeviceMesh
-        return dict(zip(names, tuple(mesh.mesh.shape)))
+    if names is not None:  # a torch DeviceMesh (its shape, not its rank tensor)
+        return dict(zip(names, tuple(mesh.shape)))
     return dict(zip(mesh.axis_names, tuple(mesh.shape)))
 
 
@@ -115,6 +118,40 @@ def make_walker_mesh(num_devices: int | None = None, *, device_type: str = "cuda
     return mesh
 
 
+@contextlib.contextmanager
+def fake_device_mesh(abstract_mesh):
+    """A ``DeviceMesh`` of ``abstract_mesh``'s shape and axis names over a
+    fake process group of ``prod(shape)`` ranks, this process rank 0; the
+    group is destroyed on exit.
+
+    The fake group (``torch.testing._internal.distributed.fake_pg``)
+    completes every collective at once without moving data, so a DTensor
+    program traced on this mesh (under ``FakeTensorMode``) issues the
+    collectives the real mesh would, and ``CommDebugMode`` counts them;
+    nothing touches a card.  Raises, with the reason, when a process group
+    is already initialised: it is someone else's, and this never tears it
+    down.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            "fake_device_mesh needs no process group initialised: one is "
+            f"(backend {dist.get_backend()!r}, world size "
+            f"{dist.get_world_size()}), and it is not this function's to "
+            "destroy")
+    shape = tuple(int(d) for d in abstract_mesh.shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape,
+                               mesh_dim_names=tuple(abstract_mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
 class HW:
     """One NVIDIA H100 SXM's published figures (NVIDIA's H100 data sheet,
     dense rates at the full 700 W), the roofline's denominators."""
@@ -124,3 +161,14 @@ class HW:
     HBM_BW = 3.35e12  # bytes/s
     HBM_BYTES = 80e9  # 80 GB of HBM3
     NVLINK_BW = 900e9  # bytes/s per GPU, all NVLink links together
+    # bytes/s per GPU between nodes: a DGX H100 gives each GPU one 400 Gb/s
+    # ConnectX-7 port (NVIDIA DGX H100 user guide); a collective whose group
+    # spans more than NODE_GPUS GPUs is priced at this rate
+    INTER_NODE_BW = 50e9
+    NODE_GPUS = 8
+
+    @classmethod
+    def link_bw(cls, group_size: int) -> float:
+        """The per-GPU rate of a collective over ``group_size`` GPUs:
+        NVLink inside a node, the network beyond it."""
+        return cls.NVLINK_BW if group_size <= cls.NODE_GPUS else cls.INTER_NODE_BW

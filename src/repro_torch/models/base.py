@@ -26,6 +26,8 @@ from typing import Union
 import torch
 from torch import nn
 
+from repro_torch.sharding.constraints import whole_dim
+
 __all__ = ["Model", "Stack", "stack_paths", "tree_of", "named_of", "param_tree",
            "leaf_shape", "stack_leaf", "unstack_like", "stack_axes"]
 
@@ -161,7 +163,8 @@ def unstack_like(t: torch.Tensor, like: Leaf) -> Leaf:
     """``t`` (of :func:`leaf_shape` ``like``) in ``like``'s tuple structure
     (views of ``t``)."""
     if isinstance(like, tuple):
-        return tuple(unstack_like(piece, sub) for piece, sub in zip(t.unbind(0), like))
+        return tuple(unstack_like(piece, sub) for piece, sub in zip(
+            whole_dim(t, 0).unbind(0), like))
     return t
 
 

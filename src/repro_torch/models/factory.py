@@ -24,9 +24,13 @@ def build_model(
     generator: Optional[torch.Generator] = None,
 ) -> Model:
     """The family's model with random weights drawn from ``generator``
-    (seed 0 on ``device`` when None), on ``device``."""
+    (seed 0 on ``device`` when None), on ``device``.  On the ``meta``
+    device or under ``FakeTensorMode`` (a planned model: shapes and dtypes,
+    no values) no generator is made."""
     device = torch.device(device)
-    if generator is None:
+    fake = torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+    if generator is None and device.type != "meta" and not fake:
         generator = torch.Generator(device=device).manual_seed(0)
     builders = {"dense": build_dense_model, "vlm": build_dense_model,
                 "moe": build_moe_model, "ssm": build_mamba_model,

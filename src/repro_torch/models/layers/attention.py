@@ -17,6 +17,11 @@ import torch
 
 from repro_torch.models.layers.rotary import apply_rope
 from repro_torch.models.model_utils import normal
+from repro_torch.sharding.constraints import (
+    aligned_to, constrain, is_dtensor, local_call, placements_of, shard_offset,
+)
+from repro_torch.utils.kernel_bounds import flash_bound
+from repro_torch.utils.op_cost import priced
 
 __all__ = [
     "AttnDims",
@@ -94,11 +99,13 @@ def _grouped_out(probs, v, dims: AttnDims):
 def _repeated_scores(q, k, dims: AttnDims):
     """repeat_kv path: kv repeated to N heads."""
     k = k.repeat_interleave(dims.num_heads // dims.num_kv_heads, dim=2)
+    k = constrain(k, ("data", None, "model", None))
     return torch.einsum("bsnh,btnh->bnst", q.float(), k.float())
 
 
 def _repeated_out(probs, v, dims: AttnDims):
     v = v.repeat_interleave(dims.num_heads // dims.num_kv_heads, dim=2)
+    v = constrain(v, ("data", None, "model", None))
     return torch.einsum("bnst,btnh->bsnh", probs.to(v.dtype), v)
 
 
@@ -148,27 +155,69 @@ def attention_full(
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, dims, positions)
-    if use_flash and mode in ("causal", "bidir"):
-        # the CUDA flash-attention kernel, in the model layout (B,S,N,h),
-        # GQA folded inside the kernel; 'prefix' falls through below
+    if mode in ("causal", "bidir"):
+        out = _attend_local(q, k, v, dims, mode, window, use_flash)
+    else:  # 'prefix' always takes the einsum path
+        out = _attend(q, k, v, dims, mode, window, prefix_len, False)
+    return torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+
+
+def _attend(q, k, v, dims: AttnDims, mode, window, prefix_len, use_flash):
+    """Attention outputs (B, S, N, h): the CUDA flash-attention kernel
+    (model layout, GQA folded inside) or the einsum path."""
+    if use_flash:
         from repro_torch.kernels.flash_attention.ops import mha
 
-        out = mha(
+        return mha(
             q.contiguous(), k.to(q.dtype).contiguous(),
             v.to(q.dtype).contiguous(), causal=mode == "causal", window=window,
-        ).to(x.dtype)
-        return torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+        ).to(q.dtype)
+    s = q.shape[1]
     mask = make_mask(s, mode, window=window, prefix_len=prefix_len,
-                     device=x.device)
+                     device=q.device)
     if dims.repeat_kv:
+        q = constrain(q, ("data", None, "model", None))
         scores = _repeated_scores(q, k, dims) * (dims.head_dim**-0.5)
         probs = torch.softmax(scores + mask, dim=-1)
-        out = _repeated_out(probs, v, dims)
-    else:
-        scores = _grouped_scores(q, k, dims) * (dims.head_dim**-0.5)
-        probs = torch.softmax(scores + mask, dim=-1)
-        out = _grouped_out(probs, v, dims)
-    return torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+        return constrain(_repeated_out(probs, v, dims),
+                         ("data", None, "model", None))
+    scores = _grouped_scores(q, k, dims) * (dims.head_dim**-0.5)
+    probs = torch.softmax(scores + mask, dim=-1)
+    return _grouped_out(probs, v, dims)
+
+
+def _attend_priced(q, k, v, dims: AttnDims, mode, window, use_flash):
+    """:func:`_attend` as one priced call (``repro_torch.utils.op_cost``):
+    the flash kernel's work whichever path runs."""
+    b, s, n, h = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    causal = mode == "causal"
+    return priced(
+        "attention",
+        lambda: flash_bound(b, s, t, n, kh, h, q.element_size(), causal,
+                            window if causal else 0),
+        lambda: _attend(q, k, v, dims, mode, window, 0, use_flash),
+        lambda: torch.empty(q.shape, dtype=q.dtype, device=q.device), q, k, v)
+
+
+def _attend_local(q, k, v, dims: AttnDims, mode, window, use_flash):
+    """:func:`_attend_priced` on each device's batch and heads on a mesh.
+    Where q's heads are split and k's cannot be (fewer kv heads than the
+    axis), k and v are repeated to q's heads first, as the reference's
+    repeated-kv layout does, so each device attends its own heads."""
+    if not is_dtensor(q):
+        return _attend_priced(q, k, v, dims, mode, window, use_flash)
+    pq = placements_of(q, (0, 2))
+    if pq != placements_of(k, (0, 2)):
+        rep = dims.num_heads // dims.num_kv_heads
+        k, v = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+        dims = dataclasses.replace(dims, num_kv_heads=dims.num_heads)
+    return local_call(
+        lambda ql, kl, vl: _attend_priced(
+            ql, kl, vl, dataclasses.replace(
+                dims, num_heads=ql.shape[2], num_kv_heads=kl.shape[2]),
+            mode, window, use_flash),
+        (q, k, v), (pq, pq, pq), pq, tuple(q.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -210,13 +259,43 @@ def attention_decode(
     v[:, slot] = v_new[:, 0].to(v.dtype)
     slot_pos[slot] = pos
 
-    scores = _grouped_scores(q, k, dims) * (dims.head_dim**-0.5)  # (B,K,G,1,W)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = _grouped_out(probs, v, dims)  # (B,1,N,h)
+    out = _decode_local(q, k, v, valid, dims)  # (B,1,N,h)
     y = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, cache
+
+
+def _decode_core(q, k, v, valid, dims: AttnDims):
+    scores = _grouped_scores(q, k, dims) * (dims.head_dim**-0.5)  # (B,K,G,1,W)
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _grouped_out(probs, v, dims)
+
+
+def _decode_local(q, k, v, valid, dims: AttnDims):
+    """:func:`_decode_core` on each device's batch and heads on a mesh: a
+    device whose q heads are split while the cache's kv heads are whole
+    reads the kv heads of its own query groups."""
+    if not is_dtensor(q):
+        return _decode_core(q, k, v, valid, dims)
+    pq = placements_of(q, (0, 2))
+    split_q = pq != placements_of(q, (0,))
+    whole = aligned_to(pq, {0: 0})  # the cache's batch follows q's
+    kv_split = placements_of(k, (0, 2)) != placements_of(k, (0,))
+    pkv = pq if split_q and kv_split else whole
+    n, kh = dims.num_heads, dims.num_kv_heads
+    lo = shard_offset(q.device_mesh, pq, n, 2) * kh // n
+
+    def core(ql, kl, vl, vd):
+        nl = ql.shape[2]
+        if split_q and pkv == whole:  # the kv heads of this device's groups
+            kl, vl = (t[:, :, lo:lo + max(1, nl * kh // n)] for t in (kl, vl))
+        return _decode_core(ql, kl, vl, vd, dataclasses.replace(
+            dims, num_heads=nl, num_kv_heads=kl.shape[2]))
+
+    return local_call(core, (q, k, v, valid),
+                      (pq, pkv, pkv, placements_of(valid, ())), pq,
+                      tuple(q.shape))
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.model_utils import grad_dtype_guard, normal
+from repro_torch.sharding.constraints import lookup_rows, pick_last
 
 __all__ = ["embedding_init", "embed", "unembed_logits", "chunked_softmax_xent"]
 
@@ -18,7 +19,7 @@ def embedding_init(vocab_size: int, d_model: int, dtype, device, generator) -> d
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    return lookup_rows(params["table"], tokens)
 
 
 def _logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -51,7 +52,7 @@ def chunked_softmax_xent(
         safe = ll.clamp(min=0).long()
         logits = _logits(xx, table)
         lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, safe[..., None])[..., 0]
+        picked = pick_last(logits, safe)
         total = total + ((lse - picked) * mask).sum()
         count = count + mask.sum()
     return total / count.clamp(min=1.0)

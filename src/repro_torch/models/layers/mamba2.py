@@ -22,6 +22,11 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers.norms import rmsnorm
 from repro_torch.models.model_utils import normal
+from repro_torch.sharding.constraints import (
+    aligned_to, constrain, is_dtensor, local_call, placements_of,
+)
+from repro_torch.utils.kernel_bounds import ssd_bound
+from repro_torch.utils.op_cost import priced
 
 __all__ = [
     "MambaDims",
@@ -77,7 +82,15 @@ def mamba_init(dims: MambaDims, dtype, device, generator) -> dict:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. x: (B, L, C); w: (K, C)."""
+    """Depthwise causal conv1d. x: (B, L, C); w: (K, C).  On a mesh each
+    device convolves its channels (``groups`` is the local width): the
+    weight and bias follow x's channel shards, the sequence is whole."""
+    if is_dtensor(x):
+        px = placements_of(x, (0, 2))
+        return local_call(
+            _causal_conv, (x, w, b),
+            (px, aligned_to(px, {2: 1}), aligned_to(px, {2: 0})),
+            px, tuple(x.shape))
     k, l = w.shape[0], x.shape[1]
     out = F.conv1d(x.transpose(1, 2), w.t().unsqueeze(1), b, padding=k - 1,
                    groups=w.shape[1])
@@ -198,20 +211,64 @@ def ssd_reference(xs, dt, a, bs, cs, h0=None) -> tuple:
     return torch.stack(ys, dim=1), state
 
 
+def _ssd(xs, dt, a, bs, cs, chunk: int, use_kernel: bool) -> torch.Tensor:
+    """y (B, L, H, P) float32, contiguous either way: the CUDA SSD scan or
+    :func:`ssd_chunked`."""
+    if use_kernel:
+        from repro_torch.kernels.ssd.ops import ssd
+
+        return ssd(xs, dt, a, bs, cs, chunk=chunk)[0].contiguous()
+    return ssd_chunked(xs, dt, a, bs, cs, chunk)[0]
+
+
+def _ssd_priced(xs, dt, a, bs, cs, chunk: int, use_kernel: bool):
+    """:func:`_ssd` as one priced call (``repro_torch.utils.op_cost``): the
+    SSD kernel's work at the chunk-padded length whichever path runs."""
+    b, l, h, p = xs.shape
+    g, n = bs.shape[2], bs.shape[3]
+    lp = -(-l // chunk) * chunk
+    return priced(
+        "ssd_scan",
+        lambda: ssd_bound(b, h, lp, p, n, chunk, xs.element_size(), g),
+        lambda: _ssd(xs, dt, a, bs, cs, chunk, use_kernel),
+        lambda: torch.empty(xs.shape, dtype=torch.float32, device=xs.device),
+        xs, dt, a, bs, cs)
+
+
+def _ssd_local(xs, dt, a, bs, cs, chunk: int, use_kernel: bool):
+    """:func:`_ssd_priced` on each device's batch and heads on a mesh; B
+    and C follow the heads' split where their groups divide it (one group
+    stays whole), else they are repeated to the heads first, so that each
+    device's heads read their own groups."""
+    if not is_dtensor(xs):
+        return _ssd_priced(xs, dt, a, bs, cs, chunk, use_kernel)
+    px = placements_of(xs, (0, 2))
+    split = math.prod(xs.device_mesh.shape[i] for i, pl in enumerate(px)
+                      if getattr(pl, "dim", None) == 2)
+    g, h = bs.shape[2], xs.shape[2]
+    if split > 1 and g > 1 and g % split:
+        bs, cs = (t.repeat_interleave(h // g, dim=2) for t in (bs, cs))
+        g = h
+    pb = aligned_to(px, {0: 0, 2: 2} if g > 1 else {0: 0})
+    return local_call(
+        lambda *t: _ssd_priced(*t, chunk, use_kernel), (xs, dt, a, bs, cs),
+        (px, aligned_to(px, {0: 0, 2: 2}), aligned_to(px, {2: 0}), pb, pb),
+        px, tuple(xs.shape))
+
+
 def mamba_apply(params, x: torch.Tensor, dims: MambaDims,
                 use_kernel: bool = False) -> torch.Tensor:
     """Full-sequence mamba2 block: (B, L, D) -> (B, L, D)."""
     z, conv_in, dt_raw = _split_proj(params, x, dims)
     conv_out = F.silu(_causal_conv(conv_in, params["conv_w"], params["conv_b"]))
     xs, bs, cs = _split_conv_out(conv_out, dims)
+    xs = constrain(xs, ("data", None, "model", None))
+    bs = constrain(bs, ("data", None, None, None))
+    cs = constrain(cs, ("data", None, None, None))
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    dt = constrain(dt, ("data", None, "model"))
     a = -torch.exp(params["a_log"])
-    if use_kernel:
-        from repro_torch.kernels.ssd.ops import ssd
-
-        y, _ = ssd(xs, dt, a, bs, cs, chunk=dims.chunk)
-    else:
-        y, _ = ssd_chunked(xs, dt, a, bs, cs, dims.chunk)
+    y = _ssd_local(xs, dt, a, bs, cs, dims.chunk, use_kernel)
     y = y + params["d_skip"][None, None, :, None] * xs.float()
     y = y.reshape(x.shape[0], x.shape[1], dims.d_inner).to(x.dtype)
     y = rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z))

@@ -26,6 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.model_utils import normal
+from repro_torch.sharding.constraints import (
+    aligned_to, constrain, is_dtensor, local_call, placements_of,
+)
 
 __all__ = ["MoEDims", "moe_init", "moe_route", "moe_apply"]
 
@@ -96,6 +99,38 @@ def moe_route(params, x: torch.Tensor, dims: MoEDims) -> tuple:
     return probs, gates, idx
 
 
+def _dispatch(x, rows, e: int, cap: int) -> torch.Tensor:
+    """The ``(B, E, cap, D)`` expert buffers: one ``scatter`` of each
+    (token, choice) into its slot of ``E * cap + 1``, the spare cut off."""
+    b, s, d = x.shape
+    k = rows.shape[1] // s
+    x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+    buf = x.new_zeros((b, e * cap + 1, d)).scatter(1, rows, x_rep)
+    return buf[:, : e * cap].reshape(b, e, cap, d)
+
+
+def _combine(expert_out, rows, gates) -> torch.Tensor:
+    """out[token] = sum_k gate_k * expert_out[e_k, pos_k]: one ``gather``,
+    the spare slot reading zeros."""
+    b, e, cap, d = expert_out.shape
+    s, k = gates.shape[1], gates.shape[2]
+    eo = F.pad(expert_out.reshape(b, e * cap, d), (0, 0, 0, 1))
+    vals = eo.gather(1, rows).reshape(b, s, k, d)
+    return (vals * gates.to(vals.dtype)[..., None]).sum(dim=2)
+
+
+def _by_batch(fn, tensors: tuple, out_shape: tuple, *args):
+    """``fn(*tensors, *args)``; on a mesh on each device's batch rows (the
+    dispatch and combine index within a batch row only), every other dim
+    whole."""
+    if not is_dtensor(tensors[0]):
+        return fn(*tensors, *args)
+    pb = placements_of(tensors[0], (0,))
+    return local_call(lambda *t: fn(*t, *args), tensors,
+                      (pb,) + (aligned_to(pb, {0: 0}),) * (len(tensors) - 1),
+                      pb, out_shape)
+
+
 def moe_apply(params, x: torch.Tensor, dims: MoEDims) -> tuple:
     """x: (B, S, D) -> (B, S, D) and the aux dict (``moe_aux_loss``,
     ``moe_dropped_frac``, ``moe_expert_load``)."""
@@ -114,24 +149,23 @@ def moe_apply(params, x: torch.Tensor, dims: MoEDims) -> tuple:
     slot = torch.where(keep, flat_idx * cap + pos, e * cap)  # spare: e * cap
     rows = slot[..., None].expand(b, s * k, d)
 
-    # dispatch; the expert-parallel layout constraints of the JAX package
-    # (no-ops without a mesh) constrain a model's own tensors, which only
-    # a sharded model's weights give meaning: they come with the port of
-    # the dry-run tooling; the walker mesh shards walkers, not weights
-    x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
-    buf = x.new_zeros((b, e * cap + 1, d)).scatter(1, rows, x_rep)
-    expert_in = buf[:, : e * cap].reshape(b, e, cap, d)
+    expert_in = _by_batch(_dispatch, (x, rows), (b, e, cap, d), e, cap)
+    # the expert-parallel layout on a mesh (batch over 'data', experts over
+    # 'model'; no-ops without one), as the JAX package constrains it; not
+    # at decode-size capacities, where it measured as a pure collective cost
+    constrain_ep = cap >= 64
+    if constrain_ep:
+        expert_in = constrain(expert_in, ("data", "model", None, None))
 
     # expert FFN (SwiGLU), batched over (B, E)
     h_gate = torch.einsum("becd,edf->becf", expert_in, params["w_gate"])
     h_up = torch.einsum("becd,edf->becf", expert_in, params["w_up"])
     expert_out = torch.einsum("becf,efd->becd", F.silu(h_gate) * h_up,
                               params["w_down"])
+    if constrain_ep:
+        expert_out = constrain(expert_out, ("data", "model", None, None))
 
-    # combine: out[token] = sum_k gate_k * expert_out[e_k, pos_k]
-    eo = F.pad(expert_out.reshape(b, e * cap, d), (0, 0, 0, 1))
-    vals = eo.gather(1, rows).reshape(b, s, k, d)
-    out = (vals * gates.to(vals.dtype)[..., None]).sum(dim=2)
+    out = _by_batch(_combine, (expert_out, rows, gates), (b, s, d))
 
     if dims.num_shared_experts > 0:
         sh = params["shared"]

@@ -5,6 +5,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding.constraints import is_dtensor
 from repro_torch.optim.base import (GradientTransformation, leaves, tree_map,
                                     unflatten, zeros_count)
 from repro_torch.optim.sgd import ScalarOrSchedule, _lr_at
@@ -42,7 +43,11 @@ def adam(
         new_mu = torch._foreach_add(
             torch._foreach_mul([m.float() for m in mus], b1),
             torch._foreach_mul(gs, 1 - b1))
-        torch._foreach_copy_(mus, new_mu)
+        if mus and is_dtensor(mus[0]):  # DTensor has no _foreach_copy_
+            for m, n in zip(mus, new_mu):
+                m.copy_(n)
+        else:
+            torch._foreach_copy_(mus, new_mu)
         torch._foreach_mul_(nus, b2)
         torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(gs, gs),
                                                     1 - b2))

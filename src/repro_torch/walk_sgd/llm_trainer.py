@@ -38,6 +38,7 @@ from repro_torch.core.importance import param_fingerprint
 from repro_torch.core.transition import MHLJParams
 from repro_torch.optim.base import (GradientTransformation, apply_updates,
                                     global_norm, leaves, unflatten)
+from repro_torch.sharding.constraints import constrain
 from repro_torch.walk_sgd.fleet import WalkFleet
 
 __all__ = ["WalkContext", "make_train_step", "make_serve_step",
@@ -293,6 +294,8 @@ def make_serve_step(model) -> Callable:
 
     def serve_step(cache, tokens, pos):
         logits, cache = model.decode_step(tokens, cache, pos)
+        # on a mesh each device takes the argmax over the whole vocabulary
+        logits = constrain(logits, ("data", None))
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_tokens, cache
 

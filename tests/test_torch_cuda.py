@@ -1656,3 +1656,53 @@ def test_deterministic_resume_on_the_card(dev, tmp_path, monkeypatch, arch):
                        full["walk_state"]["lipschitz"])
     assert torch.equal(resumed["walk_state"]["rng"].get_state(),
                        full["walk_state"]["rng"].get_state())
+
+
+# -- the dry-run tooling on the card (phase 16 (a) of chip_smoke.py) ---------
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "mamba2-370m"])
+def test_op_cost_kernel_path_counts_the_plain_paths_work(dev, arch):
+    """The priced regions: a reduced bf16 prefill counts the same FLOPs and
+    bytes with ``use_kernels`` True (the CUDA kernels launch) and False."""
+    from repro_torch.launch import dryrun
+    from repro_torch.utils.op_cost import count_ops
+
+    cfg = dataclasses.replace(reduced(get_arch(arch)), use_kernels=True,
+                              head_dim=64 if arch == "minitron-8b" else 0)
+    if arch == "mamba2-370m":
+        cfg = dataclasses.replace(cfg, ssm_state=64, ssm_head_dim=64,
+                                  ssd_chunk=64)
+    model = build_model(cfg, torch.bfloat16, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    step = dryrun.make_prefill_step(model)
+    counts = {}
+    for use_kernels in (True, False):
+        model.cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
+        fa_ops.mha.launches, ssd_ops.ssd_scan.launches = 0, 0
+        with torch.no_grad(), count_ops() as c:
+            logits = step({"tokens": tokens})
+        torch.cuda.synchronize()
+        launched = fa_ops.mha.launches + ssd_ops.ssd_scan.launches
+        assert (launched > 0) == use_kernels
+        assert torch.isfinite(logits).all()
+        counts[use_kernels] = (c.cost.flops, c.cost.bytes)
+    assert counts[True] == counts[False]
+
+
+def test_plan_argument_bytes_equal_the_cards(dev):
+    """The (1, 1) plan's argument bytes equal the bytes of the same model's
+    parameters and batch built on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    cfg = reduced(get_arch("mamba2-370m"))
+    shape = ShapeConfig("small_prefill", 256, 1, "prefill")
+    _, _, info = dryrun.lower_case(cfg, shape, False, mesh=make_smoke_mesh())
+    model = build_model(cfg, torch.bfloat16, device=dev)
+    measured = sum(p.numel() * p.element_size() for p in model.parameters())
+    measured += 2 * 256 * 4  # tokens and labels, int32
+    assert info["memory"]["argument_size_in_bytes"] == measured
+    assert info["collectives"]["num_ops"] == 0

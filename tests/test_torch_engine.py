@@ -492,6 +492,10 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    examples = os.path.join(REPO, "examples", "torch")
+    for f in sorted(os.listdir(examples)):
+        if f.endswith(".py"):
+            yield os.path.join(examples, f)
 
 
 def test_port_sources_import_no_jax_or_reference():
@@ -529,6 +533,13 @@ def test_port_imports_with_jax_blocked():
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import glob\n"
+        "for path in sorted(glob.glob('examples/torch/*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import torch.distributed as dist\n"
+        "assert not (dist.is_available() and dist.is_initialized())\n"
+        "assert 'torch.testing._internal.distributed.fake_pg' not in sys.modules\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
         "print('ok')\n"
     )
