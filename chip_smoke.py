@@ -94,7 +94,16 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    bf16 run against the float32 einsum run; then ``rmsnorm_fused``
    against its plain version and ``F.rms_norm`` at (4096, 4096) and
    (16384, 1024) in bf16 and float32, with the kernel that ran and the
-   share of the bound;
+   share of the bound; then the widened shapes (``phase_widths``):
+   paligemma-3b's attention layer 0 at full width (B=1, S=4096, N=8, K=1,
+   h=256, causal, bf16) through the wgmma kernel at HD = 256, bf16 at
+   h = 80 and 96 (wgmma, zero-filled to 128) and 100 (CUDA-core), float32
+   at h = 256, and ``ssd_scan``'s CUDA-core route at (P, N) = (128, 256)
+   and (80, 200) in float32, chunk 256, and (32, 24) in bf16, chunk 32:
+   each against its plain version at ``LLM_TOL`` (the float32 SSD cases
+   at N * chunk > 64 * 64 by their float64 error, no more than twice the
+   plain version's), one launch on its route, with device ms, the bound and the plain version's ms (SDPA's
+   for attention);
 9. the paper's reproduction, ``repro_torch.paper``, on the card at the
    paper's graph sizes (Fig. 3 ring(1000), T = 40,000; Fig. 4 ER(1000,
    0.1), T = 20,000; Fig. 5's five 1000-node graphs; Fig. 6 ring(64), six
@@ -265,7 +274,9 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    baseline within ``P16_PEAK_BOUNDS`` of the plan's argument + temp
    bytes; printed: the measured prefill time against the counted
    roofline bound; (b) the plan of minitron-8b and mamba2-370m x the four
-   input shapes on the 16x16 mesh, all [OK] with the three roofline terms
+   input shapes on the 16x16 mesh, all [OK] with the three roofline terms,
+   and the reduced model of each of the six families x train, prefill and
+   decode on a fake (2, 2) mesh, all 18 [OK]
    (a CPU process, ``python3 chip_smoke.py --phase16-plans``, started
    before phase 1 at one thread and the lowest priority, its output under
    ``build/phase16-*``); (c) the five ``examples/torch`` scripts on
@@ -1512,6 +1523,170 @@ def phase_rmsnorm(dev, gen) -> dict:
     return {"max_abs_err": max(errs), "shapes": out, **out["4096x4096_bfloat16"]}
 
 
+# phase 6's widened shapes: the head_dims and d_states the two kernels take
+# beyond the main path's (h 64 and 128; P 64, N 64 and 128).  Attention:
+# (label, dtype, (B, S, T, N, K, h), causal, window, route); paligemma-3b's
+# layer (h=256, MQA) is made from the model's own weights.  SSD: (label,
+# dtype, (B, H, L, P, N, chunk)), every one on the CUDA-core route.
+P6_FLASH_WIDTHS = (
+    ("bf16 h=80", torch.bfloat16, (1, 4096, 4096, 16, 4, 80), True, 0,
+     "wgmma_bf16"),
+    ("bf16 h=96", torch.bfloat16, (1, 4096, 4096, 16, 4, 96), True, 0,
+     "wgmma_bf16"),
+    ("bf16 h=100", torch.bfloat16, (1, 4096, 4096, 16, 4, 100), True, 0,
+     "cuda_core_f32"),
+    ("float32 h=256", torch.float32, (1, 4096, 4096, 8, 1, 256), True, 0,
+     "cuda_core_f32"),
+)
+P6_SSD_WIDTHS = (
+    ("float32 P=128 N=256", torch.float32, (1, 16, 4096, 128, 256, 256)),
+    ("float32 P=80 N=200", torch.float32, (1, 16, 4096, 80, 200, 256)),
+    ("bf16 P=32 N=24", torch.bfloat16, (1, 16, 4096, 32, 24, 32)),
+)
+
+
+def paligemma_layer_qkv(dev, gen) -> tuple:
+    """q, k, v of paligemma-3b's attention layer 0 at full width (B=1,
+    S=4096, N=8, K=1, h=256, bf16), from its seed-0 weights (the model cut
+    to that one layer) on random tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.factory import build_model
+    from repro_torch.models.layers import attention as attn_mod
+    from repro_torch.models.layers.norms import rmsnorm
+
+    cfg = dataclasses.replace(get_arch("paligemma-3b"), num_layers=1)
+    gen.manual_seed(0)
+    model = build_model(cfg, torch.bfloat16, device=dev, generator=gen)
+    s = 4096
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=dev)
+    lp = model.layers[0]
+    with torch.no_grad():
+        x = rmsnorm(lp["ln1"], model.embedding["table"][tokens], cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(
+            lp["attn"], x, model.dims, torch.arange(s, device=dev).expand(1, s))
+    out = tuple(t.contiguous() for t in (q, k, v))
+    del model, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(dev, gen) -> dict:
+    """Phase 6's widened shapes: each of ``P6_FLASH_WIDTHS`` (after
+    paligemma-3b's layer through the wgmma kernel at HD = 256) and of
+    ``P6_SSD_WIDTHS`` against its plain version at ``LLM_TOL`` (the
+    float32 SSD cases at N * chunk > 64 * 64 against the float64 result,
+    no worse than twice the plain version), one launch on its route; device ms by held CUDA events, the bound from
+    ``utils/kernel_bounds.py``, the plain version's ms and, for attention,
+    SDPA's on the same call (a yardstick only: the port never calls it)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+    out = {"flash_attention": {}, "ssd_scan": {}}
+    flash_cases = [("paligemma-3b layer 0 bf16 h=256", torch.bfloat16,
+                    paligemma_layer_qkv(dev, gen), True, 0, "wgmma_bf16")]
+    for label, dtype, (b, s, t, n, kh, h), causal, window, route in P6_FLASH_WIDTHS:
+        qkv = tuple(torch.randn((b, length, heads, h), generator=gen,
+                                device=dev).to(dtype)
+                    for length, heads in ((s, n), (t, kh), (t, kh)))
+        flash_cases.append((label, dtype, qkv, causal, window, route))
+    for label, dtype, (q, k, v), causal, window, route in flash_cases:
+        b, s, n, h = q.shape
+        t, kh = k.shape[1], k.shape[2]
+        if fa_ops.route_of(dtype, h) != route:
+            raise AssertionError(f"flash_attention {label}: route "
+                                 f"{fa_ops.route_of(dtype, h)}, not {route}")
+        before = dict(fa_ops.mha.launches_by_route)
+        got = fa_ops.mha(q, k, v, causal=causal, window=window)
+        went = {r: fa_ops.mha.launches_by_route[r] - before[r] for r in before}
+        if went != {r: int(r == route) for r in before}:
+            raise AssertionError(f"flash_attention {label} took the routes {went}")
+        err = hold("flash_attention", got, mha_ref(q, k, v, causal=causal,
+                                                   window=window), dtype,
+                   f"at {label} (B={b} S={s} N={n} K={kh}, {route})")
+        del got
+        fast = dtype == torch.bfloat16 and route == "wgmma_bf16"
+        ms = device_time_ms(lambda i: fa_ops.mha(q, k, v, causal=causal,
+                                                 window=window), 10 if fast else 3)
+        plain = device_time_ms(lambda i: mha_ref(q, k, v, causal=causal,
+                                                 window=window), 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = device_time_ms(
+            lambda i: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+        nbytes, ops = flash_bound(b, s, t, n, kh, h, q.element_size(), causal,
+                                  window if causal else 0)
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        b_ms, b_by = bound(nbytes, ops, peak)
+        out["flash_attention"][label] = {
+            "route": route, "shape": [b, s, t, n, kh, h], "launches": 1,
+            "max_abs_err": err, "ms": ms[0], "plain_ms": plain[0],
+            "library_ms": lib[0], "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms[0]}
+        log(f"  flash_attention {label} ({route}): {ms[0]:.4f} ms/launch on "
+            f"the device ({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by "
+            f"{b_by}), plain {plain[0]:.4f} ms, SDPA {lib[0]:.4f} ms "
+            f"({ms[0] / lib[0]:.2f}x SDPA)")
+    del flash_cases, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    for label, dtype, (b, h, l, p, n, chunk) in P6_SSD_WIDTHS:
+        xs = torch.randn((b, h, l, p), generator=gen, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, h, l), generator=gen, device=dev))
+        da = dt * -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))[:, None]
+        bs, cs = (torch.randn((b, h, l, n), generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        args = (xs, da, dt, bs, cs)
+        if ssd_ops.route_of(dtype, p, n, chunk) != "cuda_core_f32":
+            raise AssertionError(f"ssd_scan {label}: not the CUDA-core route")
+        before = dict(ssd_ops.ssd_scan.launches_by_route)
+        y = ssd_ops.ssd_scan(*args, chunk=chunk)
+        went = {r: ssd_ops.ssd_scan.launches_by_route[r] - before[r]
+                for r in before}
+        if went != {"mma_bf16": 0, "cuda_core_f32": 1}:
+            raise AssertionError(f"ssd_scan {label} took the routes {went}")
+        plain_y = ssd_scan_ref(*args, chunk=chunk)
+        exact = ssd_scan_ref(*(x.double() for x in args), chunk=chunk)
+        err64 = {"kernel": float((y.double() - exact).abs().max()),
+                 "plain": float((plain_y.double() - exact).abs().max())}
+        log(f"  ssd_scan {label} against the float64 result (max |y| "
+            f"{float(exact.abs().max()):.3e}): kernel {err64['kernel']:.3e}, "
+            f"plain version {err64['plain']:.3e}")
+        del exact
+        where = f"at {label} (B={b} H={h} L={l} chunk {chunk})"
+        if dtype == torch.float32 and n * chunk > 64 * 64:
+            # two float32 summation orders of ~1e5 products (|y| ~ 450
+            # here) differ by more than 2e-4: held to the float64 result,
+            # no worse than twice the plain version's error, as
+            # tests/test_torch_cuda.py holds the route at N * chunk > 64 * 64
+            err = float((y - plain_y).abs().max())
+            if not err64["kernel"] <= 2 * err64["plain"]:
+                raise AssertionError(f"ssd_scan {where} against float64: {err64}")
+            log(f"  ssd_scan vs plain {where}: max abs err {err:.3e}; against "
+                f"float64 {err64['kernel'] / err64['plain']:.2f}x the plain "
+                f"version's error (rule: <= 2x)")
+        else:
+            err = hold("ssd_scan", y, plain_y, dtype, where)
+        del y, plain_y
+        ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 3)
+        plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
+        nbytes, ops = ssd_bound(b, h, l, p, n, chunk, xs.element_size(), h)
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        b_ms, b_by = bound(nbytes, ops, peak)
+        out["ssd_scan"][label] = {
+            "route": "cuda_core_f32", "shape": [b, h, l, p, n, chunk],
+            "launches": 1, "max_abs_err": err, "max_abs_err_vs_f64": err64,
+            "ms": ms[0], "plain_ms": plain[0], "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms[0]}
+        log(f"  ssd_scan {label} (cuda_core_f32): {ms[0]:.4f} ms/launch on the "
+            f"device ({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by "
+            f"{b_by}), plain {plain[0]:.4f} ms")
+    return out
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Relative Frobenius error of ``a`` against ``b``, in float32."""
     return float((a.float() - b.float()).norm() / b.float().norm())
@@ -1803,6 +1978,9 @@ def phase_llm(dev) -> dict:
     t0 = time.perf_counter()
     out["rmsnorm"] = phase_rmsnorm(dev, gen)
     log(f"phase 6 (rmsnorm): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out["widths"] = phase_widths(dev, gen)
+    log(f"phase 6 (widened shapes): {time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -5461,18 +5639,25 @@ P16_EXAMPLES = {
     "serve_demo": (("--small",), "mhlj "),
 }
 P16_DRYRUN = None  # the (b) subprocess
+# (b)'s reduced plans: one model of each family (tests/test_torch_dryrun_
+# families.py's), each x train, prefill and decode on a fake (2, 2) mesh
+P16_FAMILIES = {"dense": "minitron-8b", "moe": "olmoe-1b-7b",
+                "ssm": "mamba2-370m", "hybrid": "jamba-1.5-large-398b",
+                "audio": "whisper-tiny", "vlm": "paligemma-3b"}
+P16_KINDS = ("train", "prefill", "decode")
 
 
 def start_phase16_dryrun() -> None:
     """Start phase 16's plans in a CPU process (they need no card, and run
-    beside phases 1-15): (a)'s (1, 1) plan of each of ``P16_ARCHS`` and
-    (b)'s plan of each x the four input shapes on the 16x16 mesh, under
-    ``build/phase16-*``."""
+    beside phases 1-15): (a)'s (1, 1) plan of each of ``P16_ARCHS``,
+    (b)'s plan of each x the four input shapes on the 16x16 mesh and (b)'s
+    reduced plans of the six families, under ``build/phase16-*``."""
     import atexit
 
     global P16_DRYRUN
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    for name in ("phase16-dryrun.jsonl", "phase16-plans.json"):
+    for name in ("phase16-dryrun.jsonl", "phase16-plans.json",
+                 "phase16-reduced.json"):
         if os.path.exists(os.path.join(ROOT, "build", name)):
             os.remove(os.path.join(ROOT, "build", name))
     # one thread at the lowest priority: the host's cores are the card
@@ -5506,9 +5691,45 @@ def phase16_plans() -> int:
         print(f"plan {arch} 1x{P16_SEQ} on (1, 1): {plans[arch]}", flush=True)
     with open(os.path.join(ROOT, "build", "phase16-plans.json"), "w") as fh:
         json.dump(plans, fh)
-    return dryrun.main(["--arch", ",".join(P16_ARCHS), "--shape", "all",
-                        "--mesh", "single", "--out",
-                        os.path.join(ROOT, "build", "phase16-dryrun.jsonl")])
+    rc = dryrun.main(["--arch", ",".join(P16_ARCHS), "--shape", "all",
+                      "--mesh", "single", "--out",
+                      os.path.join(ROOT, "build", "phase16-dryrun.jsonl")])
+    reduced_plans()
+    return rc
+
+
+def reduced_plans() -> None:
+    """(b)'s reduced plans: each family's reduced model x ``P16_KINDS`` on
+    a fake (2, 2) mesh, as tests/test_torch_dryrun_families.py traces them
+    (64 tokens, batch 4), into ``build/phase16-reduced.json``: each case's
+    status, FLOPs, bytes, collectives and seconds, or its error."""
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+
+    out = {}
+    for family, arch in sorted(P16_FAMILIES.items()):
+        cfg = reduced(get_arch(arch))
+        for kind in P16_KINDS:
+            t0 = time.perf_counter()
+            try:
+                _, cost, info = dryrun.lower_case(
+                    cfg, ShapeConfig(f"small_{kind}", 64, 4, kind), False,
+                    mesh=AbstractMesh((2, 2), ("data", "model")))
+                coll = info["collectives"]
+                good = (cost.flops > 0 and cost.bytes > 0 and coll["num_ops"] > 0
+                        and cost.coll_bytes == coll["total_bytes"] > 0
+                        and not torch.distributed.is_initialized())
+                rec = {"status": "ok" if good else "wrong", "flops": cost.flops,
+                       "bytes": cost.bytes, "collectives": coll["num_ops"]}
+            except Exception as exc:  # recorded, and phase 16 fails on it
+                rec = {"status": "error", "error": f"{type(exc).__name__}: {exc}"}
+            rec["s"] = time.perf_counter() - t0
+            out[f"{family} {arch} {kind}"] = rec
+            print(f"reduced plan {family} {arch} {kind} on (2, 2): {rec}",
+                  flush=True)
+    with open(os.path.join(ROOT, "build", "phase16-reduced.json"), "w") as fh:
+        json.dump(out, fh)
 
 
 def plan_vs_card(arch: str, plan: dict, dev) -> dict:
@@ -5653,6 +5874,19 @@ def phase_tooling(dev, smi) -> dict:
                              f"{len(ok)}/{4 * len(P16_ARCHS)} cases [OK]: "
                              + "; ".join(r.get("error", "") for r in recs
                                          if r.get("status") != "ok"))
+    # (b) the reduced plans of the six families on the (2, 2) mesh
+    with open(os.path.join(ROOT, "build", "phase16-reduced.json")) as fh:
+        reduced = json.load(fh)
+    bad = {case: r for case, r in reduced.items() if r["status"] != "ok"}
+    want = len(P16_FAMILIES) * len(P16_KINDS)
+    if bad or len(reduced) != want:
+        raise AssertionError(f"phase 16 (b): {len(reduced) - len(bad)}/{want} "
+                             f"reduced plans [OK]: {bad}")
+    for case, r in reduced.items():
+        log(f"  [OK]   reduced {case} x (2, 2): {r['flops']:.4e} FLOPs, "
+            f"{r['bytes']:.4e} B, {r['collectives']} collectives, traced in "
+            f"{r['s']:.1f} s on the host")
+    out["reduced_plans"] = reduced
     out["dryrun"] = {"waited_s": waited, "cases": {}}
     for r in ok:
         a = analyze_record(r)
@@ -6212,6 +6446,10 @@ def main() -> int:
                           "launches": mamba["prefill"]["f32_ssd_routes"]["cuda_core_f32"],
                           **mamba["kernel"]["routes"]["cuda_core_f32"]},
     }
+    # phase 6's widened shapes, each held against its plain version with
+    # one launch on its route (comparisons: not counted in "launches")
+    flash["widths"] = p6["widths"]["flash_attention"]
+    ssd["widths"] = p6["widths"]["ssd_scan"]
     kernels += [flash, ssd, llm_entry(
         "rmsnorm_fused", "src/repro_torch/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm/kernel.py:25",

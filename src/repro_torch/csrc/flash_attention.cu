@@ -10,11 +10,15 @@
 //
 // Layout: the model's own, q/out (B, S, N, h) and k/v (B, T, K, h), read
 // through their row strides (N*h and K*h), so the wrapper copies nothing.
+// Any head_dim h from 1 to 256 runs in the instantiation HD = 64, 128 or
+// 256 that is the smallest >= h: columns h..HD-1 are staged as zeros (they
+// add exact zeros to q k^T and to nothing that is stored), the epilogue
+// writes columns < h only, and the scale is h^-1/2.
 //
 // Design: one CTA of 256 threads per (q block of 64 rows, query head,
 // batch).  The q tile and each 64-row k and v tile are staged in shared
 // memory as float32 (q and k rows padded by one word against bank
-// conflicts), 115 KB at h=128, set through
+// conflicts), 115 KB at HD=128 and 209 KB at HD=256, set through
 // cudaFuncAttributeMaxDynamicSharedMemorySize.  Each thread owns a 4x4
 // micro-tile of the 64x64 score tile (rows ty+16a, columns tx+16b) and
 // the matching rows of the 64 x h accumulator (columns tx+16b); row max
@@ -42,6 +46,7 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
+constexpr int MAX_SMEM = 232448;  // the opt-in shared memory of a block
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -61,26 +66,29 @@ constexpr int smem_floats() {
   // q (BQ x HD+1), k (BK x HD+1), v (BK x HD), p (BQ x BK+1)
   return BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1);
 }
+static_assert(smem_floats<256>() * 4 <= MAX_SMEM, "HD=256 tiles do not fit");
 
 // Stage rows [row0, row0 + 64) of one head into shared memory as float32,
-// zeros past `rows`.  `stride` is the element distance between rows.
+// zeros past `rows` and in columns h..HD-1.  `stride` is the element
+// distance between rows.
 template <typename T, int HD, int LD>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long stride, int row0,
-                                          int rows) {
+                                          int rows, int h) {
   for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
     const int r = e / HD, c = e % HD;
     const int gr = row0 + r;
     dst[r * LD + c] =
-        gr < rows ? to_float(src[static_cast<long long>(gr) * stride + c])
-                  : 0.0f;
+        gr < rows && c < h
+            ? to_float(src[static_cast<long long>(gr) * stride + c])
+            : 0.0f;
   }
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int S, int T_len, int N, int K, int causal,
+    T* __restrict__ out, int S, int T_len, int N, int K, int h, int causal,
     int window, float scale) {
   constexpr int LDQ = HD + 1, LDK = HD + 1, LDV = HD, LDP = BK + 1;
   constexpr int CB = HD / 16;  // accumulator columns per thread
@@ -93,16 +101,16 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   const int qb = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
   const int kvh = n * K / N;
   const int i0 = qb * BQ;
-  const long long q_stride = static_cast<long long>(N) * HD;
-  const long long kv_stride = static_cast<long long>(K) * HD;
-  const T* qh = q + (static_cast<long long>(b) * S * N + n) * HD;
-  const T* kh = k + (static_cast<long long>(b) * T_len * K + kvh) * HD;
-  const T* vh = v + (static_cast<long long>(b) * T_len * K + kvh) * HD;
-  T* oh = out + (static_cast<long long>(b) * S * N + n) * HD;
+  const long long q_stride = static_cast<long long>(N) * h;
+  const long long kv_stride = static_cast<long long>(K) * h;
+  const T* qh = q + (static_cast<long long>(b) * S * N + n) * h;
+  const T* kh = k + (static_cast<long long>(b) * T_len * K + kvh) * h;
+  const T* vh = v + (static_cast<long long>(b) * T_len * K + kvh) * h;
+  T* oh = out + (static_cast<long long>(b) * S * N + n) * h;
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, HD, LDQ>(qs, qh, q_stride, i0, S);
+  load_tile<T, HD, LDQ>(qs, qh, q_stride, i0, S, h);
 
   float m[4], l[4], acc[4][CB];
 #pragma unroll
@@ -122,8 +130,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
       if (window > 0 && j0 + BK - 1 < i0 - window + 1) continue;
     }
     __syncthreads();  // the previous block's k, v and p are consumed
-    load_tile<T, HD, LDK>(ks, kh, kv_stride, j0, T_len);
-    load_tile<T, HD, LDV>(vs, vh, kv_stride, j0, T_len);
+    load_tile<T, HD, LDK>(ks, kh, kv_stride, j0, T_len, h);
+    load_tile<T, HD, LDV>(vs, vh, kv_stride, j0, T_len, h);
     __syncthreads();
 
     float s[4][4];
@@ -203,14 +211,15 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float denom = fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CB; ++c)
-      oh[static_cast<long long>(row) * q_stride + tx + 16 * c] =
-          from_float<T>(__fdiv_rn(acc[a][c], denom));
+      if (tx + 16 * c < h)
+        oh[static_cast<long long>(row) * q_stride + tx + 16 * c] =
+            from_float<T>(__fdiv_rn(acc[a][c], denom));
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_len, int N, int K, int causal, int window,
+           int S, int T_len, int N, int K, int h, int causal, int window,
            cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
   auto kernel = flash_attention_kernel<T, HD>;
@@ -218,12 +227,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, N, B);
-  // h^-1/2 rounded once to float32, as the plain version's scalar is
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  // h^-1/2 (the true h, not HD) rounded once to float32, as the plain
+  // version's scalar is
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(h)));
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, N, K, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, N, K, h,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,21 +245,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window, int is_bf16,
                                       void* stream) {
   if (B <= 0 || S <= 0 || N <= 0) return 0;
+  if (h <= 0 || h > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (h == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, T_len, N, K,
+    if (h <= 64)
+      return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, T_len, N, K, h,
                                        causal, window, s);
-    if (h == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, T_len, N, K,
+    if (h <= 128)
+      return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, T_len, N, K, h,
                                         causal, window, s);
-  } else {
-    if (h == 64)
-      return launch<float, 64>(q, k, v, out, B, S, T_len, N, K, causal,
-                               window, s);
-    if (h == 128)
-      return launch<float, 128>(q, k, v, out, B, S, T_len, N, K, causal,
-                                window, s);
+    return launch<__nv_bfloat16, 256>(q, k, v, out, B, S, T_len, N, K, h,
+                                      causal, window, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 64)
+    return launch<float, 64>(q, k, v, out, B, S, T_len, N, K, h, causal,
+                             window, s);
+  if (h <= 128)
+    return launch<float, 128>(q, k, v, out, B, S, T_len, N, K, h, causal,
+                              window, s);
+  return launch<float, 256>(q, k, v, out, B, S, T_len, N, K, h, causal,
+                            window, s);
 }

@@ -49,6 +49,17 @@
 // - Epilogue: acc / max(l, 1e-30) in bf16, rows < S only, straight from
 //   registers.
 //
+// Head_dims: the kernel is built at HD = 64, 128 and 256, and a head_dim h
+// (a multiple of 8, so that a row is a multiple of 16 bytes, as TMA's
+// strides must be) runs at the smallest HD >= h.  The tensor maps keep the
+// true h as their first dimension, so TMA fills columns h..HD-1 with zeros
+// (nothing is padded in memory): they add exact zeros to q k^T, give zero
+// output columns that are never stored, and the scale is h^-1/2.  At HD =
+// 256 the key blocks are 64 rows (q 64 KB + 2 stages of k and v 128 KB;
+// 128-row blocks would need 320 KB), S = q k^T is m64n64k16, and O += P v
+// is two m64n128k16 per k-step, one per 128 output columns (128
+// accumulator registers a consumer thread).
+//
 // Rounding, against the TPU kernel: P is rounded to bf16 before P v (the
 // TPU kernel keeps it in float32; the port's einsum path rounds it too,
 // models/layers/attention.py `probs.to(v.dtype)`); exp is ex2.approx of
@@ -66,7 +77,6 @@
 namespace {
 
 constexpr int BQ = 128;         // query rows per CTA
-constexpr int BK = 128;         // key rows per block
 constexpr int CONSUMERS = 2;    // consumer warpgroups, 64 query rows each
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int STAGES = 2;       // k/v ring depth
@@ -75,12 +85,14 @@ constexpr float NEG_INF = -1e30f;
 
 template <int HD>
 struct Smem {
+  static constexpr int BK = HD == 256 ? 64 : 128;  // key rows per block
   static constexpr int CHUNKS = HD / 64;         // 64-column boxes per row
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;   // one of k or v, one stage
   static constexpr int TILES = Q_BYTES + STAGES * 2 * KV_BYTES;
   // + 1024 to align the base for the swizzle, + the barriers
   static constexpr int BYTES = TILES + 1024 + 8 * (1 + 3 * STAGES);
+  static_assert(BYTES <= 232448, "over the opt-in shared memory of a block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -198,6 +210,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, float32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both
+// K-major under the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, float32) += A (64 x 16, registers) * B (16 x 128, smem),
 // B MN-major under the 128-byte swizzle (imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -248,14 +280,34 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-
-__device__ __forceinline__ void wgmma_pv(float (&o)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n128(o, a, db);
+// S (+)= q k^T for one k-step: n128 at 128-row key blocks, n64 at 64
+__device__ __forceinline__ void wgmma_qk(float (&s)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n128(s, da, db, scale_d);
 }
+__device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma_ss_n64(s, da, db, scale_d);
+}
+
+// O += P v for one k-step of 16 key rows; `vb` is the k-step's first row of
+// the v tile, `lbo` the distance between its 64-column chunks.
 __device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n64(o, a, db);
+                                         uint32_t vb, uint32_t lbo) {
+  wgmma_rs_n64(o, a, sw128_desc(vb, lbo));
+}
+__device__ __forceinline__ void wgmma_pv(float (&o)[64], const uint32_t (&a)[4],
+                                         uint32_t vb, uint32_t lbo) {
+  wgmma_rs_n128(o, a, sw128_desc(vb, lbo));
+}
+// HD = 256: columns 0-127 from chunks 0-1, columns 128-255 from chunks 2-3;
+// the halves of o are n128 fragments, and side by side they are the n256
+// fragment (column 8 (idx / 4) + ...), so nothing else changes
+__device__ __forceinline__ void wgmma_pv(float (&o)[128], const uint32_t (&a)[4],
+                                         uint32_t vb, uint32_t lbo) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, sw128_desc(vb, lbo));
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                sw128_desc(vb + 2 * lbo, lbo));
 }
 
 template <int HD>
@@ -263,8 +315,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
-    int S, int T_len, int N, int K, int causal, int window, float scale_log2) {
+    int S, int T_len, int N, int K, int h, int causal, int window,
+    float scale_log2) {
   using L = Smem<HD>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -375,7 +429,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
         const uint64_t da = sw128_desc(
             sq + c * BQ * SPAN + wg * 64 * SPAN + kk * 32, 16);
         const uint64_t db = sw128_desc(sk + c * BK * SPAN + kk * 32, 16);
-        wgmma_ss_n128(s, da, db, ks > 0);
+        wgmma_qk(s, da, db, ks > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -451,7 +505,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_pv(o, p[kk], sw128_desc(sv + kk * 16 * SPAN, BK * SPAN));
+        wgmma_pv(o, p[kk], sv + kk * 16 * SPAN, BK * SPAN);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -462,7 +516,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
       }
     }
 
-    // epilogue: acc / max(l, 1e-30) in bf16, rows < S
+    // epilogue: acc / max(l, 1e-30) in bf16, rows < S, columns < h
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float lt = l[i];
@@ -472,12 +526,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
       const int row = i0 + r_in + 8 * i;
       if (row < S) {
         __nv_bfloat16* orow =
-            out + ((static_cast<long long>(b) * S + row) * N + n) * HD;
+            out + ((static_cast<long long>(b) * S + row) * N + n) * h;
 #pragma unroll
         for (int jj = 0; jj < HD / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(orow + 8 * jj + cq) =
-              pack_bf16(__fdiv_rn(o[4 * jj + 2 * i], denom),
-                        __fdiv_rn(o[4 * jj + 2 * i + 1], denom));
+          if (8 * jj < h)  // h % 8 == 0: both columns of the pair are < h
+            *reinterpret_cast<uint32_t*>(orow + 8 * jj + cq) =
+                pack_bf16(__fdiv_rn(o[4 * jj + 2 * i], denom),
+                          __fdiv_rn(o[4 * jj + 2 * i + 1], denom));
       }
     }
   }
@@ -509,11 +564,12 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The model layout (B, seq, heads, HD) in bf16 as dims (HD, heads, seq, B),
-// boxes of 64 columns x 128 rows under the 128-byte swizzle.  Returns 0,
-// or 1000 + the driver's CUresult.
+// The model layout (B, seq, heads, h) in bf16 as dims (h, heads, seq, B),
+// boxes of 64 columns x `rows` rows under the 128-byte swizzle; columns past
+// h and rows past seq arrive as zeros.  Returns 0, or 1000 + the driver's
+// CUresult.
 int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
-           int batch) {
+           int batch, int rows) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
@@ -522,7 +578,7 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
@@ -535,30 +591,31 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_len, int N, int K, int causal, int window,
+           int S, int T_len, int N, int K, int h, int causal, int window,
            cudaStream_t stream) {
   auto kernel = flash_attention_wgmma_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mq, mk, mv;
-  int e = encode(&mq, q, HD, N, S, B);
-  if (e == 0) e = encode(&mk, k, HD, K, T_len, B);
-  if (e == 0) e = encode(&mv, v, HD, K, T_len, B);
+  int e = encode(&mq, q, h, N, S, B, BQ);
+  if (e == 0) e = encode(&mk, k, h, K, T_len, B, Smem<HD>::BK);
+  if (e == 0) e = encode(&mv, v, h, K, T_len, B, Smem<HD>::BK);
   if (e != 0) return e;
-  // h^-1/2 * log2(e), rounded once to float32
+  // h^-1/2 * log2(e) for the true h (not HD), rounded once to float32
   const float scale_log2 = static_cast<float>(
-      1.4426950408889634 / sqrt(static_cast<double>(HD)));
+      1.4426950408889634 / sqrt(static_cast<double>(h)));
   const int grid = (S + BQ - 1) / BQ * N * B;
   kernel<<<grid, THREADS, Smem<HD>::BYTES, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, N, K, causal,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, N, K, h, causal,
       window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q/out (B, S, N, h), k/v (B, T, K, h), bf16, contiguous, 16-byte aligned.
+// q/out (B, S, N, h), k/v (B, T, K, h), bf16, contiguous, 16-byte aligned,
+// h a multiple of 8 from 8 to 256.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* out, int B,
                                             int S, int T_len, int N, int K,
@@ -569,9 +626,11 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   if (T_len <= 0)  // no keys: l = 0 and the output is 0, as in the kernel
     return static_cast<int>(cudaMemsetAsync(
         out, 0, static_cast<size_t>(B) * S * N * h * 2, st));
-  if (h == 64)
-    return launch<64>(q, k, v, out, B, S, T_len, N, K, causal, window, st);
-  if (h == 128)
-    return launch<128>(q, k, v, out, B, S, T_len, N, K, causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || h > 256 || h % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 64)
+    return launch<64>(q, k, v, out, B, S, T_len, N, K, h, causal, window, st);
+  if (h <= 128)
+    return launch<128>(q, k, v, out, B, S, T_len, N, K, h, causal, window, st);
+  return launch<256>(q, k, v, out, B, S, T_len, N, K, h, causal, window, st);
 }

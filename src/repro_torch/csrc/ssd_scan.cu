@@ -9,18 +9,30 @@
 // version is repro_torch/kernels/ssd/ref.py `ssd_scan_ref`.
 //
 // Design: the TPU kernel leans on its grid running in order to carry the
-// state in VMEM.  Here one persistent CTA of 256 threads per (b, h) walks
-// its chunks in order and keeps the state in shared memory (32 KB at
-// N=128, P=64).  Q x Q and Q x N do not fit at once (Q=256, N=128 would
-// need 128 KB for each of B and C in float32), so a chunk is tiled in
+// state in VMEM.  Here one persistent CTA of 256 threads per (b, h, slab of
+// at most 64 head channels) walks its chunks in order and keeps the state
+// in shared memory (32 KB at N=128, P=64).  The state's columns are
+// independent (output column p reads only x's column p and the state's
+// column p), so a head_dim P > 64 runs as ceil(P/64) slabs, one CTA each,
+// every column doing the same adds in the same order as at P <= 64; the
+// scores C B^T are computed again in each slab's CTA.  Q x Q and Q x N do
+// not fit at once (Q=256, N=128 would need 128 KB for each of B and C in
+// float32), so a chunk is tiled in
 // 64-row blocks: for each row block of C, the state term, then the
 // lower-triangular column blocks of B and x (score tile through shared
 // memory), then the y rows; after all row blocks, the state update over
 // the column blocks.  Each thread owns a 4x4 micro-tile of every 64x64
 // product (rows ty+16a, columns tx+16b), and a 4x4-per-16-rows tile of
-// the state.  Shared memory is ~132 KB at N=128, P=64, Q=256, set through
-// cudaFuncAttributeMaxDynamicSharedMemorySize.  At the prefill shape
-// (B=4, H=32) that is 128 CTAs on 132 SMs.
+// the state.  Shared memory is ~131 KB at N=128, Q=256 and ~227 KB at
+// N=256, Q=256 (the state-update weights overwrite dt in place to fit), set
+// through cudaFuncAttributeMaxDynamicSharedMemorySize.  At the prefill
+// shape (B=4, H=32, P=64) that is 128 CTAs on 132 SMs.
+//
+// d_state: the thread tile covers 128 state rows (8 x 16) or, for N > 128,
+// 256 (a second instantiation).  An N that is not a multiple of 16 is
+// padded in shared memory to the next multiple: the B and C tiles' extra
+// columns are zeros, so the padded state rows stay zero, and the products
+// over the state run over n < N only.
 //
 // What bounds it: operations, on CUDA cores in float32 (about 21 MFLOP
 // per chunk per head against 0.2 MB of inputs); no tensor cores yet.
@@ -46,9 +58,15 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE = 64;     // rows of a block of the chunk
-constexpr int MAX_N = 128;   // state rows a thread tile covers (8 x 16)
-constexpr int LDX = TILE;    // x tile and state row stride (P <= 64)
+constexpr int MAX_N = 256;   // state rows the larger thread tile covers
+constexpr int LDX = TILE;    // x tile and state row stride (a slab's columns)
+constexpr int MAX_P = 2 * LDX;  // head channels: at most two slabs
 constexpr int LDM = TILE + 1;
+
+// d_state rounded up to the thread tile's 16 rows
+__host__ __device__ inline int padded_states(int n) {
+  return (n + 15) / 16 * 16;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -56,60 +74,63 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 
 __host__ __device__ inline int smem_floats(int q, int n) {
-  const int ldn = n + 1;
-  return n * LDX            // state
+  const int np = padded_states(n), ldn = np + 1;
+  return np * LDX           // state
          + 2 * TILE * ldn   // C and B tiles
          + TILE * LDX       // x tile
          + TILE * LDM       // score tile
-         + 3 * q;           // cum, dt, state-update weights
+         + 2 * q;           // cum, dt (then the state-update weights)
 }
 
-// rows [row0, row0 + 64) of a (rows, width) block, as float32 with a row
-// stride of ld, zeros past `rows` and past `width` (up to `cols`).
+// rows [row0, row0 + 64) of a block with row stride `stride`, as float32
+// with a row stride of ld, zeros past `rows` and past `width` (up to
+// `cols`).
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int width, int cols, int row0,
-                                          int rows) {
+                                          int stride, int width, int cols,
+                                          int row0, int rows) {
   for (int e = threadIdx.x; e < TILE * cols; e += THREADS) {
     const int r = e / cols, c = e % cols;
     const int gr = row0 + r;
     dst[r * ld + c] =
         (gr < rows && c < width)
-            ? to_float(src[static_cast<long long>(gr) * width + c])
+            ? to_float(src[static_cast<long long>(gr) * stride + c])
             : 0.0f;
   }
 }
 
-template <typename T>
+template <typename T, int TILE_N>
 __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ da,
     const float* __restrict__ dt, const T* __restrict__ bmat,
     const T* __restrict__ cmat, float* __restrict__ y, int L, int P, int N,
     int Q) {
   extern __shared__ float smem[];
-  const int ldn = N + 1;
-  float* st = smem;              // (N, LDX) state, columns >= P stay 0
-  float* ct = st + N * LDX;      // (64, N+1) C rows
-  float* bt = ct + TILE * ldn;   // (64, N+1) B rows
-  float* xt = bt + TILE * ldn;   // (64, LDX) x rows
+  const int np = padded_states(N), ldn = np + 1;
+  float* st = smem;              // (np, LDX) state, columns >= pw stay 0
+  float* ct = st + np * LDX;     // (64, np+1) C rows, columns >= N zero
+  float* bt = ct + TILE * ldn;   // (64, np+1) B rows, columns >= N zero
+  float* xt = bt + TILE * ldn;   // (64, LDX) x rows of this slab
   float* sm = xt + TILE * LDX;   // (64, 65) score tile
   float* cum = sm + TILE * LDM;  // (Q,)
   float* dtv = cum + Q;          // (Q,)
-  float* wv = dtv + Q;           // (Q,)
+  float* wv = dtv;               // (Q,) the state-update weights, over dt
 
   const long long bh = blockIdx.x;
-  const T* xh = x + bh * L * P;
+  const int p0 = blockIdx.y * LDX;      // this slab's first head channel
+  const int pw = min(LDX, P - p0);      // and its width
+  const T* xh = x + bh * L * P + p0;
   const T* bh_b = bmat + bh * L * N;
   const T* bh_c = cmat + bh * L * N;
   const float* dah = da + bh * L;
   const float* dth = dt + bh * L;
-  float* yh = y + bh * L * P;
+  float* yh = y + bh * L * P + p0;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % 16, ty = tid / 16;
-  const int n_tiles = N / 16;  // state rows per thread: ty + 16a, a < n_tiles
+  const int n_tiles = np / 16;  // state rows per thread: ty + 16a, a < n_tiles
 
-  for (int e = tid; e < N * LDX; e += THREADS) st[e] = 0.0f;
+  for (int e = tid; e < np * LDX; e += THREADS) st[e] = 0.0f;
 
   for (int l0 = 0; l0 < L; l0 += Q) {
     __syncthreads();  // the previous chunk's state update is done
@@ -147,7 +168,7 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
     __syncthreads();
 
     for (int i0 = 0; i0 < Q; i0 += TILE) {
-      load_tile<T>(ct, ldn, bh_c, N, N, l0 + i0, l0 + Q);
+      load_tile<T>(ct, ldn, bh_c, N, N, np, l0 + i0, l0 + Q);
       __syncthreads();
       float acc[4][4];
       // the carried state's term: exp(cum_i) * (C_i @ state)
@@ -177,8 +198,8 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
       // the lower-triangular blocks: y_i += sum_j att[i,j] x_j
       for (int j0 = 0; j0 <= i0; j0 += TILE) {
         __syncthreads();  // the previous block's b, x and scores are consumed
-        load_tile<T>(bt, ldn, bh_b, N, N, l0 + j0, l0 + Q);
-        load_tile<T>(xt, LDX, xh, P, LDX, l0 + j0, l0 + Q);
+        load_tile<T>(bt, ldn, bh_b, N, N, np, l0 + j0, l0 + Q);
+        load_tile<T>(xt, LDX, xh, P, pw, LDX, l0 + j0, l0 + Q);
         __syncthreads();
         float s[4][4];
 #pragma unroll
@@ -232,7 +253,7 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int p = tx + 16 * b;
-          if (p < P) yh[static_cast<long long>(l0 + i) * P + p] = acc[a][b];
+          if (p < pw) yh[static_cast<long long>(l0 + i) * P + p] = acc[a][b];
         }
       }
       __syncthreads();  // c tile consumed before the next row block
@@ -240,18 +261,18 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 
     // state = exp(cum_Q) * state + sum_j B_j^T (exp(cum_Q - cum_j) dt_j) x_j
     const float last = cum[Q - 1];
-    for (int i = tid; i < Q; i += THREADS)
+    for (int i = tid; i < Q; i += THREADS)  // in place: each i is one thread's
       wv[i] = __fmul_rn(expf(__fsub_rn(last, cum[i])), dtv[i]);
     const float decay = expf(last);
-    float sacc[MAX_N / 16][4];
+    float sacc[TILE_N / 16][4];
 #pragma unroll
-    for (int a = 0; a < MAX_N / 16; ++a)
+    for (int a = 0; a < TILE_N / 16; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) sacc[a][b] = 0.0f;
     for (int j0 = 0; j0 < Q; j0 += TILE) {
       __syncthreads();
-      load_tile<T>(bt, ldn, bh_b, N, N, l0 + j0, l0 + Q);
-      load_tile<T>(xt, LDX, xh, P, LDX, l0 + j0, l0 + Q);
+      load_tile<T>(bt, ldn, bh_b, N, N, np, l0 + j0, l0 + Q);
+      load_tile<T>(xt, LDX, xh, P, pw, LDX, l0 + j0, l0 + Q);
       __syncthreads();
       const int rows = min(TILE, Q - j0);
       for (int jj = 0; jj < rows; ++jj) {
@@ -260,7 +281,7 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 #pragma unroll
         for (int b = 0; b < 4; ++b) xb[b] = xt[jj * LDX + tx + 16 * b];
 #pragma unroll
-        for (int a = 0; a < MAX_N / 16; ++a) {
+        for (int a = 0; a < TILE_N / 16; ++a) {
           if (a < n_tiles) {
             const float bw = __fmul_rn(bt[jj * ldn + ty + 16 * a], w);
 #pragma unroll
@@ -271,7 +292,7 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
       }
     }
 #pragma unroll
-    for (int a = 0; a < MAX_N / 16; ++a) {
+    for (int a = 0; a < TILE_N / 16; ++a) {
       if (a < n_tiles) {
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
@@ -283,16 +304,17 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int TILE_N>
 int launch(const void* x, const void* da, const void* dt, const void* bmat,
            const void* cmat, void* y, int bh, int L, int P, int N, int Q,
            cudaStream_t stream) {
   const int bytes = smem_floats(Q, N) * static_cast<int>(sizeof(float));
-  auto kernel = ssd_scan_kernel<T>;
+  auto kernel = ssd_scan_kernel<T, TILE_N>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<bh, THREADS, bytes, stream>>>(
+  const dim3 grid(bh, (P + LDX - 1) / LDX);
+  kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(da),
       static_cast<const float*>(dt), static_cast<const T*>(bmat),
       static_cast<const T*>(cmat), static_cast<float*>(y), L, P, N, Q);
@@ -306,12 +328,18 @@ extern "C" int ssd_scan_launch(const void* x, const void* da, const void* dt,
                                int bh, int L, int P, int N, int chunk,
                                int is_bf16, void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (P <= 0 || P > LDX || N <= 0 || N > MAX_N || N % 16 != 0 ||
-      chunk <= 0 || L % chunk != 0)
+  if (P <= 0 || P > MAX_P || N <= 0 || N > MAX_N || chunk <= 0 ||
+      L % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = padded_states(N) > 128;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, da, dt, bmat, cmat, y, bh, L, P, N, chunk,
-                                 s);
-  return launch<float>(x, da, dt, bmat, cmat, y, bh, L, P, N, chunk, s);
+    return wide ? launch<__nv_bfloat16, 256>(x, da, dt, bmat, cmat, y, bh, L,
+                                             P, N, chunk, s)
+                : launch<__nv_bfloat16, 128>(x, da, dt, bmat, cmat, y, bh, L,
+                                             P, N, chunk, s);
+  return wide ? launch<float, 256>(x, da, dt, bmat, cmat, y, bh, L, P, N,
+                                   chunk, s)
+              : launch<float, 128>(x, da, dt, bmat, cmat, y, bh, L, P, N,
+                                   chunk, s);
 }

@@ -9,18 +9,24 @@ masks (``window`` only with ``causal``), float32 running max, sum and
 accumulator, and the output in q's dtype.  The kernels read the model
 layout directly, so nothing is transposed or padded.
 
-Two routes, chosen by dtype (:func:`route_of`):
+Two routes, chosen by dtype and head_dim (:func:`route_of`):
 
-- ``wgmma_bf16``: bfloat16 through ``csrc/flash_attention_wgmma.cu``, on
-  the tensor cores (``wgmma`` fed by TMA); its inputs must be 16-byte
-  aligned.  The probabilities are rounded to bf16 before P·V.
-- ``cuda_core_f32``: float32 through ``csrc/flash_attention.cu``, float32
-  products on the CUDA cores (the float32 tolerance, 2e-5, is beyond
-  TF32's 10-bit mantissa).
+- ``wgmma_bf16``: bfloat16 at a head_dim that is a multiple of 8, through
+  ``csrc/flash_attention_wgmma.cu``, on the tensor cores (``wgmma`` fed by
+  TMA); its inputs must be 16-byte aligned.  The probabilities are rounded
+  to bf16 before P·V.
+- ``cuda_core_f32``: float32, and bfloat16 at any other head_dim, through
+  ``csrc/flash_attention.cu``, float32 products on the CUDA cores (the
+  float32 tolerance, 2e-5, is beyond TF32's 10-bit mantissa).
 
-For CUDA tensors :func:`mha` launches the route's kernel or raises (head_dim
-64 or 128, contiguous inputs; an input that requires grad while gradients
-are recorded: the kernels have no backward); for CPU tensors it runs
+Both kernels are built at head_dim 64, 128 and 256 and run a head_dim h at
+the smallest of those >= h: the columns from h up are read as zeros and
+never written, and the scale is h^-1/2.  A head_dim outside 1 to 256
+raises on either device.
+
+For CUDA tensors :func:`mha` launches the route's kernel or raises
+(contiguous inputs; an input that requires grad while gradients are
+recorded: the kernels have no backward); for CPU tensors it runs
 :func:`~repro_torch.kernels.flash_attention.ref.mha_ref`.  ``mha.launches``
 counts kernel launches, ``mha.launches_by_route`` the same per route.
 """
@@ -35,7 +41,7 @@ from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.utils.kernel_bounds import flash_bound
 from repro_torch.utils.op_cost import priced
 
-__all__ = ["mha", "route_of", "HEAD_DIMS", "ROUTES"]
+__all__ = ["mha", "route_of", "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES"]
 
 # dtype -> route; route -> (library, C argument types after the pointers)
 ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
@@ -44,14 +50,32 @@ _LAUNCH = {
     "wgmma_bf16": ("flash_attention_wgmma", (P, P, P, P) + (I,) * 8 + (P,)),
     "cuda_core_f32": ("flash_attention", (P, P, P, P) + (I,) * 9 + (P,)),
 }
-HEAD_DIMS = (64, 128)
+# the head_dims each kernel is built at; a head_dim h runs at the smallest
+# one >= h, its columns past h zero
+HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 
-def route_of(dtype: torch.dtype) -> str:
-    """The kernel route for inputs of ``dtype``; raise on any other."""
+def route_of(dtype: torch.dtype, head_dim: int | None = None) -> str:
+    """The kernel route for inputs of ``dtype`` (and ``head_dim``, where
+    given); raise on any other dtype (``TypeError``) or head_dim
+    (``ValueError``).  bfloat16 goes to ``wgmma_bf16`` unless its head_dim
+    is not a multiple of 8 (TMA's rows are 16-byte multiples), which goes
+    to ``cuda_core_f32``."""
     if dtype not in ROUTES:
         raise TypeError(f"flash attention takes {tuple(ROUTES)}, got {dtype}")
+    if head_dim is None:
+        return ROUTES[dtype]
+    _check_head_dim(head_dim)
+    if dtype == torch.bfloat16 and head_dim % 8:
+        return "cuda_core_f32"
     return ROUTES[dtype]
+
+
+def _check_head_dim(h: int) -> None:
+    if not 0 < h <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {h} not supported; the kernels take 1 "
+                         f"to {MAX_HEAD_DIM}")
 
 
 def mha(
@@ -74,6 +98,7 @@ def mha(
 
 def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
     device = device_of(q, k, v)
+    _check_head_dim(q.shape[-1])  # on either device: what the kernels take
     if device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window)
     forward_only("flash attention", q, k, v)
@@ -81,14 +106,12 @@ def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
         check(name, t, tuple(ROUTES), 4)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    route = route_of(q.dtype)
     b, s, n, h = q.shape
     t, kh = k.shape[1], k.shape[2]
     if tuple(k.shape) != (b, t, kh, h) or tuple(v.shape) != (b, t, kh, h):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} disagree")
-    if h not in HEAD_DIMS:
-        raise ValueError(f"head_dim {h} not supported; one of {HEAD_DIMS}")
+    route = route_of(q.dtype, h)
     if kh == 0 or n % kh:
         raise ValueError("q heads must be a multiple of kv heads")
     out = torch.empty_like(q)
@@ -103,7 +126,7 @@ def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
                 raise ValueError(f"{name} must be 16-byte aligned for the "
                                  f"bf16 kernel (TMA)")
     else:
-        args.append(0)  # is_bf16
+        args.append(int(q.dtype == torch.bfloat16))  # is_bf16
     library, argtypes = _LAUNCH[route]
     launch(library, argtypes, *args, stream(device))
     mha.launches += 1

@@ -14,9 +14,9 @@ Two routes, chosen by :func:`route_of` before any launch:
   pass over a ``(B, H, L/chunk, N, P)`` float32 scratch that the wrapper
   allocates, the output); x, B and C 16-byte aligned.
 - ``cuda_core_f32``: every other input, through ``csrc/ssd_scan.cu``
-  (float32 products on the CUDA cores, one persistent CTA per (b, h)
-  walking its chunks in order; head_dim <= 64, d_state <= 128 and a
-  multiple of 16).
+  (float32 products on the CUDA cores, one persistent CTA per (b, h, slab
+  of 64 head channels) walking its chunks in order; head_dim <= 128,
+  d_state <= 256, zero-padded in shared memory to a multiple of 16).
 
 For CUDA tensors :func:`ssd_scan` launches the route's kernels or raises
 (also when an input requires grad while gradients are recorded: the
@@ -56,8 +56,9 @@ _LAUNCH = {
 ROUTES = tuple(_LAUNCH)
 # the shapes csrc/ssd_scan_mma.cu takes
 MMA_HEAD_DIM, MMA_STATES, MMA_CHUNKS = 64, (64, 128), (64, 128, 256)
-# csrc/ssd_scan.cu's register tiles: at most 64 head channels, 128 states
-MAX_HEAD_DIM, MAX_STATE = 64, 128
+# csrc/ssd_scan.cu's limits: two slabs of 64 head channels, a state tile of
+# 256 rows
+MAX_HEAD_DIM, MAX_STATE = 128, 256
 
 
 def route_of(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
@@ -87,6 +88,12 @@ def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
 
 def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
     device = device_of(xs, da, dt, bs, cs)
+    p, n = xs.shape[-1], bs.shape[-1]
+    if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE):
+        # on either device: what the kernels take
+        raise ValueError(f"head_dim {p} / d_state {n}: the kernels take "
+                         f"head_dim 1 to {MAX_HEAD_DIM} and d_state 1 to "
+                         f"{MAX_STATE}")
     if device.type == "cpu":
         return ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)
     forward_only("ssd_scan", xs, da, dt, bs, cs)
@@ -95,8 +102,7 @@ def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
     check("dt", dt, torch.float32, 3)
     check("bs", bs, xs.dtype, 4)
     check("cs", cs, xs.dtype, 4)
-    b, h, l, p = xs.shape
-    n = bs.shape[-1]
+    b, h, l, _ = xs.shape
     if tuple(da.shape) != (b, h, l) or tuple(dt.shape) != (b, h, l):
         raise ValueError("da/dt must be (B, H, L)")
     if tuple(bs.shape) != (b, h, l, n) or tuple(cs.shape) != (b, h, l, n):
@@ -104,11 +110,6 @@ def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
     if chunk <= 0 or l % chunk:
         raise ValueError(f"L={l} must be a multiple of chunk={chunk}")
     route = route_of(xs.dtype, p, n, chunk)
-    if route == "cuda_core_f32" and not (
-            0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE and n % 16 == 0):
-        raise ValueError(f"head_dim {p} / d_state {n}: the kernel takes "
-                         f"head_dim <= {MAX_HEAD_DIM} and d_state <= "
-                         f"{MAX_STATE}, a multiple of 16")
     y = torch.empty((b, h, l, p), dtype=torch.float32, device=device)
     if y.numel() == 0:
         return y

@@ -975,7 +975,7 @@ def test_flash_kernel_vs_plain(dev, b, s, nq, nkv, h, causal, window, dtype):
 
 
 def test_flash_kernel_raises_on_what_it_does_not_take(dev):
-    q = torch.zeros((1, 64, 4, 96), device=dev)
+    q = torch.zeros((1, 64, 4, 264), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.mha(q, q, q)
     q = torch.zeros((1, 64, 4, 64), device=dev)
@@ -1048,6 +1048,47 @@ def test_flash_bf16_raises_on_unaligned_base(dev):
     assert fa_ops.mha.launches == before
 
 
+# The head_dims the two routes take beyond 64 and 128: paligemma-3b's
+# attention layer at full width (h=256, MQA), h=256 windowed and with T != S
+# on the wgmma kernel's 64-row key blocks, h=80 and 96 (multiples of 8,
+# zero-filled by TMA up to 128), the smallest wgmma head_dim, and the
+# head_dims that are not multiples of 8 on the CUDA-core kernel in bf16, as
+# float32 does at any head_dim.
+@pytest.mark.parametrize(
+    "dtype,b,s,t,nq,nkv,h,causal,window,route",
+    [
+        (torch.bfloat16, 1, 4096, 4096, 8, 1, 256, True, 0, "wgmma_bf16"),
+        (torch.bfloat16, 2, 300, 300, 4, 1, 256, True, 128, "wgmma_bf16"),
+        (torch.bfloat16, 1, 130, 257, 2, 2, 256, False, 0, "wgmma_bf16"),
+        (torch.bfloat16, 1, 700, 700, 8, 2, 80, True, 0, "wgmma_bf16"),
+        (torch.bfloat16, 2, 300, 300, 4, 2, 96, True, 128, "wgmma_bf16"),
+        (torch.bfloat16, 1, 333, 200, 4, 4, 96, False, 0, "wgmma_bf16"),
+        (torch.bfloat16, 1, 200, 200, 4, 2, 8, True, 0, "wgmma_bf16"),
+        (torch.bfloat16, 1, 500, 500, 4, 2, 100, True, 0, "cuda_core_f32"),
+        (torch.bfloat16, 1, 150, 150, 2, 1, 1, False, 0, "cuda_core_f32"),
+        (torch.float32, 1, 1000, 1000, 8, 2, 256, True, 0, "cuda_core_f32"),
+        (torch.float32, 1, 300, 300, 4, 2, 96, True, 64, "cuda_core_f32"),
+        (torch.float32, 2, 130, 77, 2, 2, 33, False, 0, "cuda_core_f32"),
+    ],
+)
+def test_flash_widened_head_dims_vs_plain(dev, dtype, b, s, t, nq, nkv, h,
+                                          causal, window, route):
+    gen = torch.Generator(device=dev).manual_seed(s + t + nq + h)
+    q = _randn((b, s, nq, h), dtype, gen, dev)
+    k, v = (_randn((b, t, nkv, h), dtype, gen, dev) for _ in range(2))
+    assert fa_ops.route_of(dtype, h) == route
+    before = dict(fa_ops.mha.launches_by_route)
+    out = fa_ops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    after = fa_ops.mha.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    tol = LLM_TOL["flash"][dtype]
+    torch.testing.assert_close(out.float(), mha_ref(q, k, v, causal=causal,
+                                                    window=window).float(),
+                               atol=tol, rtol=tol)
+
+
 # bf16 shapes of the cases below that the mma kernel takes: every
 # (d_state, chunk) it compiles for, at P=64 (the rest, and every float32
 # case, go to the CUDA-core kernel)
@@ -1102,6 +1143,74 @@ def test_ssd_kernel_vs_plain(dev, b, h, l, p, n, chunk, dtype):
         torch.testing.assert_close(y, plain, atol=tol, rtol=tol)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=l + 1)
+
+
+# The shapes the float32 route's kernel takes beyond head_dim 64 and
+# d_state 128: head_dim 128 and 80 (two slabs of at most 64 channels),
+# d_state 256 and 200 and 24 (zero-padded to a multiple of 16), in float32
+# and in bf16 (every bf16 shape outside the mma table goes there).  The
+# float32 cases at N * chunk > 64 * 64 are held to the float64 result, no
+# worse than twice the plain version's error, as test_ssd_kernel_vs_plain
+# holds them.
+@pytest.mark.parametrize(
+    "dtype,b,h,l,p,n,chunk",
+    [
+        (torch.float32, 1, 2, 512, 128, 256, 256),
+        (torch.float32, 1, 2, 512, 80, 200, 256),
+        (torch.float32, 2, 3, 96, 100, 40, 32),
+        (torch.bfloat16, 1, 4, 128, 32, 24, 32),
+        (torch.bfloat16, 1, 2, 512, 128, 256, 256),
+    ],
+)
+def test_ssd_widened_shapes_vs_plain(dev, dtype, b, h, l, p, n, chunk):
+    gen = torch.Generator(device=dev).manual_seed(l + n + p)
+    xs = _randn((b, h, l, p), dtype, gen, dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, h, l), generator=gen,
+                                                  device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    da = dt * a[None, :, None]
+    bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
+    assert ssd_ops.route_of(dtype, p, n, chunk) == "cuda_core_f32"
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
+    y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
+    torch.cuda.synchronize()
+    after = ssd_ops.ssd_scan.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        "mma_bf16": 0, "cuda_core_f32": 1}
+    plain = ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)
+    if dtype == torch.float32 and n * chunk > 64 * 64:
+        exact = ssd_scan_ref(*(t.double() for t in (xs, da, dt, bs, cs)),
+                             chunk=chunk)
+        err_k = (y.double() - exact).abs().max().item()
+        err_p = (plain.double() - exact).abs().max().item()
+        assert err_k <= 2 * err_p, (err_k, err_p)
+    else:
+        tol = LLM_TOL["ssd"][dtype]
+        torch.testing.assert_close(y, plain, atol=tol, rtol=tol)
+
+
+def test_ssd_slabs_and_padded_states_keep_the_narrow_bits(dev):
+    """Head_dim 128 runs as two slabs of 64 channels, each column with the
+    adds of a 64-channel run: its halves equal two runs at head_dim 64 bit
+    for bit.  d_state 24 is padded to 32 with zero columns of B and C:
+    equal bit for bit to a run at d_state 32 with B and C zero-padded."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    b, h, l, chunk = 1, 3, 256, 128
+    xs = torch.randn((b, h, l, 128), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, h, l), generator=gen,
+                                                  device=dev))
+    da = dt * -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))[:, None]
+    bs, cs = (torch.randn((b, h, l, 24), generator=gen, device=dev)
+              for _ in range(2))
+    wide = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
+    for half in (slice(0, 64), slice(64, 128)):
+        narrow = ssd_ops.ssd_scan(xs[..., half].contiguous(), da, dt, bs, cs,
+                                  chunk=chunk)
+        assert torch.equal(wide[..., half], narrow)
+    pad = torch.nn.functional.pad
+    padded = ssd_ops.ssd_scan(xs, da, dt, pad(bs, (0, 8)), pad(cs, (0, 8)),
+                              chunk=chunk)
+    assert torch.equal(wide, padded)
 
 
 def _ssd_head_major(b, h, l, p, n, seed, cancel=False, slow=False):

@@ -77,16 +77,20 @@ def test_flash_plain_matches_jax_kernel(b, s, nq, nkv, h, causal, window, dtype)
     _close(out, ref, TOL["flash"][dtype])
 
 
-def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128):
+def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128,
+                         scale_dim=None):
     """A plain blockwise model of ``csrc/flash_attention_wgmma.cu``'s
     arithmetic, (B, N, S, h) bf16 in and out: float32 scores of the bf16
     inputs; per 128-row q block, the kernel's live 128-row k blocks with an
     online softmax in base 2 (m on the unscaled scores, p = 2^((s - m) *
     h^-1/2 * log2 e)); l summed from the float32 p; p rounded to bf16
-    before p @ v, summed in float32; acc / max(l, 1e-30) in bf16."""
+    before p @ v, summed in float32; acc / max(l, 1e-30) in bf16.
+    ``scale_dim`` replaces h in the scale (the kernel's true head_dim when
+    the inputs are zero-padded to the head_dim it is built at)."""
     b, n, s, h = q.shape
     kh, t = k.shape[1], k.shape[2]
-    c = torch.tensor(h**-0.5 * 1.4426950408889634, dtype=torch.float32)
+    c = torch.tensor((scale_dim or h)**-0.5 * 1.4426950408889634,
+                     dtype=torch.float32)
     out = torch.empty((b, n, s, h), dtype=torch.float32)
     for head in range(n):
         qh = q[:, head].float()
