@@ -91,19 +91,33 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    with the weights upcast to float32 (minitron's 32 and mamba2's 48
    launches on the float32 routes): kernel path against einsum path
    (<= 2e-4), and each
-   bf16 run against the float32 einsum run; then ``rmsnorm_fused``
+   bf16 run against the float32 einsum run; then 7 in float16 at 1 x 4096
+   (the bf16 leaves cast, no second build; minitron's 32 launches on
+   ``wgmma_bf16``, mamba2's 48 on ``mma_bf16``): each layer's output and
+   the final hidden states of the kernel path against the einsum path
+   (relative Frobenius error <= ``PREFILL_F16_REL_ERR``), up to the first
+   layer that is not finite, if one is (reported), and the kernel path no
+   farther from the float32 einsum run than the einsum path (within 25%);
+   then ``rmsnorm_fused``
    against its plain version and ``F.rms_norm`` at (4096, 4096) and
    (16384, 1024) in bf16 and float32, with the kernel that ran and the
    share of the bound; then the widened shapes (``phase_widths``):
    paligemma-3b's attention layer 0 at full width (B=1, S=4096, N=8, K=1,
    h=256, causal, bf16) through the wgmma kernel at HD = 256, bf16 at
    h = 80 and 96 (wgmma, zero-filled to 128) and 100 (CUDA-core), float32
-   at h = 256, and ``ssd_scan``'s CUDA-core route at (P, N) = (128, 256)
-   and (80, 200) in float32, chunk 256, and (32, 24) in bf16, chunk 32:
-   each against its plain version at ``LLM_TOL`` (the float32 SSD cases
-   at N * chunk > 64 * 64 by their float64 error, no more than twice the
-   plain version's), one launch on its route, with device ms, the bound and the plain version's ms (SDPA's
-   for attention);
+   at h = 256, float16 at h = 128 (wgmma) and 100 (CUDA-core), bf16 at h =
+   320 and float32 at h = 512 (the CUDA-core kernel's split route), bf16 at
+   h = 128 from an unaligned base (CUDA-core); ``ssd_scan``'s CUDA-core
+   route at (P, N) = (128, 256), (80, 200), (192, 128) and (64, 512, the
+   state in pieces) in float32, chunk 256, and (32, 24) in bf16 and
+   float16, chunk 32, its ``mma_bf16`` route in float16 at (64, 128),
+   chunk 256, and bf16 (64, 128) from an unaligned base (CUDA-core);
+   ``rmsnorm_fused`` in float16 and from an unaligned bf16 base at (4096,
+   4096): each against its plain version at ``LLM_TOL`` (the SSD cases on
+   float32 arithmetic at N * chunk > 64 * 64 by their float64 error, no
+   more than twice the plain version's), one launch on its route, with
+   device ms, the bound and the plain version's ms (SDPA's for attention,
+   ``F.rms_norm``'s for RMSNorm);
 9. the paper's reproduction, ``repro_torch.paper``, on the card at the
    paper's graph sizes (Fig. 3 ring(1000), T = 40,000; Fig. 4 ER(1000,
    0.1), T = 20,000; Fig. 5's five 1000-node graphs; Fig. 6 ring(64), six
@@ -300,6 +314,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1240,10 +1255,14 @@ def trainer_loop_check(ttrain, res, seen, where: str) -> dict:
 
 # -- the LLM slice: phases 6-8 ---------------------------------------------------
 
-# tests/test_kernels.py's tolerances (atol = rtol), float32 / bfloat16
-LLM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
-           "ssd_scan": {torch.float32: 2e-4, torch.bfloat16: 6e-2},
-           "rmsnorm_fused": {torch.float32: 1e-5, torch.bfloat16: 3e-2}}
+# tests/test_kernels.py's tolerances (atol = rtol), float32 / bfloat16, and
+# float16's as tests/test_torch_kernel_dtypes.py sets them from measurement
+LLM_TOL = {"flash_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2,
+                               torch.float16: 2e-3},
+           "ssd_scan": {torch.float32: 2e-4, torch.bfloat16: 6e-2,
+                        torch.float16: 2e-3},
+           "rmsnorm_fused": {torch.float32: 1e-5, torch.bfloat16: 3e-2,
+                             torch.float16: 2e-3}}
 # prefill at full width, final hidden states: the kernel path against the
 # einsum path in float32 on the same weights (tests/test_perf_paths.py's
 # 2e-4), and in bf16 the kernel path's distance to the float32 einsum run
@@ -1523,26 +1542,79 @@ def phase_rmsnorm(dev, gen) -> dict:
     return {"max_abs_err": max(errs), "shapes": out, **out["4096x4096_bfloat16"]}
 
 
-# phase 6's widened shapes: the head_dims and d_states the two kernels take
-# beyond the main path's (h 64 and 128; P 64, N 64 and 128).  Attention:
-# (label, dtype, (B, S, T, N, K, h), causal, window, route); paligemma-3b's
-# layer (h=256, MQA) is made from the model's own weights.  SSD: (label,
-# dtype, (B, H, L, P, N, chunk)), every one on the CUDA-core route.
+# phase 6's widened shapes: the inputs the three kernels take beyond the main
+# path's (bf16 and float32; h 64 and 128; P 64, N 64 and 128).  Attention:
+# (label, dtype, (B, S, T, N, K, h), causal, window, route, aligned);
+# paligemma-3b's layer (h=256, MQA) is made from the model's own weights.
+# SSD: (label, dtype, (B, H, L, P, N, chunk), route, aligned).  RMSNorm:
+# (label, dtype, (rows, D), aligned).  An unaligned case reads its first
+# input from 2 bytes past a 16-byte boundary.
 P6_FLASH_WIDTHS = (
     ("bf16 h=80", torch.bfloat16, (1, 4096, 4096, 16, 4, 80), True, 0,
-     "wgmma_bf16"),
+     "wgmma_bf16", True),
     ("bf16 h=96", torch.bfloat16, (1, 4096, 4096, 16, 4, 96), True, 0,
-     "wgmma_bf16"),
+     "wgmma_bf16", True),
     ("bf16 h=100", torch.bfloat16, (1, 4096, 4096, 16, 4, 100), True, 0,
-     "cuda_core_f32"),
+     "cuda_core_f32", True),
     ("float32 h=256", torch.float32, (1, 4096, 4096, 8, 1, 256), True, 0,
-     "cuda_core_f32"),
+     "cuda_core_f32", True),
+    ("float16 h=128", torch.float16, (1, 4096, 4096, 32, 8, 128), True, 0,
+     "wgmma_bf16", True),
+    ("float16 h=100", torch.float16, (1, 4096, 4096, 16, 4, 100), True, 0,
+     "cuda_core_f32", True),
+    ("bf16 h=320", torch.bfloat16, (1, 4096, 4096, 8, 1, 320), True, 0,
+     "cuda_core_f32", True),
+    ("float32 h=512", torch.float32, (1, 4096, 4096, 8, 1, 512), True, 0,
+     "cuda_core_f32", True),
+    ("bf16 h=128 unaligned", torch.bfloat16, (1, 4096, 4096, 32, 8, 128),
+     True, 0, "cuda_core_f32", False),
 )
 P6_SSD_WIDTHS = (
-    ("float32 P=128 N=256", torch.float32, (1, 16, 4096, 128, 256, 256)),
-    ("float32 P=80 N=200", torch.float32, (1, 16, 4096, 80, 200, 256)),
-    ("bf16 P=32 N=24", torch.bfloat16, (1, 16, 4096, 32, 24, 32)),
+    ("float32 P=128 N=256", torch.float32, (1, 16, 4096, 128, 256, 256),
+     "cuda_core_f32", True),
+    ("float32 P=80 N=200", torch.float32, (1, 16, 4096, 80, 200, 256),
+     "cuda_core_f32", True),
+    ("bf16 P=32 N=24", torch.bfloat16, (1, 16, 4096, 32, 24, 32),
+     "cuda_core_f32", True),
+    ("float16 P=64 N=128", torch.float16, (1, 32, 4096, 64, 128, 256),
+     "mma_bf16", True),
+    ("float16 P=32 N=24", torch.float16, (1, 16, 4096, 32, 24, 32),
+     "cuda_core_f32", True),
+    ("float32 P=192 N=128", torch.float32, (1, 16, 4096, 192, 128, 256),
+     "cuda_core_f32", True),
+    ("float32 P=64 N=512", torch.float32, (1, 16, 4096, 64, 512, 256),
+     "cuda_core_f32", True),
+    ("bf16 P=64 N=128 unaligned", torch.bfloat16, (1, 32, 4096, 64, 128, 256),
+     "cuda_core_f32", False),
 )
+P6_RMSNORM_WIDTHS = (
+    ("float16 (4096, 4096)", torch.float16, (4096, 4096), True),
+    ("bf16 (4096, 4096) unaligned", torch.bfloat16, (4096, 4096), False),
+)
+
+
+def randn_at(shape, dtype, gen, dev, aligned: bool = True) -> torch.Tensor:
+    """N(0, 1) of ``shape`` in ``dtype``; with ``aligned=False`` a view whose
+    base is 2 bytes past a 16-byte boundary (what TMA and cp.async cannot
+    read)."""
+    n = math.prod(shape)
+    buf = torch.randn(n + (0 if aligned else 1), generator=gen,
+                      device=dev).to(dtype)
+    x = (buf if aligned else buf[1:]).view(shape)
+    if aligned != (x.data_ptr() % 16 == 0):
+        raise AssertionError(f"base {x.data_ptr()} is not what was asked")
+    return x
+
+
+def ssd_f64_rule(dtype, route: str, n: int, chunk: int) -> bool:
+    """Whether an SSD case is held to the float64 result (its error no more
+    than twice the plain version's) rather than at ``LLM_TOL``: float32
+    arithmetic (float32 inputs, or float16 on the CUDA-core route) at
+    N * chunk > 64 * 64, where two float32 summation orders of ~1e5
+    products differ by more than the tolerance (tests/test_torch_cuda.py's
+    rule)."""
+    return n * chunk > 64 * 64 and (dtype == torch.float32 or (
+        dtype == torch.float16 and route == "cuda_core_f32"))
 
 
 def paligemma_layer_qkv(dev, gen) -> tuple:
@@ -1573,32 +1645,37 @@ def paligemma_layer_qkv(dev, gen) -> tuple:
 
 
 def phase_widths(dev, gen) -> dict:
-    """Phase 6's widened shapes: each of ``P6_FLASH_WIDTHS`` (after
-    paligemma-3b's layer through the wgmma kernel at HD = 256) and of
-    ``P6_SSD_WIDTHS`` against its plain version at ``LLM_TOL`` (the
-    float32 SSD cases at N * chunk > 64 * 64 against the float64 result,
-    no worse than twice the plain version), one launch on its route; device ms by held CUDA events, the bound from
-    ``utils/kernel_bounds.py``, the plain version's ms and, for attention,
-    SDPA's on the same call (a yardstick only: the port never calls it)."""
+    """Phase 6's widened inputs: each of ``P6_FLASH_WIDTHS`` (after
+    paligemma-3b's layer through the wgmma kernel at HD = 256), of
+    ``P6_SSD_WIDTHS`` and of ``P6_RMSNORM_WIDTHS`` against its plain
+    version at ``LLM_TOL`` (the SSD cases ``ssd_f64_rule`` names against
+    the float64 result, no worse than twice the plain version), one launch
+    on its route (or RMSNorm kernel); device ms by held CUDA events, the
+    bound from ``utils/kernel_bounds.py``, the plain version's ms and, for
+    attention and RMSNorm, SDPA's and ``F.rms_norm``'s on the same call (a
+    yardstick only: the port never calls them)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
-    out = {"flash_attention": {}, "ssd_scan": {}}
+    out = {"flash_attention": {}, "ssd_scan": {}, "rmsnorm_fused": {}}
     flash_cases = [("paligemma-3b layer 0 bf16 h=256", torch.bfloat16,
                     paligemma_layer_qkv(dev, gen), True, 0, "wgmma_bf16")]
-    for label, dtype, (b, s, t, n, kh, h), causal, window, route in P6_FLASH_WIDTHS:
-        qkv = tuple(torch.randn((b, length, heads, h), generator=gen,
-                                device=dev).to(dtype)
-                    for length, heads in ((s, n), (t, kh), (t, kh)))
+    for (label, dtype, (b, s, t, n, kh, h), causal, window, route,
+         aligned) in P6_FLASH_WIDTHS:
+        qkv = (randn_at((b, s, n, h), dtype, gen, dev, aligned),
+               *(randn_at((b, t, kh, h), dtype, gen, dev) for _ in range(2)))
         flash_cases.append((label, dtype, qkv, causal, window, route))
     for label, dtype, (q, k, v), causal, window, route in flash_cases:
         b, s, n, h = q.shape
         t, kh = k.shape[1], k.shape[2]
-        if fa_ops.route_of(dtype, h) != route:
+        aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v))
+        if fa_ops.route_of(dtype, h, aligned) != route:
             raise AssertionError(f"flash_attention {label}: route "
-                                 f"{fa_ops.route_of(dtype, h)}, not {route}")
+                                 f"{fa_ops.route_of(dtype, h, aligned)}, not {route}")
         before = dict(fa_ops.mha.launches_by_route)
         got = fa_ops.mha(q, k, v, causal=causal, window=window)
         went = {r: fa_ops.mha.launches_by_route[r] - before[r] for r in before}
@@ -1608,7 +1685,7 @@ def phase_widths(dev, gen) -> dict:
                                                    window=window), dtype,
                    f"at {label} (B={b} S={s} N={n} K={kh}, {route})")
         del got
-        fast = dtype == torch.bfloat16 and route == "wgmma_bf16"
+        fast = dtype != torch.float32 and route == "wgmma_bf16"
         ms = device_time_ms(lambda i: fa_ops.mha(q, k, v, causal=causal,
                                                  window=window), 10 if fast else 3)
         plain = device_time_ms(lambda i: mha_ref(q, k, v, causal=causal,
@@ -1619,10 +1696,11 @@ def phase_widths(dev, gen) -> dict:
                 qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
         nbytes, ops = flash_bound(b, s, t, n, kh, h, q.element_size(), causal,
                                   window if causal else 0)
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
         b_ms, b_by = bound(nbytes, ops, peak)
         out["flash_attention"][label] = {
-            "route": route, "shape": [b, s, t, n, kh, h], "launches": 1,
+            "route": route, "dtype": str(dtype).split(".")[-1],
+            "aligned": aligned, "shape": [b, s, t, n, kh, h], "launches": 1,
             "max_abs_err": err, "ms": ms[0], "plain_ms": plain[0],
             "library_ms": lib[0], "bound_ms": b_ms, "bound_by": b_by,
             "bound_share": b_ms / ms[0]}
@@ -1632,21 +1710,20 @@ def phase_widths(dev, gen) -> dict:
             f"({ms[0] / lib[0]:.2f}x SDPA)")
     del flash_cases, q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    for label, dtype, (b, h, l, p, n, chunk) in P6_SSD_WIDTHS:
-        xs = torch.randn((b, h, l, p), generator=gen, device=dev).to(dtype)
+    for label, dtype, (b, h, l, p, n, chunk), route, aligned in P6_SSD_WIDTHS:
+        xs = randn_at((b, h, l, p), dtype, gen, dev, aligned)
         dt = torch.nn.functional.softplus(
             torch.randn((b, h, l), generator=gen, device=dev))
         da = dt * -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))[:, None]
-        bs, cs = (torch.randn((b, h, l, n), generator=gen, device=dev).to(dtype)
-                  for _ in range(2))
+        bs, cs = (randn_at((b, h, l, n), dtype, gen, dev) for _ in range(2))
         args = (xs, da, dt, bs, cs)
-        if ssd_ops.route_of(dtype, p, n, chunk) != "cuda_core_f32":
-            raise AssertionError(f"ssd_scan {label}: not the CUDA-core route")
+        if ssd_ops.route_of(dtype, p, n, chunk, aligned) != route:
+            raise AssertionError(f"ssd_scan {label}: not the {route} route")
         before = dict(ssd_ops.ssd_scan.launches_by_route)
         y = ssd_ops.ssd_scan(*args, chunk=chunk)
         went = {r: ssd_ops.ssd_scan.launches_by_route[r] - before[r]
                 for r in before}
-        if went != {"mma_bf16": 0, "cuda_core_f32": 1}:
+        if went != {r: int(r == route) for r in before}:
             raise AssertionError(f"ssd_scan {label} took the routes {went}")
         plain_y = ssd_scan_ref(*args, chunk=chunk)
         exact = ssd_scan_ref(*(x.double() for x in args), chunk=chunk)
@@ -1656,11 +1733,11 @@ def phase_widths(dev, gen) -> dict:
             f"{float(exact.abs().max()):.3e}): kernel {err64['kernel']:.3e}, "
             f"plain version {err64['plain']:.3e}")
         del exact
-        where = f"at {label} (B={b} H={h} L={l} chunk {chunk})"
-        if dtype == torch.float32 and n * chunk > 64 * 64:
+        where = f"at {label} (B={b} H={h} L={l} chunk {chunk}, {route})"
+        if ssd_f64_rule(dtype, route, n, chunk):
             # two float32 summation orders of ~1e5 products (|y| ~ 450
-            # here) differ by more than 2e-4: held to the float64 result,
-            # no worse than twice the plain version's error, as
+            # here) differ by more than the tolerance: held to the float64
+            # result, no worse than twice the plain version's error, as
             # tests/test_torch_cuda.py holds the route at N * chunk > 64 * 64
             err = float((y - plain_y).abs().max())
             if not err64["kernel"] <= 2 * err64["plain"]:
@@ -1671,19 +1748,50 @@ def phase_widths(dev, gen) -> dict:
         else:
             err = hold("ssd_scan", y, plain_y, dtype, where)
         del y, plain_y
-        ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 3)
+        ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk),
+                            10 if route == "mma_bf16" else 3)
         plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
         nbytes, ops = ssd_bound(b, h, l, p, n, chunk, xs.element_size(), h)
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
         b_ms, b_by = bound(nbytes, ops, peak)
         out["ssd_scan"][label] = {
-            "route": "cuda_core_f32", "shape": [b, h, l, p, n, chunk],
+            "route": route, "dtype": str(dtype).split(".")[-1],
+            "aligned": aligned, "shape": [b, h, l, p, n, chunk],
             "launches": 1, "max_abs_err": err, "max_abs_err_vs_f64": err64,
             "ms": ms[0], "plain_ms": plain[0], "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms[0]}
-        log(f"  ssd_scan {label} (cuda_core_f32): {ms[0]:.4f} ms/launch on the "
+        log(f"  ssd_scan {label} ({route}): {ms[0]:.4f} ms/launch on the "
             f"device ({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by "
             f"{b_by}), plain {plain[0]:.4f} ms")
+    del args, xs, da, dt, bs, cs
+    torch.cuda.empty_cache()
+    for label, dtype, (rows, d), aligned in P6_RMSNORM_WIDTHS:
+        x = randn_at((rows, d), dtype, gen, dev, aligned)
+        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        kernel = rms_ops.kernel_for(d, dtype, aligned)
+        before = dict(rms_ops.rmsnorm_fused.launches_by_kernel)
+        err = hold("rmsnorm_fused", rms_ops.rmsnorm(x, scale),
+                   rmsnorm_ref(x, scale), dtype, f"at {label}")
+        went = {k: rms_ops.rmsnorm_fused.launches_by_kernel[k] - before[k]
+                for k in before}
+        if went != {k: int(k == kernel) for k in before}:
+            raise AssertionError(f"rmsnorm_fused {label} took the kernels {went}")
+        ms = device_time_ms(lambda i: rms_ops.rmsnorm(x, scale), 20)
+        plain = device_time_ms(lambda i: rmsnorm_ref(x, scale), 10)
+        w = scale.to(dtype)
+        lib = device_time_ms(lambda i: torch.nn.functional.rms_norm(
+            x, (d,), weight=w, eps=1e-6), 20)
+        nbytes, n_ops = rmsnorm_bound(rows, d, x.element_size())
+        b_ms, b_by = bound(nbytes, n_ops, FP32_OPS_PER_S)
+        out["rmsnorm_fused"][label] = {
+            "kernel": kernel, "dtype": str(dtype).split(".")[-1],
+            "aligned": aligned, "shape": [rows, d], "launches": 1,
+            "max_abs_err": err, "ms": ms[0], "plain_ms": plain[0],
+            "library_ms": lib[0], "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms[0]}
+        log(f"  rmsnorm_fused {label} ({kernel} kernel): {ms[0]:.5f} ms/launch "
+            f"on the device ({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by "
+            f"{b_by}), plain {plain[0]:.5f} ms, F.rms_norm {lib[0]:.5f} ms")
     return out
 
 
@@ -1701,11 +1809,14 @@ def mamba_layers(model) -> int:
     return 0
 
 
-def both_paths(model, cfg, tokens) -> dict:
+def both_paths(model, cfg, tokens, *, finite: bool = True,
+               layers: dict = None) -> dict:
     """``apply`` with ``use_kernels=True`` (launches counted from 0; one
     kernel per dense attention or mamba layer and nothing else, or raise)
     and with the einsum path on the same weights, each timed with its peak
-    memory."""
+    memory; raise on a non-finite output unless ``finite=False``.  With a
+    dict ``layers``, ``layers[path]`` gets each layer's output (the model
+    module's ``scan_layers`` wrapped while the path runs)."""
     import dataclasses
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1727,9 +1838,22 @@ def both_paths(model, cfg, tokens) -> dict:
     if n_mamba:
         d = model.mdims
         expect_ssd[ssd_ops.route_of(dtype, d.head_dim, d.d_state, d.chunk)] = n_mamba
+    module = sys.modules[type(model).__module__]
+    scan_layers = module.scan_layers if layers is not None else None
     out = {}
     for path, use_kernels in (("kernel", True), ("einsum", False)):
         model.cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
+        if layers is not None:
+            seen = layers[path] = []
+
+            def recording(body, stack, x, *args, seen=seen, **kw):
+                def body_seen(lp, x):
+                    x = body(lp, x)
+                    seen.append(x)
+                    return x
+                return scan_layers(body_seen, stack, x, *args, **kw)
+
+            module.scan_layers = recording
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -1737,15 +1861,19 @@ def both_paths(model, cfg, tokens) -> dict:
         fa_ops.mha.launches_by_route = dict.fromkeys(expect_routes, 0)
         ssd_ops.ssd_scan.launches_by_route = dict.fromkeys(expect_ssd, 0)
         t0 = time.perf_counter()
-        h = model.apply({"tokens": tokens})
-        torch.cuda.synchronize()
+        try:
+            h = model.apply({"tokens": tokens})
+            torch.cuda.synchronize()
+        finally:
+            if layers is not None:
+                module.scan_layers = scan_layers
         out[path] = {"h": h, "s": time.perf_counter() - t0,
                      "peak_bytes": torch.cuda.max_memory_allocated(),
                      "launches": {k: c.launches for k, c in counters.items()},
                      "routes": dict(fa_ops.mha.launches_by_route),
                      "ssd_routes": dict(ssd_ops.ssd_scan.launches_by_route)}
-        if not torch.isfinite(h).all() or tuple(h.shape) != (
-                *tokens.shape, cfg.d_model):
+        if tuple(h.shape) != (*tokens.shape, cfg.d_model) or (
+                finite and not torch.isfinite(h).all()):
             raise AssertionError(f"{cfg.name} {path} path: shape "
                                  f"{tuple(h.shape)} or non-finite values")
     model.cfg = cfg
@@ -1818,14 +1946,16 @@ def prefill(model, cfg, batch, seq, dev, gen) -> dict:
             "rmsnorm_max_abs_err": rms_err}
 
 
-def prefill_accuracy(model, cfg, pre: dict) -> dict:
+def prefill_accuracy(model, cfg, pre: dict) -> tuple:
     """The same weights upcast to float32 (in place; the model is not used
     in bf16 again): the kernel path against the einsum path (relative
     Frobenius error <= 2e-4), and both bf16 runs against the float32
     einsum run (the kernel path no farther from it than the einsum path,
-    within 25%)."""
+    within 25%).  Returns the numbers, the tokens and the float32 einsum
+    run's output (the float16 leg's yardstick)."""
     model.float()
-    runs = both_paths(model, cfg, pre.pop("tokens"))
+    tokens = pre.pop("tokens")
+    runs = both_paths(model, cfg, tokens)
     h_k32, h_e32 = runs["kernel"]["h"], runs["einsum"]["h"]
     rel32 = rel_err(h_k32, h_e32)
     k16 = rel_err(pre.pop("h_kernel"), h_e32)
@@ -1846,7 +1976,84 @@ def prefill_accuracy(model, cfg, pre: dict) -> dict:
             "rel_bf16_einsum_vs_f32": e16, "f32_routes": runs["kernel"]["routes"],
             "f32_ssd_routes": runs["kernel"]["ssd_routes"],
             "f32_kernel_s": runs["kernel"]["s"],
-            "f32_einsum_s": runs["einsum"]["s"]}
+            "f32_einsum_s": runs["einsum"]["s"]}, tokens, h_e32
+
+
+# phase 7's float16 leg: the kernel path against the einsum path on the
+# same float16 weights, as a relative Frobenius error of each layer's output
+# and of the final hidden states (the reduced models' float16 tolerance,
+# tests/test_torch_kernel_dtypes.py); and, as in bf16, the kernel path no
+# farther from the float32 einsum run than the einsum path, within 25%
+PREFILL_F16_REL_ERR = 1.5e-2
+
+
+def prefill_float16(model, cfg, tokens, h_e32, names) -> dict:
+    """The float16 leg of phase 7: the parameters ``names`` (those the bf16
+    model held in bf16; the float32 norm scales and SSM leaves stay float32,
+    as ``build_model(cfg, torch.float16)`` makes them) cast to float16 in
+    place (no second build), then prefill of ``tokens`` (1 x 4096) on both
+    paths with each layer's output recorded:
+    launches per route (one a layer on the 16-bit routes), and, up to the
+    first layer whose output is not finite on either path (reported; the
+    random float16 stack may overflow, as the reference's would), each
+    layer's kernel-path output against the einsum path's at
+    ``PREFILL_F16_REL_ERR``; with every layer finite, the final hidden
+    states too, and their distance to the float32 einsum run against the
+    einsum path's (``PREFILL_BF16_RATIO``)."""
+    import dataclasses
+
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name in names:
+                prm.data = prm.data.to(torch.float16)
+    model.cfg = dataclasses.replace(cfg, use_kernels=True)
+    model.apply({"tokens": tokens})  # warm: the float16 builds' first launches
+    layers = {}
+    runs = both_paths(model, cfg, tokens, finite=False, layers=layers)
+    k, e = runs["kernel"], runs["einsum"]
+    finite = {path: [bool(torch.isfinite(x).all()) for x in layers[path]]
+              for path in layers}
+    first = min((f.index(False) for f in finite.values() if False in f),
+                default=None)
+    gated = len(finite["kernel"]) if first is None else first
+    rel_layers = [rel_err(a, b) for a, b in
+                  zip(layers["kernel"][:gated], layers["einsum"][:gated])]
+    del layers
+    out = {"launches": k["launches"], "routes": k["routes"],
+           "ssd_routes": k["ssd_routes"], "kernel_s": k["s"], "einsum_s": e["s"],
+           "tokens_per_s": tokens.numel() / k["s"],
+           "peak_bytes": k["peak_bytes"], "first_nonfinite_layer": first,
+           "layers_gated": gated,
+           "max_rel_layer": max(rel_layers, default=0.0),
+           "rel_last_layer": rel_layers[-1] if rel_layers else None}
+    if first is None:
+        if not (torch.isfinite(k["h"]).all() and torch.isfinite(e["h"]).all()):
+            raise AssertionError(f"{cfg.name} float16: non-finite final output")
+        out["rel_kernel_vs_einsum_f16"] = rel_err(k["h"], e["h"])
+        out["rel_f16_kernel_vs_f32"] = rel_err(k["h"], h_e32)
+        out["rel_f16_einsum_vs_f32"] = rel_err(e["h"], h_e32)
+    log(f"  prefill {cfg.name} float16 (the bf16 weights cast): kernel path "
+        f"{k['s']:.4f} s ({out['tokens_per_s']:.1f} tokens/s, peak "
+        f"{k['peak_bytes'] / 2**30:.3f} GiB), einsum path {e['s']:.4f} s; "
+        f"launches {k['launches']}, flash routes {k['routes']}, SSD routes "
+        f"{k['ssd_routes']}; first non-finite layer {first} (of "
+        f"{len(finite['kernel'])}); kernel vs einsum, relative Frobenius "
+        f"error per layer up to {out['max_rel_layer']:.4e} over {gated} "
+        f"layers (bound {PREFILL_F16_REL_ERR}), final "
+        f"{out.get('rel_kernel_vs_einsum_f16')}; against the float32 einsum "
+        f"run, kernel path {out.get('rel_f16_kernel_vs_f32')}, einsum path "
+        f"{out.get('rel_f16_einsum_vs_f32')} (bound: kernel <= "
+        f"{PREFILL_BF16_RATIO} x einsum)")
+    bad = [i for i, r in enumerate(rel_layers) if not r <= PREFILL_F16_REL_ERR]
+    if bad:
+        raise AssertionError(f"{cfg.name} float16: layers {bad} beyond "
+                             f"{PREFILL_F16_REL_ERR}: {rel_layers}")
+    if first is None and not (
+            out["rel_kernel_vs_einsum_f16"] <= PREFILL_F16_REL_ERR
+            and out["rel_f16_kernel_vs_f32"]
+            <= PREFILL_BF16_RATIO * out["rel_f16_einsum_vs_f32"]):
+        raise AssertionError(f"{cfg.name} float16 prefill: {out}")
+    return out
 
 
 def serve(model, cfg, dev) -> dict:
@@ -1962,15 +2169,27 @@ def phase_llm(dev) -> dict:
         s = serve(model, cfg, dev)
         s["card_vs_cpu"] = serve_card_vs_cpu(arch, dev)
         log(f"phase 8 ({arch} serving): {time.perf_counter() - t0:.2f} s")
+        half = {name for name, prm in model.named_parameters()
+                if prm.dtype == torch.bfloat16}
         t0 = time.perf_counter()
-        p.update(prefill_accuracy(model, cfg, p))
+        acc, tokens, h_e32 = prefill_accuracy(model, cfg, p)
+        p.update(acc)
         log(f"phase 7 ({arch} prefill in float32): {time.perf_counter() - t0:.2f} s")
-        if cfg.family == "ssm":  # bf16 on the tensor cores, float32 on CUDA cores
+        t0 = time.perf_counter()
+        # 1 x 4096 (mamba2's first row of its 4 x 4096 prefill)
+        p["float16"] = prefill_float16(model, cfg, tokens[:1], h_e32[:1], half)
+        del tokens, h_e32
+        log(f"phase 7 ({arch} prefill in float16): {time.perf_counter() - t0:.2f} s")
+        if cfg.family == "ssm":  # 16-bit on the tensor cores, float32 on CUDA cores
             want = ({"mma_bf16": cfg.num_layers, "cuda_core_f32": 0},
-                    {"mma_bf16": 0, "cuda_core_f32": cfg.num_layers})
-            if (p["ssd_routes"], p["f32_ssd_routes"]) != want:
-                raise AssertionError(f"{arch} SSD routes {p['ssd_routes']} "
-                                     f"(bf16), {p['f32_ssd_routes']} (float32)")
+                    {"mma_bf16": 0, "cuda_core_f32": cfg.num_layers},
+                    {"mma_bf16": cfg.num_layers, "cuda_core_f32": 0})
+            got = (p["ssd_routes"], p["f32_ssd_routes"],
+                   p["float16"]["ssd_routes"])
+            if got != want:
+                raise AssertionError(f"{arch} SSD routes (bf16, float32, "
+                                     f"float16) {got}")
+
         out[arch] = {"params": n_params, "build_s": t_build, "kernel": k,
                      "prefill": p, "serve": s}
         del model
@@ -6446,6 +6665,11 @@ def main() -> int:
                           "launches": mamba["prefill"]["f32_ssd_routes"]["cuda_core_f32"],
                           **mamba["kernel"]["routes"]["cuda_core_f32"]},
     }
+    # the float16 prefill leg of phase 7 rides the 16-bit routes
+    flash["routes"]["wgmma_bf16"]["launches_float16"] = (
+        mini["prefill"]["float16"]["routes"]["wgmma_bf16"])
+    ssd["routes"]["mma_bf16"]["launches_float16"] = (
+        mamba["prefill"]["float16"]["ssd_routes"]["mma_bf16"])
     # phase 6's widened shapes, each held against its plain version with
     # one launch on its route (comparisons: not counted in "launches")
     flash["widths"] = p6["widths"]["flash_attention"]
@@ -6460,6 +6684,7 @@ def main() -> int:
     )]
     if kernels[-1]["launches"] != 2:
         raise AssertionError("ops.rmsnorm did not launch its kernel once per model")
+    kernels[-1]["widths"] = p6["widths"]["rmsnorm_fused"]
     # phase 9 launches the sparse kernel once per training step of a figure
     sparse = next(k for k in kernels if k["name"] == "walk_transition_sparse")
     sparse["launches_by_figure"] = {

@@ -10,10 +10,23 @@
 //
 // Layout: the model's own, q/out (B, S, N, h) and k/v (B, T, K, h), read
 // through their row strides (N*h and K*h), so the wrapper copies nothing.
-// Any head_dim h from 1 to 256 runs in the instantiation HD = 64, 128 or
-// 256 that is the smallest >= h: columns h..HD-1 are staged as zeros (they
-// add exact zeros to q k^T and to nothing that is stored), the epilogue
-// writes columns < h only, and the scale is h^-1/2.
+// Element types float32, bfloat16 and float16 (one template; every product
+// in float32).  Any head_dim h from 1 to 256 runs in the instantiation HD =
+// 64, 128 or 256 that is the smallest >= h: columns h..HD-1 are staged as
+// zeros (they add exact zeros to q k^T and to nothing that is stored), the
+// epilogue writes columns < h only, and the scale is h^-1/2.
+//
+// Past h = 256 the tiles of a 256-column build already take 209 KB, so
+// the work is split two ways (SPLIT = true, HD = 256): the output columns
+// across CTAs, in slices of 256 (blockIdx.x = q block * slices + slice),
+// and q k^T inside each CTA over pieces of 256 columns of q and k, staged
+// in turn (q again for every key block) and added to the same scores, d
+// ascending.  Every slice's CTA so forms the same scores from the same
+// inputs in the same order, so its running max and sum are bitwise those
+// of every other slice, and each writes its own columns of the output.
+// The slices cost ceil(h/256) times the score work.  No size limit beyond
+// the grid's (ceil(S/64) * ceil(h/256) < 2^31 blocks, N and B < 65536)
+// and device memory.
 //
 // Design: one CTA of 256 threads per (q block of 64 rows, query head,
 // batch).  The q tile and each 64-row k and v tile are staged in shared
@@ -38,6 +51,7 @@
 // that the next live block's rescale (alpha = exp(-1e30 - m) = 0) wipes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -52,6 +66,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -59,6 +74,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 template <int HD>
@@ -85,7 +104,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SPLIT>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int S, int T_len, int N, int K, int h, int causal,
@@ -98,7 +117,11 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   float* vs = ks + BK * LDK;
   float* ps = vs + BK * LDV;
 
-  const int qb = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
+  // SPLIT: blockIdx.x = q block * slices + slice, the slice's output
+  // columns [c0, c0 + cw)
+  const int slices = SPLIT ? (h + HD - 1) / HD : 1;
+  const int qb = blockIdx.x / slices, n = blockIdx.y, b = blockIdx.z;
+  const int c0 = (blockIdx.x % slices) * HD, cw = min(HD, h - c0);
   const int kvh = n * K / N;
   const int i0 = qb * BQ;
   const long long q_stride = static_cast<long long>(N) * h;
@@ -110,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, HD, LDQ>(qs, qh, q_stride, i0, S, h);
+  if (!SPLIT) load_tile<T, HD, LDQ>(qs, qh, q_stride, i0, S, h);
 
   float m[4], l[4], acc[4][CB];
 #pragma unroll
@@ -129,27 +152,37 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
       if (j0 > i0 + BQ - 1) break;
       if (window > 0 && j0 + BK - 1 < i0 - window + 1) continue;
     }
-    __syncthreads();  // the previous block's k, v and p are consumed
-    load_tile<T, HD, LDK>(ks, kh, kv_stride, j0, T_len, h);
-    load_tile<T, HD, LDV>(vs, vh, kv_stride, j0, T_len, h);
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], kc[4];
+    // S = q k^T, its sum over d ascending: at once, or (SPLIT) over pieces
+    // of HD columns of q and k, each staged in turn (zeros past h)
+    for (int d0 = 0; d0 < (SPLIT ? h : 1); d0 += HD) {
+      __syncthreads();  // the previous piece's (or block's) tiles are consumed
+      if (SPLIT) {
+        load_tile<T, HD, LDQ>(qs, qh + d0, q_stride, i0, S, min(HD, h - d0));
+        load_tile<T, HD, LDK>(ks, kh + d0, kv_stride, j0, T_len,
+                              min(HD, h - d0));
+        if (d0 == 0) load_tile<T, HD, LDV>(vs, vh + c0, kv_stride, j0, T_len, cw);
+      } else {
+        load_tile<T, HD, LDK>(ks, kh, kv_stride, j0, T_len, h);
+        load_tile<T, HD, LDV>(vs, vh, kv_stride, j0, T_len, h);
+      }
+      __syncthreads();
+      for (int d = 0; d < HD; ++d) {
+        float qa[4], kc[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * LDQ + d];
+        for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * LDQ + d];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = ks[(tx + 16 * c) * LDK + d];
+        for (int c = 0; c < 4; ++c) kc[c] = ks[(tx + 16 * c) * LDK + d];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          s[a][c] = __fadd_rn(s[a][c], __fmul_rn(qa[a], kc[c]));
+          for (int c = 0; c < 4; ++c)
+            s[a][c] = __fadd_rn(s[a][c], __fmul_rn(qa[a], kc[c]));
+      }
     }
 
 #pragma unroll
@@ -211,22 +244,25 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float denom = fmaxf(l[a], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CB; ++c)
-      if (tx + 16 * c < h)
-        oh[static_cast<long long>(row) * q_stride + tx + 16 * c] =
+      if (tx + 16 * c < cw)
+        oh[static_cast<long long>(row) * q_stride + c0 + tx + 16 * c] =
             from_float<T>(__fdiv_rn(acc[a][c], denom));
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SPLIT = false>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int T_len, int N, int K, int h, int causal, int window,
            cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_attention_kernel<T, HD>;
+  auto kernel = flash_attention_kernel<T, HD, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BQ - 1) / BQ, N, B);
+  const long long slices = SPLIT ? (h + HD - 1) / HD : 1;
+  const long long blocks = (S + BQ - 1) / BQ * slices;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), N, B);
   // h^-1/2 (the true h, not HD) rounded once to float32, as the plain
   // version's scalar is
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(h)));
@@ -237,32 +273,46 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_h(const void* q, const void* k, const void* v, void* out, int B,
+             int S, int T_len, int N, int K, int h, int causal, int window,
+             cudaStream_t s) {
+  if (h <= 64)
+    return launch<T, 64>(q, k, v, out, B, S, T_len, N, K, h, causal, window,
+                         s);
+  if (h <= 128)
+    return launch<T, 128>(q, k, v, out, B, S, T_len, N, K, h, causal, window,
+                          s);
+  if (h <= 256)
+    return launch<T, 256>(q, k, v, out, B, S, T_len, N, K, h, causal, window,
+                          s);
+  return launch<T, 256, true>(q, k, v, out, B, S, T_len, N, K, h, causal,
+                              window, s);
+}
+
 }  // namespace
 
+// q/out (B, S, N, h), k/v (B, T, K, h), contiguous, in float32 (dtype 0),
+// bfloat16 (1) or float16 (2); any h >= 1.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int T_len, int N, int K, int h,
-                                      int causal, int window, int is_bf16,
+                                      int causal, int window, int dtype,
                                       void* stream) {
   if (B <= 0 || S <= 0 || N <= 0) return 0;
-  if (h <= 0 || h > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || B > 65535 || N > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (h <= 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, out, B, S, T_len, N, K, h,
-                                       causal, window, s);
-    if (h <= 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, out, B, S, T_len, N, K, h,
-                                        causal, window, s);
-    return launch<__nv_bfloat16, 256>(q, k, v, out, B, S, T_len, N, K, h,
-                                      causal, window, s);
-  }
-  if (h <= 64)
-    return launch<float, 64>(q, k, v, out, B, S, T_len, N, K, h, causal,
+  switch (dtype) {
+    case 0:
+      return launch_h<float>(q, k, v, out, B, S, T_len, N, K, h, causal,
                              window, s);
-  if (h <= 128)
-    return launch<float, 128>(q, k, v, out, B, S, T_len, N, K, h, causal,
+    case 1:
+      return launch_h<__nv_bfloat16>(q, k, v, out, B, S, T_len, N, K, h,
+                                     causal, window, s);
+    case 2:
+      return launch_h<__half>(q, k, v, out, B, S, T_len, N, K, h, causal,
                               window, s);
-  return launch<float, 256>(q, k, v, out, B, S, T_len, N, K, h, causal,
-                            window, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

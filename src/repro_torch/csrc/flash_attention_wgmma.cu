@@ -1,15 +1,20 @@
-// Flash attention in bf16 on Hopper's tensor cores (sm_90a): wgmma fed by
-// TMA under mbarriers, with a warp-specialised producer.
+// Flash attention in bf16 or float16 on Hopper's tensor cores (sm_90a):
+// wgmma fed by TMA under mbarriers, with a warp-specialised producer.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:93
-// `flash_attention` (body `_kernel`) for bf16 inputs: for each query row,
+// `flash_attention` (body `_kernel`) for bf16 and float16 inputs (one
+// template over the element type T: wgmma's .bf16 or .f16 operands, a
+// BFLOAT16 or FLOAT16 tensor map; the layouts are the same): for each
+// query row,
 // softmax(q k^T * h^-1/2) v over its key blocks, with the running max m, sum
 // l and accumulator in float32, the causal and sliding-window masks
 // (window only with causal), the tail mask col < T, the skip of key blocks
 // the causal/window geometry makes dead (the predicate of
 // flash_attention.cu, at this kernel's block sizes), GQA by reading kv
-// head n*K/N for query head n, and the output acc / max(l, 1e-30) in bf16.
-// Float32 inputs go to flash_attention.cu (CUDA cores, float32 products).
+// head n*K/N for query head n, and the output acc / max(l, 1e-30) in T.
+// Float32 inputs, head_dims that are not multiples of 8 or past 256, and
+// bases TMA cannot read go to flash_attention.cu (CUDA cores, float32
+// products).
 // The plain version is repro_torch/kernels/flash_attention/ref.py.
 //
 // What bounds it: operations.  At minitron-8b's layer (B=1, S=4096, N=32,
@@ -40,13 +45,13 @@
 //   (-1e30, as in the TPU kernel) are applied from the fragment's (row,
 //   col), only on blocks that touch the diagonal, the window's edge or the
 //   tail; there the exponent is (s - m) * h^-1/2 * log2(e).
-// - O += P v: P is rounded to bf16 in registers and fed as wgmma's register
+// - O += P v: P is rounded to T in registers and fed as wgmma's register
 //   A operand (the accumulator fragment of S is A's fragment); v is the
 //   shared-memory B operand, MN-major (imm-trans-b), so it is never
 //   transposed.  l is summed from the float32 P before rounding.
 // - Grid order: the heaviest causal q blocks first, and the N/K query
 //   heads that share a kv head next to each other (their k/v stay in L2).
-// - Epilogue: acc / max(l, 1e-30) in bf16, rows < S only, straight from
+// - Epilogue: acc / max(l, 1e-30) in T, rows < S only, straight from
 //   registers.
 //
 // Head_dims: the kernel is built at HD = 64, 128 and 256, and a head_dim h
@@ -60,19 +65,24 @@
 // is two m64n128k16 per k-step, one per 128 output columns (128
 // accumulator registers a consumer thread).
 //
-// Rounding, against the TPU kernel: P is rounded to bf16 before P v (the
+// Rounding, against the TPU kernel: P is rounded to T before P v (the
 // TPU kernel keeps it in float32; the port's einsum path rounds it too,
 // models/layers/attention.py `probs.to(v.dtype)`); exp is ex2.approx of
 // the scaled score (relative error ~2^-22), the scale and the max folded
 // into one FFMA on unmasked blocks; q k^T and P v sum their
 // products in the tensor cores' order, 16 at a time per k-step; l is summed
 // per lane and the four lanes at the end.  The bf16 tolerance 2e-2 covers
-// all of it (tests/test_torch_llm_kernels.py emulates these numerics).
+// all of it (tests/test_torch_llm_kernels.py emulates these numerics;
+// tests/test_torch_kernel_dtypes.py in float16, whose P keeps 11 bits,
+// below 2^-14 fewer: an absolute error under 2^-25 a probability).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,7 +90,7 @@ constexpr int BQ = 128;         // query rows per CTA
 constexpr int CONSUMERS = 2;    // consumer warpgroups, 64 query rows each
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int STAGES = 2;       // k/v ring depth
-constexpr int SPAN = 128;       // bytes of one swizzled row: 64 bf16 columns
+constexpr int SPAN = 128;       // bytes of one swizzled row: 64 columns
 constexpr float NEG_INF = -1e30f;
 
 template <int HD>
@@ -177,144 +187,176 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two floats as a packed pair of T (bf16 or float16), the low one first.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The wgmma instructions below in bf16 or in float16 (T): one asm body,
+// its type written in by `ty`.
+#define WGMMA_D64                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WGMMA_D32                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define REGS64                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"                        \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"              \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"              \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"              \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"              \
+  "%60, %61, %62, %63"
+#define REGS32                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"                        \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"              \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+// both operands in shared memory, both K-major (scale-d from a predicate)
+#define WGMMA_SS_N128(ty)                                                    \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " {" REGS64       \
+  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+#define WGMMA_SS_N64(ty)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " {" REGS32        \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+// A in registers, B in shared memory MN-major (imm-trans-b = 1)
+#define WGMMA_RS_N128(ty)                                                    \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." ty "." ty " {" REGS64       \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+#define WGMMA_RS_N64(ty)                                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." ty "." ty " {" REGS32        \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
 
 // D (64 x 128, float32) (+)= A (64 x 16, smem) * B (16 x 128, smem), both
 // K-major under the 128-byte swizzle.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kHalf<T>)
+    asm volatile(WGMMA_SS_N128("f16") : WGMMA_D64
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(WGMMA_SS_N128("bf16") : WGMMA_D64
+                 : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 64, float32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both
 // K-major under the 128-byte swizzle.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kHalf<T>)
+    asm volatile(WGMMA_SS_N64("f16") : WGMMA_D32
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(WGMMA_SS_N64("bf16") : WGMMA_D32
+                 : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 128, float32) += A (64 x 16, registers) * B (16 x 128, smem),
 // B MN-major under the 128-byte swizzle (imm-trans-b = 1).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<T>)
+    asm volatile(WGMMA_RS_N128("f16") : WGMMA_D64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  else
+    asm volatile(WGMMA_RS_N128("bf16") : WGMMA_D64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
 }
 
 // D (64 x 64, float32) += A (64 x 16, registers) * B (16 x 64, smem),
 // B MN-major under the 128-byte swizzle (imm-trans-b = 1).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<T>)
+    asm volatile(WGMMA_RS_N64("f16") : WGMMA_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  else
+    asm volatile(WGMMA_RS_N64("bf16") : WGMMA_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
 }
 
 // S (+)= q k^T for one k-step: n128 at 128-row key blocks, n64 at 64
+template <typename T>
 __device__ __forceinline__ void wgmma_qk(float (&s)[64], uint64_t da,
                                          uint64_t db, int scale_d) {
-  wgmma_ss_n128(s, da, db, scale_d);
+  wgmma_ss_n128<T>(s, da, db, scale_d);
 }
+template <typename T>
 __device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
-  wgmma_ss_n64(s, da, db, scale_d);
+  wgmma_ss_n64<T>(s, da, db, scale_d);
 }
 
 // O += P v for one k-step of 16 key rows; `vb` is the k-step's first row of
 // the v tile, `lbo` the distance between its 64-column chunks.
+template <typename T>
 __device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&a)[4],
                                          uint32_t vb, uint32_t lbo) {
-  wgmma_rs_n64(o, a, sw128_desc(vb, lbo));
+  wgmma_rs_n64<T>(o, a, sw128_desc(vb, lbo));
 }
+template <typename T>
 __device__ __forceinline__ void wgmma_pv(float (&o)[64], const uint32_t (&a)[4],
                                          uint32_t vb, uint32_t lbo) {
-  wgmma_rs_n128(o, a, sw128_desc(vb, lbo));
+  wgmma_rs_n128<T>(o, a, sw128_desc(vb, lbo));
 }
 // HD = 256: columns 0-127 from chunks 0-1, columns 128-255 from chunks 2-3;
 // the halves of o are n128 fragments, and side by side they are the n256
 // fragment (column 8 (idx / 4) + ...), so nothing else changes
+template <typename T>
 __device__ __forceinline__ void wgmma_pv(float (&o)[128], const uint32_t (&a)[4],
                                          uint32_t vb, uint32_t lbo) {
-  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, sw128_desc(vb, lbo));
-  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
-                sw128_desc(vb + 2 * lbo, lbo));
+  wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(&o[0]), a,
+                   sw128_desc(vb, lbo));
+  wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                   sw128_desc(vb + 2 * lbo, lbo));
 }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
+    const __grid_constant__ CUtensorMap map_v, T* __restrict__ out,
     int S, int T_len, int N, int K, int h, int causal, int window,
     float scale_log2) {
   using L = Smem<HD>;
@@ -429,7 +471,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
         const uint64_t da = sw128_desc(
             sq + c * BQ * SPAN + wg * 64 * SPAN + kk * 32, 16);
         const uint64_t db = sw128_desc(sk + c * BK * SPAN + kk * 32, 16);
-        wgmma_qk(s, da, db, ks > 0);
+        wgmma_qk<T>(s, da, db, ks > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -491,13 +533,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
 #pragma unroll
       for (int idx = 0; idx < HD / 2; ++idx)
         o[idx] = __fmul_rn(o[idx], alpha[(idx / 2) % 2]);
-      // P in bf16: the fragment of S's 16 columns kk is A's fragment
+      // P in T: the fragment of S's 16 columns kk is A's fragment
       uint32_t p[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          p[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
       // O += P v
       mbar_wait(v_full(stage), phase);
@@ -505,7 +547,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_pv(o, p[kk], sv + kk * 16 * SPAN, BK * SPAN);
+        wgmma_pv<T>(o, p[kk], sv + kk * 16 * SPAN, BK * SPAN);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -516,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
       }
     }
 
-    // epilogue: acc / max(l, 1e-30) in bf16, rows < S, columns < h
+    // epilogue: acc / max(l, 1e-30) in T, rows < S, columns < h
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float lt = l[i];
@@ -525,14 +567,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_wgmma_kernel(
       const float denom = fmaxf(lt, 1e-30f);
       const int row = i0 + r_in + 8 * i;
       if (row < S) {
-        __nv_bfloat16* orow =
-            out + ((static_cast<long long>(b) * S + row) * N + n) * h;
+        T* orow = out + ((static_cast<long long>(b) * S + row) * N + n) * h;
 #pragma unroll
         for (int jj = 0; jj < HD / 8; ++jj)
           if (8 * jj < h)  // h % 8 == 0: both columns of the pair are < h
             *reinterpret_cast<uint32_t*>(orow + 8 * jj + cq) =
-                pack_bf16(__fdiv_rn(o[4 * jj + 2 * i], denom),
-                          __fdiv_rn(o[4 * jj + 2 * i + 1], denom));
+                pack2<T>(__fdiv_rn(o[4 * jj + 2 * i], denom),
+                         __fdiv_rn(o[4 * jj + 2 * i + 1], denom));
       }
     }
   }
@@ -564,12 +605,13 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The model layout (B, seq, heads, h) in bf16 as dims (h, heads, seq, B),
+// The model layout (B, seq, heads, h) of 2-byte `type` as dims (h, heads,
+// seq, B),
 // boxes of 64 columns x `rows` rows under the 128-byte swizzle; columns past
 // h and rows past seq arrive as zeros.  Returns 0, or 1000 + the driver's
 // CUresult.
-int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
-           int batch, int rows) {
+int encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+           int hd, int heads, int seq, int batch, int rows) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
@@ -580,7 +622,7 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, type, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -589,38 +631,55 @@ int encode(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
   return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int T_len, int N, int K, int h, int causal, int window,
            cudaStream_t stream) {
-  auto kernel = flash_attention_wgmma_kernel<HD>;
+  auto kernel = flash_attention_wgmma_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const CUtensorMapDataType type = kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv;
-  int e = encode(&mq, q, h, N, S, B, BQ);
-  if (e == 0) e = encode(&mk, k, h, K, T_len, B, Smem<HD>::BK);
-  if (e == 0) e = encode(&mv, v, h, K, T_len, B, Smem<HD>::BK);
+  int e = encode(&mq, type, q, h, N, S, B, BQ);
+  if (e == 0) e = encode(&mk, type, k, h, K, T_len, B, Smem<HD>::BK);
+  if (e == 0) e = encode(&mv, type, v, h, K, T_len, B, Smem<HD>::BK);
   if (e != 0) return e;
   // h^-1/2 * log2(e) for the true h (not HD), rounded once to float32
   const float scale_log2 = static_cast<float>(
       1.4426950408889634 / sqrt(static_cast<double>(h)));
   const int grid = (S + BQ - 1) / BQ * N * B;
   kernel<<<grid, THREADS, Smem<HD>::BYTES, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, N, K, h, causal,
-      window, scale_log2);
+      mq, mk, mv, static_cast<T*>(out), S, T_len, N, K, h, causal, window,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_h(const void* q, const void* k, const void* v, void* out, int B,
+             int S, int T_len, int N, int K, int h, int causal, int window,
+             cudaStream_t st) {
+  if (h <= 64)
+    return launch<T, 64>(q, k, v, out, B, S, T_len, N, K, h, causal, window,
+                         st);
+  if (h <= 128)
+    return launch<T, 128>(q, k, v, out, B, S, T_len, N, K, h, causal, window,
+                          st);
+  return launch<T, 256>(q, k, v, out, B, S, T_len, N, K, h, causal, window,
+                        st);
 }
 
 }  // namespace
 
-// q/out (B, S, N, h), k/v (B, T, K, h), bf16, contiguous, 16-byte aligned,
-// h a multiple of 8 from 8 to 256.
+// q/out (B, S, N, h), k/v (B, T, K, h), bf16 (is_half 0) or float16
+// (is_half 1), contiguous, 16-byte aligned, h a multiple of 8 from 8 to
+// 256.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* out, int B,
                                             int S, int T_len, int N, int K,
                                             int h, int causal, int window,
-                                            void* stream) {
+                                            int is_half, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T_len <= 0)  // no keys: l = 0 and the output is 0, as in the kernel
@@ -628,9 +687,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
         out, 0, static_cast<size_t>(B) * S * N * h * 2, st));
   if (h <= 0 || h > 256 || h % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (h <= 64)
-    return launch<64>(q, k, v, out, B, S, T_len, N, K, h, causal, window, st);
-  if (h <= 128)
-    return launch<128>(q, k, v, out, B, S, T_len, N, K, h, causal, window, st);
-  return launch<256>(q, k, v, out, B, S, T_len, N, K, h, causal, window, st);
+  if (is_half)
+    return launch_h<__half>(q, k, v, out, B, S, T_len, N, K, h, causal,
+                            window, st);
+  return launch_h<__nv_bfloat16>(q, k, v, out, B, S, T_len, N, K, h, causal,
+                                 window, st);
 }

@@ -9,15 +9,16 @@
 // few operations per element.  Three kernels, chosen by the wrapper from
 // the shape (repro_torch/kernels/rmsnorm/ops.py `kernel_for`):
 // - `warp` (D <= 2048): one warp per row, two rows per 64-thread CTA.
-//   Each lane loads its 16-byte vectors (8 bf16 or 4 float32) of the row,
+//   Each lane loads its 16-byte vectors (8 bf16 or float16, or 4 float32)
+//   of the row,
 //   keeps them in registers, sums their squares, reduces with warp
 //   shuffles alone (no shared memory, no __syncthreads), then scales the
 //   held values with the scale read as float4 and stores 16 bytes at a
 //   time.  x is read from device memory once.  Small CTAs free their slot
 //   as soon as their two rows are done; eight rows per 256-thread CTA lost
 //   to F.rms_norm at (16384, 1024) float32 (PERF.md).
-// - `cta` (D > 2048, at most 2048 vectors: bf16 D <= 16384, float32 D <=
-//   8192): one 256-thread CTA per row, the same vectors held in registers,
+// - `cta` (D > 2048, at most 2048 vectors: bf16 and float16 D <= 16384,
+//   float32 D <= 8192): one 256-thread CTA per row, the same vectors held in registers,
 //   one shared-memory step for the row sum.
 // - `scalar`: D not a multiple of the vector width, a base pointer that is
 //   not 16-byte aligned, or a row too long to hold: one 256-thread CTA per
@@ -26,10 +27,15 @@
 // x is loaded and out stored with the streaming (evict-first) cache hint:
 // neither is read again, and the scale stays in L1.
 //
+// Element types: float32, bfloat16 and float16 (one template, the dtype
+// code from the wrapper); a 2-byte row has the same vector width in either
+// 16-bit type, so the wrapper's choice of kernel does not depend on which.
+//
 // Numerics: float32 throughout; the row's sum order is the kernel's (not
 // PyTorch's); built with --fmad=false and without fast math.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +49,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -50,6 +57,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // 16 bytes of T as E floats, and back.
@@ -82,6 +93,27 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ static uint32_t pack2(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ static uint4 pack(const float (&f)[E]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+};
+template <>
+struct Vec<__half> {
+  static constexpr int E = 8;
+  __device__ static void unpack(const uint4& u, float (&f)[E]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // float16 -> float32 is exact
+      const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static uint32_t pack2(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
   __device__ static uint4 pack(const float (&f)[E]) {
@@ -223,7 +255,7 @@ __global__ void __launch_bounds__(BLOCK) rmsnorm_scalar_kernel(
 }
 
 // The least power of two V >= the vectors a lane must hold (D <= 2048 is
-// at most 8 bf16 or 16 float32 vectors a lane).
+// at most 8 bf16 or float16, or 16 float32, vectors a lane).
 template <typename T>
 int launch_warp(const T* x, const float* scale, T* out, int rows, int d,
                 float eps, cudaStream_t s) {
@@ -276,13 +308,20 @@ int launch(const void* xp, const void* sp, void* op, int rows, int d,
 
 }  // namespace
 
-// kernel: 0 scalar, 1 warp per row, 2 CTA per row (see the note above).
+// dtype: 0 float32, 1 bfloat16, 2 float16; kernel: 0 scalar, 1 warp per
+// row, 2 CTA per row (see the note above).
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
-                              int rows, int d, float eps, int is_bf16,
+                              int rows, int d, float eps, int dtype,
                               int kernel, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, scale, out, rows, d, eps, kernel, s);
-  return launch<float>(x, scale, out, rows, d, eps, kernel, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(x, scale, out, rows, d, eps, kernel, s);
+    case 1:
+      return launch<__nv_bfloat16>(x, scale, out, rows, d, eps, kernel, s);
+    case 2:
+      return launch<__half>(x, scale, out, rows, d, eps, kernel, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

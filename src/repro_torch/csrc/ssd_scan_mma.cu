@@ -1,13 +1,16 @@
-// Mamba-2 chunked SSD scan in bf16 on Hopper's tensor cores (sm_90a),
-// chunk-parallel.
+// Mamba-2 chunked SSD scan in bf16 or float16 on Hopper's tensor cores
+// (sm_90a), chunk-parallel.
 //
 // Replaces the TPU kernel repro/kernels/ssd/kernel.py:74 `ssd_scan` (body
-// `_kernel`) for bf16 inputs.  Per (b, h) and chunk of Q rows, with
+// `_kernel`) for bf16 and float16 inputs (one template over the element
+// type T: mma.sync's .bf16 or .f16 operands, whose fragment layouts are the
+// same).  Per (b, h) and chunk of Q rows, with
 // cum = cumsum(da) within the chunk:
 //   att[i,j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j      for j <= i
 //   y_i      = sum_j att[i,j] x_j + exp(cum_i) * (C_i @ state)
 //   state    = exp(cum_Q) * state + sum_j B_j^T exp(cum_Q - cum_j) dt_j x_j
-// with the (N, P) state in float32.  Float32 inputs go to ssd_scan.cu
+// with the (N, P) state in float32.  Float32 inputs (and the shapes this
+// kernel is not built for, and bases it cannot copy) go to ssd_scan.cu
 // (CUDA cores).  The plain version is repro_torch/kernels/ssd/ref.py
 // `ssd_scan_ref`.
 //
@@ -37,8 +40,8 @@
 // without bank conflicts).  Pass 3 issues its copies in stages of 64 rows
 // of B and x (all of C with the first), each counted by an mbarrier
 // (cp.async.mbarrier.arrive), and a warp waits for a stage when it first
-// reaches it, so the first tiles' products overlap the later loads.  Warp-level mma.sync m16n8k16 (bf16 in, float32
-// accumulators) does every product; S's accumulator fragment is att's A
+// reaches it, so the first tiles' products overlap the later loads.
+// Warp-level mma.sync m16n8k16 (bf16 or float16 in, float32 accumulators) does every product; S's accumulator fragment is att's A
 // fragment, so att never touches shared memory.  In pass 3 each warp takes
 // the 16-row tiles w and Q/16-1-w, so the triangle's work is even across
 // warps, and unrolls its column tiles by two, so one tile's S overlaps the
@@ -46,12 +49,17 @@
 // SM), ~97 KB for pass 1.  The wrapper allocates the (B, H, NC, N, P)
 // float32 scratch and the (B, H, NC) decays; the kernels allocate nothing.
 //
-// Numerics.  C, B and x are exact in bf16; att, B (.) w and enter are
-// float32.  Each float32 operand v is split into hi = bf16(v) and
-// lo = bf16(v - hi), and both products go into the same float32
-// accumulator: ~16 bits of the operand, where one bf16 rounding (~2^-9 per
-// term) would leave errors of ~0.3 at N=128, chunk 256 where the outputs
-// cancel (tests/test_torch_llm_kernels.py models these numerics).  The
+// Numerics.  C, B and x are exact in T; att, B (.) w and enter are
+// float32.  Each float32 operand v is split into hi = T(v) and
+// lo = T(v - hi), and both products go into the same float32
+// accumulator: ~16 bits of the operand in bf16 (~22 in float16), where one
+// bf16 rounding (~2^-9 per term) would leave errors of ~0.3 at N=128,
+// chunk 256 where the outputs cancel (tests/test_torch_llm_kernels.py and
+// tests/test_torch_kernel_dtypes.py model these numerics).  Float16's
+// range bounds the split: an operand past 65504 in magnitude rounds to inf
+// (the output is then not finite, never quietly wrong), and below |v| =
+// 2^-3 lo falls to float16's subnormals: an absolute error of at most
+// 2^-25 per operand.  The
 // decay is taken only for j <= i, by a select: for j > i, cum_i - cum_j > 0
 // and exp of it can overflow.  That per-element decay is ex2.approx of
 // (cum_i - cum_j) log2(e), as flash_attention_wgmma.cu's softmax does (the
@@ -63,8 +71,11 @@
 // Built with --fmad=false, no fast math.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -170,30 +181,54 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "memory");
 }
 
-// D (16 x 8, float32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col)
+// D (16 x 8, float32) += A (16 x 16, row) * B (16 x 8, col), both bf16 or
+// both float16 (T)
+template <typename T>
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T, __half>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Two floats as a packed pair of T (the low element first), and back.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  __device__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ static float2 unpack(uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  }
+};
+template <>
+struct Pair<__half> {
+  __device__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ static float2 unpack(uint32_t v) {
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+  }
+};
 
-// (v0, v1) -> hi = bf16(v), lo = bf16(v - hi), each packed low element first
+// (v0, v1) -> hi = T(v), lo = T(v - hi), each packed low element first
+template <typename T>
 __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
                                        uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(__fsub_rn(v0, hf.x), __fsub_rn(v1, hf.y)));
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  hi = Pair<T>::pack(v0, v1);
+  const float2 hf = Pair<T>::unpack(hi);
+  lo = Pair<T>::pack(__fsub_rn(v0, hf.x), __fsub_rn(v1, hf.y));
 }
 
 // exp(x) as 2^(x log2 e) on the MUFU unit (ex2.approx, relative error
@@ -248,10 +283,10 @@ __device__ __forceinline__ void load_cum(float* cum, float* dtv,
 }
 
 // ---- pass 1: each chunk's own state -----------------------------------------
-template <int N, int Q>
+template <typename T, int N, int Q>
 __global__ void __launch_bounds__(2 * N) ssd_chunk_state_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ da,
-    const float* __restrict__ dt, const __nv_bfloat16* __restrict__ bmat,
+    const T* __restrict__ x, const float* __restrict__ da,
+    const float* __restrict__ dt, const T* __restrict__ bmat,
     float* __restrict__ states, float* __restrict__ decay, int L, int NC) {
   using Lay = Layout<N, Q>;
   constexpr int NT = Lay::STATE_THREADS;
@@ -294,18 +329,18 @@ __global__ void __launch_bounds__(2 * N) ssd_chunk_state_kernel(
     const float2 w89 = make_float2(wv[j0 + 2 * t + 8], wv[j0 + 2 * t + 9]);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float2 bv = unpack(a[q]);
+      const float2 bv = Pair<T>::unpack(a[q]);
       const float2 w = q < 2 ? w01 : w89;
-      split2(__fmul_rn(bv.x, w.x), __fmul_rn(bv.y, w.y), ahi[q], alo[q]);
+      split2<T>(__fmul_rn(bv.x, w.x), __fmul_rn(bv.y, w.y), ahi[q], alo[q]);
     }
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t b[4];
       ldsm_x4_t(b, sx + swz<2 * P>(j0 + rr + 8 * (mi & 1), 2 * np + (mi >> 1)));
-      mma(acc[2 * np], ahi, b[0], b[1]);
-      mma(acc[2 * np], alo, b[0], b[1]);
-      mma(acc[2 * np + 1], ahi, b[2], b[3]);
-      mma(acc[2 * np + 1], alo, b[2], b[3]);
+      mma<T>(acc[2 * np], ahi, b[0], b[1]);
+      mma<T>(acc[2 * np], alo, b[0], b[1]);
+      mma<T>(acc[2 * np + 1], ahi, b[2], b[3]);
+      mma<T>(acc[2 * np + 1], alo, b[2], b[3]);
     }
   }
   float* out = states + (bh * NC + c) * static_cast<long long>(N * P);
@@ -357,11 +392,11 @@ __global__ void __launch_bounds__(PASS_THREADS) ssd_state_pass_kernel(
 }
 
 // ---- pass 3: y ---------------------------------------------------------------
-template <int N, int Q>
+template <typename T, int N, int Q>
 __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ da,
-    const float* __restrict__ dt, const __nv_bfloat16* __restrict__ bmat,
-    const __nv_bfloat16* __restrict__ cmat, const float* __restrict__ states,
+    const T* __restrict__ x, const float* __restrict__ da,
+    const float* __restrict__ dt, const T* __restrict__ bmat,
+    const T* __restrict__ cmat, const float* __restrict__ states,
     float* __restrict__ y, int L, int NC) {
   using Lay = Layout<N, Q>;
   constexpr int MT = Q / 16;  // 16-row tiles of the chunk
@@ -399,7 +434,7 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
                      OUT_THREADS);
     cp_async_arrive(bars + 8 * st);
   }
-  // the entering state (zero for the first chunk), split into bf16 hi/lo
+  // the entering state (zero for the first chunk), split into T hi/lo
   if (c > 0) {
     const float4* src = reinterpret_cast<const float4*>(
         states + (bh * NC + c) * static_cast<long long>(N * P));
@@ -414,8 +449,8 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
       const int r = 4 * e / P, col = 4 * e % P;
       const uint32_t off = swz<2 * P>(r, col / 8) + (col % 8) * 2;
       uint32_t h0, l0, h1, l1;
-      split2(v.x, v.y, h0, l0);
-      split2(v.z, v.w, h1, l1);
+      split2<T>(v.x, v.y, h0, l0);
+      split2<T>(v.z, v.w, h1, l1);
       *reinterpret_cast<uint2*>(eh + off) = make_uint2(h0, h1);
       *reinterpret_cast<uint2*>(el + off) = make_uint2(l0, l1);
     }
@@ -453,10 +488,10 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
           uint32_t bh4[4], bl4[4];
           ldsm_x4_t(bh4, seh + off);
           ldsm_x4_t(bl4, sel + off);
-          mma(acc[2 * np], cf[ks], bh4[0], bh4[1]);
-          mma(acc[2 * np], cf[ks], bl4[0], bl4[1]);
-          mma(acc[2 * np + 1], cf[ks], bh4[2], bh4[3]);
-          mma(acc[2 * np + 1], cf[ks], bl4[2], bl4[3]);
+          mma<T>(acc[2 * np], cf[ks], bh4[0], bh4[1]);
+          mma<T>(acc[2 * np], cf[ks], bl4[0], bl4[1]);
+          mma<T>(acc[2 * np + 1], cf[ks], bh4[2], bh4[3]);
+          mma<T>(acc[2 * np + 1], cf[ks], bl4[2], bl4[3]);
         }
       }
       const float e0 = expf(cum0), e1 = expf(cum1);
@@ -484,8 +519,8 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
         ldsm_x4(b, sb + swz<2 * N>(j0 + rr + 8 * (mi >> 1), 2 * ks + (mi & 1)));
         float(&d0)[4] = ks % 2 ? s_odd[0] : s[0];
         float(&d1)[4] = ks % 2 ? s_odd[1] : s[1];
-        mma(d0, cf[ks], b[0], b[1]);
-        mma(d1, cf[ks], b[2], b[3]);
+        mma<T>(d0, cf[ks], b[0], b[1]);
+        mma<T>(d1, cf[ks], b[2], b[3]);
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -511,17 +546,17 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
         }
         // A fragment of att: a0 (row g, k 2t), a1 (row g+8, k 2t),
         // a2 (row g, k 2t+8), a3 (row g+8, k 2t+8)
-        split2(v[0], v[1], ahi[2 * nt], alo[2 * nt]);
-        split2(v[2], v[3], ahi[2 * nt + 1], alo[2 * nt + 1]);
+        split2<T>(v[0], v[1], ahi[2 * nt], alo[2 * nt]);
+        split2<T>(v[2], v[3], ahi[2 * nt + 1], alo[2 * nt + 1]);
       }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
         ldsm_x4_t(b, sx + swz<2 * P>(j0 + rr + 8 * (mi & 1), 2 * np + (mi >> 1)));
-        mma(acc[2 * np], ahi, b[0], b[1]);
-        mma(acc[2 * np], alo, b[0], b[1]);
-        mma(acc[2 * np + 1], ahi, b[2], b[3]);
-        mma(acc[2 * np + 1], alo, b[2], b[3]);
+        mma<T>(acc[2 * np], ahi, b[0], b[1]);
+        mma<T>(acc[2 * np], alo, b[0], b[1]);
+        mma<T>(acc[2 * np + 1], ahi, b[2], b[3]);
+        mma<T>(acc[2 * np + 1], alo, b[2], b[3]);
       }
     }
 #pragma unroll
@@ -536,23 +571,23 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
   cp_async_wait_all();  // a warp with no tile still waits for its copies
 }
 
-template <int N, int Q>
+template <typename T, int N, int Q>
 int launch(const void* x, const void* da, const void* dt, const void* bmat,
            const void* cmat, void* y, void* states, void* decay, int bh,
            int L, cudaStream_t stream) {
   using Lay = Layout<N, Q>;
   const int NC = L / Q;
-  auto k1 = ssd_chunk_state_kernel<N, Q>;
-  auto k3 = ssd_chunk_out_kernel<N, Q>;
+  auto k1 = ssd_chunk_state_kernel<T, N, Q>;
+  auto k3 = ssd_chunk_out_kernel<T, N, Q>;
   cudaError_t err = cudaFuncSetAttribute(
       k1, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::STATE_SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         k3, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::OUT_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* bb = static_cast<const __nv_bfloat16*>(bmat);
-  const auto* cb = static_cast<const __nv_bfloat16*>(cmat);
+  const auto* xb = static_cast<const T*>(x);
+  const auto* bb = static_cast<const T*>(bmat);
+  const auto* cb = static_cast<const T*>(cmat);
   const auto* daf = static_cast<const float*>(da);
   const auto* dtf = static_cast<const float*>(dt);
   auto* st = static_cast<float*>(states);
@@ -571,44 +606,56 @@ int launch(const void* x, const void* da, const void* dt, const void* bmat,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
+template <typename T, int N>
 int launch_q(const void* x, const void* da, const void* dt, const void* bmat,
              const void* cmat, void* y, void* states, void* decay, int bh,
              int L, int chunk, cudaStream_t stream) {
   switch (chunk) {
     case 64:
-      return launch<N, 64>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
-                           stream);
+      return launch<T, N, 64>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
+                              stream);
     case 128:
-      return launch<N, 128>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
-                            stream);
+      return launch<T, N, 128>(x, da, dt, bmat, cmat, y, states, decay, bh,
+                               L, stream);
     case 256:
-      return launch<N, 256>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
-                            stream);
+      return launch<T, N, 256>(x, da, dt, bmat, cmat, y, states, decay, bh,
+                               L, stream);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_n(const void* x, const void* da, const void* dt, const void* bmat,
+             const void* cmat, void* y, void* states, void* decay, int bh,
+             int L, int N, int chunk, cudaStream_t stream) {
+  if (N == 64)
+    return launch_q<T, 64>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
+                           chunk, stream);
+  if (N == 128)
+    return launch_q<T, 128>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
+                            chunk, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Head-major bf16 x (BH, L, 64), B and C (BH, L, N), float32 da and dt
-// (BH, L), y (BH, L, 64) float32; scratch `states` (BH, L/chunk, N, 64) and
-// `decay` (BH, L/chunk) float32.  N in {64, 128}, chunk in {64, 128, 256},
-// L % chunk == 0; x, B and C 16-byte aligned (cp.async).
+// Head-major x (BH, L, 64), B and C (BH, L, N) in bf16 (is_half 0) or
+// float16 (is_half 1), float32 da and dt (BH, L), y (BH, L, 64) float32;
+// scratch `states` (BH, L/chunk, N, 64) and `decay` (BH, L/chunk) float32.
+// N in {64, 128}, chunk in {64, 128, 256}, L % chunk == 0; x, B and C
+// 16-byte aligned (cp.async).
 extern "C" int ssd_scan_mma_launch(const void* x, const void* da,
                                    const void* dt, const void* bmat,
                                    const void* cmat, void* y, void* states,
                                    void* decay, int bh, int L, int P_, int N,
-                                   int chunk, void* stream) {
+                                   int chunk, int is_half, void* stream) {
   if (bh <= 0 || L <= 0) return 0;
   if (P_ != P || chunk <= 0 || L % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N == 64)
-    return launch_q<64>(x, da, dt, bmat, cmat, y, states, decay, bh, L, chunk,
-                        s);
-  if (N == 128)
-    return launch_q<128>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
-                         chunk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (is_half)
+    return launch_n<__half>(x, da, dt, bmat, cmat, y, states, decay, bh, L,
+                            N, chunk, s);
+  return launch_n<__nv_bfloat16>(x, da, dt, bmat, cmat, y, states, decay, bh,
+                                 L, N, chunk, s);
 }

@@ -15,8 +15,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["P", "I", "F", "COUNTED", "counted", "launch", "device_of",
-           "check", "forward_only", "stream"]
+__all__ = ["P", "I", "F", "COUNTED", "counted", "launch", "query",
+           "device_of", "check", "forward_only", "stream"]
 
 # ctypes argument types: a pointer or the stream, an int, a float
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,19 +37,25 @@ def counted(fn):
 
 
 @functools.lru_cache(maxsize=None)
-def _function(name: str, argtypes: tuple):
-    fn = getattr(_build.load(name), f"{name}_launch")
+def _function(name: str, symbol: str, argtypes: tuple, restype):
+    fn = getattr(_build.load(name), symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 
 def launch(name: str, argtypes, *args) -> None:
     """Call ``<name>_launch(*args)`` from library ``name``; raise on a CUDA
     error code."""
-    err = _function(name, tuple(argtypes))(*args)
+    err = _function(name, f"{name}_launch", tuple(argtypes), ctypes.c_int)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def query(name: str, symbol: str, argtypes, restype, *args):
+    """The result of the host function ``symbol`` of library ``name``: what
+    a wrapper asks the C side before a launch (a scratch size)."""
+    return _function(name, symbol, tuple(argtypes), restype)(*args)
 
 
 def device_of(*tensors) -> torch.device:

@@ -1,4 +1,4 @@
-"""Attention through the port's hand-written CUDA kernels, one per dtype.
+"""Attention through the port's hand-written CUDA kernels.
 
 :func:`mha` replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention`` behind the
@@ -7,22 +7,27 @@ model layout — q ``(B, S, N, h)``, k and v ``(B, T, K, h)`` — with GQA
 (query head n reads kv head ``n*K//N``), the causal and sliding-window
 masks (``window`` only with ``causal``), float32 running max, sum and
 accumulator, and the output in q's dtype.  The kernels read the model
-layout directly, so nothing is transposed or padded.
+layout directly, so nothing is transposed or padded.  Like the reference's
+kernel it takes float32, bfloat16 and float16 at any head_dim >= 1.
 
-Two routes, chosen by dtype and head_dim (:func:`route_of`):
+Two routes, chosen by dtype, head_dim and alignment (:func:`route_of`):
 
-- ``wgmma_bf16``: bfloat16 at a head_dim that is a multiple of 8, through
+- ``wgmma_bf16``: bfloat16 and float16 at a head_dim that is a multiple of
+  8 up to 256, with 16-byte aligned bases, through
   ``csrc/flash_attention_wgmma.cu``, on the tensor cores (``wgmma`` fed by
-  TMA); its inputs must be 16-byte aligned.  The probabilities are rounded
-  to bf16 before P·V.
-- ``cuda_core_f32``: float32, and bfloat16 at any other head_dim, through
-  ``csrc/flash_attention.cu``, float32 products on the CUDA cores (the
-  float32 tolerance, 2e-5, is beyond TF32's 10-bit mantissa).
+  TMA).  The probabilities are rounded to the input's type before P·V.
+  float16 launches ride this route's name and counter.
+- ``cuda_core_f32``: float32, and bfloat16 and float16 at any other
+  head_dim or base, through ``csrc/flash_attention.cu``, float32 products
+  on the CUDA cores (the float32 tolerance, 2e-5, is beyond TF32's 10-bit
+  mantissa).
 
-Both kernels are built at head_dim 64, 128 and 256 and run a head_dim h at
-the smallest of those >= h: the columns from h up are read as zeros and
-never written, and the scale is h^-1/2.  A head_dim outside 1 to 256
-raises on either device.
+Both kernels are built at head_dim 64, 128 and 256 and run a head_dim h
+at the smallest of those >= h: the columns from h up are read as zeros
+and never written, and the scale is h^-1/2.  Past 256 the CUDA-core
+kernel splits the output columns into slices of 256, one CTA each, every
+slice forming the same scores over pieces of 256 columns of q and k.  A
+head_dim of 0 raises, on either device.
 
 For CUDA tensors :func:`mha` launches the route's kernel or raises
 (contiguous inputs; an input that requires grad while gradients are
@@ -41,41 +46,49 @@ from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.utils.kernel_bounds import flash_bound
 from repro_torch.utils.op_cost import priced
 
-__all__ = ["mha", "route_of", "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES"]
+__all__ = ["mha", "route_of", "HEAD_DIMS", "WGMMA_MAX_HEAD_DIM", "ROUTES"]
 
-# dtype -> route; route -> (library, C argument types after the pointers)
-ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "cuda_core_f32"}
-# q, k, v, out, B, S, T, N, K, h, causal, window, [is_bf16,] stream
+# dtype -> route (at a head_dim and base the route takes); the C side's
+# dtype code of the CUDA-core kernel
+ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float16: "wgmma_bf16",
+          torch.float32: "cuda_core_f32"}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# route -> (library, C argument types): q, k, v, out, B, S, T, N, K, h,
+# causal, window, is_half (wgmma) or the dtype code (CUDA cores), stream
 _LAUNCH = {
-    "wgmma_bf16": ("flash_attention_wgmma", (P, P, P, P) + (I,) * 8 + (P,)),
+    "wgmma_bf16": ("flash_attention_wgmma", (P, P, P, P) + (I,) * 9 + (P,)),
     "cuda_core_f32": ("flash_attention", (P, P, P, P) + (I,) * 9 + (P,)),
 }
 # the head_dims each kernel is built at; a head_dim h runs at the smallest
-# one >= h, its columns past h zero
+# one >= h, its columns past h zero; past the last the CUDA-core kernel
+# splits it into slices of that many columns
 HEAD_DIMS = (64, 128, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+WGMMA_MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 
-def route_of(dtype: torch.dtype, head_dim: int | None = None) -> str:
-    """The kernel route for inputs of ``dtype`` (and ``head_dim``, where
-    given); raise on any other dtype (``TypeError``) or head_dim
-    (``ValueError``).  bfloat16 goes to ``wgmma_bf16`` unless its head_dim
-    is not a multiple of 8 (TMA's rows are 16-byte multiples), which goes
-    to ``cuda_core_f32``."""
+def route_of(dtype: torch.dtype, head_dim: int | None = None,
+             aligned: bool = True) -> str:
+    """The kernel route for inputs of ``dtype`` (at ``head_dim``, where
+    given, from bases that are 16-byte ``aligned`` or not); raise on a
+    dtype the reference's kernel never sees (``TypeError``: float64 with
+    JAX's x64 off, integers) or a head_dim of 0 (``ValueError``).
+    bfloat16 and float16 go to ``wgmma_bf16`` unless the head_dim is not a
+    multiple of 8 (TMA's rows are 16-byte multiples) or past 256, or a base
+    is not 16-byte aligned (TMA's), which go to ``cuda_core_f32``."""
     if dtype not in ROUTES:
         raise TypeError(f"flash attention takes {tuple(ROUTES)}, got {dtype}")
     if head_dim is None:
         return ROUTES[dtype]
     _check_head_dim(head_dim)
-    if dtype == torch.bfloat16 and head_dim % 8:
+    if ROUTES[dtype] == "wgmma_bf16" and (
+            head_dim % 8 or head_dim > WGMMA_MAX_HEAD_DIM or not aligned):
         return "cuda_core_f32"
     return ROUTES[dtype]
 
 
 def _check_head_dim(h: int) -> None:
-    if not 0 < h <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {h} not supported; the kernels take 1 "
-                         f"to {MAX_HEAD_DIM}")
+    if h < 1:
+        raise ValueError(f"head_dim {h}: attention needs a head_dim >= 1")
 
 
 def mha(
@@ -98,7 +111,7 @@ def mha(
 
 def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
     device = device_of(q, k, v)
-    _check_head_dim(q.shape[-1])  # on either device: what the kernels take
+    _check_head_dim(q.shape[-1])  # on either device
     if device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window)
     forward_only("flash attention", q, k, v)
@@ -111,7 +124,8 @@ def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
     if tuple(k.shape) != (b, t, kh, h) or tuple(v.shape) != (b, t, kh, h):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} disagree")
-    route = route_of(q.dtype, h)
+    # TMA reads from 16-byte aligned bases
+    route = route_of(q.dtype, h, all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
     if kh == 0 or n % kh:
         raise ValueError("q heads must be a multiple of kv heads")
     out = torch.empty_like(q)
@@ -119,14 +133,9 @@ def _mha(q, k, v, causal: bool, window: int) -> torch.Tensor:
         return out
     window = int(window) if causal else 0
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, t, n, kh, h, int(causal), window]
-    if route == "wgmma_bf16":
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16:  # TMA reads from 16-byte aligned bases
-                raise ValueError(f"{name} must be 16-byte aligned for the "
-                                 f"bf16 kernel (TMA)")
-    else:
-        args.append(int(q.dtype == torch.bfloat16))  # is_bf16
+            b, s, t, n, kh, h, int(causal), window,
+            int(q.dtype == torch.float16) if route == "wgmma_bf16"
+            else _DTYPE_CODE[q.dtype]]
     library, argtypes = _LAUNCH[route]
     launch(library, argtypes, *args, stream(device))
     mha.launches += 1

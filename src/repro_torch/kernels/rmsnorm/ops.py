@@ -2,7 +2,7 @@
 
 :func:`rmsnorm_fused` replaces the TPU kernel
 ``repro/kernels/rmsnorm/kernel.py::rmsnorm_fused``: rows ``(R, D)`` in
-float32 or bfloat16, a ``(D,)`` scale of any floating dtype, cast to
+float32, bfloat16 or float16, a ``(D,)`` scale of any floating dtype, cast to
 float32 before the launch (as the reference casts it).  For CUDA tensors it
 launches one of the source's three kernels, chosen by :func:`kernel_for`
 from the shape, or raises (also when an input requires grad while
@@ -26,9 +26,10 @@ from repro_torch.utils.op_cost import priced
 
 __all__ = ["rmsnorm", "rmsnorm_fused", "kernel_for", "KERNELS"]
 
-# x, scale, out, rows, d, eps, is_bf16, kernel, stream
+# x, scale, out, rows, d, eps, dtype, kernel, stream
 _ARGTYPES = (P, P, P, I, I, F, I, I, P)
-DTYPES = (torch.float32, torch.bfloat16)
+# dtype -> the C side's code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # kernel name -> the C side's code
 KERNELS = {"scalar": 0, "warp": 1, "cta": 2}
 WARP_MAX_D = 2048      # one warp per row up to here
@@ -60,7 +61,7 @@ def _rmsnorm_fused(x, scale, eps: float) -> torch.Tensor:
     if device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     forward_only("rmsnorm_fused", x, scale)
-    check("x", x, DTYPES, 2)
+    check("x", x, tuple(DTYPES), 2)
     if scale.is_floating_point():  # as the reference and the CPU leg do
         scale = scale.to(torch.float32)
     check("scale", scale, torch.float32, 1)
@@ -74,7 +75,7 @@ def _rmsnorm_fused(x, scale, eps: float) -> torch.Tensor:
     kernel = kernel_for(d, x.dtype, aligned)
     launch(
         "rmsnorm", _ARGTYPES, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        rows, d, float(eps), int(x.dtype == torch.bfloat16), KERNELS[kernel],
+        rows, d, float(eps), DTYPES[x.dtype], KERNELS[kernel],
         stream(device),
     )
     rmsnorm_fused.launches += 1

@@ -3,20 +3,25 @@
 :func:`ssd_scan` replaces the TPU kernel
 ``repro/kernels/ssd/kernel.py::ssd_scan``: the chunked SSD in the
 head-major layout, with the (N, P) float32 state carried across chunks.
-x, B and C may be float32 or bfloat16, da and dt are float32, y is
-float32, and ``L % chunk == 0``.
+As the reference's kernel does, it takes x, B and C in float32, bfloat16
+or float16 at any head_dim and d_state >= 1, da and dt in any of those
+types (cast once to float32 here, as the reference's kernel casts them
+first), and gives y in float32; ``L % chunk == 0``.
 
 Two routes, chosen by :func:`route_of` before any launch:
 
-- ``mma_bf16``: bfloat16 at head_dim 64, d_state 64 or 128 and chunk 64,
-  128 or 256, through ``csrc/ssd_scan_mma.cu``: chunk-parallel on the
-  tensor cores (``mma.sync``), in three launches (chunk states, the state
-  pass over a ``(B, H, L/chunk, N, P)`` float32 scratch that the wrapper
-  allocates, the output); x, B and C 16-byte aligned.
+- ``mma_bf16``: bfloat16 and float16 at head_dim 64, d_state 64 or 128
+  and chunk 64, 128 or 256, with x, B and C 16-byte aligned (cp.async),
+  through ``csrc/ssd_scan_mma.cu``: chunk-parallel on the tensor cores
+  (``mma.sync``), in three launches (chunk states, the state pass over a
+  ``(B, H, L/chunk, N, P)`` float32 scratch that the wrapper allocates,
+  the output).  float16 launches ride this route's name and counter.
 - ``cuda_core_f32``: every other input, through ``csrc/ssd_scan.cu``
   (float32 products on the CUDA cores, one persistent CTA per (b, h, slab
-  of 64 head channels) walking its chunks in order; head_dim <= 128,
-  d_state <= 256, zero-padded in shared memory to a multiple of 16).
+  of 64 head channels) walking its chunks in order; d_state zero-padded
+  in shared memory to a multiple of 16; past d_state 256 the state in a
+  float32 scratch the wrapper allocates, summed over in pieces of 256
+  rows).
 
 For CUDA tensors :func:`ssd_scan` launches the route's kernels or raises
 (also when an input requires grad while gradients are recorded: the
@@ -32,44 +37,49 @@ unchanged, and the padded outputs are cut off).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._launch import (
-    I, P, check, device_of, forward_only, launch, stream,
+    I, P, check, device_of, forward_only, launch, query, stream,
 )
 from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
 from repro_torch.utils.kernel_bounds import ssd_bound
 from repro_torch.utils.op_cost import priced
 
-__all__ = ["ssd", "ssd_scan", "ssd_oracle", "route_of", "ROUTES",
-           "MAX_STATE", "MAX_HEAD_DIM"]
+__all__ = ["ssd", "ssd_scan", "ssd_oracle", "route_of", "ROUTES"]
 
-DTYPES = (torch.float32, torch.bfloat16)
+# dtype -> the C side's code (csrc/ssd_scan.cu)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # route -> (library, C argument types)
 _LAUNCH = {
-    # x, da, dt, B, C, y, states, decay, batch*heads, L, P, N, chunk, stream
-    "mma_bf16": ("ssd_scan_mma", (P,) * 8 + (I,) * 5 + (P,)),
-    # x, da, dt, B, C, y, batch*heads, L, P, N, chunk, is_bf16, stream
-    "cuda_core_f32": ("ssd_scan", (P,) * 6 + (I,) * 6 + (P,)),
+    # x, da, dt, B, C, y, states, decay, batch*heads, L, P, N, chunk,
+    # is_half, stream
+    "mma_bf16": ("ssd_scan_mma", (P,) * 8 + (I,) * 6 + (P,)),
+    # x, da, dt, B, C, y, state scratch, batch*heads, L, P, N, chunk,
+    # dtype, stream
+    "cuda_core_f32": ("ssd_scan", (P,) * 7 + (I,) * 6 + (P,)),
 }
 ROUTES = tuple(_LAUNCH)
-# the shapes csrc/ssd_scan_mma.cu takes
+# the shapes csrc/ssd_scan_mma.cu takes, in bfloat16 or float16
 MMA_HEAD_DIM, MMA_STATES, MMA_CHUNKS = 64, (64, 128), (64, 128, 256)
-# csrc/ssd_scan.cu's limits: two slabs of 64 head channels, a state tile of
-# 256 rows
-MAX_HEAD_DIM, MAX_STATE = 128, 256
 
 
-def route_of(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
-    """The kernel route for inputs of ``dtype`` at head_dim ``p``, d_state
-    ``n`` and ``chunk``: ``"mma_bf16"`` for the bfloat16 shapes
-    ``csrc/ssd_scan_mma.cu`` takes, else ``"cuda_core_f32"``; raise on a
-    dtype neither takes."""
+def route_of(dtype: torch.dtype, p: int, n: int, chunk: int,
+             aligned: bool = True) -> str:
+    """The kernel route for x, B and C of ``dtype`` at head_dim ``p``,
+    d_state ``n`` and ``chunk``, from bases that are 16-byte ``aligned``
+    or not: ``"mma_bf16"`` for the bfloat16 and float16 shapes
+    ``csrc/ssd_scan_mma.cu`` takes from aligned bases (cp.async copies
+    16-byte pieces), else ``"cuda_core_f32"``; raise on a dtype the
+    reference's kernel never sees (float64 with JAX's x64 off,
+    integers)."""
     if dtype not in DTYPES:
-        raise TypeError(f"the SSD scan takes {DTYPES}, got {dtype}")
-    if (dtype == torch.bfloat16 and p == MMA_HEAD_DIM and n in MMA_STATES
-            and chunk in MMA_CHUNKS):
+        raise TypeError(f"the SSD scan takes {tuple(DTYPES)}, got {dtype}")
+    if (dtype != torch.float32 and p == MMA_HEAD_DIM and n in MMA_STATES
+            and chunk in MMA_CHUNKS and aligned):
         return "mma_bf16"
     return "cuda_core_f32"
 
@@ -89,19 +99,19 @@ def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
 def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
     device = device_of(xs, da, dt, bs, cs)
     p, n = xs.shape[-1], bs.shape[-1]
-    if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE):
-        # on either device: what the kernels take
-        raise ValueError(f"head_dim {p} / d_state {n}: the kernels take "
-                         f"head_dim 1 to {MAX_HEAD_DIM} and d_state 1 to "
-                         f"{MAX_STATE}")
+    if p < 1 or n < 1:  # on either device
+        raise ValueError(f"head_dim {p} / d_state {n}: the scan needs both "
+                         ">= 1")
     if device.type == "cpu":
         return ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)
     forward_only("ssd_scan", xs, da, dt, bs, cs)
-    check("xs", xs, DTYPES, 4)
-    check("da", da, torch.float32, 3)
-    check("dt", dt, torch.float32, 3)
+    check("xs", xs, tuple(DTYPES), 4)
+    check("da", da, tuple(DTYPES), 3)
+    check("dt", dt, tuple(DTYPES), 3)
     check("bs", bs, xs.dtype, 4)
     check("cs", cs, xs.dtype, 4)
+    # the kernels read da and dt as float32, as the TPU kernel casts them
+    da, dt = da.float(), dt.float()
     b, h, l, _ = xs.shape
     if tuple(da.shape) != (b, h, l) or tuple(dt.shape) != (b, h, l):
         raise ValueError("da/dt must be (B, H, L)")
@@ -109,24 +119,30 @@ def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
         raise ValueError("bs/cs must be (B, H, L, N)")
     if chunk <= 0 or l % chunk:
         raise ValueError(f"L={l} must be a multiple of chunk={chunk}")
-    route = route_of(xs.dtype, p, n, chunk)
+    route = route_of(xs.dtype, p, n, chunk,
+                     all(t.data_ptr() % 16 == 0 for t in (xs, bs, cs)))
     y = torch.empty((b, h, l, p), dtype=torch.float32, device=device)
     if y.numel() == 0:
         return y
     ptrs = [t.data_ptr() for t in (xs, da, dt, bs, cs, y)]
     if route == "mma_bf16":
-        for name, t in (("xs", xs), ("bs", bs), ("cs", cs)):
-            if t.data_ptr() % 16:  # cp.async copies 16-byte pieces
-                raise ValueError(f"{name} must be 16-byte aligned for the "
-                                 "bf16 kernel (cp.async)")
         nc = l // chunk
         states = torch.empty((b, h, nc, n, p), dtype=torch.float32,
                              device=device)
         decay = torch.empty((b, h, nc), dtype=torch.float32, device=device)
         args = ptrs + [states.data_ptr(), decay.data_ptr(),
-                       b * h, l, p, n, chunk]
+                       b * h, l, p, n, chunk, int(xs.dtype == torch.float16)]
     else:
-        args = ptrs + [b * h, l, p, n, chunk, int(xs.dtype == torch.bfloat16)]
+        # the state's float32 scratch, where it goes in pieces (0: in
+        # shared memory; -1: a chunk too long for any piece)
+        floats = query("ssd_scan", "ssd_scan_scratch_floats", (I,) * 4,
+                       ctypes.c_longlong, b * h, p, n, chunk)
+        if floats < 0:
+            raise ValueError(f"chunk {chunk} at d_state {n}: too long for the "
+                             "kernel's shared memory")
+        scratch = torch.empty(floats, dtype=torch.float32, device=device)
+        args = ptrs + [scratch.data_ptr(), b * h, l, p, n, chunk,
+                       DTYPES[xs.dtype]]
     library, argtypes = _LAUNCH[route]
     launch(library, argtypes, *args, stream(device))
     ssd_scan.launches += 1

@@ -8,7 +8,8 @@ the JAX package, which the GPU machine need not have).
 ``chip_smoke.py`` drives the same checks at the main path's full sizes.
 The LLM kernels are held at ``tests/test_kernels.py``'s tolerances
 (flash 2e-5 / 2e-2, SSD 2e-4 / 6e-2, RMSNorm 1e-5 / 3e-2 for float32 /
-bfloat16, as atol and rtol).
+bfloat16, as atol and rtol), and in float16 at the tolerances
+``tests/test_torch_kernel_dtypes.py`` sets from measurement (2e-3 each).
 """
 import dataclasses
 import functools
@@ -938,9 +939,12 @@ def test_samplers_card_equal_cpu(dev):
 
 # -- the LLM kernels ------------------------------------------------------------
 
-LLM_TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
-           "ssd": {torch.float32: 2e-4, torch.bfloat16: 6e-2},
-           "rmsnorm": {torch.float32: 1e-5, torch.bfloat16: 3e-2}}
+LLM_TOL = {"flash": {torch.float32: 2e-5, torch.bfloat16: 2e-2,
+                     torch.float16: 2e-3},
+           "ssd": {torch.float32: 2e-4, torch.bfloat16: 6e-2,
+                   torch.float16: 2e-3},
+           "rmsnorm": {torch.float32: 1e-5, torch.bfloat16: 3e-2,
+                       torch.float16: 2e-3}}
 
 
 def _randn(shape, dtype, gen, dev):
@@ -975,7 +979,11 @@ def test_flash_kernel_vs_plain(dev, b, s, nq, nkv, h, causal, window, dtype):
 
 
 def test_flash_kernel_raises_on_what_it_does_not_take(dev):
-    q = torch.zeros((1, 64, 4, 264), device=dev)
+    """A head_dim of 0, a non-contiguous input, mixed dtypes, and float64
+    (which the reference's kernel never sees with JAX's x64 off) raise,
+    unlaunched; float16 and head_dims past 256 are taken (below)."""
+    before = fa_ops.mha.launches
+    q = torch.zeros((1, 64, 4, 0), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.mha(q, q, q)
     q = torch.zeros((1, 64, 4, 64), device=dev)
@@ -984,7 +992,8 @@ def test_flash_kernel_raises_on_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         fa_ops.mha(q, q.half(), q)
     with pytest.raises(TypeError):
-        fa_ops.mha(q.half(), q.half(), q.half())
+        fa_ops.mha(q.double(), q.double(), q.double())
+    assert fa_ops.mha.launches == before
 
 
 # q/k/v shapes the two routes meet beyond the cases above: qwen2.5-32b's
@@ -1035,17 +1044,28 @@ def test_flash_routes_by_dtype(dev):
             r: int(r == route) for r in after}
 
 
-def test_flash_bf16_raises_on_unaligned_base(dev):
-    """TMA needs 16-byte aligned bases: a q 2 bytes off raises."""
-    shape = (1, 64, 4, 64)
-    buf = torch.zeros(1 + int(np.prod(shape)), dtype=torch.bfloat16, device=dev)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bf16_raises_on_unaligned_base(dev, dtype):
+    """TMA needs 16-byte aligned bases: a q 2 bytes off goes to the
+    CUDA-core kernel (one launch there, none on wgmma), which reads any
+    base, and agrees with the plain version."""
+    shape = (1, 300, 4, 64)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    buf = torch.randn(1 + int(np.prod(shape)), generator=gen,
+                      device=dev).to(dtype)
     q = buf[1:].view(shape)
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
-    k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-    before = fa_ops.mha.launches
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        fa_ops.mha(q, k, k)
-    assert fa_ops.mha.launches == before
+    k, v = (_randn((1, 300, 2, 64), dtype, gen, dev) for _ in range(2))
+    assert fa_ops.route_of(dtype, 64, aligned=False) == "cuda_core_f32"
+    before = dict(fa_ops.mha.launches_by_route)
+    out = fa_ops.mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    after = fa_ops.mha.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        "wgmma_bf16": 0, "cuda_core_f32": 1}
+    tol = LLM_TOL["flash"][dtype]
+    torch.testing.assert_close(out.float(), mha_ref(q, k, v).float(),
+                               atol=tol, rtol=tol)
 
 
 # The head_dims the two routes take beyond 64 and 128: paligemma-3b's
@@ -1381,16 +1401,27 @@ def test_ssd_mma_route_through_ops_ssd_padding(dev):
     torch.testing.assert_close(y, want, atol=tol, rtol=tol)
 
 
-def test_ssd_mma_raises_on_unaligned_base(dev):
-    """cp.async copies 16-byte pieces: an x 2 bytes off raises, unlaunched."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ssd_mma_raises_on_unaligned_base(dev, dtype):
+    """cp.async copies 16-byte pieces: an x 2 bytes off goes to the
+    CUDA-core kernel (one launch there, none on the mma route) and agrees
+    with the plain version."""
     xs, da, dt, bs, cs = _ssd_inputs(1, 1, 64, 64, 64, 0, dev)
-    buf = torch.zeros(1 + xs.numel(), dtype=torch.bfloat16, device=dev)
+    xs, bs, cs = (t.to(dtype) for t in (xs, bs, cs))
+    buf = torch.zeros(1 + xs.numel(), dtype=dtype, device=dev)
     x_off = buf[1:].view(xs.shape)
+    x_off.copy_(xs)
     assert x_off.is_contiguous() and x_off.data_ptr() % 16 == 2
-    before = ssd_ops.ssd_scan.launches
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        ssd_ops.ssd_scan(x_off, da, dt, bs, cs, chunk=64)
-    assert ssd_ops.ssd_scan.launches == before
+    assert ssd_ops.route_of(dtype, 64, 64, 64, aligned=False) == "cuda_core_f32"
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
+    y = ssd_ops.ssd_scan(x_off, da, dt, bs, cs, chunk=64)
+    torch.cuda.synchronize()
+    after = ssd_ops.ssd_scan.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        "mma_bf16": 0, "cuda_core_f32": 1}
+    tol = LLM_TOL["ssd"][dtype]
+    torch.testing.assert_close(y, ssd_scan_ref(x_off, da, dt, bs, cs, chunk=64),
+                               atol=tol, rtol=tol)
 
 
 # (64, 1024) and (13, 1024): the warp kernel, 13 rows not a multiple of
@@ -1430,6 +1461,274 @@ def test_rmsnorm_kernel_takes_a_bf16_scale(dev, d):
     tol = LLM_TOL["rmsnorm"][torch.bfloat16]
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, scale).float(),
                                atol=tol, rtol=tol)
+
+
+# -- every input the reference's kernels take: float16, head_dims past 256,
+# the SSD past head_dim 128 and d_state 256, 16-bit da and dt --------------
+
+def _route_diff(counter, before) -> dict:
+    after = counter.launches_by_route
+    return {r: after[r] - before[r] for r in after}
+
+
+def _hold_ssd(y, args, chunk, dtype, n):
+    """The float32 rule of the SSD cases above: at N * chunk > 64 * 64 on
+    float32 arithmetic (float32 inputs, and float16 on the CUDA-core route,
+    the same arithmetic) the kernel's float64 error no worse than twice the
+    plain version's; else the kernel against the plain version at the
+    dtype's tolerance."""
+    plain = ssd_scan_ref(*args, chunk=chunk)
+    if n * chunk > 64 * 64 and (dtype == torch.float32 or ssd_ops.route_of(
+            dtype, args[0].shape[-1], n, chunk) == "cuda_core_f32"):
+        exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+        err_k = (y.double() - exact).abs().max().item()
+        err_p = (plain.double() - exact).abs().max().item()
+        assert err_k <= 2 * err_p, (err_k, err_p)
+    else:
+        tol = LLM_TOL["ssd"][dtype]
+        torch.testing.assert_close(y, plain, atol=tol, rtol=tol)
+
+
+# float16 on both attention routes: wgmma at multiples of 8 (minitron's
+# layer, GQA, a window, T != S, the HD = 256 build), the CUDA-core kernel at
+# other head_dims
+@pytest.mark.parametrize(
+    "b,s,t,nq,nkv,h,causal,window,route",
+    [
+        (1, 4096, 4096, 32, 8, 128, True, 0, "wgmma_bf16"),
+        (2, 300, 300, 8, 2, 64, True, 0, "wgmma_bf16"),
+        (1, 700, 700, 8, 2, 128, True, 128, "wgmma_bf16"),
+        (1, 200, 333, 4, 2, 80, False, 0, "wgmma_bf16"),
+        (1, 300, 300, 4, 1, 256, True, 0, "wgmma_bf16"),
+        (1, 500, 500, 4, 2, 100, True, 0, "cuda_core_f32"),
+        (2, 130, 77, 2, 2, 33, False, 0, "cuda_core_f32"),
+    ],
+)
+def test_flash_float16_vs_plain(dev, b, s, t, nq, nkv, h, causal, window, route):
+    dtype = torch.float16
+    gen = torch.Generator(device=dev).manual_seed(s + t + h)
+    q = _randn((b, s, nq, h), dtype, gen, dev)
+    k, v = (_randn((b, t, nkv, h), dtype, gen, dev) for _ in range(2))
+    assert fa_ops.route_of(dtype, h) == route
+    before = dict(fa_ops.mha.launches_by_route)
+    out = fa_ops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _route_diff(fa_ops.mha, before) == {
+        r: int(r == route) for r in before}
+    assert out.dtype == dtype
+    tol = LLM_TOL["flash"][dtype]
+    torch.testing.assert_close(out.float(), mha_ref(q, k, v, causal=causal,
+                                                    window=window).float(),
+                               atol=tol, rtol=tol)
+
+
+# head_dims past 256: the CUDA-core kernel's split route (output columns in
+# slices of 256, the scores over pieces of 256) in every dtype
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "b,s,t,nq,nkv,h,causal,window",
+    [
+        (1, 1000, 1000, 4, 1, 320, True, 0),
+        (1, 300, 300, 4, 2, 512, True, 128),
+        (2, 130, 77, 2, 2, 257, False, 0),
+        (1, 200, 200, 2, 1, 600, True, 0),
+    ],
+)
+def test_flash_split_head_dims_vs_plain(dev, dtype, b, s, t, nq, nkv, h,
+                                        causal, window):
+    gen = torch.Generator(device=dev).manual_seed(s + t + h)
+    q = _randn((b, s, nq, h), dtype, gen, dev)
+    k, v = (_randn((b, t, nkv, h), dtype, gen, dev) for _ in range(2))
+    assert fa_ops.route_of(dtype, h) == "cuda_core_f32"
+    before = dict(fa_ops.mha.launches_by_route)
+    out = fa_ops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _route_diff(fa_ops.mha, before) == {"wgmma_bf16": 0,
+                                               "cuda_core_f32": 1}
+    tol = LLM_TOL["flash"][dtype]
+    torch.testing.assert_close(out.float(), mha_ref(q, k, v, causal=causal,
+                                                    window=window).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_split_slices_share_their_softmax(dev):
+    """Every slice's CTA forms the same scores in the same order, so its
+    running max and sum are bitwise every other slice's: with v's columns
+    256..511 a copy of 0..255, the two slices' outputs are equal bit for
+    bit."""
+    gen = torch.Generator(device=dev).manual_seed(512)
+    q, k = (torch.randn((1, 700, 4, 512), generator=gen, device=dev)
+            for _ in range(2))
+    half = torch.randn((1, 700, 4, 256), generator=gen, device=dev)
+    v = torch.cat([half, half], dim=-1).contiguous()
+    out = fa_ops.mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[..., :256], out[..., 256:])
+
+
+# float16 on both SSD routes: every (d_state, chunk) of the mma kernel, and
+# CUDA-core shapes (head_dim 32 and two slabs, d_state 24 and 256)
+@pytest.mark.parametrize(
+    "b,h,l,p,n,chunk",
+    [(1, 2, 512, 64, n, chunk) for n in (64, 128) for chunk in (64, 128, 256)]
+    + [(1, 4, 128, 32, 24, 32), (1, 2, 512, 128, 256, 256),
+       (4, 32, 1024, 64, 128, 256)])
+def test_ssd_float16_vs_plain(dev, b, h, l, p, n, chunk):
+    dtype = torch.float16
+    gen = torch.Generator(device=dev).manual_seed(l + n + p + chunk)
+    xs = _randn((b, h, l, p), dtype, gen, dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, h, l), generator=gen,
+                                                  device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    da = dt * a[None, :, None]
+    bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
+    route = "mma_bf16" if (p, n, chunk) in SSD_MMA_SHAPES else "cuda_core_f32"
+    assert ssd_ops.route_of(dtype, p, n, chunk) == route
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
+    y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _route_diff(ssd_ops.ssd_scan, before) == {
+        r: int(r == route) for r in before}
+    _hold_ssd(y, (xs, da, dt, bs, cs), chunk, dtype, n)
+    if route == "mma_bf16":  # and the float64 bound of the bf16 mma cases
+        exact = ssd_scan_ref(*(t.double() for t in (xs, da, dt, bs, cs)),
+                             chunk=chunk)
+        err, top = ((y.double() - exact).abs().max().item(),
+                    exact.abs().max().item())
+        assert err <= 1e-4 * top, (err, top)
+
+
+@pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_ssd_mma_float16_route_vs_float64(dev, chunk, decay):
+    """The float16 mma route under the three decays of the bf16 cases,
+    against the float64 result at the float16 tolerance and within 1e-4
+    of the largest output."""
+    args = tuple(t.to(torch.float16) if t.ndim == 4 else t for t in
+                 _ssd_inputs(2, 3, 512, 64, 128, 128 + chunk, dev,
+                             cancel=decay == "cancel", slow=decay == "slow"))
+    before = ssd_ops.ssd_scan.launches_by_route["mma_bf16"]
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches_by_route["mma_bf16"] == before + 1
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+    tol = LLM_TOL["ssd"][torch.float16]
+    torch.testing.assert_close(y.double(), exact, atol=tol, rtol=tol)
+    err, top = (y.double() - exact).abs().max().item(), exact.abs().max().item()
+    assert err <= 1e-4 * top, (err, top)
+
+
+# past d_state 256 (the state in pieces of 256 rows in a device scratch), or
+# at 256 with a chunk too long for the whole state in shared memory; past
+# head_dim 128 (more than two slabs)
+@pytest.mark.parametrize(
+    "dtype,b,h,l,p,n,chunk",
+    [
+        (torch.float32, 1, 2, 512, 64, 320, 256),
+        (torch.float32, 1, 2, 512, 64, 512, 256),
+        (torch.float32, 2, 3, 192, 40, 300, 64),
+        (torch.float32, 1, 2, 1024, 64, 256, 512),
+        (torch.float32, 1, 2, 512, 192, 128, 256),
+        (torch.float32, 1, 2, 256, 256, 512, 128),
+        (torch.bfloat16, 1, 2, 512, 192, 512, 256),
+        (torch.float16, 1, 2, 512, 64, 512, 256),
+    ],
+)
+def test_ssd_pieced_states_and_wide_heads_vs_plain(dev, dtype, b, h, l, p, n,
+                                                   chunk):
+    gen = torch.Generator(device=dev).manual_seed(l + n + p + chunk)
+    xs = _randn((b, h, l, p), dtype, gen, dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, h, l), generator=gen,
+                                                  device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    da = dt * a[None, :, None]
+    bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
+    assert ssd_ops.route_of(dtype, p, n, chunk) == "cuda_core_f32"
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
+    y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _route_diff(ssd_ops.ssd_scan, before) == {"mma_bf16": 0,
+                                                     "cuda_core_f32": 1}
+    _hold_ssd(y, (xs, da, dt, bs, cs), chunk, dtype, n)
+
+
+@pytest.mark.parametrize("n", [320, 512])
+def test_ssd_pieced_state_follows_its_numerics_model(dev, n):
+    """The pieced kernel sums over the state's rows in the whole-state
+    kernel's order: it follows the float32 route's numerics model (their
+    gap at most a tenth of the model's own distance to float64) and stays
+    within twice the plain version's float64 error."""
+    args = tuple(torch.from_numpy(t).to(dev) for t in _ssd_head_major(
+        1, 2, 256, 64, n, n))
+    y = ssd_ops.ssd_scan(*args, chunk=128)
+    model = _ssd_f32_cuda_core_numerics(*args, chunk=128)
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=128)
+    plain = ssd_scan_ref(*args, chunk=128)
+    err_k, err_m, err_p = ((t.double() - exact).abs().max().item()
+                           for t in (y, model, plain))
+    gap = (y - model).abs().max().item()
+    print(f"ssd pieced N={n}: kernel {err_k:.4e} model {err_m:.4e} plain "
+          f"{err_p:.4e} from float64; kernel - model {gap:.4e}")
+    assert gap <= 0.1 * err_m, (gap, err_m)
+    assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+@pytest.mark.parametrize("route_shape", [(64, 128, 256), (32, 24, 32)])
+@pytest.mark.parametrize("ddtype", [torch.bfloat16, torch.float16])
+def test_ssd_takes_16_bit_da_dt(dev, ddtype, route_shape):
+    """da and dt in bf16 or float16 are cast once to float32 (as the
+    reference's kernel casts them): the result equals, bit for bit, the
+    call on the float32 casts, on either route."""
+    p, n, chunk = route_shape
+    xs, da, dt, bs, cs = _ssd_inputs(1, 2, 256, p, n, 3, dev)
+    da16, dt16 = da.to(ddtype), dt.to(ddtype)
+    y16 = ssd_ops.ssd_scan(xs, da16, dt16, bs, cs, chunk=chunk)
+    y32 = ssd_ops.ssd_scan(xs, da16.float(), dt16.float(), bs, cs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y16, y32)
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (2, 17, 256), (300, 4096),
+                                   (13, 1024), (9, 4096), (5, 1001)])
+def test_rmsnorm_float16_vs_plain(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = _randn(shape, torch.float16, gen, dev)
+    scale = torch.randn(shape[-1], generator=gen, device=dev)
+    kernel = rms_ops.kernel_for(shape[-1], torch.float16)
+    by_kernel = rms_ops.rmsnorm_fused.launches_by_kernel[kernel]
+    out = rms_ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rms_ops.rmsnorm_fused.launches_by_kernel[kernel] == by_kernel + 1
+    assert out.dtype == torch.float16
+    tol = LLM_TOL["rmsnorm"][torch.float16]
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, scale).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch,counter,route", [
+    ("minitron-8b", "flash", "wgmma_bf16"), ("mamba2-370m", "ssd", None)])
+def test_reduced_model_float16_kernel_path_matches_einsum_path(dev, arch,
+                                                               counter, route):
+    """float16 on the card: ``use_kernels`` launches one kernel per layer
+    on the 16-bit route and agrees with the einsum path at the reduced
+    models' float16 tolerance (1.5e-2, tests/test_torch_kernel_dtypes.py)."""
+    cfg = reduced(get_arch(arch))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, torch.float16, device=dev, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen, device=dev)
+    ref = model.apply({"tokens": tokens})
+    model.cfg = dataclasses.replace(cfg, use_kernels=True)
+    c = fa_ops.mha if counter == "flash" else ssd_ops.ssd_scan
+    if route is None:
+        d = model.mdims
+        route = ssd_ops.route_of(torch.float16, d.head_dim, d.d_state, d.chunk)
+    before = dict(c.launches_by_route)
+    out = model.apply({"tokens": tokens})
+    assert _route_diff(c, before) == {r: cfg.num_layers * (r == route)
+                                      for r in before}
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1.5e-2,
+                               rtol=1.5e-2)
 
 
 @pytest.mark.parametrize("arch,counter", [("minitron-8b", "flash"),

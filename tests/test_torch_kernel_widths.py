@@ -149,6 +149,10 @@ def test_ssd_f32_numerics_model_in_slabs_and_padded_states():
 
 
 def test_flash_route_of_by_head_dim():
+    """Past 256 (the widest wgmma build) every dtype takes the CUDA-core
+    route, whose split kernel runs any head_dim; only a head_dim of 0
+    raises, on either device, and a head_dim of 264 runs on the CPU to the
+    JAX kernel's result."""
     bf16, f32 = torch.bfloat16, torch.float32
     for h in (64, 80, 96, 256):
         assert fa_ops.route_of(bf16, head_dim=h) == "wgmma_bf16"
@@ -156,18 +160,37 @@ def test_flash_route_of_by_head_dim():
     for h in (100, 256):
         assert fa_ops.route_of(f32, head_dim=h) == "cuda_core_f32"
     for dtype in (bf16, f32):
-        for h in (0, 264):
-            with pytest.raises(ValueError, match="head_dim"):
-                fa_ops.route_of(dtype, head_dim=h)
-    q = torch.zeros((1, 8, 2, 264))
+        assert fa_ops.route_of(dtype, head_dim=264) == "cuda_core_f32"
+        with pytest.raises(ValueError, match="head_dim"):
+            fa_ops.route_of(dtype, head_dim=0)
     with pytest.raises(ValueError, match="head_dim"):
-        fa_ops.mha(q, q, q)
+        fa_ops.mha(*(torch.zeros((1, 8, 2, 0)),) * 3)
+    rng = np.random.default_rng(264)
+    q = rng.standard_normal((1, 8, 2, 264)).astype(np.float32)
+    (jq, tq) = _both(q, "float32")
+    ref = jflash(jq.swapaxes(1, 2), jq.swapaxes(1, 2), jq.swapaxes(1, 2),
+                 interpret=True).swapaxes(1, 2)
+    _hold(fa_ops.mha(tq, tq, tq), ref, TOL["flash"]["float32"], "mha h=264")
 
 
 @pytest.mark.parametrize("p,n", [(136, 64), (64, 264), (0, 16)])
 def test_ssd_scan_raises_past_its_limits(p, n):
-    xs = torch.zeros((1, 1, 32, p))
-    da = dt = torch.zeros((1, 1, 32))
-    bs = torch.zeros((1, 1, 32, n))
-    with pytest.raises(ValueError, match="head_dim 1 to 128 and d_state 1 to 256"):
-        ssd_ops.ssd_scan(xs, da, dt, bs, bs, chunk=32)
+    """The sizes the port once refused: past head_dim 128 and d_state 256
+    it now gives the JAX kernel's result (interpret mode); a head_dim of 0
+    raises, as the JAX kernel does (its chunk arithmetic divides by P)."""
+    if p == 0:
+        xs = torch.zeros((1, 1, 32, p))
+        da = dt = torch.zeros((1, 1, 32))
+        bs = torch.zeros((1, 1, 32, n))
+        with pytest.raises(ValueError, match="head_dim 0"):
+            ssd_ops.ssd_scan(xs, da, dt, bs, bs, chunk=32)
+        with pytest.raises(ZeroDivisionError):
+            jssd_scan(*(jnp.asarray(t.numpy()) for t in (xs, da, dt, bs, bs)),
+                      chunk=32, interpret=True)
+        return
+    xs, da, dt, bs, cs = _ssd_head_major(1, 1, 64, p, n, p + n)
+    ref = jssd_scan(*(jnp.asarray(t) for t in (xs, da, dt, bs, cs)), chunk=32,
+                    interpret=True)
+    out = ssd_ops.ssd_scan(*(torch.from_numpy(t) for t in (xs, da, dt, bs, cs)),
+                           chunk=32)
+    _hold(out, ref, TOL["ssd"]["float32"], f"ssd_scan P={p} N={n}")

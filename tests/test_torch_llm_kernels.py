@@ -78,7 +78,7 @@ def test_flash_plain_matches_jax_kernel(b, s, nq, nkv, h, causal, window, dtype)
 
 
 def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128,
-                         scale_dim=None):
+                         scale_dim=None, dtype=torch.bfloat16):
     """A plain blockwise model of ``csrc/flash_attention_wgmma.cu``'s
     arithmetic, (B, N, S, h) bf16 in and out: float32 scores of the bf16
     inputs; per 128-row q block, the kernel's live 128-row k blocks with an
@@ -86,7 +86,9 @@ def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128,
     h^-1/2 * log2 e)); l summed from the float32 p; p rounded to bf16
     before p @ v, summed in float32; acc / max(l, 1e-30) in bf16.
     ``scale_dim`` replaces h in the scale (the kernel's true head_dim when
-    the inputs are zero-padded to the head_dim it is built at)."""
+    the inputs are zero-padded to the head_dim it is built at); ``dtype``
+    is the 16-bit type p and the output are rounded to (float16 for the
+    kernel's float16 build)."""
     b, n, s, h = q.shape
     kh, t = k.shape[1], k.shape[2]
     c = torch.tensor((scale_dim or h)**-0.5 * 1.4426950408889634,
@@ -117,10 +119,10 @@ def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128,
                 alpha = torch.exp2((m - m_new) * c)
                 p = torch.exp2((sc - m_new) * c)
                 l = alpha * l + p.sum(-1, keepdim=True)
-                acc = alpha * acc + p.to(torch.bfloat16).float() @ vv[:, cols[0]]
+                acc = alpha * acc + p.to(dtype).float() @ vv[:, cols[0]]
                 m = m_new
             out[:, head, rows[:, 0]] = acc / torch.clamp(l, min=1e-30)
-    return out.to(torch.bfloat16)
+    return out.to(dtype)
 
 
 @pytest.mark.parametrize("b,s,nq,nkv,h,causal,window", FLASH_CASES)
@@ -139,9 +141,13 @@ def test_wgmma_bf16_numerics_match_jax_kernel(b, s, nq, nkv, h, causal, window):
 
 
 def test_flash_routes_by_dtype_table():
+    """float16 rides bf16's route (the reference's kernel takes any float
+    dtype); float64 and integers, which the reference never sees with JAX's
+    x64 off, still raise."""
     assert fa_ops.route_of(torch.bfloat16) == "wgmma_bf16"
+    assert fa_ops.route_of(torch.float16) == "wgmma_bf16"
     assert fa_ops.route_of(torch.float32) == "cuda_core_f32"
-    for dtype in (torch.float16, torch.float64, torch.int32):
+    for dtype in (torch.float64, torch.int32):
         with pytest.raises(TypeError):
             fa_ops.route_of(dtype)
     assert set(fa_ops.mha.launches_by_route) == {"wgmma_bf16", "cuda_core_f32"}
@@ -246,13 +252,15 @@ def test_ssd_padding_rows_leave_the_state_alone():
     _close(y_pad, y_exact.numpy(), TOL["ssd"]["float32"])
 
 
-def _split_bf16(v: torch.Tensor):
-    """float32 v -> (hi, lo) in bf16: hi = bf16(v), lo = bf16(v - hi)."""
-    hi = v.to(torch.bfloat16)
-    return hi, (v - hi.float()).to(torch.bfloat16)
+def _split_bf16(v: torch.Tensor, dtype=torch.bfloat16):
+    """float32 v -> (hi, lo) in bf16 (or ``dtype``): hi = bf16(v), lo =
+    bf16(v - hi)."""
+    hi = v.to(dtype)
+    return hi, (v - hi.float()).to(dtype)
 
 
-def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True):
+def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True,
+                           dtype=torch.bfloat16):
     """A plain model of ``csrc/ssd_scan_mma.cu``'s arithmetic, head-major
     bf16 x/B/C and float32 da/dt in, y (B, H, L, P) float32 out.  Pass 1:
     per chunk, w_j = exp(cum_Q - cum_j) dt_j, B (.) w in float32, split into
@@ -260,11 +268,12 @@ def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True):
     states in float32, in order; pass 3: y = exp(cum_i) (C @ enter) with
     enter split likewise, then att = select(j <= i, (C B^T) exp(cum_i -
     cum_j), 0) dt_j in float32, split, y += att @ x.  ``split=False`` rounds
-    each float32 operand once to bf16 instead."""
-    def products(v, rhs):  # v (float32) @ rhs (bf16-exact), as the kernel
+    each float32 operand once to bf16 instead.  ``dtype`` is the kernel's
+    16-bit type (float16: x, B, C and the splits in float16)."""
+    def products(v, rhs):  # v (float32) @ rhs (dtype-exact), as the kernel
         if not split:
-            return v.to(torch.bfloat16).float() @ rhs
-        hi, lo = _split_bf16(v)
+            return v.to(dtype).float() @ rhs
+        hi, lo = _split_bf16(v, dtype)
         return hi.float() @ rhs + lo.float() @ rhs
 
     b, h, l, p = xs.shape
@@ -285,10 +294,10 @@ def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True):
         state = decay[:, :, c, None, None] * state + states[:, :, c]
     # pass 3: y
     if split:
-        ehi, elo = _split_bf16(enter)
+        ehi, elo = _split_bf16(enter, dtype)
         y = cc @ ehi.float() + cc @ elo.float()
     else:
-        y = cc @ enter.to(torch.bfloat16).float()
+        y = cc @ enter.to(dtype).float()
     y = torch.exp(cum)[..., None] * y
     causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
     scores = cc @ bb.transpose(-1, -2)
@@ -425,16 +434,19 @@ def test_ssd_f32_numerics_model_cumsum_at_mamba2_layer0():
 
 
 def test_ssd_routes_table():
-    bf16, f32 = torch.bfloat16, torch.float32
+    """float16 rides bf16's routes; float64 and integers still raise."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     for n in (64, 128):
         for chunk in (64, 128, 256):
             assert ssd_ops.route_of(bf16, 64, n, chunk) == "mma_bf16"
+            assert ssd_ops.route_of(f16, 64, n, chunk) == "mma_bf16"
             assert ssd_ops.route_of(f32, 64, n, chunk) == "cuda_core_f32"
-    # bf16 shapes the mma kernel does not take go to the CUDA-core kernel
+    # 16-bit shapes the mma kernel does not take go to the CUDA-core kernel
     for p, n, chunk in ((32, 16, 32), (64, 32, 32), (64, 128, 32),
                         (32, 128, 256), (64, 96, 256), (64, 128, 512)):
         assert ssd_ops.route_of(bf16, p, n, chunk) == "cuda_core_f32"
-    for dtype in (torch.float16, torch.float64, torch.int32):
+        assert ssd_ops.route_of(f16, p, n, chunk) == "cuda_core_f32"
+    for dtype in (torch.float64, torch.int32):
         with pytest.raises(TypeError):
             ssd_ops.route_of(dtype, 64, 128, 256)
     assert ssd_ops.ROUTES == ("mma_bf16", "cuda_core_f32")
