@@ -393,6 +393,20 @@ def launches_per_call(fn) -> int:
     return max(1, sum(prof["device_launches_by_name"].values()))
 
 
+def timing_site() -> str:
+    """Where a timing was asked for: the nearest calling ``phase*``
+    function (or ``main``) and the function that called the timer, each
+    with its line."""
+    caller = sys._getframe(2)
+    f = caller
+    while f is not None and not (f.f_code.co_name.startswith("phase")
+                                 or f.f_code.co_name == "main"):
+        f = f.f_back
+    site = f"{caller.f_code.co_name}:{caller.f_lineno}"
+    return site if f is None or f is caller else (
+        f"{f.f_code.co_name}:{f.f_lineno}, {site}")
+
+
 def device_time_ms(fn, iters: int) -> tuple:
     """Device milliseconds per call of ``fn(i)``, i < iters, back to back on
     the card, with the host kept out.
@@ -406,17 +420,26 @@ def device_time_ms(fn, iters: int) -> tuple:
     from a profiler trace of one call).  A call that alone makes more
     launches than that cannot be held: each is timed by its own events
     between synchronizations, host gaps included, and a line says so.
-    Raises if a hold timed out (a timed call waited on the device).
+    The untimed warm-up call runs under ``torch.cuda.set_sync_debug_mode(
+    "error")``, so a call that synchronizes fails there, under its own
+    name, before any hold.  Raises if a hold timed out (a timed call
+    waited on the device, or the host took more than the hold's
+    ``HOLD_TIMEOUT_NS`` to enqueue a chunk), naming the phase and caller
+    (:func:`timing_site`) and the longest chunk's host enqueue seconds.
     Returns ``(device ms per call, host enqueue ms per call, calls per
     held chunk (0: not held))``.
     """
-    fn(0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     per_call_launches = launches_per_call(fn)
     chunk = HOLD_BUDGET // (per_call_launches + 2)
     flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
     timed_out = torch.zeros(1, dtype=torch.int32, device="cuda")
-    enqueue_s, device_ms = 0.0, 0.0
+    enqueue_s, longest_s, device_ms = 0.0, 0.0, 0.0
     for lo in range(0, iters, max(chunk, 1)):
         hi = min(iters, lo + max(chunk, 1))
         start = torch.cuda.Event(enable_timing=True)
@@ -430,13 +453,19 @@ def device_time_ms(fn, iters: int) -> tuple:
         for i in range(lo, hi):
             fn(i)
         end.record()
-        enqueue_s += time.perf_counter() - t
+        took = time.perf_counter() - t
+        enqueue_s += took
+        longest_s = max(longest_s, took)
         flag.fill_(1)
         torch.cuda.synchronize()
         device_ms += start.elapsed_time(end)
     if int(timed_out.item()):
-        raise AssertionError("device_time_ms: a stream hold timed out; a "
-                             "timed call waited on the device")
+        raise AssertionError(
+            f"device_time_ms at {timing_site()}: a stream hold timed out "
+            f"after {HOLD_TIMEOUT_NS / 1e9:.1f} s; the longest chunk took "
+            f"{longest_s:.3f} s of host enqueue ({chunk} calls a chunk, "
+            f"{per_call_launches} launches a call): a timed call waited on "
+            "the device, or the host stalled past the hold")
     if not chunk:
         log(f"    (not held: {per_call_launches} launches a call exceed the "
             f"hold's {HOLD_BUDGET}; host gaps are in this time)")
@@ -1587,6 +1616,17 @@ P6_SSD_WIDTHS = (
     ("bf16 P=64 N=128 unaligned", torch.bfloat16, (1, 32, 4096, 64, 128, 256),
      "cuda_core_f32", False),
 )
+# phase 6's float16 range cases on mma_bf16, tests/test_torch_cuda.py's
+# SSD_RANGE_CASES "probe" and "strong" (drawn here from the script's
+# generator): the float32 operands the kernel splits pass float16's 65504.
+# (label, (B, H, L, P, N, chunk), scale of |x| and |B|, da); dt = 1, C =
+# 0.01 N(0, 1).
+P6_SSD_RANGES = (
+    ("float16 range probe P=64 N=64", (1, 2, 512, 64, 64, 64), 16.0, -1e-3),
+    ("float16 range strong P=64 N=128", (1, 2, 1024, 64, 128, 256), 64.0,
+     -1e-4),
+)
+FLOAT16_MAX = 65504.0
 P6_RMSNORM_WIDTHS = (
     ("float16 (4096, 4096)", torch.float16, (4096, 4096), True),
     ("bf16 (4096, 4096) unaligned", torch.bfloat16, (4096, 4096), False),
@@ -1615,6 +1655,39 @@ def ssd_f64_rule(dtype, route: str, n: int, chunk: int) -> bool:
     rule)."""
     return n * chunk > 64 * 64 and (dtype == torch.float32 or (
         dtype == torch.float16 and route == "cuda_core_f32"))
+
+
+# a float16 range case past N * chunk = 64 * 64 (outputs to ~1e6) is held to
+# the float64 result within this share of its largest output, the float16
+# mma route's rule in tests/test_torch_cuda.py: no float32 summation order
+# is within LLM_TOL there where outputs cancel, and the kernel's float32
+# sums in the tensor cores miss the float64 result by up to 6x the plain
+# version's error (its bf16 build by up to 9x; tools/ssd_float16_range.py)
+SSD_RANGE_TOP_SHARE = 1e-4
+
+
+def ssd_split_peaks(xs, da, dt, bs, cs, chunk: int) -> dict:
+    """The largest |B (.) w|, |enter| (the state entering a chunk) and
+    |att| over all chunks: the float32 operands ``csrc/ssd_scan_mma.cu``
+    splits into 16-bit hi + lo, by the plain float32 chunked scan
+    (``ssd_scan_ref``'s arithmetic) on the inputs' device."""
+    b, h, l, p = xs.shape
+    n = bs.shape[-1]
+    dev = xs.device
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=dev)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    peak = {k: torch.zeros((), device=dev) for k in ("b_w", "enter", "att")}
+    for c0 in range(0, l, chunk):
+        x, dtc, bb, cc = (t[:, :, c0:c0 + chunk].float() for t in (xs, dt, bs, cs))
+        cum = torch.cumsum(da[:, :, c0:c0 + chunk].float(), dim=-1)
+        att = torch.where(causal, (cc @ bb.transpose(-1, -2)) * torch.exp(
+            cum[..., :, None] - cum[..., None, :]), 0.0) * dtc[..., None, :]
+        bw = bb * (torch.exp(cum[..., -1:] - cum) * dtc)[..., None]
+        for k, v in (("b_w", bw), ("enter", state), ("att", att)):
+            peak[k] = torch.maximum(peak[k], v.abs().max())
+        state = (torch.exp(cum[..., -1])[..., None, None] * state
+                 + bw.transpose(-1, -2) @ x)
+    return {k: float(v) for k, v in peak.items()}
 
 
 def paligemma_layer_qkv(dev, gen) -> tuple:
@@ -1710,13 +1783,34 @@ def phase_widths(dev, gen) -> dict:
             f"({ms[0] / lib[0]:.2f}x SDPA)")
     del flash_cases, q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    for label, dtype, (b, h, l, p, n, chunk), route, aligned in P6_SSD_WIDTHS:
-        xs = randn_at((b, h, l, p), dtype, gen, dev, aligned)
-        dt = torch.nn.functional.softplus(
-            torch.randn((b, h, l), generator=gen, device=dev))
-        da = dt * -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))[:, None]
-        bs, cs = (randn_at((b, h, l, n), dtype, gen, dev) for _ in range(2))
+    ssd_cases = [(*case, None) for case in P6_SSD_WIDTHS] + [
+        (label, torch.float16, shape, "mma_bf16", True, (scale, rate))
+        for label, shape, scale, rate in P6_SSD_RANGES]
+    for (label, dtype, (b, h, l, p, n, chunk), route, aligned,
+         spread) in ssd_cases:
+        if spread is None:
+            xs = randn_at((b, h, l, p), dtype, gen, dev, aligned)
+            dt = torch.nn.functional.softplus(
+                torch.randn((b, h, l), generator=gen, device=dev))
+            da = dt * -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))[:, None]
+            bs, cs = (randn_at((b, h, l, n), dtype, gen, dev) for _ in range(2))
+        else:
+            scale, rate = spread
+            xs, bs = ((scale * torch.randn(shape, generator=gen, device=dev).abs())
+                      .to(dtype) for shape in ((b, h, l, p), (b, h, l, n)))
+            cs = (0.01 * torch.randn((b, h, l, n), generator=gen, device=dev)).to(dtype)
+            dt = torch.ones((b, h, l), device=dev)
+            da = torch.full((b, h, l), rate, device=dev)
         args = (xs, da, dt, bs, cs)
+        peaks = ssd_split_peaks(*args, chunk) if spread else None
+        if peaks:
+            log(f"  ssd_scan {label}: the split operands' largest magnitudes "
+                f"before scaling, |B (.) w| {peaks['b_w']:.4e}, |enter| "
+                f"{peaks['enter']:.4e}, |att| {peaks['att']:.4e} (float16's "
+                f"largest {FLOAT16_MAX:.0f})")
+            if not max(peaks.values()) > FLOAT16_MAX:
+                raise AssertionError(f"ssd_scan {label}: no operand past "
+                                     f"float16's range: {peaks}")
         if ssd_ops.route_of(dtype, p, n, chunk, aligned) != route:
             raise AssertionError(f"ssd_scan {label}: not the {route} route")
         before = dict(ssd_ops.ssd_scan.launches_by_route)
@@ -1729,12 +1823,23 @@ def phase_widths(dev, gen) -> dict:
         exact = ssd_scan_ref(*(x.double() for x in args), chunk=chunk)
         err64 = {"kernel": float((y.double() - exact).abs().max()),
                  "plain": float((plain_y.double() - exact).abs().max())}
+        top = float(exact.abs().max())
         log(f"  ssd_scan {label} against the float64 result (max |y| "
-            f"{float(exact.abs().max()):.3e}): kernel {err64['kernel']:.3e}, "
-            f"plain version {err64['plain']:.3e}")
+            f"{top:.3e}): kernel {err64['kernel']:.3e}, plain version "
+            f"{err64['plain']:.3e}")
         del exact
         where = f"at {label} (B={b} H={h} L={l} chunk {chunk}, {route})"
-        if ssd_f64_rule(dtype, route, n, chunk):
+        if spread is not None and n * chunk > 64 * 64:
+            err = float((y - plain_y).abs().max())
+            if not (torch.isfinite(y).all()
+                    and err64["kernel"] <= SSD_RANGE_TOP_SHARE * top):
+                raise AssertionError(f"ssd_scan {where} against float64: "
+                                     f"{err64}, max |y| {top}")
+            log(f"  ssd_scan vs plain {where}: max abs err {err:.3e}; against "
+                f"float64 {err64['kernel'] / top:.3e} of max |y| (rule: <= "
+                f"{SSD_RANGE_TOP_SHARE}), {err64['kernel'] / err64['plain']:.2f}x "
+                f"the plain version's error")
+        elif ssd_f64_rule(dtype, route, n, chunk):
             # two float32 summation orders of ~1e5 products (|y| ~ 450
             # here) differ by more than the tolerance: held to the float64
             # result, no worse than twice the plain version's error, as
@@ -1759,7 +1864,8 @@ def phase_widths(dev, gen) -> dict:
             "aligned": aligned, "shape": [b, h, l, p, n, chunk],
             "launches": 1, "max_abs_err": err, "max_abs_err_vs_f64": err64,
             "ms": ms[0], "plain_ms": plain[0], "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms[0]}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms[0],
+            "split_peaks": peaks}
         log(f"  ssd_scan {label} ({route}): {ms[0]:.4f} ms/launch on the "
             f"device ({b_ms / ms[0]:.1%} of its bound {b_ms:.5f} ms by "
             f"{b_by}), plain {plain[0]:.4f} ms")
@@ -1999,15 +2105,42 @@ def prefill_float16(model, cfg, tokens, h_e32, names) -> dict:
     layer's kernel-path output against the einsum path's at
     ``PREFILL_F16_REL_ERR``; with every layer finite, the final hidden
     states too, and their distance to the float32 einsum run against the
-    einsum path's (``PREFILL_BF16_RATIO``)."""
+    einsum path's (``PREFILL_BF16_RATIO``).  The warm call also takes, from
+    each mamba layer's own ``ssd_scan`` inputs, the largest float32 operands
+    the ``mma_bf16`` route splits (:func:`ssd_split_peaks`), reported as
+    ratios to float16's largest value (a measurement, not gated)."""
     import dataclasses
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     with torch.no_grad():
         for name, prm in model.named_parameters():
             if name in names:
                 prm.data = prm.data.to(torch.float16)
     model.cfg = dataclasses.replace(cfg, use_kernels=True)
-    model.apply({"tokens": tokens})  # warm: the float16 builds' first launches
+    peaks, scan = [], ssd_ops._ssd_scan
+
+    def scan_with_peaks(xs, da, dt, bs, cs, chunk):
+        peaks.append(ssd_split_peaks(xs, da, dt, bs, cs, chunk))
+        return scan(xs, da, dt, bs, cs, chunk)
+
+    ssd_ops._ssd_scan = scan_with_peaks
+    try:
+        model.apply({"tokens": tokens})  # warm: the float16 builds' first launches
+    finally:
+        ssd_ops._ssd_scan = scan
+    if len(peaks) != mamba_layers(model):
+        raise AssertionError(f"{cfg.name} float16: split peaks of {len(peaks)} "
+                             f"layers, not {mamba_layers(model)}")
+    margin = {k: max((pk[k] for pk in peaks), default=0.0) / FLOAT16_MAX
+              for k in ("b_w", "enter", "att")}
+    if peaks:
+        top = {k: max(range(len(peaks)), key=lambda i, k=k: peaks[i][k])
+               for k in margin}
+        log(f"  {cfg.name} float16: the mma_bf16 route's split operands over "
+            f"its {len(peaks)} mamba layers, largest / {FLOAT16_MAX:.0f}: "
+            + ", ".join(f"|{k}| {margin[k]:.4e} (layer {top[k]})"
+                        for k in margin))
     layers = {}
     runs = both_paths(model, cfg, tokens, finite=False, layers=layers)
     k, e = runs["kernel"], runs["einsum"]
@@ -2021,6 +2154,7 @@ def prefill_float16(model, cfg, tokens, h_e32, names) -> dict:
     del layers
     out = {"launches": k["launches"], "routes": k["routes"],
            "ssd_routes": k["ssd_routes"], "kernel_s": k["s"], "einsum_s": e["s"],
+           "split_margin": margin if peaks else None,
            "tokens_per_s": tokens.numel() / k["s"],
            "peak_bytes": k["peak_bytes"], "first_nonfinite_layer": first,
            "layers_gated": gated,

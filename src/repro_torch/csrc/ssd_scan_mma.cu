@@ -55,11 +55,16 @@
 // accumulator: ~16 bits of the operand in bf16 (~22 in float16), where one
 // bf16 rounding (~2^-9 per term) would leave errors of ~0.3 at N=128,
 // chunk 256 where the outputs cancel (tests/test_torch_llm_kernels.py and
-// tests/test_torch_kernel_dtypes.py model these numerics).  Float16's
-// range bounds the split: an operand past 65504 in magnitude rounds to inf
-// (the output is then not finite, never quietly wrong), and below |v| =
-// 2^-3 lo falls to float16's subnormals: an absolute error of at most
-// 2^-25 per operand.  The
+// tests/test_torch_kernel_dtypes.py model these numerics).  bf16 has
+// float32's range.  Float16 does not, so its build scales each operand
+// block by a power of two before the split and the float32 product back
+// after it, both exact: B (.) w by a warp's 16 state rows over the chunk,
+// enter by chunk, att by row with a running exponent over its column tiles
+// (raised, acc's rows are rescaled first; see SPLIT_TOP below).  An
+// operand's hi + lo is then within 2^-22 of its block's largest magnitude
+// (2^-38 absolute for a block under 2), and no operand overflows short of
+// float32's range.  That build adds y's state term after the att terms, as
+// the reference's kernel does, so att's exponent follows att alone.  The
 // decay is taken only for j <= i, by a select: for j > i, cum_i - cum_j > 0
 // and exp of it can overflow.  That per-element decay is ex2.approx of
 // (cum_i - cum_j) log2(e), as flash_attention_wgmma.cu's softmax does (the
@@ -241,6 +246,49 @@ __device__ __forceinline__ float exp_approx(float x) {
   return y;
 }
 
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
+
+// float16's split scales.  A float32 operand block is multiplied by 2^-e
+// before its split and the product by 2^e after it, both exact in float32.
+// e = ilogb(m) - SPLIT_TOP puts the block's largest magnitude m in [2^14,
+// 2^15), below float16's 65504; e is clamped to [E_MIN, E_MAX], so 2^e,
+// 2^-e and 2^-(e' - e) for any two such e < e' are normal floats.  Pass 3
+// raises att's running exponent of a row, when a tile needs a larger one,
+// to ATT_SLACK above what that tile needs.
+constexpr int SPLIT_TOP = 14;
+constexpr int E_MIN = -13;
+constexpr int E_MAX = 113;
+constexpr int ATT_SLACK = 8;
+
+// 2^e for e in [-126, 127], from its bits
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+// ilogb(m) - SPLIT_TOP for m >= 0 (zero and subnormals read as 2^-127)
+__device__ __forceinline__ int need_exp(float m) {
+  return static_cast<int>(__float_as_uint(m) >> 23) - 127 - SPLIT_TOP;
+}
+
+__device__ __forceinline__ int split_exp(float m) {
+  return min(max(need_exp(m), E_MIN), E_MAX);
+}
+
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+// two packed float16 pairs -> the packed pair of their larger magnitudes
+__device__ __forceinline__ uint32_t habs_max(uint32_t u, uint32_t v) {
+  __half2 m = __hmax2(__habs2(*reinterpret_cast<__half2*>(&u)),
+                      __habs2(*reinterpret_cast<__half2*>(&v)));
+  return *reinterpret_cast<uint32_t*>(&m);
+}
+
 // cum[0..Q) = inclusive cumsum of itself, by warp 0: each lane sums Q/32
 // consecutive values in order, then a warp scan of the lane totals (the
 // order of ssd_scan.cu).
@@ -315,6 +363,28 @@ __global__ void __launch_bounds__(2 * N) ssd_chunk_state_kernel(
   // S_c rows [16 warp, 16 warp + 16) = sum_j (B_j w_j)^T x_j over the chunk:
   // A = (B (.) w)^T through ldmatrix.trans of B's rows, B operand = x rows.
   const int g = lane >> 2, t = lane & 3, mi = lane >> 3, rr = lane & 7;
+  // float16: the warp's rows of B (.) w split at 2^-e, from their largest
+  // magnitude, max over each k pair of the two rows' |B| (exact in T) times
+  // |w| (rounding keeps the order, so this is the largest |B_jn w_j|)
+  float down = 1.0f, up = 1.0f;
+  if constexpr (kHalf<T>) {
+    float m = 0.0f;
+#pragma unroll 4
+    for (int j0 = 0; j0 < Q; j0 += 16) {
+      uint32_t a[4];
+      ldsm_x4_t(a, sb + swz<2 * N>(j0 + rr + 8 * (mi >> 1), 2 * warp + (mi & 1)));
+      const float2 b01 = Pair<T>::unpack(habs_max(a[0], a[1]));
+      const float2 b89 = Pair<T>::unpack(habs_max(a[2], a[3]));
+      const int k = j0 + 2 * t;
+      m = fmaxf(m, fmaxf(__fmul_rn(b01.x, fabsf(wv[k])),
+                         __fmul_rn(b01.y, fabsf(wv[k + 1]))));
+      m = fmaxf(m, fmaxf(__fmul_rn(b89.x, fabsf(wv[k + 8])),
+                         __fmul_rn(b89.y, fabsf(wv[k + 9]))));
+    }
+    const int e = split_exp(warp_max(m));
+    down = pow2(-e);
+    up = pow2(e);
+  }
   float acc[8][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -331,7 +401,12 @@ __global__ void __launch_bounds__(2 * N) ssd_chunk_state_kernel(
     for (int q = 0; q < 4; ++q) {
       const float2 bv = Pair<T>::unpack(a[q]);
       const float2 w = q < 2 ? w01 : w89;
-      split2<T>(__fmul_rn(bv.x, w.x), __fmul_rn(bv.y, w.y), ahi[q], alo[q]);
+      float v0 = __fmul_rn(bv.x, w.x), v1 = __fmul_rn(bv.y, w.y);
+      if constexpr (kHalf<T>) {
+        v0 = __fmul_rn(v0, down);
+        v1 = __fmul_rn(v1, down);
+      }
+      split2<T>(v0, v1, ahi[q], alo[q]);
     }
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
@@ -342,6 +417,12 @@ __global__ void __launch_bounds__(2 * N) ssd_chunk_state_kernel(
       mma<T>(acc[2 * np + 1], ahi, b[2], b[3]);
       mma<T>(acc[2 * np + 1], alo, b[2], b[3]);
     }
+  }
+  if constexpr (kHalf<T>) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[nt][q] = __fmul_rn(acc[nt][q], up);
   }
   float* out = states + (bh * NC + c) * static_cast<long long>(N * P);
   const int m0 = 16 * warp + g;
@@ -434,7 +515,9 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
                      OUT_THREADS);
     cp_async_arrive(bars + 8 * st);
   }
-  // the entering state (zero for the first chunk), split into T hi/lo
+  // the entering state (zero for the first chunk), split into T hi/lo;
+  // float16 splits it at 2^-e from its largest magnitude (enter_up = 2^e)
+  float enter_up = 1.0f;
   if (c > 0) {
     const float4* src = reinterpret_cast<const float4*>(
         states + (bh * NC + c) * static_cast<long long>(N * P));
@@ -442,10 +525,33 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
     float4 vs[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) vs[k] = src[tid + k * OUT_THREADS];
+    float down = 1.0f;
+    if constexpr (kHalf<T>) {
+      __shared__ float warp_top[OUT_WARPS];
+      float m = 0.0f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(vs[k].x), fabsf(vs[k].y)),
+                           fmaxf(fabsf(vs[k].z), fabsf(vs[k].w))));
+      m = warp_max(m);
+      if (lane == 0) warp_top[warp] = m;
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < OUT_WARPS; ++k) m = fmaxf(m, warp_top[k]);
+      const int e = split_exp(m);
+      down = pow2(-e);
+      enter_up = pow2(e);
+    }
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int e = tid + k * OUT_THREADS;
-      const float4 v = vs[k];
+      float4 v = vs[k];
+      if constexpr (kHalf<T>) {
+        v.x = __fmul_rn(v.x, down);
+        v.y = __fmul_rn(v.y, down);
+        v.z = __fmul_rn(v.z, down);
+        v.w = __fmul_rn(v.w, down);
+      }
       const int r = 4 * e / P, col = 4 * e % P;
       const uint32_t off = swz<2 * P>(r, col / 8) + (col % 8) * 2;
       uint32_t h0, l0, h1, l1;
@@ -477,32 +583,37 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
     const float cum0 = cum[i0 + g], cum1 = cum[i0 + g + 8];
-    // the carried state: exp(cum_i) * (C_i @ enter)
-    if (c > 0) {
+    // bf16: the carried state first, exp(cum_i) * (C_i @ enter)
+    if constexpr (!kHalf<T>) {
+      if (c > 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int r = 16 * ks + rr + 8 * (mi & 1);
+        for (int ks = 0; ks < KS; ++ks) {
+          const int r = 16 * ks + rr + 8 * (mi & 1);
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const uint32_t off = swz<2 * P>(r, 2 * np + (mi >> 1));
-          uint32_t bh4[4], bl4[4];
-          ldsm_x4_t(bh4, seh + off);
-          ldsm_x4_t(bl4, sel + off);
-          mma<T>(acc[2 * np], cf[ks], bh4[0], bh4[1]);
-          mma<T>(acc[2 * np], cf[ks], bl4[0], bl4[1]);
-          mma<T>(acc[2 * np + 1], cf[ks], bh4[2], bh4[3]);
-          mma<T>(acc[2 * np + 1], cf[ks], bl4[2], bl4[3]);
+          for (int np = 0; np < 4; ++np) {
+            const uint32_t off = swz<2 * P>(r, 2 * np + (mi >> 1));
+            uint32_t bh4[4], bl4[4];
+            ldsm_x4_t(bh4, seh + off);
+            ldsm_x4_t(bl4, sel + off);
+            mma<T>(acc[2 * np], cf[ks], bh4[0], bh4[1]);
+            mma<T>(acc[2 * np], cf[ks], bl4[0], bl4[1]);
+            mma<T>(acc[2 * np + 1], cf[ks], bh4[2], bh4[3]);
+            mma<T>(acc[2 * np + 1], cf[ks], bl4[2], bl4[3]);
+          }
+        }
+        const float e0 = expf(cum0), e1 = expf(cum1);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          acc[nt][0] = __fmul_rn(e0, acc[nt][0]);
+          acc[nt][1] = __fmul_rn(e0, acc[nt][1]);
+          acc[nt][2] = __fmul_rn(e1, acc[nt][2]);
+          acc[nt][3] = __fmul_rn(e1, acc[nt][3]);
         }
       }
-      const float e0 = expf(cum0), e1 = expf(cum1);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[nt][0] = __fmul_rn(e0, acc[nt][0]);
-        acc[nt][1] = __fmul_rn(e0, acc[nt][1]);
-        acc[nt][2] = __fmul_rn(e1, acc[nt][2]);
-        acc[nt][3] = __fmul_rn(e1, acc[nt][3]);
-      }
     }
+    // float16: rows g and g + 8 of acc hold y's att terms times 2^-r0 and
+    // 2^-r1, att's running exponents
+    int r0 = E_MIN, r1 = E_MIN;
     // the lower-triangular column tiles: y_i += sum_j att[i,j] x_j
 #pragma unroll 2
     for (int j0 = 0; j0 <= i0; j0 += 16) {
@@ -530,24 +641,76 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
       // att in registers: element q of n-tile nt is row i0 + g + 8 (q / 2),
       // column j0 + 8 nt + 2t + q % 2
       uint32_t ahi[4], alo[4];
+      if constexpr (!kHalf<T>) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        float v[4];
+        for (int nt = 0; nt < 2; ++nt) {
+          float v[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = i0 + g + 8 * (q >> 1);
-          const int j = j0 + 8 * nt + 2 * t + (q & 1);
-          v[q] = 0.0f;
-          if (j <= i)
-            v[q] = __fmul_rn(
-                __fmul_rn(s[nt][q],
-                          exp_approx(__fsub_rn(q < 2 ? cum0 : cum1, cum[j]))),
-                dtv[j]);
+          for (int q = 0; q < 4; ++q) {
+            const int i = i0 + g + 8 * (q >> 1);
+            const int j = j0 + 8 * nt + 2 * t + (q & 1);
+            v[q] = 0.0f;
+            if (j <= i)
+              v[q] = __fmul_rn(
+                  __fmul_rn(s[nt][q],
+                            exp_approx(__fsub_rn(q < 2 ? cum0 : cum1, cum[j]))),
+                  dtv[j]);
+          }
+          // A fragment of att: a0 (row g, k 2t), a1 (row g+8, k 2t),
+          // a2 (row g, k 2t+8), a3 (row g+8, k 2t+8)
+          split2<T>(v[0], v[1], ahi[2 * nt], alo[2 * nt]);
+          split2<T>(v[2], v[3], ahi[2 * nt + 1], alo[2 * nt + 1]);
         }
-        // A fragment of att: a0 (row g, k 2t), a1 (row g+8, k 2t),
-        // a2 (row g, k 2t+8), a3 (row g+8, k 2t+8)
-        split2<T>(v[0], v[1], ahi[2 * nt], alo[2 * nt]);
-        split2<T>(v[2], v[3], ahi[2 * nt + 1], alo[2 * nt + 1]);
+      } else {
+        // float16: the whole tile first, then its rows' scales
+        float v[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = i0 + g + 8 * (q >> 1);
+            const int j = j0 + 8 * nt + 2 * t + (q & 1);
+            v[nt][q] = 0.0f;
+            if (j <= i)
+              v[nt][q] = __fmul_rn(
+                  __fmul_rn(s[nt][q],
+                            exp_approx(__fsub_rn(q < 2 ? cum0 : cum1, cum[j]))),
+                  dtv[j]);
+          }
+        // the tile's largest |att| in rows g and g + 8, over the lane quad
+        float m0 = fmaxf(fmaxf(fabsf(v[0][0]), fabsf(v[0][1])),
+                         fmaxf(fabsf(v[1][0]), fabsf(v[1][1])));
+        float m1 = fmaxf(fmaxf(fabsf(v[0][2]), fabsf(v[0][3])),
+                         fmaxf(fabsf(v[1][2]), fabsf(v[1][3])));
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        const int need0 = need_exp(m0), need1 = need_exp(m1);
+        if (__any_sync(0xffffffffu, need0 > r0 || need1 > r1)) {
+          // a larger exponent: acc's rows rescaled by 2^-(raise), exact
+          const int n0 = need0 > r0 ? min(need0 + ATT_SLACK, E_MAX) : r0;
+          const int n1 = need1 > r1 ? min(need1 + ATT_SLACK, E_MAX) : r1;
+          const float f0 = pow2(r0 - n0), f1 = pow2(r1 - n1);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            acc[nt][0] = __fmul_rn(acc[nt][0], f0);
+            acc[nt][1] = __fmul_rn(acc[nt][1], f0);
+            acc[nt][2] = __fmul_rn(acc[nt][2], f1);
+            acc[nt][3] = __fmul_rn(acc[nt][3], f1);
+          }
+          r0 = n0;
+          r1 = n1;
+        }
+        const float d0 = pow2(-r0), d1 = pow2(-r1);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          split2<T>(__fmul_rn(v[nt][0], d0), __fmul_rn(v[nt][1], d0),
+                    ahi[2 * nt], alo[2 * nt]);
+          split2<T>(__fmul_rn(v[nt][2], d1), __fmul_rn(v[nt][3], d1),
+                    ahi[2 * nt + 1], alo[2 * nt + 1]);
+        }
       }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
@@ -557,6 +720,49 @@ __global__ void __launch_bounds__(OUT_THREADS, 1) ssd_chunk_out_kernel(
         mma<T>(acc[2 * np], alo, b[0], b[1]);
         mma<T>(acc[2 * np + 1], ahi, b[2], b[3]);
         mma<T>(acc[2 * np + 1], alo, b[2], b[3]);
+      }
+    }
+    // float16: y = 2^r (acc) + exp(cum_i) (2^e (C_i @ enter split at 2^-e)),
+    // the state term last, as the reference's kernel adds it
+    if constexpr (kHalf<T>) {
+      const float u0 = pow2(r0), u1 = pow2(r1);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[nt][0] = __fmul_rn(acc[nt][0], u0);
+        acc[nt][1] = __fmul_rn(acc[nt][1], u0);
+        acc[nt][2] = __fmul_rn(acc[nt][2], u1);
+        acc[nt][3] = __fmul_rn(acc[nt][3], u1);
+      }
+      if (c > 0) {
+        float st[8][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) st[nt][q] = 0.0f;
+        // C_i @ enter, as the bf16 build's state term above, into st
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const int r = 16 * ks + rr + 8 * (mi & 1);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            const uint32_t off = swz<2 * P>(r, 2 * np + (mi >> 1));
+            uint32_t bh4[4], bl4[4];
+            ldsm_x4_t(bh4, seh + off);
+            ldsm_x4_t(bl4, sel + off);
+            mma<T>(st[2 * np], cf[ks], bh4[0], bh4[1]);
+            mma<T>(st[2 * np], cf[ks], bl4[0], bl4[1]);
+            mma<T>(st[2 * np + 1], cf[ks], bh4[2], bh4[3]);
+            mma<T>(st[2 * np + 1], cf[ks], bl4[2], bl4[3]);
+          }
+        }
+        const float e0 = expf(cum0), e1 = expf(cum1);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[nt][q] = __fadd_rn(
+                acc[nt][q],
+                __fmul_rn(q < 2 ? e0 : e1, __fmul_rn(st[nt][q], enter_up)));
       }
     }
 #pragma unroll

@@ -16,6 +16,11 @@ Two routes, chosen by :func:`route_of` before any launch:
   (``mma.sync``), in three launches (chunk states, the state pass over a
   ``(B, H, L/chunk, N, P)`` float32 scratch that the wrapper allocates,
   the output).  float16 launches ride this route's name and counter.
+  The kernel splits its float32 operands (B (.) w, the entering state,
+  att) into 16-bit hi + lo; in float16 it scales each operand block by a
+  power of two around the split, so an operand's error is at most 2^-22
+  of its block's largest magnitude (2^-38 absolute for a block under 2)
+  and float16 has no range limit short of float32's.
 - ``cuda_core_f32``: every other input, through ``csrc/ssd_scan.cu``
   (float32 products on the CUDA cores, one persistent CTA per (b, h, slab
   of 64 head channels) walking its chunks in order; d_state zero-padded

@@ -1255,6 +1255,32 @@ def _ssd_head_major(b, h, l, p, n, seed, cancel=False, slow=False):
     return xs, da, dt, bs, cs
 
 
+# float16 inputs whose float32 operands in the mma route pass float16's
+# 65504: ((B, H, L, P, N, chunk), the scale of |x| and |B|, da); dt = 1, C
+# = 0.01 N(0, 1).  In "probe" the entering state reaches ~7e4, in "strong"
+# ~2e6; in "growing" da > 0, so att (~1e5) is largest in a row's first
+# tile and the state grows by ~4e5 a chunk.
+SSD_RANGE_CASES = {
+    "probe": ((1, 2, 512, 64, 64, 64), 16.0, -1e-3),
+    "strong": ((1, 2, 1024, 64, 128, 256), 64.0, -1e-4),
+    "growing": ((1, 2, 256, 64, 64, 64), 4.0, 0.2),
+}
+
+
+def _ssd_range_head_major(case: str) -> tuple:
+    """``SSD_RANGE_CASES[case]``'s head-major x, da, dt, B, C as numpy
+    arrays (x, B, C float16; da, dt float32), drawn from numpy's seed L +
+    N + chunk, and the chunk."""
+    (b, h, l, p, n, chunk), scale, rate = SSD_RANGE_CASES[case]
+    rng = np.random.default_rng(l + n + chunk)
+    xs = (scale * np.abs(rng.standard_normal((b, h, l, p)))).astype(np.float16)
+    bs = (scale * np.abs(rng.standard_normal((b, h, l, n)))).astype(np.float16)
+    cs = (0.01 * rng.standard_normal((b, h, l, n))).astype(np.float16)
+    dt = np.ones((b, h, l), np.float32)
+    da = np.full((b, h, l), rate, np.float32)
+    return (xs, da, dt, bs, cs), chunk
+
+
 def _ssd_inputs(b, h, l, p, n, seed, dev, cancel=False, slow=False):
     """``_ssd_head_major`` on ``dev``: x, B, C in bf16, da and dt float32."""
     return tuple(torch.from_numpy(t).to(dev).to(
@@ -1615,6 +1641,37 @@ def test_ssd_mma_float16_route_vs_float64(dev, chunk, decay):
     tol = LLM_TOL["ssd"][torch.float16]
     torch.testing.assert_close(y.double(), exact, atol=tol, rtol=tol)
     err, top = (y.double() - exact).abs().max().item(), exact.abs().max().item()
+    assert err <= 1e-4 * top, (err, top)
+
+
+@pytest.mark.parametrize("case", sorted(SSD_RANGE_CASES))
+def test_ssd_mma_float16_range_vs_float64(dev, case):
+    """Operands past float16's 65504 (the scaled splits): one ``mma_bf16``
+    launch, a finite y within 1e-4 of the largest output from the float64
+    result (the rule above), and at "probe" within the float16 tolerance of
+    it.  At "strong" and "growing" (|y| to 9.2e5 and 1.7e23) no float32
+    summation order is within that tolerance where outputs cancel: on the
+    CPU the float32 plain version misses the float64 result by up to 3.0e-2
+    and 4.8e-3 of 1 + |y|, the JAX kernel by 5.1e-2 and 2.3e-3; and on
+    the card the kernel's float32 sums in the tensor cores miss it by 4.3x
+    and 6.1x the plain version's error (its bf16 build on the same draws by
+    7.2x and 8.9x; ``tools/ssd_float16_range.py``)."""
+    (xs, da, dt, bs, cs), chunk = _ssd_range_head_major(case)
+    args = tuple(torch.from_numpy(t).to(dev) for t in (xs, da, dt, bs, cs))
+    before = ssd_ops.ssd_scan.launches_by_route["mma_bf16"]
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches_by_route["mma_bf16"] == before + 1
+    assert torch.isfinite(y).all()
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+    err, err_plain = ((t.double() - exact).abs().max().item() for t in
+                      (y, ssd_scan_ref(*args, chunk=chunk)))
+    top = exact.abs().max().item()
+    print(f"ssd float16 range {case}: max |y| {top:.4e}, max abs err from "
+          f"float64 {err:.4e}, plain {err_plain:.4e}")
+    if case == "probe":
+        tol = LLM_TOL["ssd"][torch.float16]
+        torch.testing.assert_close(y.double(), exact, atol=tol, rtol=tol)
     assert err <= 1e-4 * top, (err, top)
 
 

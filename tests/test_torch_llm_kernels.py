@@ -259,8 +259,56 @@ def _split_bf16(v: torch.Tensor, dtype=torch.bfloat16):
     return hi, (v - hi.float()).to(dtype)
 
 
+# csrc/ssd_scan_mma.cu's float16 split scales (SPLIT_TOP, E_MIN, E_MAX,
+# ATT_SLACK there): a block whose largest magnitude is m is scaled by 2^-e,
+# e = ilogb(m) - 14 clamped to [-13, 113], before its split; att's running
+# exponent per row, when a tile needs a larger one, is set 8 above it
+SPLIT_TOP, E_MIN, E_MAX, ATT_SLACK = 14, -13, 113, 8
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float32 from its bits, exactly (e int, in [-126, 127])."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _need_exp(m: torch.Tensor) -> torch.Tensor:
+    """ilogb(m) - SPLIT_TOP from the bits of float32 m >= 0 (zero and
+    subnormals read as 2^-127), as the kernel reads them."""
+    return (m.float().contiguous().view(torch.int32) >> 23) - 127 - SPLIT_TOP
+
+
+def _split_exp(m: torch.Tensor) -> torch.Tensor:
+    return _need_exp(m).clamp(E_MIN, E_MAX)
+
+
+def _scaled_halves(v: torch.Tensor, e=None, dtype=torch.float16):
+    """float32 v -> its split (hi, lo) in ``dtype``, taken at 2^-e (``e``
+    broadcast to v; None: unscaled), each scaled back in float32."""
+    if e is None:
+        hi, lo = _split_bf16(v, dtype)
+        return hi.float(), lo.float()
+    hi, lo = _split_bf16(v * _pow2(-e), dtype)
+    return hi.float() * _pow2(e), lo.float() * _pow2(e)
+
+
+def _att_exponents(att: torch.Tensor) -> torch.Tensor:
+    """Per element of att (..., Q, Q), the running exponent of its row at
+    its 16-column tile, as pass 3 keeps it over the tiles in order: E_MIN
+    at first; a tile whose largest |att| in the row needs a larger one
+    raises it to min(need + ATT_SLACK, E_MAX)."""
+    q = att.shape[-1]
+    need = _need_exp(att.abs().reshape(*att.shape[:-1], q // 16, 16).amax(-1))
+    r = torch.full(need.shape[:-1], E_MIN, dtype=torch.int32)
+    out = torch.empty_like(need)
+    for t in range(q // 16):
+        r = torch.where(need[..., t] > r,
+                        (need[..., t] + ATT_SLACK).clamp(max=E_MAX), r)
+        out[..., t] = r
+    return out.repeat_interleave(16, dim=-1)
+
+
 def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True,
-                           dtype=torch.bfloat16):
+                           dtype=torch.bfloat16, scaled=None, peaks=None):
     """A plain model of ``csrc/ssd_scan_mma.cu``'s arithmetic, head-major
     bf16 x/B/C and float32 da/dt in, y (B, H, L, P) float32 out.  Pass 1:
     per chunk, w_j = exp(cum_Q - cum_j) dt_j, B (.) w in float32, split into
@@ -269,12 +317,25 @@ def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True,
     enter split likewise, then att = select(j <= i, (C B^T) exp(cum_i -
     cum_j), 0) dt_j in float32, split, y += att @ x.  ``split=False`` rounds
     each float32 operand once to bf16 instead.  ``dtype`` is the kernel's
-    16-bit type (float16: x, B, C and the splits in float16)."""
-    def products(v, rhs):  # v (float32) @ rhs (dtype-exact), as the kernel
+    16-bit type (float16: x, B, C and the splits in float16).
+
+    ``scaled`` (default: on for float16, the kernel's float16 build) scales
+    each float32 operand block by a power of two before its split and
+    undoes it after the product, as the kernel does: B (.) w by 16 state
+    rows of a chunk (a warp's), enter by chunk, att by row with the
+    running exponent of :func:`_att_exponents`.  A dict ``peaks`` gets the largest |B (.) w|,
+    |enter| and |att| before scaling."""
+    if scaled is None:
+        scaled = dtype == torch.float16
+
+    def halves(v, e=None):
         if not split:
-            return v.to(dtype).float() @ rhs
-        hi, lo = _split_bf16(v, dtype)
-        return hi.float() @ rhs + lo.float() @ rhs
+            return v.to(dtype).float(), torch.zeros_like(v)
+        return _scaled_halves(v, e, dtype)
+
+    def products(v, rhs, e=None):  # v (float32) @ rhs (dtype-exact)
+        hi, lo = halves(v, e)
+        return hi @ rhs if not split else hi @ rhs + lo @ rhs
 
     b, h, l, p = xs.shape
     n = bs.shape[-1]
@@ -284,7 +345,12 @@ def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True,
     cum = torch.cumsum(da.reshape(b, h, l // chunk, chunk), dim=-1)
     # pass 1: the chunk states and decays
     w = torch.exp(cum[..., -1:] - cum) * dtc
-    states = products((bb * w[..., None]).transpose(-1, -2), x)
+    bw = (bb * w[..., None]).transpose(-1, -2)  # (..., N, Q)
+    e_bw = None
+    if scaled:  # one exponent per 16 state rows
+        e_bw = _split_exp(bw.abs().reshape(*bw.shape[:-2], n // 16, -1).amax(-1))
+        e_bw = e_bw.repeat_interleave(16, dim=-1)[..., None]
+    states = products(bw, x, e_bw)
     decay = torch.exp(cum[..., -1])
     # pass 2: the states entering each chunk
     enter = torch.zeros_like(states)
@@ -293,18 +359,18 @@ def _ssd_mma_bf16_numerics(xs, da, dt, bs, cs, *, chunk, split=True,
         enter[:, :, c] = state
         state = decay[:, :, c, None, None] * state + states[:, :, c]
     # pass 3: y
-    if split:
-        ehi, elo = _split_bf16(enter, dtype)
-        y = cc @ ehi.float() + cc @ elo.float()
-    else:
-        y = cc @ enter.to(dtype).float()
-    y = torch.exp(cum)[..., None] * y
+    e_enter = _split_exp(enter.abs().amax((-1, -2)))[..., None, None] if scaled else None
+    ehi, elo = halves(enter, e_enter)
+    y_state = torch.exp(cum)[..., None] * (cc @ ehi + cc @ elo)
     causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
     scores = cc @ bb.transpose(-1, -2)
     decay_ij = torch.exp(cum[..., :, None] - cum[..., None, :])
     att = torch.where(causal, scores * decay_ij, 0.0) * dtc[..., None, :]
-    y = y + products(att, x)
-    return y.reshape(b, h, l, p)
+    y_att = products(att, x, _att_exponents(att) if scaled else None)
+    if peaks is not None:
+        peaks.update({"b_w": float(bw.abs().max()), "enter": float(enter.abs().max()),
+                      "att": float(att.abs().max())})
+    return (y_state + y_att).reshape(b, h, l, p)
 
 
 @pytest.mark.parametrize(
