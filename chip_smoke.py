@@ -5,7 +5,9 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, started together; ptxas' registers, spills and
 warnings are printed, and ``cuobjdump -sass`` must find HGMMA in the bf16
-flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
+flash-attention library, HMMA in bf16, float16 and TF32 in the
+``mma_sync`` flash-attention library (which, like the walk kernels, must
+not spill) and HMMA or HGMMA in the bf16 SSD library), then:
 
 1. holds ``walk_transition_ragged`` against its plain PyTorch version on
    the card, on ``barabasi_albert(1_000_000, 3)`` (ragged, ~7 M directed
@@ -68,9 +70,10 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    in between): 6. its kernel against its plain version at the path's
    shapes — ``flash_attention``'s bf16 route (``wgmma_bf16``) on
    minitron's layer-0 q/k/v (B=1, S=4096, N=32, K=8, h=128, causal), at
-   S=4000 and at h=64, its float32 route (``cuda_core_f32``) on a small
-   shape, and both routes timed at minitron's shape (TFLOP/s, share of the
-   bound); ``ssd_scan``'s bf16 route (``mma_bf16``) on mamba2's layer-0
+   S=4000 and at h=64, its float32 route (``mma_sync``, split TF32) on a
+   small shape and at minitron's shape upcast, and both routes timed at
+   minitron's shape (TFLOP/s, share of the bound, float32's at a third of
+   the TF32 rate); ``ssd_scan``'s bf16 route (``mma_bf16``) on mamba2's layer-0
    inputs (B=4, L=4096, H=32, P=64, N=128, chunk 256) and at L=4000
    through the padding, its float32 route (``cuda_core_f32``) on the same
    inputs upcast, each route's error against the float64 result, both
@@ -104,10 +107,11 @@ flash-attention library and HMMA or HGMMA in the bf16 SSD library), then:
    share of the bound; then the widened shapes (``phase_widths``):
    paligemma-3b's attention layer 0 at full width (B=1, S=4096, N=8, K=1,
    h=256, causal, bf16) through the wgmma kernel at HD = 256, bf16 at
-   h = 80 and 96 (wgmma, zero-filled to 128) and 100 (CUDA-core), float32
-   at h = 256, float16 at h = 128 (wgmma) and 100 (CUDA-core), bf16 at h =
-   320 and float32 at h = 512 (the CUDA-core kernel's split route), bf16 at
-   h = 128 from an unaligned base (CUDA-core); ``ssd_scan``'s CUDA-core
+   h = 80 and 96 (wgmma, zero-filled to 128) and 100 (``mma_sync``),
+   float32 at h = 256, float16 at h = 128 (wgmma) and 100 (``mma_sync``),
+   bf16 at h = 320 and float32 at h = 512 (``mma_sync``'s slices of the
+   output columns), bf16 at h = 128 from an unaligned base (``mma_sync``);
+   ``ssd_scan``'s CUDA-core
    route at (P, N) = (128, 256), (80, 200), (192, 128) and (64, 512, the
    state in pieces) in float32, chunk 256, and (32, 24) in bf16 and
    float16, chunk 32, its ``mma_bf16`` route in float16 at (64, 128),
@@ -334,7 +338,10 @@ from repro_torch.utils.kernel_bounds import (  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, repro_torch.launch.mesh.HW):
 # HBM bandwidth, the float32 rate outside the tensor cores and the dense
-# bf16 tensor-core rate.
+# bf16 tensor-core rate (attention's bound takes its own rate by dtype,
+# ``kernel_bounds.flash_ops_per_s``: float32 at a third of TF32's; imported
+# where it is used, so that this script still imports beside an older
+# checkout's package, as tools/flash_mma_sync.py --src does).
 HBM_BYTES_PER_S = HW.HBM_BW
 FP32_OPS_PER_S = HW.PEAK_FLOPS_FP32
 BF16_OPS_PER_S = HW.PEAK_FLOPS_BF16
@@ -1335,14 +1342,16 @@ def phase_flash(model, cfg, dev, gen) -> dict:
     """``flash_attention`` against its plain version: the bf16 route
     (``wgmma_bf16``) on minitron-8b's layer 0 q/k/v (B=1, S=4096, N=32,
     K=8, h=128, causal), at S=4000 (the tail mask) and at h=64; the float32
-    route (``cuda_core_f32``) on a small shape.  Device times of both
-    routes at minitron's shape (float32: the same q/k/v upcast), achieved
-    TFLOP/s and share of the bound, the plain version's time and SDPA's
-    (a yardstick only: the port never calls it)."""
+    route (``mma_sync``) on a small shape and on minitron's q/k/v upcast.
+    Device times of both routes at minitron's shape (float32: the same
+    q/k/v upcast), achieved TFLOP/s and share of the bound (float32 at the
+    split-TF32 rate), the plain version's time and SDPA's (a yardstick
+    only: the port never calls it)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.models.layers import attention as attn_mod
     from repro_torch.models.layers.norms import rmsnorm
+    from repro_torch.utils.kernel_bounds import flash_ops_per_s
 
     s = 4096
     tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device=dev)
@@ -1368,20 +1377,25 @@ def phase_flash(model, cfg, dev, gen) -> dict:
         mha_ref(q6, k6, v6, causal=True), bf16, "at B=1 S=2048 N=16 K=4 h=64 bf16"))
     qf, kf, vf = (torch.randn((1, 1000, nh, 128), generator=gen, device=dev)
                   for nh in (8, 2, 2))
-    errs["cuda_core_f32"] = [hold("flash_attention", fa_ops.mha(qf, kf, vf, causal=True),
-                                  mha_ref(qf, kf, vf, causal=True), f32,
-                                  "at B=1 S=1000 N=8 K=2 float32")]
+    errs["mma_sync"] = [hold("flash_attention", fa_ops.mha(qf, kf, vf, causal=True),
+                             mha_ref(qf, kf, vf, causal=True), f32,
+                             "at B=1 S=1000 N=8 K=2 float32")]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    errs["mma_sync"].append(hold(
+        "flash_attention", fa_ops.mha(qf, kf, vf, causal=True),
+        mha_ref(qf, kf, vf, causal=True), f32, "at minitron's layer in float32"))
+    del qf, kf, vf
     went = {r: fa_ops.mha.launches_by_route[r] - before[r] for r in before}
-    if went != {"wgmma_bf16": 3, "cuda_core_f32": 1}:
+    if went != {"wgmma_bf16": 3, "mma_sync": 2}:
         raise AssertionError(f"flash_attention took the routes {went}")
     nbytes, ops = flash_bound(1, s, s, cfg.num_heads, cfg.num_kv_heads, 128, 2,
                               True, 0)
     routes = {}
-    for route, dtype, peak in (("wgmma_bf16", bf16, BF16_OPS_PER_S),
-                               ("cuda_core_f32", f32, FP32_OPS_PER_S)):
+    for route, dtype in (("wgmma_bf16", bf16), ("mma_sync", f32)):
+        peak = flash_ops_per_s(dtype.itemsize)
         qd, kd, vd = (t.to(dtype) for t in (q, k, v))
         ms = device_time_ms(lambda i: fa_ops.mha(qd, kd, vd, causal=True),
-                            20 if dtype == bf16 else 3)
+                            20 if dtype == bf16 else 10)
         plain = device_time_ms(lambda i: mha_ref(qd, kd, vd, causal=True), 3)
         qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
         lib = device_time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
@@ -1584,19 +1598,19 @@ P6_FLASH_WIDTHS = (
     ("bf16 h=96", torch.bfloat16, (1, 4096, 4096, 16, 4, 96), True, 0,
      "wgmma_bf16", True),
     ("bf16 h=100", torch.bfloat16, (1, 4096, 4096, 16, 4, 100), True, 0,
-     "cuda_core_f32", True),
+     "mma_sync", True),
     ("float32 h=256", torch.float32, (1, 4096, 4096, 8, 1, 256), True, 0,
-     "cuda_core_f32", True),
+     "mma_sync", True),
     ("float16 h=128", torch.float16, (1, 4096, 4096, 32, 8, 128), True, 0,
      "wgmma_bf16", True),
     ("float16 h=100", torch.float16, (1, 4096, 4096, 16, 4, 100), True, 0,
-     "cuda_core_f32", True),
+     "mma_sync", True),
     ("bf16 h=320", torch.bfloat16, (1, 4096, 4096, 8, 1, 320), True, 0,
-     "cuda_core_f32", True),
+     "mma_sync", True),
     ("float32 h=512", torch.float32, (1, 4096, 4096, 8, 1, 512), True, 0,
-     "cuda_core_f32", True),
+     "mma_sync", True),
     ("bf16 h=128 unaligned", torch.bfloat16, (1, 4096, 4096, 32, 8, 128),
-     True, 0, "cuda_core_f32", False),
+     True, 0, "mma_sync", False),
 )
 P6_SSD_WIDTHS = (
     ("float32 P=128 N=256", torch.float32, (1, 16, 4096, 128, 256, 256),
@@ -1733,6 +1747,7 @@ def phase_widths(dev, gen) -> dict:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
+    from repro_torch.utils.kernel_bounds import flash_ops_per_s
 
     out = {"flash_attention": {}, "ssd_scan": {}, "rmsnorm_fused": {}}
     flash_cases = [("paligemma-3b layer 0 bf16 h=256", torch.bfloat16,
@@ -1758,9 +1773,8 @@ def phase_widths(dev, gen) -> dict:
                                                    window=window), dtype,
                    f"at {label} (B={b} S={s} N={n} K={kh}, {route})")
         del got
-        fast = dtype != torch.float32 and route == "wgmma_bf16"
         ms = device_time_ms(lambda i: fa_ops.mha(q, k, v, causal=causal,
-                                                 window=window), 10 if fast else 3)
+                                                 window=window), 10)
         plain = device_time_ms(lambda i: mha_ref(q, k, v, causal=causal,
                                                  window=window), 3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1769,8 +1783,7 @@ def phase_widths(dev, gen) -> dict:
                 qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
         nbytes, ops = flash_bound(b, s, t, n, kh, h, q.element_size(), causal,
                                   window if causal else 0)
-        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-        b_ms, b_by = bound(nbytes, ops, peak)
+        b_ms, b_by = bound(nbytes, ops, flash_ops_per_s(q.element_size()))
         out["flash_attention"][label] = {
             "route": route, "dtype": str(dtype).split(".")[-1],
             "aligned": aligned, "shape": [b, s, t, n, kh, h], "launches": 1,
@@ -6314,7 +6327,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error", "arning",
                                        "setmaxnreg", "wgmma")):
                 log(f"  nvcc {name}: {line.strip()}")
-            if (name.startswith("walk_transition")
+            if ((name.startswith("walk_transition") or name == "flash_attention")
                     and "spill" in line and not line.strip().endswith(
                         "0 bytes spill stores, 0 bytes spill loads")):
                 raise AssertionError(f"{name} spills: {line.strip()}")
@@ -6322,6 +6335,14 @@ def main() -> int:
     log(f"  cuobjdump -sass flash_attention_wgmma: {hgmma} HGMMA instructions")
     if hgmma == 0:
         raise AssertionError("the bf16 flash_attention library has no HGMMA")
+    # the mma_sync attention kernel on the tensor cores: HMMA in bf16 and
+    # float16 (m16n8k16) and in TF32 (m16n8k8, its float32 build)
+    fa_hmma = {op.strip(): sass_count("flash_attention", op) for op in (
+        "HMMA.16816.F32.BF16", "HMMA.16816.F32 ", "HMMA.1688.F32.TF32")}
+    log(f"  cuobjdump -sass flash_attention: {fa_hmma}")
+    if not all(fa_hmma.values()):
+        raise AssertionError(f"the mma_sync flash_attention library lacks a "
+                             f"tensor-core product: {fa_hmma}")
     # HMMA (mma.sync) or HGMMA (wgmma): the bf16 SSD scan on the tensor cores
     ssd_mma = sass_count("ssd_scan_mma", "HMMA") + sass_count("ssd_scan_mma", "HGMMA")
     log(f"  cuobjdump -sass ssd_scan_mma: {ssd_mma} HMMA/HGMMA instructions")
@@ -6331,6 +6352,7 @@ def main() -> int:
         f"{len(build_logs)} compiled, {dt:.2f} s")
     report["phases"]["build_s"] = dt
     report["phases"]["hgmma"] = hgmma
+    report["phases"]["flash_hmma"] = fa_hmma
     report["phases"]["ssd_hmma"] = ssd_mma
 
     # -- phase 1: kernel vs plain version on the card -----------------------------
@@ -6775,14 +6797,14 @@ def main() -> int:
         mini["prefill"]["routes"]["wgmma_bf16"], mini["kernel"],
         mini["kernel"]["max_abs_err"],
     )
-    # float32 inputs take the CUDA-core kernel (the float32 prefill gate)
+    # float32 inputs take the mma.sync kernel (the float32 prefill gate)
     flash["routes"] = {
         "wgmma_bf16": {"source": flash["source"],
                        "launches": mini["prefill"]["routes"]["wgmma_bf16"],
                        **mini["kernel"]["routes"]["wgmma_bf16"]},
-        "cuda_core_f32": {"source": "src/repro_torch/csrc/flash_attention.cu",
-                          "launches": mini["prefill"]["f32_routes"]["cuda_core_f32"],
-                          **mini["kernel"]["routes"]["cuda_core_f32"]},
+        "mma_sync": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                     "launches": mini["prefill"]["f32_routes"]["mma_sync"],
+                     **mini["kernel"]["routes"]["mma_sync"]},
     }
     ssd = llm_entry(
         "ssd_scan", "src/repro_torch/csrc/ssd_scan_mma.cu",

@@ -15,19 +15,22 @@ Two routes, chosen by dtype, head_dim and alignment (:func:`route_of`):
 - ``wgmma_bf16``: bfloat16 and float16 at a head_dim that is a multiple of
   8 up to 256, with 16-byte aligned bases, through
   ``csrc/flash_attention_wgmma.cu``, on the tensor cores (``wgmma`` fed by
-  TMA).  The probabilities are rounded to the input's type before P·V.
-  float16 launches ride this route's name and counter.
-- ``cuda_core_f32``: float32, and bfloat16 and float16 at any other
-  head_dim or base, through ``csrc/flash_attention.cu``, float32 products
-  on the CUDA cores (the float32 tolerance, 2e-5, is beyond TF32's 10-bit
-  mantissa).
+  TMA), built at head_dim 64, 128 and 256 (a head_dim runs at the smallest
+  >= it, TMA filling the columns past it with zeros).  The probabilities
+  are rounded to the input's type before P·V.  float16 launches ride this
+  route's name and counter.
+- ``mma_sync``: float32, and bfloat16 and float16 at any other head_dim or
+  base, through ``csrc/flash_attention.cu``, on the tensor cores by
+  ``mma.sync``: 16-bit inputs as the wgmma route rounds them, float32 by
+  split TF32 (each operand as a TF32 big part plus a TF32 small part, three
+  products for each one, so float32 keeps its 2e-5 tolerance, which one
+  TF32 product misses).  Any head_dim >= 1 and any base: the head_dim is
+  padded with zeros to the next multiple of 16 (8 in float32), past 256
+  the output columns are split into slices of at most 256, one CTA each,
+  every slice forming the same scores.
 
-Both kernels are built at head_dim 64, 128 and 256 and run a head_dim h
-at the smallest of those >= h: the columns from h up are read as zeros
-and never written, and the scale is h^-1/2.  Past 256 the CUDA-core
-kernel splits the output columns into slices of 256, one CTA each, every
-slice forming the same scores over pieces of 256 columns of q and k.  A
-head_dim of 0 raises, on either device.
+The scale is always the true head_dim's h^-1/2.  A head_dim of 0 raises,
+on either device.
 
 For CUDA tensors :func:`mha` launches the route's kernel or raises
 (contiguous inputs; an input that requires grad while gradients are
@@ -49,19 +52,18 @@ from repro_torch.utils.op_cost import priced
 __all__ = ["mha", "route_of", "HEAD_DIMS", "WGMMA_MAX_HEAD_DIM", "ROUTES"]
 
 # dtype -> route (at a head_dim and base the route takes); the C side's
-# dtype code of the CUDA-core kernel
+# dtype code of the mma.sync kernel
 ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float16: "wgmma_bf16",
-          torch.float32: "cuda_core_f32"}
+          torch.float32: "mma_sync"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # route -> (library, C argument types): q, k, v, out, B, S, T, N, K, h,
-# causal, window, is_half (wgmma) or the dtype code (CUDA cores), stream
+# causal, window, is_half (wgmma) or the dtype code (mma.sync), stream
 _LAUNCH = {
     "wgmma_bf16": ("flash_attention_wgmma", (P, P, P, P) + (I,) * 9 + (P,)),
-    "cuda_core_f32": ("flash_attention", (P, P, P, P) + (I,) * 9 + (P,)),
+    "mma_sync": ("flash_attention", (P, P, P, P) + (I,) * 9 + (P,)),
 }
-# the head_dims each kernel is built at; a head_dim h runs at the smallest
-# one >= h, its columns past h zero; past the last the CUDA-core kernel
-# splits it into slices of that many columns
+# the head_dims the wgmma kernel is built at; a head_dim h runs at the
+# smallest one >= h, its columns past h zero
 HEAD_DIMS = (64, 128, 256)
 WGMMA_MAX_HEAD_DIM = HEAD_DIMS[-1]
 
@@ -74,7 +76,7 @@ def route_of(dtype: torch.dtype, head_dim: int | None = None,
     JAX's x64 off, integers) or a head_dim of 0 (``ValueError``).
     bfloat16 and float16 go to ``wgmma_bf16`` unless the head_dim is not a
     multiple of 8 (TMA's rows are 16-byte multiples) or past 256, or a base
-    is not 16-byte aligned (TMA's), which go to ``cuda_core_f32``."""
+    is not 16-byte aligned (TMA's), which go to ``mma_sync``."""
     if dtype not in ROUTES:
         raise TypeError(f"flash attention takes {tuple(ROUTES)}, got {dtype}")
     if head_dim is None:
@@ -82,7 +84,7 @@ def route_of(dtype: torch.dtype, head_dim: int | None = None,
     _check_head_dim(head_dim)
     if ROUTES[dtype] == "wgmma_bf16" and (
             head_dim % 8 or head_dim > WGMMA_MAX_HEAD_DIM or not aligned):
-        return "cuda_core_f32"
+        return "mma_sync"
     return ROUTES[dtype]
 
 

@@ -158,6 +158,7 @@ class HW:
 
     PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 on the tensor cores
     PEAK_FLOPS_FP32 = 67e12  # FLOP/s, float32 outside the tensor cores
+    PEAK_FLOPS_TF32 = 495e12  # FLOP/s, dense TF32 on the tensor cores
     HBM_BW = 3.35e12  # bytes/s
     HBM_BYTES = 80e9  # 80 GB of HBM3
     NVLINK_BW = 900e9  # bytes/s per GPU, all NVLink links together

@@ -23,7 +23,8 @@ import torch
 from repro_torch.launch.mesh import HW
 
 __all__ = ["SECTOR", "bound", "sectors", "bound_for_step", "chain_loads",
-           "bound_sparse", "bound_dense", "flash_bound", "ssd_bound",
+           "bound_sparse", "bound_dense", "flash_bound", "flash_ops_per_s",
+           "ssd_bound",
            "ssd_mma_bytes", "rmsnorm_bound", "walk_step_work"]
 
 HBM_BYTES_PER_S = HW.HBM_BW
@@ -212,6 +213,15 @@ def flash_bound(b, s, t, n, kh, h, elt, causal, window) -> tuple:
         live = float(s) * t
     nbytes = (2 * b * s * n * h + 2 * b * t * kh * h) * elt
     return nbytes, 4.0 * h * live * b * n
+
+
+def flash_ops_per_s(elt: int) -> float:
+    """The peak rate attention's operations are bounded at, for elements of
+    ``elt`` bytes: bf16 and float16 on the tensor cores; float32 at a third
+    of TF32's rate, the least time float32-accurate products can take on
+    the tensor cores (three TF32 products for each, as the ``mma_sync``
+    kernel forms them)."""
+    return HW.PEAK_FLOPS_TF32 / 3 if elt == 4 else HW.PEAK_FLOPS_BF16
 
 
 def ssd_bound(b, h, l, p, n, q, elt, g) -> tuple:

@@ -951,6 +951,169 @@ def _randn(shape, dtype, gen, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
+# -- plain models of the two attention kernels' arithmetic (any device; the
+# CPU tests hold them to the JAX kernel, the card tests hold the kernels to
+# them) --
+
+def _wgmma_bf16_numerics(q, k, v, *, causal, window, bq=128, bk=128,
+                         scale_dim=None, dtype=torch.bfloat16):
+    """A plain blockwise model of ``csrc/flash_attention_wgmma.cu``'s
+    arithmetic, (B, N, S, h) bf16 in and out: float32 scores of the bf16
+    inputs; per 128-row q block, the kernel's live 128-row k blocks with an
+    online softmax in base 2 (m on the unscaled scores, p = 2^((s - m) *
+    h^-1/2 * log2 e)); l summed from the float32 p; p rounded to bf16
+    before p @ v, summed in float32; acc / max(l, 1e-30) in bf16.
+    ``scale_dim`` replaces h in the scale (the kernel's true head_dim when
+    the inputs are zero-padded to the head_dim it is built at); ``dtype``
+    is the 16-bit type p and the output are rounded to (float16 for the
+    kernel's float16 build)."""
+    b, n, s, h = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    c = torch.tensor((scale_dim or h)**-0.5 * 1.4426950408889634,
+                     dtype=torch.float32)
+    dev = q.device
+    out = torch.empty((b, n, s, h), dtype=torch.float32, device=dev)
+    for head in range(n):
+        qh = q[:, head].float()
+        kk, vv = k[:, head * kh // n].float(), v[:, head * kh // n].float()
+        for i0 in range(0, s, bq):
+            rows = torch.arange(i0, min(i0 + bq, s), device=dev)[:, None]
+            m = torch.full((b, len(rows), 1), -1e30, device=dev)
+            l = torch.zeros((b, len(rows), 1), device=dev)
+            acc = torch.zeros((b, len(rows), h), device=dev)
+            for j0 in range(0, t, bk):
+                if causal and j0 > i0 + bq - 1:
+                    break
+                if causal and window > 0 and j0 + bk - 1 < i0 - window + 1:
+                    continue
+                cols = torch.arange(j0, min(j0 + bk, t), device=dev)[None, :]
+                sc = qh[:, rows[:, 0]] @ kk[:, cols[0]].transpose(1, 2)
+                keep = (cols < t).expand(len(rows), -1)
+                if causal:
+                    keep = keep & (cols <= rows)
+                    if window > 0:
+                        keep = keep & (cols > rows - window)
+                sc = torch.where(keep, sc, torch.tensor(-1e30))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                alpha = torch.exp2((m - m_new) * c)
+                p = torch.exp2((sc - m_new) * c)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                acc = alpha * acc + p.to(dtype).float() @ vv[:, cols[0]]
+                m = m_new
+            out[:, head, rows[:, 0]] = acc / torch.clamp(l, min=1e-30)
+    return out.to(dtype)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 x rounded to TF32's 10 mantissa bits,
+    to nearest with ties away from zero, as integer arithmetic on the
+    float32 bits (the low 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, split: bool = True,
+                 apart: bool = False, step: int = 8) -> torch.Tensor:
+    """a @ b in float32 as the mma_sync kernel's float32 build forms it:
+    each operand x as big = tf32(x) and small = tf32(x - big), and per
+    k-step of ``step`` columns small·big, then big·small, then big·big
+    added to a float32 sum from zero; ``apart``: the small terms into a sum
+    of their own, added to the big terms' at the end (the scores);
+    ``split=False``: one TF32 product a k-step."""
+    ab, bb = _tf32(a), _tf32(b)
+    sa, sb = _tf32(a.float() - ab), _tf32(b.float() - bb)
+    big = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
+                      device=a.device)
+    small = big.clone()
+    for d0 in range(0, a.shape[-1], step):
+        ka = (slice(None),) * (a.ndim - 1) + (slice(d0, d0 + step),)
+        kb = (slice(None),) * (b.ndim - 2) + (slice(d0, d0 + step), slice(None))
+        if split and apart:
+            small = small + sa[ka] @ bb[kb]
+            small = small + ab[ka] @ sb[kb]
+        elif split:
+            big = big + sa[ka] @ bb[kb]
+            big = big + ab[ka] @ sb[kb]
+        big = big + ab[ka] @ bb[kb]
+    return big + small if split and apart else big
+
+
+def _split_tf32_numerics(q, k, v, *, causal, window, split=True, bq=128,
+                         bk=16, scale_dim=None, stats=False):
+    """A plain blockwise model of ``csrc/flash_attention.cu``'s float32
+    arithmetic, (B, N, S, h) float32 in (v may be a slice of the columns),
+    float32 out: per ``bq``-row q block and live ``bk``-row key block, the
+    scores by :func:`_tf32_matmul` (split TF32 with the small terms summed
+    apart, or one TF32 product with ``split=False``), scaled by h^-1/2
+    (``scale_dim`` in place of h) and masked to -1e30; the online softmax in
+    float32 (p = exp(s - m)); acc * alpha + the block's P v by
+    :func:`_tf32_matmul` on the float32 p, from zero; acc / max(l, 1e-30).
+    ``stats``: also the final running max and sum, (B, N, S) each."""
+    b, n, s, h = q.shape
+    kh, t, hv = k.shape[1], k.shape[2], v.shape[-1]
+    dev = q.device
+    scale = torch.tensor((scale_dim or h)**-0.5, dtype=torch.float32)
+    out = torch.empty((b, n, s, hv), dtype=torch.float32, device=dev)
+    m_all = torch.empty((b, n, s), dtype=torch.float32, device=dev)
+    l_all = torch.empty((b, n, s), dtype=torch.float32, device=dev)
+    for head in range(n):
+        qh = q[:, head].float()
+        kk, vv = k[:, head * kh // n].float(), v[:, head * kh // n].float()
+        for i0 in range(0, s, bq):
+            rows = torch.arange(i0, min(i0 + bq, s), device=dev)[:, None]
+            m = torch.full((b, len(rows), 1), -1e30, device=dev)
+            l = torch.zeros((b, len(rows), 1), device=dev)
+            acc = torch.zeros((b, len(rows), hv), device=dev)
+            for j0 in range(0, t, bk):
+                if causal and j0 > i0 + bq - 1:
+                    break
+                if causal and window > 0 and j0 + bk - 1 < i0 - window + 1:
+                    continue
+                cols = torch.arange(j0, min(j0 + bk, t), device=dev)[None, :]
+                sc = _tf32_matmul(qh[:, rows[:, 0]],
+                                  kk[:, cols[0]].transpose(1, 2), split,
+                                  apart=True)
+                keep = (cols < t).expand(len(rows), -1)
+                if causal:
+                    keep = keep & (cols <= rows)
+                    if window > 0:
+                        keep = keep & (cols > rows - window)
+                sc = torch.where(keep, sc * scale, torch.tensor(-1e30))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                acc = alpha * acc + _tf32_matmul(p, vv[:, cols[0]], split)
+                m = m_new
+            out[:, head, rows[:, 0]] = acc / torch.clamp(l, min=1e-30)
+            m_all[:, head, rows[:, 0]] = m[..., 0]
+            l_all[:, head, rows[:, 0]] = l[..., 0]
+    return (out, m_all, l_all) if stats else out
+
+
+def _mma_sync_numerics(q, k, v, *, causal, window, split=True):
+    """A plain model of ``csrc/flash_attention.cu`` (the ``mma_sync``
+    route), (B, N, S, h) in, q's dtype out: float32 by
+    :func:`_split_tf32_numerics` at the kernel's tiles (128 q rows and
+    16 keys to h = 128, 64 and 16 to 256, 64 and 32 past it); bf16 and
+    float16 by :func:`_wgmma_bf16_numerics` at its tiles (128 q rows and 48
+    keys to h = 128, 64 and 64 past it) with h zero-padded to a multiple
+    of 16 and the true h's scale.  Past h = 256
+    the kernel's slices form the same scores, and each output column
+    depends on its own column of v only, so one model covers them."""
+    h = q.shape[-1]
+    wide = -(-h // -(-h // 256)) > 128  # the slices' width past 128
+    if q.dtype == torch.float32:
+        return _split_tf32_numerics(
+            q, k, v, causal=causal, window=window, split=split,
+            bq=64 if wide else 128, bk=32 if h > 256 else 16)
+    pad = -h % 16
+    padded = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+    return _wgmma_bf16_numerics(
+        *padded, causal=causal, window=window, bq=64 if wide else 128,
+        bk=64 if wide else 48, scale_dim=h, dtype=q.dtype)[..., :h]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,s,nq,nkv,h,causal,window",
@@ -1032,10 +1195,10 @@ def test_flash_routes_vs_plain(dev, dtype, b, s, t, nq, nkv, h, causal, window):
 
 
 def test_flash_routes_by_dtype(dev):
-    """bf16 launches the wgmma kernel, float32 the CUDA-core kernel."""
+    """bf16 launches the wgmma kernel, float32 the mma.sync kernel."""
     q = torch.randn((1, 64, 4, 64), device=dev)
     for dtype, route in ((torch.bfloat16, "wgmma_bf16"),
-                         (torch.float32, "cuda_core_f32")):
+                         (torch.float32, "mma_sync")):
         x = q.to(dtype)
         before = dict(fa_ops.mha.launches_by_route)
         fa_ops.mha(x, x, x)
@@ -1047,7 +1210,7 @@ def test_flash_routes_by_dtype(dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_bf16_raises_on_unaligned_base(dev, dtype):
     """TMA needs 16-byte aligned bases: a q 2 bytes off goes to the
-    CUDA-core kernel (one launch there, none on wgmma), which reads any
+    mma.sync kernel (one launch there, none on wgmma), which reads any
     base, and agrees with the plain version."""
     shape = (1, 300, 4, 64)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1056,13 +1219,13 @@ def test_flash_bf16_raises_on_unaligned_base(dev, dtype):
     q = buf[1:].view(shape)
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
     k, v = (_randn((1, 300, 2, 64), dtype, gen, dev) for _ in range(2))
-    assert fa_ops.route_of(dtype, 64, aligned=False) == "cuda_core_f32"
+    assert fa_ops.route_of(dtype, 64, aligned=False) == "mma_sync"
     before = dict(fa_ops.mha.launches_by_route)
     out = fa_ops.mha(q, k, v, causal=True)
     torch.cuda.synchronize()
     after = fa_ops.mha.launches_by_route
     assert {r: after[r] - before[r] for r in after} == {
-        "wgmma_bf16": 0, "cuda_core_f32": 1}
+        "wgmma_bf16": 0, "mma_sync": 1}
     tol = LLM_TOL["flash"][dtype]
     torch.testing.assert_close(out.float(), mha_ref(q, k, v).float(),
                                atol=tol, rtol=tol)
@@ -1072,7 +1235,7 @@ def test_flash_bf16_raises_on_unaligned_base(dev, dtype):
 # attention layer at full width (h=256, MQA), h=256 windowed and with T != S
 # on the wgmma kernel's 64-row key blocks, h=80 and 96 (multiples of 8,
 # zero-filled by TMA up to 128), the smallest wgmma head_dim, and the
-# head_dims that are not multiples of 8 on the CUDA-core kernel in bf16, as
+# head_dims that are not multiples of 8 on the mma.sync kernel in bf16, as
 # float32 does at any head_dim.
 @pytest.mark.parametrize(
     "dtype,b,s,t,nq,nkv,h,causal,window,route",
@@ -1084,11 +1247,11 @@ def test_flash_bf16_raises_on_unaligned_base(dev, dtype):
         (torch.bfloat16, 2, 300, 300, 4, 2, 96, True, 128, "wgmma_bf16"),
         (torch.bfloat16, 1, 333, 200, 4, 4, 96, False, 0, "wgmma_bf16"),
         (torch.bfloat16, 1, 200, 200, 4, 2, 8, True, 0, "wgmma_bf16"),
-        (torch.bfloat16, 1, 500, 500, 4, 2, 100, True, 0, "cuda_core_f32"),
-        (torch.bfloat16, 1, 150, 150, 2, 1, 1, False, 0, "cuda_core_f32"),
-        (torch.float32, 1, 1000, 1000, 8, 2, 256, True, 0, "cuda_core_f32"),
-        (torch.float32, 1, 300, 300, 4, 2, 96, True, 64, "cuda_core_f32"),
-        (torch.float32, 2, 130, 77, 2, 2, 33, False, 0, "cuda_core_f32"),
+        (torch.bfloat16, 1, 500, 500, 4, 2, 100, True, 0, "mma_sync"),
+        (torch.bfloat16, 1, 150, 150, 2, 1, 1, False, 0, "mma_sync"),
+        (torch.float32, 1, 1000, 1000, 8, 2, 256, True, 0, "mma_sync"),
+        (torch.float32, 1, 300, 300, 4, 2, 96, True, 64, "mma_sync"),
+        (torch.float32, 2, 130, 77, 2, 2, 33, False, 0, "mma_sync"),
     ],
 )
 def test_flash_widened_head_dims_vs_plain(dev, dtype, b, s, t, nq, nkv, h,
@@ -1516,7 +1679,7 @@ def _hold_ssd(y, args, chunk, dtype, n):
 
 
 # float16 on both attention routes: wgmma at multiples of 8 (minitron's
-# layer, GQA, a window, T != S, the HD = 256 build), the CUDA-core kernel at
+# layer, GQA, a window, T != S, the HD = 256 build), the mma.sync kernel at
 # other head_dims
 @pytest.mark.parametrize(
     "b,s,t,nq,nkv,h,causal,window,route",
@@ -1526,8 +1689,8 @@ def _hold_ssd(y, args, chunk, dtype, n):
         (1, 700, 700, 8, 2, 128, True, 128, "wgmma_bf16"),
         (1, 200, 333, 4, 2, 80, False, 0, "wgmma_bf16"),
         (1, 300, 300, 4, 1, 256, True, 0, "wgmma_bf16"),
-        (1, 500, 500, 4, 2, 100, True, 0, "cuda_core_f32"),
-        (2, 130, 77, 2, 2, 33, False, 0, "cuda_core_f32"),
+        (1, 500, 500, 4, 2, 100, True, 0, "mma_sync"),
+        (2, 130, 77, 2, 2, 33, False, 0, "mma_sync"),
     ],
 )
 def test_flash_float16_vs_plain(dev, b, s, t, nq, nkv, h, causal, window, route):
@@ -1548,8 +1711,8 @@ def test_flash_float16_vs_plain(dev, b, s, t, nq, nkv, h, causal, window, route)
                                atol=tol, rtol=tol)
 
 
-# head_dims past 256: the CUDA-core kernel's split route (output columns in
-# slices of 256, the scores over pieces of 256) in every dtype
+# head_dims past 256: the mma.sync kernel's split route (output columns in
+# slices of at most 256, each forming the same scores) in every dtype
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize(
     "b,s,t,nq,nkv,h,causal,window",
@@ -1565,12 +1728,12 @@ def test_flash_split_head_dims_vs_plain(dev, dtype, b, s, t, nq, nkv, h,
     gen = torch.Generator(device=dev).manual_seed(s + t + h)
     q = _randn((b, s, nq, h), dtype, gen, dev)
     k, v = (_randn((b, t, nkv, h), dtype, gen, dev) for _ in range(2))
-    assert fa_ops.route_of(dtype, h) == "cuda_core_f32"
+    assert fa_ops.route_of(dtype, h) == "mma_sync"
     before = dict(fa_ops.mha.launches_by_route)
     out = fa_ops.mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert _route_diff(fa_ops.mha, before) == {"wgmma_bf16": 0,
-                                               "cuda_core_f32": 1}
+                                               "mma_sync": 1}
     tol = LLM_TOL["flash"][dtype]
     torch.testing.assert_close(out.float(), mha_ref(q, k, v, causal=causal,
                                                     window=window).float(),
@@ -1590,6 +1753,158 @@ def test_flash_split_slices_share_their_softmax(dev):
     out = fa_ops.mha(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert torch.equal(out[..., :256], out[..., 256:])
+
+
+# The mma.sync kernel (csrc/flash_attention.cu) at head_dims and bases the
+# wgmma build does not take, in both 16-bit types: h 1 and 100 (not
+# multiples of 8), 8, 136 and 200 from an unaligned q (multiples of 8 the
+# wgmma build would take aligned), past 256 (the slices; at 1100 q and k
+# too wide for shared memory at once, staged in pieces), unaligned bases
+# at 64, 100, 128 and 320 (q, or k and v), a window and GQA; and float32 at
+# 64, 128, 256 and 512.  (dtype, (B, S, T, N, K, h), causal, window, which
+# of q / k / v start 2 bytes off)
+MMA_SYNC_CASES = [
+    (dtype, shape, causal, window, off)
+    for dtype in (torch.bfloat16, torch.float16)
+    for shape, causal, window, off in [
+        ((1, 300, 300, 4, 2, 1), True, 0, ""),
+        ((2, 257, 257, 4, 1, 100), True, 64, ""),
+        ((1, 400, 400, 4, 2, 8), True, 0, "q"),
+        ((1, 300, 333, 4, 4, 136), False, 0, "q"),
+        ((1, 500, 500, 8, 2, 200), True, 128, "q"),
+        ((1, 300, 300, 4, 2, 264), True, 0, ""),
+        ((1, 700, 700, 4, 1, 320), True, 0, ""),
+        ((1, 300, 300, 2, 2, 512), True, 100, ""),
+        ((1, 200, 200, 4, 2, 600), False, 0, ""),
+        ((1, 200, 200, 2, 1, 1100), True, 0, ""),
+        ((1, 600, 600, 8, 2, 64), True, 0, "kv"),
+        ((1, 500, 500, 4, 1, 100), True, 0, "qkv"),
+        ((2, 300, 300, 8, 2, 128), True, 96, "q"),
+        ((1, 400, 400, 4, 2, 320), True, 0, "v"),
+    ]
+] + [
+    (torch.float32, shape, causal, window, "")
+    for shape, causal, window in [
+        ((1, 600, 600, 8, 2, 64), True, 0),
+        ((2, 300, 300, 8, 2, 128), True, 128),
+        ((1, 500, 500, 4, 1, 256), True, 0),
+        ((1, 300, 333, 4, 2, 512), False, 0),
+    ]
+]
+
+
+def _mma_sync_inputs(dtype, shape, off, gen, dev):
+    b, s, t, n, kh, h = shape
+    return tuple(_randn_at(sh, dtype, gen, dev, name in off)
+                 for name, sh in (("q", (b, s, n, h)), ("k", (b, t, kh, h)),
+                                  ("v", (b, t, kh, h))))
+
+
+def _randn_at(shape, dtype, gen, dev, unaligned=False):
+    """N(0, 1) of ``shape`` in ``dtype``, from a base 2 bytes past a 16-byte
+    boundary where ``unaligned``."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + int(unaligned), generator=gen, device=dev).to(dtype)
+    x = (buf[1:] if unaligned else buf).view(shape)
+    assert (x.data_ptr() % 16 != 0) == unaligned
+    return x
+
+
+@pytest.mark.parametrize("dtype,shape,causal,window,off", MMA_SYNC_CASES)
+def test_flash_mma_sync_vs_plain(dev, dtype, shape, causal, window, off):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    q, k, v = _mma_sync_inputs(dtype, shape, off, gen, dev)
+    aligned = not off
+    assert fa_ops.route_of(dtype, shape[-1], aligned) == "mma_sync"
+    before = dict(fa_ops.mha.launches_by_route)
+    out = fa_ops.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _route_diff(fa_ops.mha, before) == {"wgmma_bf16": 0, "mma_sync": 1}
+    tol = LLM_TOL["flash"][dtype]
+    torch.testing.assert_close(out.float(), mha_ref(q, k, v, causal=causal,
+                                                    window=window).float(),
+                               atol=tol, rtol=tol)
+
+
+def _attention_f64(q, k, v, *, causal, window):
+    """Softmax attention in float64 (model layout, GQA, the masks)."""
+    n, s, t = q.shape[2], q.shape[1], k.shape[1]
+    qd, kd, vd = (x.double().transpose(1, 2) for x in (q, k, v))
+    kd, vd = (x.repeat_interleave(n // k.shape[2], dim=1) for x in (kd, vd))
+    sc = (qd @ kd.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        row = torch.arange(s, device=q.device)[:, None]
+        col = torch.arange(t, device=q.device)[None, :]
+        keep = col <= row
+        if window > 0:
+            keep = keep & (col > row - window)
+        sc = sc.masked_fill(~keep, float("-inf"))
+    return (sc.softmax(-1) @ vd).transpose(1, 2)
+
+
+# The kernel against its plain numerics model (_mma_sync_numerics), on the
+# card.  16 bits: the model's rounding (P and the output in the 16-bit
+# type) is the error that matters, so the kernel's mean distance to the
+# model is held within a tenth of the model's own mean distance to float64
+# (outputs that round the other way sit one ulp apart; the kernel's float32
+# sums in the tensor cores' order do not move the rest).  float32: the
+# split model's float32-level error is of the size of the kernel's own
+# summation order, so there the kernel's distance to the split model is
+# held within a tenth of a one-TF32-product model's distance to float64
+# (the kernel splits its operands), and the kernel within 2e-5 of float64.
+@pytest.mark.parametrize("dtype,shape,causal,window,off", [
+    (torch.bfloat16, (1, 512, 512, 4, 2, 100), True, 0, ""),
+    (torch.float16, (1, 512, 512, 4, 2, 100), True, 0, ""),
+    (torch.bfloat16, (1, 384, 384, 4, 1, 320), True, 64, ""),
+    (torch.float16, (1, 384, 400, 2, 2, 136), False, 0, "q"),
+    (torch.float32, (1, 512, 512, 4, 2, 128), True, 0, ""),
+    (torch.float32, (1, 256, 256, 2, 1, 512), True, 96, ""),
+])
+def test_flash_mma_sync_follows_its_numerics_model(dev, dtype, shape, causal,
+                                                   window, off):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
+    q, k, v = _mma_sync_inputs(dtype, shape, off, gen, dev)
+    out = fa_ops.mha(q, k, v, causal=causal, window=window)
+    exact = _attention_f64(q, k, v, causal=causal, window=window)
+    heads = tuple(x.transpose(1, 2) for x in (q, k, v))
+    model = _mma_sync_numerics(*heads, causal=causal,
+                               window=window).transpose(1, 2)
+    if dtype == torch.float32:
+        one = _mma_sync_numerics(*heads, causal=causal, window=window,
+                                 split=False).transpose(1, 2)
+        gap = (out - model).abs().max().item()
+        err_one = (one.double() - exact).abs().max().item()
+        err_k = (out.double() - exact).abs().max().item()
+        print(f"mma_sync float32 {shape}: kernel - split model {gap:.3e}, "
+              f"one-TF32 model from float64 {err_one:.3e}, kernel from "
+              f"float64 {err_k:.3e}")
+        assert gap <= 0.1 * err_one, (gap, err_one)
+        torch.testing.assert_close(out.double(), exact, atol=2e-5, rtol=2e-5)
+    else:
+        gap = (out.float() - model.float()).abs().mean().item()
+        err_m = (model.double() - exact).abs().mean().item()
+        print(f"mma_sync {dtype} {shape}: mean |kernel - model| {gap:.3e}, "
+              f"mean |model - float64| {err_m:.3e}")
+        assert gap <= 0.1 * err_m, (gap, err_m)
+
+
+def test_flash_mma_sync_sass_holds_tensor_core_products(dev):
+    """The mma.sync library runs on the tensor cores: its SASS holds HMMA
+    in bf16 and float16 (m16n8k16) and in TF32 (m16n8k8, the float32
+    build)."""
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.build(["flash_attention"])
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for op in ("HMMA.16816.F32.BF16", "HMMA.16816.F32 ", "HMMA.1688.F32.TF32"):
+        assert op in sass, op
 
 
 # float16 on both SSD routes: every (d_state, chunk) of the mma kernel, and

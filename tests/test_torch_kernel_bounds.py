@@ -17,6 +17,10 @@ from repro_torch.utils.op_cost import count_ops
     ("flash_attention", lambda: kb.flash_bound(1, 4096, 4096, 32, 8, 128, 2,
                                                True, 0),
      HW.PEAK_FLOPS_BF16, 0.13900, "operations"),
+    # the same layer in float32, at the split-TF32 rate (495 / 3 TFLOP/s)
+    ("flash_attention float32", lambda: kb.flash_bound(1, 4096, 4096, 32, 8,
+                                                       128, 4, True, 0),
+     kb.flash_ops_per_s(4), 0.83317, "operations"),
     # ssd_scan at mamba2's B=4, L=4096, H=32, P=64, N=128, chunk 256, bf16
     ("ssd_scan", lambda: kb.ssd_bound(4, 32, 4096, 64, 128, 256, 2, 1),
      HW.PEAK_FLOPS_BF16, 0.06385, "bytes"),

@@ -23,10 +23,11 @@ are set here from measurement and are tighter than bfloat16's:
   miss the JAX package's models by at most 3.7e-3 and 5.4e-3 (bfloat16,
   the same weights rounded: 3.3e-2 and 3.9e-2).
 
-The CUDA kernels' new arithmetic is checked on CPU models: the CUDA-core
-attention kernel split over output-column slices and head_dim pieces
-(``_split_cuda_core_numerics``), and the tensor-core kernels' float16
-rounding (``_wgmma_bf16_numerics`` and ``_ssd_mma_bf16_numerics`` with
+The CUDA kernels' new arithmetic is checked on CPU models: the ``mma_sync``
+attention kernel's float32 split over output-column slices
+(``_split_mma_sync_numerics``), and the tensor-core kernels' float16
+rounding (``_wgmma_bf16_numerics`` and ``_mma_sync_numerics`` for
+attention, ``_ssd_mma_bf16_numerics`` for the SSD, with
 ``dtype=torch.float16``).  The kernels themselves are held on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -52,7 +53,11 @@ from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_ref, ssd_scan_ref
-from tests.test_torch_cuda import _ssd_head_major
+from tests.test_torch_cuda import (
+    _mma_sync_numerics,
+    _split_tf32_numerics,
+    _ssd_head_major,
+)
 from tests.test_torch_llm_kernels import (
     FLASH_CASES,
     _ssd_inputs,
@@ -125,6 +130,24 @@ def test_wgmma_float16_numerics_match_jax_kernel(b, s, nq, nkv, h, causal,
                                dtype=torch.float16)
     assert out.dtype == torch.float16 and out.shape == tq.shape
     _hold(out, ref, TOL["flash"]["float16"], f"wgmma float16 model h={h}")
+
+
+@pytest.mark.parametrize(
+    "b,s,nq,nkv,h,causal,window",
+    FLASH_CASES + [(1, 160, 2, 1, h, True, 48) for h in (1, 100, 136, 320)])
+def test_mma_sync_float16_numerics_match_jax_kernel(b, s, nq, nkv, h, causal,
+                                                    window):
+    """The ``mma_sync`` kernel's float16 build (P rounded to float16 before
+    P v, h padded to a multiple of 16, its own tiles): its numerics model
+    stays within the float16 tolerance of the JAX kernel."""
+    rng = np.random.default_rng(s + nq + h)
+    q, k, v = (rng.standard_normal((b, n, s, h)).astype(np.float32)
+               for n in (nq, nkv, nkv))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "float16") for a in (q, k, v))
+    ref = jflash(jq, jk, jv, causal=causal, window=window, interpret=True)
+    out = _mma_sync_numerics(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == torch.float16 and out.shape == tq.shape
+    _hold(out, ref, TOL["flash"]["float16"], f"mma_sync float16 model h={h}")
 
 
 @pytest.mark.parametrize("shape", [(4, 128), (2, 17, 256), (3, 384), (5, 1001)])
@@ -204,16 +227,16 @@ def test_ssd_scan_takes_16_bit_da_dt(xdtype, ddtype):
 
 def test_routes_take_float16_and_unaligned_bases():
     """float16 rides bf16's routes; a base TMA or cp.async cannot read sends
-    either 16-bit type to the CUDA-core route, and float32 is there
-    already."""
+    either 16-bit type to the ``mma_sync`` attention route (which float32
+    takes at any base) and to the SSD's CUDA-core route."""
     for dtype in (torch.bfloat16, torch.float16):
         assert fa_ops.route_of(dtype, 128) == "wgmma_bf16"
-        assert fa_ops.route_of(dtype, 128, aligned=False) == "cuda_core_f32"
-        assert fa_ops.route_of(dtype, 320) == "cuda_core_f32"
+        assert fa_ops.route_of(dtype, 128, aligned=False) == "mma_sync"
+        assert fa_ops.route_of(dtype, 320) == "mma_sync"
         assert ssd_ops.route_of(dtype, 64, 128, 256) == "mma_bf16"
         assert ssd_ops.route_of(dtype, 64, 128, 256,
                                 aligned=False) == "cuda_core_f32"
-    assert fa_ops.route_of(torch.float32, 128, aligned=False) == "cuda_core_f32"
+    assert fa_ops.route_of(torch.float32, 128, aligned=False) == "mma_sync"
     assert ssd_ops.route_of(torch.float32, 64, 128, 256) == "cuda_core_f32"
 
 
@@ -232,95 +255,46 @@ def test_plain_mha_matches_jax_kernel_past_256(h, dtype, mask):
     (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
     ref = jflash(*(t.swapaxes(1, 2) for t in (jq, jk, jv)), causal=causal,
                  window=window, interpret=True).swapaxes(1, 2)
-    assert fa_ops.route_of(tq.dtype, h) == "cuda_core_f32"
+    assert fa_ops.route_of(tq.dtype, h) == "mma_sync"
     out = fa_ops.mha(tq, tk, tv, causal=causal, window=window)
     assert out.dtype == tq.dtype and out.shape == tq.shape
     _hold(out, ref, TOL["flash"][dtype], f"mha h={h} {dtype} {mask}")
 
 
-def _split_cuda_core_numerics(q, k, v, *, causal, window, hd=256):
-    """A plain model of ``csrc/flash_attention.cu``'s split route (HD = 256,
-    SPLIT) in its order, (B, N, S, h) in, float32 out: per slice of ``hd``
-    output columns, per 64-row q block and live 64-row key block, the
-    scores summed over d ascending with each product and add rounded alone
-    (q and k staged in pieces of ``hd`` columns, zeros past h), scaled by
-    h^-1/2 and masked to -1e30; the online softmax with each thread's four
-    columns summed in order and then across its 16 lanes by xor 8, 4, 2,
-    1; acc += p v over the 64 keys in order; acc / max(l, 1e-30).  Returns
-    the output and each slice's final (m, l), (slices, B, N, S) each."""
-    b, n, s, h = q.shape
-    kh, t = k.shape[1], k.shape[2]
-    qf, kf, vf = (x.float() for x in (q, k, v))
-    kf = kf.repeat_interleave(n // kh, dim=1)
-    vf = vf.repeat_interleave(n // kh, dim=1)
-    pieces = -(-h // hd)
-    pad = pieces * hd - h
-    qp, kp = (torch.nn.functional.pad(x, (0, pad)) for x in (qf, kf))
-    scale = torch.tensor(1.0 / np.sqrt(h), dtype=torch.float32)
-    lane = torch.arange(16)
-    out = torch.empty((b, n, s, h))
-    stats = []
-    for c0 in range(0, h, hd):
-        cw = min(hd, h - c0)
-        m_all = torch.empty((b, n, s))
-        l_all = torch.empty((b, n, s))
-        for i0 in range(0, s, 64):
-            rows = torch.arange(i0, min(i0 + 64, s))
-            m = torch.full((b, n, len(rows)), -1e30)
-            l = torch.zeros((b, n, len(rows)))
-            acc = torch.zeros((b, n, len(rows), cw))
-            for j0 in range(0, t, 64):
-                if causal and j0 > i0 + 63:
-                    break
-                if causal and window > 0 and j0 + 63 < i0 - window + 1:
-                    continue
-                cols = torch.arange(j0, j0 + 64)
-                live = cols < t
-                cidx = cols.clamp(max=t - 1)
-                sc = torch.zeros((b, n, len(rows), 64))
-                for d in range(pieces * hd):
-                    qd = qp[:, :, rows, d][..., None]
-                    kd = torch.where(live, kp[:, :, cidx, d], 0.0)[:, :, None, :]
-                    sc = sc + qd * kd
-                keep = live[None, :].expand(len(rows), -1)
-                if causal:
-                    keep = keep & (cols[None, :] <= rows[:, None])
-                    if window > 0:
-                        keep = keep & (cols[None, :] > rows[:, None] - window)
-                sc = torch.where(keep, sc * scale, torch.tensor(-1e30))
-                m_new = torch.maximum(m, sc.amax(-1))
-                p = torch.exp(sc - m_new[..., None])
-                part = p.reshape(*p.shape[:-1], 4, 16)
-                part = ((part[..., 0, :] + part[..., 1, :]) + part[..., 2, :]
-                        ) + part[..., 3, :]
-                for off in (8, 4, 2, 1):
-                    part = part + part[..., lane ^ off]
-                alpha = torch.exp(m - m_new)
-                l = alpha * l + part[..., 0]
-                acc = acc * alpha[..., None]
-                vb = torch.where(live[:, None], vf[:, :, cidx, c0:c0 + cw], 0.0)
-                for kk in range(64):
-                    acc = acc + p[..., kk, None] * vb[:, :, None, kk, :]
-                m = m_new
-            out[:, :, rows, c0:c0 + cw] = acc / torch.clamp(l, min=1e-30)[..., None]
-            m_all[:, :, rows], l_all[:, :, rows] = m, l
-        stats.append((m_all, l_all))
-    return out, stats
+def _split_mma_sync_numerics(q, k, v, *, causal, window, sw=256):
+    """The float32 model of ``csrc/flash_attention.cu``'s split route (past
+    h = 256 the output columns in ceil(h / 256) slices of equal width,
+    rounded to 16, one CTA each), (B, N, S, h) in, float32 out: per slice,
+    :func:`_split_tf32_numerics` over the whole head_dim for the scores and
+    v's slice of columns for P v.  Returns the output and each slice's final
+    (m, l), (slices, B, N, S) each."""
+    h = q.shape[-1]
+    slices = -(-h // sw)
+    width = -(-(-(-h // slices)) // 16) * 16
+    outs, stats = [], []
+    for c0 in range(0, h, width):
+        out, m, l = _split_tf32_numerics(
+            q, k, v[..., c0:c0 + width], causal=causal, window=window, bq=64,
+            bk=32 if h > 256 else 16, scale_dim=h, stats=True)
+        outs.append(out)
+        stats.append((m, l))
+    return torch.cat(outs, dim=-1), stats
 
 
 @pytest.mark.parametrize("mask", sorted(MASKS))
 @pytest.mark.parametrize("h", [257, 320, 512])
 def test_split_cuda_core_numerics(h, mask):
-    """The split route's model: every slice forms bitwise the same running
-    max and sum, and the output equals the unsplit plain version (and the
-    JAX kernel) within float32 rounding."""
+    """The split route's model (``mma_sync``, float32): every slice forms
+    bitwise the same running max and sum, and the output equals the
+    unsplit plain version (and the JAX kernel) within float32's
+    tolerance."""
     causal, window = MASKS[mask]
     rng = np.random.default_rng(h + 7 * len(mask))
     q, k, v = (rng.standard_normal((1, n, 130, h)).astype(np.float32)
                for n in (2, 1, 1))
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-    out, stats = _split_cuda_core_numerics(tq, tk, tv, causal=causal,
-                                           window=window)
+    out, stats = _split_mma_sync_numerics(tq, tk, tv, causal=causal,
+                                          window=window)
     assert len(stats) == -(-h // 256) >= 2
     for m, l in stats[1:]:
         assert torch.equal(m, stats[0][0]) and torch.equal(l, stats[0][1])

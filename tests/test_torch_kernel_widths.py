@@ -29,7 +29,7 @@ from repro.kernels.ssd.kernel import ssd_scan as jssd_scan
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from tests.test_torch_cuda import _ssd_f32_cuda_core_numerics, _ssd_head_major
-from tests.test_torch_llm_kernels import _wgmma_bf16_numerics
+from tests.test_torch_llm_kernels import _mma_sync_numerics, _wgmma_bf16_numerics
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -132,6 +132,25 @@ def test_wgmma_numerics_at_head_dim_256_match_jax_kernel(mask):
     _hold(out, ref, TOL["flash"]["bfloat16"], f"wgmma model h=256 {mask}")
 
 
+@pytest.mark.parametrize("dtype,h", [(d, h) for d in ("float32", "bfloat16")
+                                     for h in (1, 100, 136, 320)]
+                         + [("float32", 256), ("float32", 512)])
+def test_mma_sync_numerics_at_head_dim_match_jax_kernel(h, dtype):
+    """The ``mma_sync`` kernel's arithmetic at head_dims off the wgmma
+    builds (bf16: the wgmma rounding at h padded to a multiple of 16, the
+    true h's scale; float32: split TF32, past 128 columns at its wider
+    slices' tiles) within the dtype's tolerance of the JAX kernel in
+    interpret mode; GQA 2:1, S = 160, causal with a 48-key window."""
+    rng = np.random.default_rng(h + len(dtype))
+    q, k, v = (rng.standard_normal((1, n, 160, h)).astype(np.float32)
+               for n in (2, 1, 1))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    ref = jflash(jq, jk, jv, causal=True, window=48, interpret=True)
+    out = _mma_sync_numerics(tq, tk, tv, causal=True, window=48)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _hold(out, ref, TOL["flash"][dtype], f"mma_sync model h={h} {dtype}")
+
+
 def test_ssd_f32_numerics_model_in_slabs_and_padded_states():
     """The float32 SSD kernel's numerics model at head_dim 128 equals the
     model on each 64-channel slab, and at d_state 24 equals the model on
@@ -149,18 +168,18 @@ def test_ssd_f32_numerics_model_in_slabs_and_padded_states():
 
 
 def test_flash_route_of_by_head_dim():
-    """Past 256 (the widest wgmma build) every dtype takes the CUDA-core
-    route, whose split kernel runs any head_dim; only a head_dim of 0
+    """Past 256 (the widest wgmma build) every dtype takes the ``mma_sync``
+    route, whose kernel runs any head_dim; only a head_dim of 0
     raises, on either device, and a head_dim of 264 runs on the CPU to the
     JAX kernel's result."""
     bf16, f32 = torch.bfloat16, torch.float32
     for h in (64, 80, 96, 256):
         assert fa_ops.route_of(bf16, head_dim=h) == "wgmma_bf16"
-    assert fa_ops.route_of(bf16, head_dim=100) == "cuda_core_f32"
+    assert fa_ops.route_of(bf16, head_dim=100) == "mma_sync"
     for h in (100, 256):
-        assert fa_ops.route_of(f32, head_dim=h) == "cuda_core_f32"
+        assert fa_ops.route_of(f32, head_dim=h) == "mma_sync"
     for dtype in (bf16, f32):
-        assert fa_ops.route_of(dtype, head_dim=264) == "cuda_core_f32"
+        assert fa_ops.route_of(dtype, head_dim=264) == "mma_sync"
         with pytest.raises(ValueError, match="head_dim"):
             fa_ops.route_of(dtype, head_dim=0)
     with pytest.raises(ValueError, match="head_dim"):
