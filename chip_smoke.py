@@ -6,8 +6,9 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, started together; ptxas' registers, spills and
 warnings are printed, and ``cuobjdump -sass`` must find HGMMA in the bf16
 flash-attention library, HMMA in bf16, float16 and TF32 in the
-``mma_sync`` flash-attention library (which, like the walk kernels, must
-not spill) and HMMA or HGMMA in the bf16 SSD library), then:
+``mma_sync`` flash-attention library (which, like the walk kernels and
+the ``mma_tf32`` SSD library, must not spill), HMMA or HGMMA in the bf16
+SSD library and TF32 HMMA in the ``mma_tf32`` SSD library), then:
 
 1. holds ``walk_transition_ragged`` against its plain PyTorch version on
    the card, on ``barabasi_albert(1_000_000, 3)`` (ragged, ~7 M directed
@@ -75,9 +76,10 @@ not spill) and HMMA or HGMMA in the bf16 SSD library), then:
    minitron's shape (TFLOP/s, share of the bound, float32's at a third of
    the TF32 rate); ``ssd_scan``'s bf16 route (``mma_bf16``) on mamba2's layer-0
    inputs (B=4, L=4096, H=32, P=64, N=128, chunk 256) and at L=4000
-   through the padding, its float32 route (``cuda_core_f32``) on the same
-   inputs upcast, each route's error against the float64 result, both
-   routes timed (share of the bound, the bytes the bf16 design moves, its
+   through the padding, its float32 route (``mma_tf32``, split TF32) on
+   the same inputs upcast, each route's error against the float64 result,
+   both routes timed (share of the bound, float32's at a third of the TF32
+   rate, the bytes the bf16 design moves, its
    three launches apart under the profiler; the bound counts B and C at
    their groups), ``ops._head_major``'s copies apart and the scan with
    them — with device times, bounds, the
@@ -111,11 +113,11 @@ not spill) and HMMA or HGMMA in the bf16 SSD library), then:
    float32 at h = 256, float16 at h = 128 (wgmma) and 100 (``mma_sync``),
    bf16 at h = 320 and float32 at h = 512 (``mma_sync``'s slices of the
    output columns), bf16 at h = 128 from an unaligned base (``mma_sync``);
-   ``ssd_scan``'s CUDA-core
-   route at (P, N) = (128, 256), (80, 200), (192, 128) and (64, 512, the
-   state in pieces) in float32, chunk 256, and (32, 24) in bf16 and
-   float16, chunk 32, its ``mma_bf16`` route in float16 at (64, 128),
-   chunk 256, and bf16 (64, 128) from an unaligned base (CUDA-core);
+   ``ssd_scan``'s split-TF32
+   route (``mma_tf32``) at (P, N) = (128, 256), (80, 200), (192, 128) and
+   (64, 512) in float32, chunk 256, and (32, 24) in bf16 and float16,
+   chunk 32, its ``mma_bf16`` route in float16 at (64, 128), chunk 256,
+   and bf16 (64, 128) from an unaligned base (``mma_tf32``);
    ``rmsnorm_fused`` in float16 and from an unaligned bf16 base at (4096,
    4096): each against its plain version at ``LLM_TOL`` (the SSD cases on
    float32 arithmetic at N * chunk > 64 * 64 by their float64 error, no
@@ -394,10 +396,30 @@ def stream_hold(flag: torch.Tensor, timed_out: torch.Tensor) -> None:
 
 
 def launches_per_call(fn) -> int:
-    """The device activities (kernels, copies, fills) one ``fn(0)`` makes,
-    from a ``torch.profiler`` trace."""
+    """The device activities (kernels, copies, fills) one ``fn(0)`` makes:
+    the largest of a ``torch.profiler`` trace's device activities, its
+    host CUDA runtime enqueue calls, and the ATen operations other than
+    views and ``empty`` that a dispatch mode sees (never fewer than 1).
+    CUPTI may record nothing in a trace, so the ATen count, which needs
+    no CUPTI, keeps a call of thousands of PyTorch operations from being
+    taken for one launch; it misses the port's ctypes launches, which
+    the trace counts when it records them and which are a few a call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class AtenCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or func.__name__.startswith("empty")):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with AtenCount() as aten:
+        fn(0)
+    torch.cuda.synchronize()
     prof = profile_window(lambda: fn(0), "")
-    return max(1, sum(prof["device_launches_by_name"].values()))
+    return max(1, aten.n, prof["runtime_launches"],
+               sum(prof["device_launches_by_name"].values()))
 
 
 def timing_site() -> str:
@@ -479,6 +501,13 @@ def device_time_ms(fn, iters: int) -> tuple:
     return device_ms / iters, enqueue_s * 1e3 / iters, chunk
 
 
+# the CUDA runtime and driver calls that each put one activity on a stream
+RUNTIME_ENQUEUES = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+    "cudaLaunchCooperativeKernel"))
+
+
 def profile_window(fn, kernel_name: str, after: str = None) -> dict:
     """Device busy and idle share of ``fn()`` from a ``torch.profiler``
     trace, and the named kernel's device time per launch.
@@ -504,6 +533,10 @@ def profile_window(fn, kernel_name: str, after: str = None) -> dict:
     dev_events = [e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.time_range.start >= start]
+    runtime_launches = sum(
+        1 for e in events
+        if e.device_type == torch.autograd.DeviceType.CPU
+        and e.time_range.start >= start and e.name in RUNTIME_ENQUEUES)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     by_name: dict = {}
     count_by_name: dict = {}
@@ -517,7 +550,8 @@ def profile_window(fn, kernel_name: str, after: str = None) -> dict:
     if not spans:
         return {"window_ms": None, "busy_ms": None, "idle_share": None,
                 "kernel_ms": None, "kernel_launches": 0, "device_ms_by_name": {},
-                "device_launches_by_name": {}}
+                "device_launches_by_name": {},
+                "runtime_launches": runtime_launches}
     busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
         if a > cur_b:
@@ -531,7 +565,8 @@ def profile_window(fn, kernel_name: str, after: str = None) -> dict:
             "idle_share": 1.0 - busy / window,
             "kernel_ms": sum(mine) / len(mine) / 1e3 if mine else None,
             "kernel_launches": len(mine), "device_ms_by_name": by_name,
-            "device_launches_by_name": count_by_name}
+            "device_launches_by_name": count_by_name,
+            "runtime_launches": runtime_launches}
 
 
 class ScanLog:
@@ -1441,14 +1476,16 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
     """``ssd_scan`` on mamba2-370m's layer 0 (B=4, L=4096, H=32, P=64,
     N=128, chunk 256): the bf16 route (``mma_bf16``) against its plain
     version there and at L=4000 through ``ops.ssd``'s padding, and the
-    float32 route (``cuda_core_f32``) on the same inputs upcast; both
+    float32 route (``mma_tf32``) on the same inputs upcast; both
     routes, at both lengths, held to the float64 result too (no more than
     twice the plain version's error), each error logged beside the plain
-    version's and max |y|.  Device times of both routes with the share of the bound,
-    the bytes the bf16 route's design moves, and ``ops._head_major``'s
-    copies timed apart."""
+    version's and max |y|.  Device times of both routes with the share of
+    the bound (float32's operations at a third of the TF32 rate), the bytes
+    the bf16 route's design moves, and ``ops._head_major``'s copies timed
+    apart."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
+    from repro_torch.utils.kernel_bounds import ssd_ops_per_s
 
     b, l = 4, 4096
     tokens = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device=dev)
@@ -1471,12 +1508,12 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
                                  bf16, "at L=4000 through ops.ssd (padded to 4096)"))
     y32 = ssd_ops.ssd_scan(*args32, chunk=chunk)
     went = {r: ssd_ops.ssd_scan.launches_by_route[r] - before[r] for r in before}
-    if went != {"mma_bf16": 2, "cuda_core_f32": 1}:
+    if went != {"mma_bf16": 2, "mma_tf32": 1}:
         raise AssertionError(f"ssd_scan took the routes {went}")
     exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
     top = float(exact.abs().max())
     err64 = {name: float((t.double() - exact).abs().max())
-             for name, t in (("mma_bf16", y), ("cuda_core_f32", y32),
+             for name, t in (("mma_bf16", y), ("mma_tf32", y32),
                              ("plain", plain_y))}
     # rows < 4000 of the L=4000 run through ops.ssd, and the plain version's
     # error on the same rows
@@ -1490,14 +1527,14 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
     # float64 result, no worse than twice the plain version's error (the
     # card test's rule for float32 at N=128, chunk 256)
     for route, ref_key in (("mma_bf16", "plain"), ("mma_bf16_l4000", "plain_l4000"),
-                           ("cuda_core_f32", "plain")):
+                           ("mma_tf32", "plain")):
         if not err64[route] <= 2 * err64[ref_key]:
             raise AssertionError(f"ssd_scan {route} against float64: {err64}")
-    errs["cuda_core_f32"] = [float((y32 - plain_y).abs().max())]
+    errs["mma_tf32"] = [float((y32 - plain_y).abs().max())]
     log(f"  ssd_scan max abs err against the float64 result (max |y| "
         f"{top:.3e}): mma_bf16 {err64['mma_bf16']:.3e} (L=4000 through ops.ssd "
-        f"{err64['mma_bf16_l4000']:.3e}), cuda_core_f32 (inputs upcast) "
-        f"{err64['cuda_core_f32']:.3e}, plain version {err64['plain']:.3e} "
+        f"{err64['mma_bf16_l4000']:.3e}), mma_tf32 (inputs upcast) "
+        f"{err64['mma_tf32']:.3e}, plain version {err64['plain']:.3e} "
         f"(rows < 4000: {err64['plain_l4000']:.3e})")
     plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
     head_major = device_time_ms(lambda i: ssd_ops._head_major(xs, dt, a, bs, cs), 10)
@@ -1512,7 +1549,7 @@ def phase_ssd(model, cfg, dev, gen) -> dict:
     design = ssd_mma_bytes(b, h, l, p, n, chunk)
     routes = {}
     for route, t, peak, iters in (("mma_bf16", args, BF16_OPS_PER_S, 20),
-                                  ("cuda_core_f32", args32, FP32_OPS_PER_S, 3)):
+                                  ("mma_tf32", args32, ssd_ops_per_s(4), 10)):
         ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*t, chunk=chunk), iters)
         rb = ssd_bound(b, h, l, p, n, chunk, t[0].element_size(), g)[0]
         b_ms, b_by = bound(rb, ops, peak)
@@ -1614,21 +1651,21 @@ P6_FLASH_WIDTHS = (
 )
 P6_SSD_WIDTHS = (
     ("float32 P=128 N=256", torch.float32, (1, 16, 4096, 128, 256, 256),
-     "cuda_core_f32", True),
+     "mma_tf32", True),
     ("float32 P=80 N=200", torch.float32, (1, 16, 4096, 80, 200, 256),
-     "cuda_core_f32", True),
+     "mma_tf32", True),
     ("bf16 P=32 N=24", torch.bfloat16, (1, 16, 4096, 32, 24, 32),
-     "cuda_core_f32", True),
+     "mma_tf32", True),
     ("float16 P=64 N=128", torch.float16, (1, 32, 4096, 64, 128, 256),
      "mma_bf16", True),
     ("float16 P=32 N=24", torch.float16, (1, 16, 4096, 32, 24, 32),
-     "cuda_core_f32", True),
+     "mma_tf32", True),
     ("float32 P=192 N=128", torch.float32, (1, 16, 4096, 192, 128, 256),
-     "cuda_core_f32", True),
+     "mma_tf32", True),
     ("float32 P=64 N=512", torch.float32, (1, 16, 4096, 64, 512, 256),
-     "cuda_core_f32", True),
+     "mma_tf32", True),
     ("bf16 P=64 N=128 unaligned", torch.bfloat16, (1, 32, 4096, 64, 128, 256),
-     "cuda_core_f32", False),
+     "mma_tf32", False),
 )
 # phase 6's float16 range cases on mma_bf16, tests/test_torch_cuda.py's
 # SSD_RANGE_CASES "probe" and "strong" (drawn here from the script's
@@ -1663,12 +1700,12 @@ def randn_at(shape, dtype, gen, dev, aligned: bool = True) -> torch.Tensor:
 def ssd_f64_rule(dtype, route: str, n: int, chunk: int) -> bool:
     """Whether an SSD case is held to the float64 result (its error no more
     than twice the plain version's) rather than at ``LLM_TOL``: float32
-    arithmetic (float32 inputs, or float16 on the CUDA-core route) at
-    N * chunk > 64 * 64, where two float32 summation orders of ~1e5
-    products differ by more than the tolerance (tests/test_torch_cuda.py's
-    rule)."""
-    return n * chunk > 64 * 64 and (dtype == torch.float32 or (
-        dtype == torch.float16 and route == "cuda_core_f32"))
+    arithmetic (float32 inputs, or 16 bits on the split-TF32 route, whose
+    float32 operands split as float32's do) at N * chunk > 64 * 64, where
+    two float32 summation orders of ~1e5 products differ by more than the
+    tolerance (tests/test_torch_cuda.py's rule, ``_hold_ssd``)."""
+    return n * chunk > 64 * 64 and (dtype == torch.float32
+                                    or route == "mma_tf32")
 
 
 # a float16 range case past N * chunk = 64 * 64 (outputs to ~1e6) is held to
@@ -1747,7 +1784,7 @@ def phase_widths(dev, gen) -> dict:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
-    from repro_torch.utils.kernel_bounds import flash_ops_per_s
+    from repro_torch.utils.kernel_bounds import flash_ops_per_s, ssd_ops_per_s
 
     out = {"flash_attention": {}, "ssd_scan": {}, "rmsnorm_fused": {}}
     flash_cases = [("paligemma-3b layer 0 bf16 h=256", torch.bfloat16,
@@ -1866,12 +1903,10 @@ def phase_widths(dev, gen) -> dict:
         else:
             err = hold("ssd_scan", y, plain_y, dtype, where)
         del y, plain_y
-        ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk),
-                            10 if route == "mma_bf16" else 3)
+        ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 10)
         plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
         nbytes, ops = ssd_bound(b, h, l, p, n, chunk, xs.element_size(), h)
-        peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-        b_ms, b_by = bound(nbytes, ops, peak)
+        b_ms, b_by = bound(nbytes, ops, ssd_ops_per_s(xs.element_size()))
         out["ssd_scan"][label] = {
             "route": route, "dtype": str(dtype).split(".")[-1],
             "aligned": aligned, "shape": [b, h, l, p, n, chunk],
@@ -2327,10 +2362,10 @@ def phase_llm(dev) -> dict:
         p["float16"] = prefill_float16(model, cfg, tokens[:1], h_e32[:1], half)
         del tokens, h_e32
         log(f"phase 7 ({arch} prefill in float16): {time.perf_counter() - t0:.2f} s")
-        if cfg.family == "ssm":  # 16-bit on the tensor cores, float32 on CUDA cores
-            want = ({"mma_bf16": cfg.num_layers, "cuda_core_f32": 0},
-                    {"mma_bf16": 0, "cuda_core_f32": cfg.num_layers},
-                    {"mma_bf16": cfg.num_layers, "cuda_core_f32": 0})
+        if cfg.family == "ssm":  # 16-bit on mma_bf16, float32 on mma_tf32
+            want = ({"mma_bf16": cfg.num_layers, "mma_tf32": 0},
+                    {"mma_bf16": 0, "mma_tf32": cfg.num_layers},
+                    {"mma_bf16": cfg.num_layers, "mma_tf32": 0})
             got = (p["ssd_routes"], p["f32_ssd_routes"],
                    p["float16"]["ssd_routes"])
             if got != want:
@@ -3000,7 +3035,8 @@ def phase10_trainers(dev, wt, ttrain, params) -> dict:
     slot_ms, slot_host_ms, _ = device_time_ms(lookup, len(pairs))
     prof = profile_window(lambda: [lookup(i) for i in range(len(pairs))], "")
     slot_t = {"events_ms": slot_ms, "host_ms": slot_host_ms,
-              "cupti_busy_ms": prof["busy_ms"] / len(pairs),
+              "cupti_busy_ms": (None if prof["busy_ms"] is None
+                                else prof["busy_ms"] / len(pairs)),
               "device_ops": sum(prof["device_launches_by_name"].values())
               // len(pairs)}
     torch.cuda.synchronize()
@@ -3015,7 +3051,7 @@ def phase10_trainers(dev, wt, ttrain, params) -> dict:
                                "time": slot_t, "peak_bytes": slot_mem}
     log(f"  edge_slot_lookup W={FAULT_WALKS} x width {eng.max_degree} "
         f"({FAULT_WALKS * eng.max_degree} entries): {slot_ms:.5f} ms by "
-        f"events, {slot_t['cupti_busy_ms']:.5f} ms busy by CUPTI in "
+        f"events, {slot_t['cupti_busy_ms']} ms busy by CUPTI in "
         f"{slot_t['device_ops']} device ops a call; peak "
         f"{slot_mem / 2**20:.2f} MiB above the inputs")
 
@@ -4786,11 +4822,13 @@ def jamba_ssd(model, cfg, dev, gen) -> dict:
     route) against its plain version, both routes (float32: the inputs
     upcast) held to the float64 result (no more than twice the plain
     version's error), device times with the share of the bound (B and C
-    counted at their 8 groups), ``ops._head_major``'s copies (a 32-fold
-    group repeat of B and C here) timed apart, and the scan with them (the
-    path from the model's layout) with its share of the same bound."""
+    counted at their 8 groups; the float32 route's operations at a third
+    of the TF32 rate), ``ops._head_major``'s copies (a 32-fold group repeat
+    of B and C here) timed apart, and the scan with them (the path from
+    the model's layout) with its share of the same bound."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
+    from repro_torch.utils.kernel_bounds import ssd_ops_per_s
 
     b, l = P14_PREFILL
     tokens = torch.randint(0, cfg.vocab_size, (b, l), generator=gen, device=dev)
@@ -4807,20 +4845,27 @@ def jamba_ssd(model, cfg, dev, gen) -> dict:
     args32 = tuple(t.float() for t in args)
     y32 = ssd_ops.ssd_scan(*args32, chunk=chunk)
     went = {r: ssd_ops.ssd_scan.launches_by_route[r] - before[r] for r in before}
-    if went != {"mma_bf16": 1, "cuda_core_f32": 1}:
+    if went != {"mma_bf16": 1, "mma_tf32": 1}:
         raise AssertionError(f"ssd_scan took the routes {went} at jamba's shape")
     exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
     top = float(exact.abs().max())
     err64 = {name: float((t.double() - exact).abs().max())
-             for name, t in (("mma_bf16", y), ("cuda_core_f32", y32),
+             for name, t in (("mma_bf16", y), ("mma_tf32", y32),
                              ("plain", plain_y))}
-    del exact, y32, args32
-    for route in ("mma_bf16", "cuda_core_f32"):
+    del exact, y32
+    f32_ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args32, chunk=chunk), 10)
+    f32_bound = bound(*ssd_bound(b, h, l, p, n, chunk, 4, dims.num_groups),
+                      ssd_ops_per_s(4))
+    del args32
+    log(f"  ssd_scan mma_tf32 {where} (inputs upcast): {f32_ms[0]:.4f} ms/launch "
+        f"on the device ({f32_bound[0] / f32_ms[0]:.1%} of its bound "
+        f"{f32_bound[0]:.5f} ms by {f32_bound[1]})")
+    for route in ("mma_bf16", "mma_tf32"):
         if not err64[route] <= 2 * err64["plain"]:
             raise AssertionError(f"ssd_scan {route} against float64 {where}: {err64}")
     log(f"  ssd_scan max abs err against the float64 result {where} (max |y| "
-        f"{top:.3e}): mma_bf16 {err64['mma_bf16']:.3e}, cuda_core_f32 (inputs "
-        f"upcast) {err64['cuda_core_f32']:.3e}, plain version {err64['plain']:.3e}")
+        f"{top:.3e}): mma_bf16 {err64['mma_bf16']:.3e}, mma_tf32 (inputs "
+        f"upcast) {err64['mma_tf32']:.3e}, plain version {err64['plain']:.3e}")
     plain = device_time_ms(lambda i: ssd_scan_ref(*args, chunk=chunk), 3)
     head_major = device_time_ms(lambda i: ssd_ops._head_major(xs, dt, a, bs, cs), 10)
     ms = device_time_ms(lambda i: ssd_ops.ssd_scan(*args, chunk=chunk), 20)
@@ -4841,6 +4886,9 @@ def jamba_ssd(model, cfg, dev, gen) -> dict:
             "max_abs_err": err, "max_abs_err_vs_f64": err64, "max_abs_y": top,
             "head_major_ms": head_major[0], "path_ms": path[0],
             "path_bound_share": b_ms / path[0], "bytes": nbytes, "ops": ops,
+            "f32": {"ms": f32_ms[0], "bound_ms": f32_bound[0],
+                    "bound_by": f32_bound[1],
+                    "bound_share": f32_bound[0] / f32_ms[0]},
             "shape": {"b": b, "l": l, "h": h, "p": p, "n": n,
                       "g": dims.num_groups, "chunk": chunk}}
 
@@ -4932,7 +4980,7 @@ def phase14_jamba(dev, smi) -> dict:
             log(f"  (a) {JAMBA} with {experts} experts ran out of device "
                 f"memory ({str(e)[:120]}); cutting to the next count")
     gate(gates, "(a) 7 mma_bf16 ssd_scan launches, no other kernel",
-         pre["ssd_routes"] == {"mma_bf16": 7, "cuda_core_f32": 0}
+         pre["ssd_routes"] == {"mma_bf16": 7, "mma_tf32": 0}
          and pre["launches"] == {"flash_attention": 0, "ssd_scan": 7,
                                  "rmsnorm_fused": 0})
     srv = serve(model, cfg, dev)
@@ -5070,7 +5118,7 @@ def phase14_card_vs_cpu(dev) -> dict:
     the CPU's.  Routing near-ties (the k-th and (k+1)-th router
     probabilities closer than the card's difference) are counted and
     printed apart; they excuse nothing.  jamba also on its kernel path
-    (``cuda_core_f32`` on the card, the plain version on the CPU)."""
+    (``mma_tf32`` on the card, the plain version on the CPU)."""
     import dataclasses
 
     from repro_torch.configs import get_arch, reduced
@@ -6327,7 +6375,8 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error", "arning",
                                        "setmaxnreg", "wgmma")):
                 log(f"  nvcc {name}: {line.strip()}")
-            if ((name.startswith("walk_transition") or name == "flash_attention")
+            if ((name.startswith("walk_transition")
+                 or name in ("flash_attention", "ssd_scan"))
                     and "spill" in line and not line.strip().endswith(
                         "0 bytes spill stores, 0 bytes spill loads")):
                 raise AssertionError(f"{name} spills: {line.strip()}")
@@ -6348,12 +6397,18 @@ def main() -> int:
     log(f"  cuobjdump -sass ssd_scan_mma: {ssd_mma} HMMA/HGMMA instructions")
     if ssd_mma == 0:
         raise AssertionError("the bf16 ssd_scan library has no HMMA or HGMMA")
+    # the split-TF32 SSD scan on the tensor cores: HMMA on TF32 (m16n8k8)
+    ssd_tf32 = sass_count("ssd_scan", "HMMA.1688.F32.TF32")
+    log(f"  cuobjdump -sass ssd_scan: {ssd_tf32} HMMA.1688.F32.TF32 instructions")
+    if ssd_tf32 == 0:
+        raise AssertionError("the mma_tf32 ssd_scan library has no TF32 HMMA")
     log(f"phase build: {len(_build.SOURCES)} kernel source(s), "
         f"{len(build_logs)} compiled, {dt:.2f} s")
     report["phases"]["build_s"] = dt
     report["phases"]["hgmma"] = hgmma
     report["phases"]["flash_hmma"] = fa_hmma
     report["phases"]["ssd_hmma"] = ssd_mma
+    report["phases"]["ssd_tf32_hmma"] = ssd_tf32
 
     # -- phase 1: kernel vs plain version on the card -----------------------------
     t0 = time.perf_counter()
@@ -6812,14 +6867,14 @@ def main() -> int:
         mamba["prefill"]["ssd_routes"]["mma_bf16"], mamba["kernel"],
         mamba["kernel"]["max_abs_err"],
     )
-    # float32 inputs take the CUDA-core kernel (the float32 prefill gate)
+    # float32 inputs take the split-TF32 kernel (the float32 prefill gate)
     ssd["routes"] = {
         "mma_bf16": {"source": ssd["source"],
                      "launches": mamba["prefill"]["ssd_routes"]["mma_bf16"],
                      **mamba["kernel"]["routes"]["mma_bf16"]},
-        "cuda_core_f32": {"source": "src/repro_torch/csrc/ssd_scan.cu",
-                          "launches": mamba["prefill"]["f32_ssd_routes"]["cuda_core_f32"],
-                          **mamba["kernel"]["routes"]["cuda_core_f32"]},
+        "mma_tf32": {"source": "src/repro_torch/csrc/ssd_scan.cu",
+                     "launches": mamba["prefill"]["f32_ssd_routes"]["mma_tf32"],
+                     **mamba["kernel"]["routes"]["mma_tf32"]},
     }
     # the float16 prefill leg of phase 7 rides the 16-bit routes
     flash["routes"]["wgmma_bf16"]["launches_float16"] = (

@@ -21,12 +21,17 @@ Two routes, chosen by :func:`route_of` before any launch:
   power of two around the split, so an operand's error is at most 2^-22
   of its block's largest magnitude (2^-38 absolute for a block under 2)
   and float16 has no range limit short of float32's.
-- ``cuda_core_f32``: every other input, through ``csrc/ssd_scan.cu``
-  (float32 products on the CUDA cores, one persistent CTA per (b, h, slab
-  of 64 head channels) walking its chunks in order; d_state zero-padded
-  in shared memory to a multiple of 16; past d_state 256 the state in a
-  float32 scratch the wrapper allocates, summed over in pieces of 256
-  rows).
+- ``mma_tf32``: every other input, through ``csrc/ssd_scan.cu``:
+  chunk-parallel on the tensor cores in split TF32 (``mma.sync`` m16n8k8),
+  in the same three launches over a float32 scratch the wrapper allocates
+  (the chunk states, their decays and the chunk cumsums: the C side's
+  ``ssd_scan_scratch_floats``).  Any head_dim and d_state >= 1 (in slabs
+  of 64 channels and k-tiles of 64 states), any base, a chunk of at most
+  39,680 rows.  float32 operands are split into two TF32 parts (three
+  products a product, four for att @ x); bf16 and float16 x, B and C are
+  exact in TF32 and unsplit.  Its bound: the operations at a third of
+  TF32's rate in float32 (``kernel_bounds.ssd_ops_per_s``), the bytes in
+  16 bits.
 
 For CUDA tensors :func:`ssd_scan` launches the route's kernels or raises
 (also when an input requires grad while gradients are recorded: the
@@ -63,9 +68,9 @@ _LAUNCH = {
     # x, da, dt, B, C, y, states, decay, batch*heads, L, P, N, chunk,
     # is_half, stream
     "mma_bf16": ("ssd_scan_mma", (P,) * 8 + (I,) * 6 + (P,)),
-    # x, da, dt, B, C, y, state scratch, batch*heads, L, P, N, chunk,
-    # dtype, stream
-    "cuda_core_f32": ("ssd_scan", (P,) * 7 + (I,) * 6 + (P,)),
+    # x, da, dt, B, C, y, scratch, batch*heads, L, P, N, chunk, dtype,
+    # stream
+    "mma_tf32": ("ssd_scan", (P,) * 7 + (I,) * 6 + (P,)),
 }
 ROUTES = tuple(_LAUNCH)
 # the shapes csrc/ssd_scan_mma.cu takes, in bfloat16 or float16
@@ -78,7 +83,7 @@ def route_of(dtype: torch.dtype, p: int, n: int, chunk: int,
     d_state ``n`` and ``chunk``, from bases that are 16-byte ``aligned``
     or not: ``"mma_bf16"`` for the bfloat16 and float16 shapes
     ``csrc/ssd_scan_mma.cu`` takes from aligned bases (cp.async copies
-    16-byte pieces), else ``"cuda_core_f32"``; raise on a dtype the
+    16-byte pieces), else ``"mma_tf32"``; raise on a dtype the
     reference's kernel never sees (float64 with JAX's x64 off,
     integers)."""
     if dtype not in DTYPES:
@@ -86,7 +91,7 @@ def route_of(dtype: torch.dtype, p: int, n: int, chunk: int,
     if (dtype != torch.float32 and p == MMA_HEAD_DIM and n in MMA_STATES
             and chunk in MMA_CHUNKS and aligned):
         return "mma_bf16"
-    return "cuda_core_f32"
+    return "mma_tf32"
 
 
 def ssd_scan(xs, da, dt, bs, cs, *, chunk: int) -> torch.Tensor:
@@ -138,13 +143,12 @@ def _ssd_scan(xs, da, dt, bs, cs, chunk: int) -> torch.Tensor:
         args = ptrs + [states.data_ptr(), decay.data_ptr(),
                        b * h, l, p, n, chunk, int(xs.dtype == torch.float16)]
     else:
-        # the state's float32 scratch, where it goes in pieces (0: in
-        # shared memory; -1: a chunk too long for any piece)
-        floats = query("ssd_scan", "ssd_scan_scratch_floats", (I,) * 4,
-                       ctypes.c_longlong, b * h, p, n, chunk)
+        # the chunk states, decays and cumsums (-1: a chunk too long)
+        floats = query("ssd_scan", "ssd_scan_scratch_floats", (I,) * 5,
+                       ctypes.c_longlong, b * h, l, p, n, chunk)
         if floats < 0:
-            raise ValueError(f"chunk {chunk} at d_state {n}: too long for the "
-                             "kernel's shared memory")
+            raise ValueError(f"chunk {chunk}: too long for the kernel's shared "
+                             "memory (at most 39,680 rows)")
         scratch = torch.empty(floats, dtype=torch.float32, device=device)
         args = ptrs + [scratch.data_ptr(), b * h, l, p, n, chunk,
                        DTYPES[xs.dtype]]

@@ -24,7 +24,7 @@ from repro_torch.launch.mesh import HW
 
 __all__ = ["SECTOR", "bound", "sectors", "bound_for_step", "chain_loads",
            "bound_sparse", "bound_dense", "flash_bound", "flash_ops_per_s",
-           "ssd_bound",
+           "ssd_bound", "ssd_ops_per_s",
            "ssd_mma_bytes", "rmsnorm_bound", "walk_step_work"]
 
 HBM_BYTES_PER_S = HW.HBM_BW
@@ -234,6 +234,15 @@ def ssd_bound(b, h, l, p, n, q, elt, g) -> tuple:
     pairs = q * (q + 1) / 2
     per_chunk = pairs * 2 * (n + p) + 2 * (2 * q * n * p)
     return nbytes, per_chunk * (l // q) * b * h
+
+
+def ssd_ops_per_s(elt: int) -> float:
+    """The peak rate the SSD scan's operations are bounded at, for x, B and
+    C of ``elt`` bytes: bf16 and float16 on the tensor cores; float32 at a
+    third of TF32's rate, as ``csrc/ssd_scan.cu`` forms each float32
+    product from three or four TF32 products (the rate
+    :func:`flash_ops_per_s` gives float32 attention)."""
+    return flash_ops_per_s(elt)
 
 
 def ssd_mma_bytes(b, h, l, p, n, q) -> float:

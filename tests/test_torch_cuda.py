@@ -1274,7 +1274,7 @@ def test_flash_widened_head_dims_vs_plain(dev, dtype, b, s, t, nq, nkv, h,
 
 # bf16 shapes of the cases below that the mma kernel takes: every
 # (d_state, chunk) it compiles for, at P=64 (the rest, and every float32
-# case, go to the CUDA-core kernel)
+# case, go to the split-TF32 kernel)
 SSD_MMA_SHAPES = {(64, n, chunk) for n in (64, 128) for chunk in (64, 128, 256)}
 
 
@@ -1294,7 +1294,7 @@ def test_ssd_kernel_vs_plain(dev, b, h, l, p, n, chunk, dtype):
     da = dt * a[None, :, None]
     bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
     route = ("mma_bf16" if dtype == torch.bfloat16 and (p, n, chunk) in
-             SSD_MMA_SHAPES else "cuda_core_f32")
+             SSD_MMA_SHAPES else "mma_tf32")
     assert ssd_ops.route_of(dtype, p, n, chunk) == route
     before = ssd_ops.ssd_scan.launches
     by_route = dict(ssd_ops.ssd_scan.launches_by_route)
@@ -1353,13 +1353,13 @@ def test_ssd_widened_shapes_vs_plain(dev, dtype, b, h, l, p, n, chunk):
     a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
     da = dt * a[None, :, None]
     bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
-    assert ssd_ops.route_of(dtype, p, n, chunk) == "cuda_core_f32"
+    assert ssd_ops.route_of(dtype, p, n, chunk) == "mma_tf32"
     before = dict(ssd_ops.ssd_scan.launches_by_route)
     y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
     torch.cuda.synchronize()
     after = ssd_ops.ssd_scan.launches_by_route
     assert {r: after[r] - before[r] for r in after} == {
-        "mma_bf16": 0, "cuda_core_f32": 1}
+        "mma_bf16": 0, "mma_tf32": 1}
     plain = ssd_scan_ref(xs, da, dt, bs, cs, chunk=chunk)
     if dtype == torch.float32 and n * chunk > 64 * 64:
         exact = ssd_scan_ref(*(t.double() for t in (xs, da, dt, bs, cs)),
@@ -1452,12 +1452,14 @@ def _ssd_inputs(b, h, l, p, n, seed, dev, cancel=False, slow=False):
 
 
 def _ssd_f32_cuda_core_numerics(xs, da, dt, bs, cs, *, chunk, cum_f64=True):
-    """A plain model of ``csrc/ssd_scan.cu``'s float32 arithmetic (route
-    ``cuda_core_f32``): head-major inputs on any device, y (B, H, L, P)
-    float32 out.  Every sum runs in the kernel's order with each product
-    and add rounded alone (the kernel builds with --fmad=false): the
-    scores C_i . B_j and the state term C_i @ state over n; y_i = exp(cum_i)
-    (C_i @ state), then + att[i, j] x_j over j in order, with att =
+    """A plain model of the float32 arithmetic of ``csrc/ssd_scan.cu``'s
+    first design (route ``cuda_core_f32``: float32 on the CUDA cores, one
+    CTA per slab walking its chunks in order; since replaced by the
+    arithmetic :func:`_ssd_tf32_numerics` models): head-major inputs on
+    any device, y (B, H, L, P) float32 out.  Every sum runs in the
+    kernel's order with each product and add rounded alone (the kernel
+    built with --fmad=false): the scores C_i . B_j and the state term
+    C_i @ state over n; y_i = exp(cum_i) (C_i @ state), then + att[i, j] x_j over j in order, with att =
     (scores exp(cum_i - cum_j)) dt_j; the state update over j in order,
     (B_j w_j) x_j with w_j = exp(cum_Q - cum_j) dt_j, then
     exp(cum_Q) state + that.  The within-chunk cumsum is accumulated in
@@ -1513,29 +1515,115 @@ def _ssd_f32_cuda_core_numerics(xs, da, dt, bs, cs, *, chunk, cum_f64=True):
     return y
 
 
+def _tf32_blocks(a, b, run=None, *, four=False, split=True, block=64,
+                 step=8):
+    """a @ b in float32 as ``csrc/ssd_scan.cu`` forms its products: each
+    operand v as big = tf32(v) and small = tf32(v - big) (a bf16 or
+    float16 value is exact in TF32, its small part 0); per k-step of
+    ``step``, small·small (``four``), then small·big, then big·small
+    added to a float32 sum of their own, big·big to another; each block of
+    ``block`` k summed from zero and added to ``run`` (zeros if None) as
+    run + (big + small).  ``split=False``: big·big alone, one TF32 product
+    a product."""
+    a, b = a.float(), b.float()
+    ab, bb = _tf32(a), _tf32(b)
+    sa, sb = _tf32(a - ab), _tf32(b - bb)
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (
+        a.shape[-2], b.shape[-1])
+    if run is None:
+        run = torch.zeros(shape, device=a.device)
+    k = a.shape[-1]
+    for k0 in range(0, k, block):
+        big = torch.zeros(shape, device=a.device)
+        small = torch.zeros_like(big)
+        for d0 in range(k0, min(k0 + block, k), step):
+            ka = (..., slice(d0, d0 + step))
+            kb = (..., slice(d0, d0 + step), slice(None))
+            if split:
+                if four:
+                    small = small + sa[ka] @ sb[kb]
+                small = small + sa[ka] @ bb[kb]
+                small = small + ab[ka] @ sb[kb]
+            big = big + ab[ka] @ bb[kb]
+        run = run + (big + small)
+    return run
+
+
+def _ssd_tf32_numerics(xs, da, dt, bs, cs, *, chunk, split=True):
+    """A plain model of ``csrc/ssd_scan.cu``'s arithmetic (route
+    ``mma_tf32``): head-major inputs on any device, y (B, H, L, P) float32
+    out.  Per chunk: cum accumulated in float64 and rounded once; the
+    scores C B^T by :func:`_tf32_blocks` over d_state; att = select(j <= i,
+    (scores exp(cum_i - cum_j)) dt_j, 0); y = exp(cum_i) (C @ enter) (the
+    entering state, by :func:`_tf32_blocks`; zero in the first chunk), then
+    + att @ x over the chunk's rows in blocks of 64 with four products a
+    product; the chunk's state (B (.) w)^T x, w_j = exp(cum_Q - cum_j) dt_j,
+    and the state pass exp(cum_Q) state + that in float32.  ``split=False``
+    forms every product from one TF32 product."""
+    b, h, l, p = xs.shape
+    dev = xs.device
+    prod = functools.partial(_tf32_blocks, split=split)
+    state = None
+    y = torch.empty((b, h, l, p), device=dev)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    for c0 in range(0, l, chunk):
+        sl = slice(c0, c0 + chunk)
+        x, bb, cc = (t[:, :, sl].float() for t in (xs, bs, cs))
+        dtc = dt[:, :, sl].float()
+        cum = torch.cumsum(da[:, :, sl].double(), dim=-1).float()
+        scores = prod(cc, bb.transpose(-1, -2))
+        decay = torch.exp(torch.where(
+            causal, cum[..., :, None] - cum[..., None, :], 0.0))
+        att = torch.where(causal, (scores * decay) * dtc[..., None, :], 0.0)
+        yc = None
+        if state is not None:
+            yc = torch.exp(cum)[..., None] * prod(cc, state)
+        y[:, :, sl] = prod(att, x, yc, four=True)
+        last = cum[..., -1:]
+        w = torch.exp(last - cum) * dtc
+        s_c = prod((bb * w[..., None]).transpose(-1, -2), x)
+        state = s_c if state is None else (
+            torch.exp(last)[..., None] * state + s_c)
+    return y
+
+
 # The float32 route at d_state 64, chunk 128 on N(0,1) data, under the
 # model's decay (cum_Q ~ -100), a slow one and a cancelling one: the
 # kernel follows its numerics model (their gap at most a tenth of the
-# model's own distance to float64) and stays within twice the plain
-# version's float64 error.
+# distance of a one-TF32-product model to float64: the tensor cores sum in
+# their own order and truncate, which the model leaves out) and stays
+# within twice the plain version's float64 error.
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
 def test_ssd_f32_route_follows_its_numerics_model(dev, decay, seed):
     b, h, l, p, n, chunk = 1, 2, 512, 64, 64, 128
     args = tuple(torch.from_numpy(t).to(dev) for t in _ssd_head_major(
         b, h, l, p, n, seed, cancel=decay == "cancel", slow=decay == "slow"))
-    assert ssd_ops.route_of(torch.float32, p, n, chunk) == "cuda_core_f32"
+    _hold_to_tf32_model(args, chunk, f"ssd f32 {decay} seed {seed}")
+
+
+def _hold_to_tf32_model(args, chunk, label):
+    """One float32 ``mma_tf32`` launch on head-major ``args``, held to
+    :func:`_ssd_tf32_numerics` (within a tenth of the one-TF32 model's
+    float64 error) and to twice the plain version's float64 error."""
+    p, n = args[0].shape[-1], args[3].shape[-1]
+    assert ssd_ops.route_of(torch.float32, p, n, chunk) == "mma_tf32"
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
     y = ssd_ops.ssd_scan(*args, chunk=chunk)
-    model = _ssd_f32_cuda_core_numerics(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _route_diff(ssd_ops.ssd_scan, before) == {"mma_bf16": 0,
+                                                     "mma_tf32": 1}
+    model = _ssd_tf32_numerics(*args, chunk=chunk)
+    one = _ssd_tf32_numerics(*args, chunk=chunk, split=False)
     exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
     plain = ssd_scan_ref(*args, chunk=chunk)
-    err_k, err_m, err_p = ((t.double() - exact).abs().max().item()
-                           for t in (y, model, plain))
+    err_k, err_m, err_one, err_p = ((t.double() - exact).abs().max().item()
+                                    for t in (y, model, one, plain))
     gap = (y - model).abs().max().item()
-    print(f"ssd f32 {decay} seed {seed}: kernel {err_k:.4e} model "
-          f"{err_m:.4e} plain {err_p:.4e} from float64; kernel - model "
+    print(f"{label}: kernel {err_k:.4e} model {err_m:.4e} one-TF32 model "
+          f"{err_one:.4e} plain {err_p:.4e} from float64; kernel - model "
           f"{gap:.4e}")
-    assert gap <= 0.1 * err_m, (gap, err_m)
+    assert gap <= 0.1 * err_one, (gap, err_one)
     assert err_k <= 2 * err_p, (err_k, err_p)
 
 
@@ -1593,7 +1681,7 @@ def test_ssd_mma_route_through_ops_ssd_padding(dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_ssd_mma_raises_on_unaligned_base(dev, dtype):
     """cp.async copies 16-byte pieces: an x 2 bytes off goes to the
-    CUDA-core kernel (one launch there, none on the mma route) and agrees
+    split-TF32 kernel (one launch there, none on the mma route) and agrees
     with the plain version."""
     xs, da, dt, bs, cs = _ssd_inputs(1, 1, 64, 64, 64, 0, dev)
     xs, bs, cs = (t.to(dtype) for t in (xs, bs, cs))
@@ -1601,13 +1689,13 @@ def test_ssd_mma_raises_on_unaligned_base(dev, dtype):
     x_off = buf[1:].view(xs.shape)
     x_off.copy_(xs)
     assert x_off.is_contiguous() and x_off.data_ptr() % 16 == 2
-    assert ssd_ops.route_of(dtype, 64, 64, 64, aligned=False) == "cuda_core_f32"
+    assert ssd_ops.route_of(dtype, 64, 64, 64, aligned=False) == "mma_tf32"
     before = dict(ssd_ops.ssd_scan.launches_by_route)
     y = ssd_ops.ssd_scan(x_off, da, dt, bs, cs, chunk=64)
     torch.cuda.synchronize()
     after = ssd_ops.ssd_scan.launches_by_route
     assert {r: after[r] - before[r] for r in after} == {
-        "mma_bf16": 0, "cuda_core_f32": 1}
+        "mma_bf16": 0, "mma_tf32": 1}
     tol = LLM_TOL["ssd"][dtype]
     torch.testing.assert_close(y, ssd_scan_ref(x_off, da, dt, bs, cs, chunk=64),
                                atol=tol, rtol=tol)
@@ -1662,13 +1750,13 @@ def _route_diff(counter, before) -> dict:
 
 def _hold_ssd(y, args, chunk, dtype, n):
     """The float32 rule of the SSD cases above: at N * chunk > 64 * 64 on
-    float32 arithmetic (float32 inputs, and float16 on the CUDA-core route,
-    the same arithmetic) the kernel's float64 error no worse than twice the
-    plain version's; else the kernel against the plain version at the
-    dtype's tolerance."""
+    float32 arithmetic (float32 inputs, and 16 bits on the split-TF32
+    route, whose float32 operands are split the same way) the kernel's
+    float64 error no worse than twice the plain version's; else the kernel
+    against the plain version at the dtype's tolerance."""
     plain = ssd_scan_ref(*args, chunk=chunk)
     if n * chunk > 64 * 64 and (dtype == torch.float32 or ssd_ops.route_of(
-            dtype, args[0].shape[-1], n, chunk) == "cuda_core_f32"):
+            dtype, args[0].shape[-1], n, chunk) == "mma_tf32"):
         exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
         err_k = (y.double() - exact).abs().max().item()
         err_p = (plain.double() - exact).abs().max().item()
@@ -1908,7 +1996,7 @@ def test_flash_mma_sync_sass_holds_tensor_core_products(dev):
 
 
 # float16 on both SSD routes: every (d_state, chunk) of the mma kernel, and
-# CUDA-core shapes (head_dim 32 and two slabs, d_state 24 and 256)
+# split-TF32 shapes (head_dim 32 and two slabs, d_state 24 and 256)
 @pytest.mark.parametrize(
     "b,h,l,p,n,chunk",
     [(1, 2, 512, 64, n, chunk) for n in (64, 128) for chunk in (64, 128, 256)]
@@ -1923,7 +2011,7 @@ def test_ssd_float16_vs_plain(dev, b, h, l, p, n, chunk):
     a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
     da = dt * a[None, :, None]
     bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
-    route = "mma_bf16" if (p, n, chunk) in SSD_MMA_SHAPES else "cuda_core_f32"
+    route = "mma_bf16" if (p, n, chunk) in SSD_MMA_SHAPES else "mma_tf32"
     assert ssd_ops.route_of(dtype, p, n, chunk) == route
     before = dict(ssd_ops.ssd_scan.launches_by_route)
     y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
@@ -2015,34 +2103,88 @@ def test_ssd_pieced_states_and_wide_heads_vs_plain(dev, dtype, b, h, l, p, n,
     a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
     da = dt * a[None, :, None]
     bs, cs = (_randn((b, h, l, n), dtype, gen, dev) for _ in range(2))
-    assert ssd_ops.route_of(dtype, p, n, chunk) == "cuda_core_f32"
+    assert ssd_ops.route_of(dtype, p, n, chunk) == "mma_tf32"
     before = dict(ssd_ops.ssd_scan.launches_by_route)
     y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
     torch.cuda.synchronize()
     assert _route_diff(ssd_ops.ssd_scan, before) == {"mma_bf16": 0,
-                                                     "cuda_core_f32": 1}
+                                                     "mma_tf32": 1}
     _hold_ssd(y, (xs, da, dt, bs, cs), chunk, dtype, n)
 
 
 @pytest.mark.parametrize("n", [320, 512])
 def test_ssd_pieced_state_follows_its_numerics_model(dev, n):
-    """The pieced kernel sums over the state's rows in the whole-state
-    kernel's order: it follows the float32 route's numerics model (their
-    gap at most a tenth of the model's own distance to float64) and stays
-    within twice the plain version's float64 error."""
+    """Past d_state 256 the kernel streams the state's rows in k-tiles of
+    64 as it does below: it follows its numerics model (the gap at most a
+    tenth of the one-TF32 model's float64 error) and stays within twice the
+    plain version's float64 error."""
     args = tuple(torch.from_numpy(t).to(dev) for t in _ssd_head_major(
         1, 2, 256, 64, n, n))
-    y = ssd_ops.ssd_scan(*args, chunk=128)
-    model = _ssd_f32_cuda_core_numerics(*args, chunk=128)
-    exact = ssd_scan_ref(*(t.double() for t in args), chunk=128)
-    plain = ssd_scan_ref(*args, chunk=128)
-    err_k, err_m, err_p = ((t.double() - exact).abs().max().item()
-                           for t in (y, model, plain))
-    gap = (y - model).abs().max().item()
-    print(f"ssd pieced N={n}: kernel {err_k:.4e} model {err_m:.4e} plain "
-          f"{err_p:.4e} from float64; kernel - model {gap:.4e}")
-    assert gap <= 0.1 * err_m, (gap, err_m)
-    assert err_k <= 2 * err_p, (err_k, err_p)
+    _hold_to_tf32_model(args, 128, f"ssd N={n}")
+
+
+# The split-TF32 route at shapes the cases above leave out: head_dim 1,
+# 100 and 300 (one slab of 64 channels nearly empty, two, five), d_state 8
+# and 1000 (one k-step; sixteen k-tiles of 64 states, the last of 40),
+# chunks of 16 and 48 rows (the row and column blocks cut short), and x, B
+# and C from bases off a 16-byte boundary (float32 by 4 bytes: cp.async of
+# 4 bytes; 16 bits by 2: realigned in registers), against the plain
+# version and, at N * chunk > 64 * 64, the float64 rule.
+@pytest.mark.parametrize(
+    "dtype,b,h,l,p,n,chunk,unaligned",
+    [
+        (torch.float32, 1, 2, 256, 1, 64, 128, False),
+        (torch.float32, 1, 2, 256, 100, 64, 128, False),
+        (torch.float32, 1, 2, 256, 300, 32, 64, False),
+        (torch.float32, 1, 2, 256, 64, 8, 64, False),
+        (torch.float32, 1, 2, 256, 64, 1000, 128, False),
+        (torch.float32, 2, 3, 192, 64, 64, 16, False),
+        (torch.float32, 1, 2, 240, 48, 100, 48, False),
+        (torch.float32, 1, 2, 256, 64, 128, 128, True),
+        (torch.float16, 1, 2, 512, 64, 128, 128, True),
+        (torch.bfloat16, 1, 2, 256, 300, 1000, 64, True),
+    ],
+)
+def test_ssd_tf32_route_more_shapes_vs_plain(dev, dtype, b, h, l, p, n, chunk,
+                                             unaligned):
+    gen = torch.Generator(device=dev).manual_seed(l + n + p + chunk)
+    xs = _randn_at((b, h, l, p), dtype, gen, dev, unaligned)
+    dt = torch.nn.functional.softplus(torch.randn((b, h, l), generator=gen,
+                                                  device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    da = dt * a[None, :, None]
+    bs, cs = (_randn_at((b, h, l, n), dtype, gen, dev, unaligned)
+              for _ in range(2))
+    assert ssd_ops.route_of(dtype, p, n, chunk, not unaligned) == "mma_tf32"
+    before = dict(ssd_ops.ssd_scan.launches_by_route)
+    y = ssd_ops.ssd_scan(xs, da, dt, bs, cs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _route_diff(ssd_ops.ssd_scan, before) == {"mma_bf16": 0,
+                                                     "mma_tf32": 1}
+    args = (xs, da, dt, bs, cs)
+    _hold_ssd(y, args, chunk, dtype, n)
+    if n * chunk > 64 * 64:
+        exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+        plain = ssd_scan_ref(*args, chunk=chunk)
+        err_k = (y.double() - exact).abs().max().item()
+        err_p = (plain.double() - exact).abs().max().item()
+        assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+def test_ssd_scan_sass_holds_tf32_products(dev):
+    """The ``mma_tf32`` SSD library runs on the tensor cores: its SASS
+    holds HMMA on TF32 operands (m16n8k8)."""
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.build(["ssd_scan"])
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build._target("ssd_scan"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    assert "HMMA.1688.F32.TF32" in sass
 
 
 @pytest.mark.parametrize("route_shape", [(64, 128, 256), (32, 24, 32)])

@@ -24,6 +24,9 @@ from repro_torch.utils.op_cost import count_ops
     # ssd_scan at mamba2's B=4, L=4096, H=32, P=64, N=128, chunk 256, bf16
     ("ssd_scan", lambda: kb.ssd_bound(4, 32, 4096, 64, 128, 256, 2, 1),
      HW.PEAK_FLOPS_BF16, 0.06385, "bytes"),
+    # the same ssd_scan in float32, at the split-TF32 rate (495 / 3 TFLOP/s)
+    ("ssd_scan float32", lambda: kb.ssd_bound(4, 32, 4096, 64, 128, 256, 4, 1),
+     kb.ssd_ops_per_s(4), 0.26091, "operations"),
     # ssd_scan at jamba's H=256, G=8, B=1
     ("ssd_scan jamba", lambda: kb.ssd_bound(1, 256, 4096, 64, 128, 256, 2, 8),
      HW.PEAK_FLOPS_BF16, 0.12771, "bytes"),

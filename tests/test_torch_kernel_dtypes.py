@@ -228,16 +228,16 @@ def test_ssd_scan_takes_16_bit_da_dt(xdtype, ddtype):
 def test_routes_take_float16_and_unaligned_bases():
     """float16 rides bf16's routes; a base TMA or cp.async cannot read sends
     either 16-bit type to the ``mma_sync`` attention route (which float32
-    takes at any base) and to the SSD's CUDA-core route."""
+    takes at any base) and to the SSD's split-TF32 route."""
     for dtype in (torch.bfloat16, torch.float16):
         assert fa_ops.route_of(dtype, 128) == "wgmma_bf16"
         assert fa_ops.route_of(dtype, 128, aligned=False) == "mma_sync"
         assert fa_ops.route_of(dtype, 320) == "mma_sync"
         assert ssd_ops.route_of(dtype, 64, 128, 256) == "mma_bf16"
         assert ssd_ops.route_of(dtype, 64, 128, 256,
-                                aligned=False) == "cuda_core_f32"
+                                aligned=False) == "mma_tf32"
     assert fa_ops.route_of(torch.float32, 128, aligned=False) == "mma_sync"
-    assert ssd_ops.route_of(torch.float32, 64, 128, 256) == "cuda_core_f32"
+    assert ssd_ops.route_of(torch.float32, 64, 128, 256) == "mma_tf32"
 
 
 # ------------------------------------------------ head_dim past 256 (attention)
@@ -320,7 +320,7 @@ def test_plain_ssd_scan_matches_jax_past_the_old_limits(n, p, dtype):
     (jx, tx), (jb, tb), (jc, tc) = (_both(t, dtype) for t in (xs, bs, cs))
     ref = jssd_scan(jx, jnp.asarray(da), jnp.asarray(dt), jb, jc, chunk=32,
                     interpret=True)
-    assert ssd_ops.route_of(tx.dtype, p, n, 32) == "cuda_core_f32"
+    assert ssd_ops.route_of(tx.dtype, p, n, 32) == "mma_tf32"
     out = ssd_ops.ssd_scan(tx, torch.from_numpy(da), torch.from_numpy(dt), tb,
                            tc, chunk=32)
     assert out.dtype == torch.float32 and out.shape == (1, 2, 64, p)

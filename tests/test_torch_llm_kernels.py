@@ -30,6 +30,7 @@ from tests.test_torch_cuda import (
     _mma_sync_numerics,
     _ssd_f32_cuda_core_numerics,
     _ssd_head_major,
+    _ssd_tf32_numerics,
     _wgmma_bf16_numerics,
 )
 
@@ -415,13 +416,14 @@ def test_ssd_mma_bf16_numerics_match_jax_kernel(b, h, l, p, n, chunk, cancel):
         assert bad.any(), f"split {err64:.3e}"
 
 
-# The float32 route (csrc/ssd_scan.cu) at d_state 64, chunk 128: its
-# numerics model (_ssd_f32_cuda_core_numerics, kept beside the card tests
-# that also run it, as the GPU machine has no JAX) reproduced the card's
-# output bit for bit with the kernel's first, float32 within-chunk cumsum,
-# whose error reached 2.1x the plain version's (the card test's rule is 2x):
-# the order of the cumsum, not a fault.  The kernel now accumulates the
-# cumsum in float64; the model shows both on the CPU.
+# The float32 route's first design (csrc/ssd_scan.cu on the CUDA cores,
+# before its split-TF32 redesign) at d_state 64, chunk 128: its numerics
+# model (_ssd_f32_cuda_core_numerics, kept beside the card tests, as the
+# GPU machine has no JAX) reproduced the card's output bit for bit with
+# that kernel's first, float32 within-chunk cumsum, whose error reached
+# 2.1x the plain version's (the card test's rule is 2x): the order of the
+# cumsum, not a fault.  The kernel then accumulated the cumsum in float64,
+# as its split-TF32 successor does; the model shows both on the CPU.
 @pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
 def test_ssd_f32_numerics_model_matches_jax_kernel(decay):
     """The model of the float32 route stays within the float32 tolerance of
@@ -505,6 +507,73 @@ def test_ssd_f32_numerics_model_cumsum_at_mamba2_layer0():
     assert min(ratio) < 1 < max(ratio), ratio
 
 
+# The split-TF32 route (csrc/ssd_scan.cu, ``mma_tf32``): its numerics
+# model (_ssd_tf32_numerics, kept beside the card tests, which hold the
+# kernel to it) at d_state 64, chunk 128 under the three decays of the
+# card's float32 cases.  float32 operands split into two TF32 parts: three
+# products a product, four for att @ x, whose operands decide the
+# cancelling cases; each block of 64 k summed from zero.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
+def test_ssd_tf32_numerics_model_matches_jax_kernel(decay, dtype):
+    """The split-TF32 model stays within the dtype's tolerance of the JAX
+    kernel (interpret mode); bf16 x, B and C are exact in TF32, unsplit."""
+    xs, da, dt, bs, cs = _ssd_head_major(1, 2, 512, 64, 64, 3,
+                                         cancel=decay == "cancel",
+                                         slow=decay == "slow")
+    (jx, tx), (jb, tb), (jc, tc) = (_both(t, dtype) for t in (xs, bs, cs))
+    ref = jssd_scan(jx, jnp.asarray(da), jnp.asarray(dt), jb, jc, chunk=128,
+                    interpret=True)
+    out = _ssd_tf32_numerics(tx, torch.from_numpy(da), torch.from_numpy(dt),
+                             tb, tc, chunk=128)
+    _close(out, ref, TOL["ssd"][dtype])
+
+
+def _tf32_errors(args, chunk):
+    """Max abs errors against the float64 result of the split-TF32 model,
+    of its one-TF32-product form and of the plain version."""
+    exact = ssd_scan_ref(*(t.double() for t in args), chunk=chunk)
+    ys = (_ssd_tf32_numerics(*args, chunk=chunk),
+          _ssd_tf32_numerics(*args, chunk=chunk, split=False),
+          ssd_scan_ref(*args, chunk=chunk))
+    return tuple(float((y.double() - exact).abs().max()) for y in ys)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
+def test_ssd_tf32_numerics_within_twice_the_plain_error(decay, seed):
+    """The split-TF32 model's float64 error is within twice the plain
+    version's on the card tests' float32 inputs (the rule the card holds
+    the kernel to)."""
+    args = [torch.from_numpy(t) for t in _ssd_head_major(
+        1, 2, 512, 64, 64, seed, cancel=decay == "cancel",
+        slow=decay == "slow")]
+    err, _, err_p = _tf32_errors(args, 128)
+    assert err <= 2 * err_p, (err, err_p)
+
+
+@pytest.mark.parametrize("decay", ["model", "slow", "cancel"])
+def test_ssd_one_tf32_product_misses_the_float64_rule(decay):
+    """One TF32 product a product (TF32's 11 bits) misses twice the plain
+    version's float64 error by far: the split is what holds the rule."""
+    args = [torch.from_numpy(t) for t in _ssd_head_major(
+        1, 2, 512, 64, 64, 0, cancel=decay == "cancel",
+        slow=decay == "slow")]
+    err, err_one, err_p = _tf32_errors(args, 128)
+    assert err <= 2 * err_p < err_one / 10, (err, err_one, err_p)
+
+
+def test_ssd_tf32_numerics_at_mamba2_layer0():
+    """At mamba2-370m's layer-0 shape and decay law (cum ~ -800 within a
+    chunk of 256), the split-TF32 model's float64 error is within twice the
+    plain version's, and the one-TF32 model's is not."""
+    args = _mamba2_layer0_ssd_args(0, 512)
+    err, err_one, err_p = _tf32_errors(args, 256)
+    print(f"mamba2 layer 0, split TF32: {err:.3e}, one TF32 {err_one:.3e}, "
+          f"plain {err_p:.3e}")
+    assert err <= 2 * err_p < err_one, (err, err_one, err_p)
+
+
 def test_ssd_routes_table():
     """float16 rides bf16's routes; float64 and integers still raise."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -512,16 +581,16 @@ def test_ssd_routes_table():
         for chunk in (64, 128, 256):
             assert ssd_ops.route_of(bf16, 64, n, chunk) == "mma_bf16"
             assert ssd_ops.route_of(f16, 64, n, chunk) == "mma_bf16"
-            assert ssd_ops.route_of(f32, 64, n, chunk) == "cuda_core_f32"
-    # 16-bit shapes the mma kernel does not take go to the CUDA-core kernel
+            assert ssd_ops.route_of(f32, 64, n, chunk) == "mma_tf32"
+    # 16-bit shapes the mma kernel does not take go to the split-TF32 kernel
     for p, n, chunk in ((32, 16, 32), (64, 32, 32), (64, 128, 32),
                         (32, 128, 256), (64, 96, 256), (64, 128, 512)):
-        assert ssd_ops.route_of(bf16, p, n, chunk) == "cuda_core_f32"
-        assert ssd_ops.route_of(f16, p, n, chunk) == "cuda_core_f32"
+        assert ssd_ops.route_of(bf16, p, n, chunk) == "mma_tf32"
+        assert ssd_ops.route_of(f16, p, n, chunk) == "mma_tf32"
     for dtype in (torch.float64, torch.int32):
         with pytest.raises(TypeError):
             ssd_ops.route_of(dtype, 64, 128, 256)
-    assert ssd_ops.ROUTES == ("mma_bf16", "cuda_core_f32")
+    assert ssd_ops.ROUTES == ("mma_bf16", "mma_tf32")
     assert set(ssd_ops.ssd_scan.launches_by_route) == set(ssd_ops.ROUTES)
 
 
